@@ -1,0 +1,189 @@
+"""Parity of vpp_tpu_torch's core containers with vpp_tpu's on the CPU.
+
+The same numpy inputs, made from seeds, go through the JAX function and the
+port's (``device="cpu"``). Images, borders, keypoint ops and integer
+pyramids must be bit-equal; the float pyramid is held within 1e-5 abs.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vpp_tpu.core import border as j_border
+from vpp_tpu.core import box as j_box
+from vpp_tpu.core import image as j_image
+from vpp_tpu.core import keypoints as j_kp
+from vpp_tpu_torch.core import border as t_border
+from vpp_tpu_torch.core import box as t_box
+from vpp_tpu_torch.core import image as t_image
+from vpp_tpu_torch.core import keypoints as t_kp
+
+j_pyr = importlib.import_module("vpp_tpu.algorithms.pyramid")
+t_pyr = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+
+torch.set_num_threads(1)
+
+
+def _eq(j, t):
+    np.testing.assert_array_equal(np.asarray(j), t.numpy())
+
+
+@pytest.mark.parametrize("mode", ["zero", "mirror", "closest"])
+@pytest.mark.parametrize("border", [0, 1, 3, 9])
+@pytest.mark.parametrize("shape", [(7, 9), (5, 4, 3)])
+def test_from_array_border_modes(mode, border, shape):
+    rng = np.random.RandomState(border)
+    a = (rng.rand(*shape) * 255).astype(np.float32)
+    ji = j_image.from_array(jnp.asarray(a), border=border, border_mode=mode)
+    ti = t_image.from_array(a, border=border, border_mode=mode)
+    _eq(ji.data, ti.data)
+    assert ti.shape == ji.shape and ti.nchannels == ji.nchannels
+
+
+def test_from_array_uint8_and_box():
+    a = np.random.RandomState(1).randint(0, 256, (6, 8)).astype(np.uint8)
+    ti = t_image.from_array(a, border=3, border_mode="mirror")
+    ji = j_image.from_array(jnp.asarray(a), border=3, border_mode="mirror")
+    _eq(ji.data, ti.data)
+    assert ti.dtype == torch.uint8
+    assert t_box.make_box2d(5, 10) == t_box.Box2d(0, 0, 4, 9)
+    for kw in (dict(border=2), dict(border=1, channels=3)):
+        z = t_image.image2d(5, 10, **kw)
+        _eq(j_image.image2d(5, 10, **kw).data, z.data)
+        jb = j_image.image2d(5, 10, **kw).domain_with_border()
+        assert (z.domain_with_border().p1, z.domain_with_border().p2) == (
+            jb.p1, jb.p2)
+    b = t_box.Box2d(1, 2, 3, 5)
+    np.testing.assert_array_equal(b.coords(),
+                                  j_box.Box2d(1, 2, 3, 5).coords())
+    assert b.grow(2).shrink(2) == b and b.size() == 12
+
+
+def test_image_views_match():
+    rng = np.random.RandomState(2)
+    a = (rng.rand(10, 12) * 255).astype(np.float32)
+    ji = j_image.from_array(jnp.asarray(a), border=3, border_mode="mirror")
+    ti = t_image.from_array(a, border=3, border_mode="mirror")
+    _eq(ji.interior, ti.interior)
+    for dr, dc in [(-3, 2), (0, 0), (3, -3), (1, -2)]:
+        _eq(ji.shifted(dr, dc), ti.shifted(dr, dc))
+    box = j_box.Box2d(2, 3, 6, 9)
+    tbox = t_box.Box2d(2, 3, 6, 9)
+    _eq(ji.subimage(box).data, ti.subimage(tbox).data)
+    _eq(ji(-2, -3), ti(-2, -3))
+    new = (rng.rand(10, 12) * 9).astype(np.float32)
+    _eq(ji.with_interior(jnp.asarray(new)).data,
+        ti.with_interior(torch.from_numpy(new)).data)
+    with pytest.raises(ValueError):
+        ti.shifted(4, 0)
+
+
+@pytest.mark.parametrize("fill_name", [
+    "fill_border_mirror", "fill_border_closest", "fill_border_with_value",
+    "fill", "fill_with_border", "clone"])
+def test_border_fills(fill_name):
+    rng = np.random.RandomState(3)
+    a = (rng.rand(6, 7) * 255).astype(np.float32)
+    ji = j_image.from_array(jnp.asarray(a), border=2)
+    ti = t_image.from_array(a, border=2)
+    jf, tf = getattr(j_border, fill_name), getattr(t_border, fill_name)
+    if fill_name in ("fill_border_with_value", "fill", "fill_with_border"):
+        jo, to = jf(ji, 7.5), tf(ti, 7.5)
+    elif fill_name == "clone":
+        jo = jf(ji, border=3, border_mode="mirror")
+        to = tf(ti, border=3, border_mode="mirror")
+    else:
+        jo, to = jf(ji), tf(ti)
+    _eq(jo.data, to.data)
+
+
+def _random_kps(rng, k, h=40, w=50):
+    pos = np.stack([rng.rand(k) * (h + 6) - 3, rng.rand(k) * (w + 6) - 3],
+                   -1).astype(np.float32)
+    vel = rng.randn(k, 2).astype(np.float32)
+    age = (rng.randint(0, 5, k) * (rng.rand(k) > 0.3)).astype(np.int32)
+    return (j_kp.Keypoints(position=jnp.asarray(pos),
+                           velocity=jnp.asarray(vel), age=jnp.asarray(age)),
+            t_kp.Keypoints(position=torch.from_numpy(pos),
+                           velocity=torch.from_numpy(vel),
+                           age=torch.from_numpy(age)))
+
+
+def _eq_kps(j, t):
+    _eq(j.position, t.position)
+    _eq(j.velocity, t.velocity)
+    _eq(j.age, t.age)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_keypoint_ops_bit_equal(seed):
+    rng = np.random.RandomState(seed)
+    k = 64
+    jk, tk = _random_kps(rng, k)
+    new_pos = (rng.rand(k, 2) * 40).astype(np.float32)
+    ok = rng.rand(k) > 0.4
+    _eq_kps(j_kp.kp_move_all(jk, jnp.asarray(new_pos), jnp.asarray(ok)),
+            t_kp.kp_move_all(tk, torch.from_numpy(new_pos),
+                             torch.from_numpy(ok)))
+    dead = rng.rand(k) > 0.7
+    _eq_kps(j_kp.kp_kill_where(jk, jnp.asarray(dead)),
+            t_kp.kp_kill_where(tk, torch.from_numpy(dead)))
+    for n in (5, 40, 100):
+        cand = (rng.rand(n, 2) * 40).astype(np.float32)
+        cvalid = rng.rand(n) > 0.5
+        _eq_kps(j_kp.kp_add(jk, jnp.asarray(cand), jnp.asarray(cvalid)),
+                t_kp.kp_add(tk, torch.from_numpy(cand),
+                            torch.from_numpy(cvalid)))
+    jc, jm = j_kp.kp_compact(jk)
+    tc, tm = t_kp.kp_compact(tk)
+    _eq_kps(jc, tc)
+    _eq(jm, tm)
+    attr = rng.randn(k, 3, 2).astype(np.float32)
+    _eq(j_kp.sync_attributes(jnp.asarray(attr), jm, fill_value=-1.0),
+        t_kp.sync_attributes(torch.from_numpy(attr), tm, fill_value=-1.0))
+    _eq(j_kp.occupancy_grid(jk, (40, 50), cell=4),
+        t_kp.occupancy_grid(tk, (40, 50), cell=4))
+    assert int(tk.size()) == int(jk.size())
+
+
+def test_level_shapes_match():
+    for shape in [(480, 640), (96, 128), (37, 53)]:
+        assert (t_pyr.level_shapes(shape, 4)
+                == j_pyr.level_shapes(shape, 4))
+        assert (t_pyr.level_shapes(shape, 3, 1.5)
+                == j_pyr.level_shapes(shape, 3, 1.5))
+
+
+@pytest.mark.parametrize("shape", [(96, 128), (61, 77)])
+def test_pyramid_float_within_1e5(shape):
+    """Fused float path: the banded float32 products (TF32 off). Integer-
+    valued pixels keep every product and partial sum exact, so the two
+    frameworks' summation orders cannot differ by more than rounding."""
+    rng = np.random.RandomState(shape[0])
+    for a in (rng.randint(0, 256, shape).astype(np.float32),
+              (rng.rand(*shape) * 255).astype(np.float32)):
+        jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=9,
+                                              border_mode="mirror"), 3,
+                           border=9)
+        tp = t_pyr.pyramid(t_image.from_array(a, border=9,
+                                              border_mode="mirror"), 3,
+                           border=9)
+        assert len(tp) == len(jp)
+        for lj, lt in zip(jp.levels, tp.levels):
+            assert lt.border == lj.border
+            np.testing.assert_allclose(lt.data.numpy(), np.asarray(lj.data),
+                                       rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("factor", [2.0, 1.5])
+def test_pyramid_integer_chain_bit_equal(factor):
+    a = np.random.RandomState(5).randint(0, 256, (50, 61)).astype(np.uint8)
+    jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=3), 3,
+                       factor=factor, border=3)
+    tp = t_pyr.pyramid(t_image.from_array(a, border=3), 3, factor=factor,
+                       border=3)
+    for lj, lt in zip(jp.levels, tp.levels):
+        _eq(lj.data, lt.data)
