@@ -9,16 +9,23 @@ Phases, in order; any failure exits nonzero and prints no result:
 2. build the CUDA kernels from ``vpp_tpu_torch/kernels/csrc`` (nvcc);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (640x480, the bench clip recipe): K2 fast9 bit-equal;
-   K1 flow level on every pyramid level, dist within rtol 1e-5 and flow
-   equal wherever the best and second-best SAD differ by more than 1e-5
-   relative, propagation passes exactly equal on equal inputs; K7 Hough
+   K1 flow level on every pyramid level, volume and dist within rtol 1e-5
+   and flow equal wherever the best and second-best SAD differ by more
+   than 1e-5 relative, the whole level (volume, flow, dist) bit-equal on
+   the level buffers rounded to integers, propagation (pass by pass and
+   all passes in one launch) exactly equal on equal inputs; K7 Hough
    accumulator bit-identical across two launches, within 1e-4 * max of
    the float32 scatter, and in every cell within its fixed-point rounding
-   bound of a float64 scatter. Each is timed with CUDA events after warm-up;
+   bound of a float64 scatter. Each is timed as called (``ms``: CUDA
+   events around the Python calls, host work included) and on the device
+   (``device_ms``: CUDA events around replays of a CUDA graph of the
+   calls, captured after warm-up; the profiler's device time where
+   capture is refused; ``device_ms_by`` names which). K1 is timed per
+   level and per frame;
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
-   ``torch.cuda.synchronize``, launch
-   counts of K1 and K2, and the first 10 frames against the plain CPU path
+   ``torch.cuda.synchronize``, launch counts of K1 (two per level and
+   frame) and K2, and the first 10 frames against the plain CPU path
    (alive counts within 1%);
 5. the Hough path: ``hough_tracker_update`` on 30 frames of the two-line
    clip at 640x480, ms/frame, K7's launch count, and the same frames on the
@@ -26,7 +33,13 @@ Phases, in order; any failure exits nonzero and prints no result:
 6. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
-float32 outside the tensor cores, applied to every scalar operation).
+float32 outside the tensor cores, applied to every scalar operation). K1's
+bound counts its least work: both level buffers read once, flow and dist
+written once, and the separable window sums (one |diff| per region pixel
+and displacement, ws - 1 additions per column sum and per window). The
+phase-3 line prints beside it the bound that counts every window summed in
+full, six operations a pixel, as this script counted before the separable
+sums; the kernels line carries only ``bound_ms``.
 """
 
 from __future__ import annotations
@@ -64,6 +77,49 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_ms(torch, fn, calls: int = 20, replays: int = 20):
+    """Device ms per call of ``fn``: CUDA events around ``replays`` replays
+    of a CUDA graph of ``calls`` calls, captured after a warm-up (the
+    device tables are cached by then). Where capture is refused, the
+    profiler's device time of ``calls`` calls. Returns (ms, method)."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        print(f"chip_smoke: graph capture refused ({exc}); using the "
+              "profiler's device time")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if e.device_type != torch.autograd.DeviceType.CPU)
+        return us / 1e3 / calls, "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls), "cuda_graph"
 
 
 def bilinear_votes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
@@ -153,8 +209,11 @@ def main() -> int:
         library_ms=None)
     results["fast9"]["bound_ms"], results["fast9"]["bound_by"] = bound_ms(
         k2_bytes, k2_ops)
+    results["fast9"]["device_ms"], results["fast9"]["device_ms_by"] = \
+        device_ms(torch, lambda: F.fast9_cuda(img, cfg.detector_th))
     print("phase 3: K2 fast9 bit-equal; "
-          f"{int(dk.sum())} corners, {results['fast9']['ms']:.4f} ms")
+          f"{int(dk.sum())} corners, {results['fast9']['ms']:.4f} ms as "
+          f"called, {results['fast9']['device_ms']:.4f} ms on the device")
 
     # -- 3b. K1 flow level, every level of a 640x480 pyramid ------------------
     p1 = pyramid(from_array(torch.from_numpy(clip[0]).to(dev), border=b,
@@ -166,7 +225,8 @@ def main() -> int:
     radii = FL._level_radii(cfg.nscales, 5, 1)
     bounds = FL._level_bounds(cfg.nscales, radii)
     level_args, k1_err, k1_ties = [], 0.0, 0
-    k1_bytes = k1_ops = 0
+    k1_bytes = k1_ops = k1_ops_full = 0
+    props = cfg.propagation
     pred = None
     for s in range(cfg.nscales - 1, -1, -1):
         h, w = p1[s].shape
@@ -202,47 +262,81 @@ def main() -> int:
               f"K1 volume differs at level {s}")
         if fin.any():
             k1_err = max(k1_err, float((dk1 - dp1).abs()[fin].max()))
-        # propagation: equal inputs must give equal outputs
+        # propagation: equal inputs must give equal outputs, pass by pass
+        # and with every pass in one launch
         f_in, d_in = fp, dp1
-        for _ in range(cfg.propagation):
+        for _ in range(props):
             fpk, dpk = FL.flow_propagate(f_in, d_in, pred, vp, g.R)
             fpp, dpp = FL.flow_propagate_plain(f_in, d_in, pred, vp, g.R)
             check(torch.equal(fpk, fpp) and torch.equal(dpk, dpp),
                   f"K1 propagation differs at level {s}")
             f_in, d_in = fpp, dpp
-        flow_k, _ = FL.flow_level(a1, a2, pred, g, cfg.propagation)
-        level_args.append((a1, a2, pred, g))
+        fpk, dpk = FL.flow_propagate(fp, dp1, pred, vp, g.R, iters=props)
+        check(torch.equal(fpk, f_in) and torch.equal(dpk, d_in),
+              f"K1 fused propagation differs at level {s}")
+        # integer-valued buffers make every sum exact: the whole level must
+        # be bit-equal, ties included
+        i1, i2 = a1.round(), a2.round()
+        fik, dik, vik = FL.flow_match(i1, i2, pred, g)
+        fip, dip, vip = FL.flow_match_plain(i1, i2, pred, g)
+        check(torch.equal(vik, vip) and torch.equal(fik, fip)
+              and torch.equal(dik, dip),
+              f"K1 match not bit-equal on integer buffers at level {s}")
+        for _ in range(props):
+            fip, dip = FL.flow_propagate_plain(fip, dip, pred, vip, g.R)
+        fik, dik = FL.flow_level(i1, i2, pred, g, props)
+        check(torch.equal(fik, fip) and torch.equal(dik, dip),
+              f"K1 level not bit-equal on integer buffers at level {s}")
+        flow_k, _ = FL.flow_level(a1, a2, pred, g, props)
+        level_args.append((s, a1, a2, pred, g))
         d2 = (2 * g.R + 1) ** 2
+        ws = cfg.winsize
+        lr, lc = (gh - 1) * g.patch + ws, (gw - 1) * g.patch + ws
         k1_bytes += a1.numel() * 4 * 2 + gh * gw * (8 + 8 + 4)
-        k1_ops += d2 * gh * gw * cfg.winsize ** 2 * 6 \
-            + cfg.propagation * gh * gw * 8 * 12
+        k1_ops += (d2 * (lr * lc * 2 + gh * lc * (ws - 1)
+                         + gh * gw * (ws - 1))
+                   + gh * gw * (d2 - 1) + props * gh * gw * 8 * 12)
+        k1_ops_full += d2 * gh * gw * ws ** 2 * 6 + props * gh * gw * 8 * 12
 
     def k1_frame(fn):
         def run():
-            for a1, a2, pr, g in level_args:
+            for _, a1, a2, pr, g in level_args:
                 fn(a1, a2, pr, g)
         return run
 
     def plain_level(a1, a2, pr, g):
         f, d, v = FL.flow_match_plain(a1, a2, pr, g)
-        for _ in range(cfg.propagation):
+        for _ in range(props):
             f, d = FL.flow_propagate_plain(f, d, pr, v, g.R)
 
+    k1_levels = {}
+    for s, a1, a2, pr, g in level_args:
+        k1_levels[f"level{s}_{g.gh}x{g.gw}"], k1_by = device_ms(
+            torch, lambda a1=a1, a2=a2, pr=pr, g=g: FL.flow_level(
+                a1, a2, pr, g, props))
     results["flow_level"] = dict(
         name="flow_level", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/flow_level.cu",
         replaces="vpp_tpu/algorithms/flow.py:224",
         max_abs_err=k1_err,
         ms=cuda_ms(torch, k1_frame(
-            lambda a1, a2, pr, g: FL.flow_level(a1, a2, pr, g,
-                                                cfg.propagation)), 50),
+            lambda a1, a2, pr, g: FL.flow_level(a1, a2, pr, g, props)), 50),
         plain_ms=cuda_ms(torch, k1_frame(plain_level), 5),
-        library_ms=None)
+        library_ms=None,
+        device_ms=sum(k1_levels.values()), device_ms_by=k1_by,
+        device_ms_per_level=k1_levels)
     results["flow_level"]["bound_ms"], results["flow_level"]["bound_by"] = \
         bound_ms(k1_bytes, k1_ops)
+    k1_bound_full = bound_ms(k1_bytes, k1_ops_full)[0]
     print(f"phase 3: K1 flow level holds on {cfg.nscales} levels "
-          f"({k1_ties} near-tie cells excluded), "
-          f"{results['flow_level']['ms']:.4f} ms/frame")
+          f"({k1_ties} near-tie cells excluded), bit-equal on integer "
+          f"buffers; per frame {results['flow_level']['ms']:.4f} ms as "
+          f"called, {results['flow_level']['device_ms']:.4f} ms on the "
+          f"device ({k1_by}; per level "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k1_levels.items())
+          + f"), bound {results['flow_level']['bound_ms']:.5f} ms "
+          f"({results['flow_level']['bound_by']}; every window in full: "
+          f"{k1_bound_full:.5f} ms)")
 
     # -- 3c. K7 Hough accumulator ---------------------------------------------
     lines = synthetic_line_clip(W, H, HOUGH_FRAMES)
@@ -294,9 +388,13 @@ def main() -> int:
             (idx,), vals, accumulate=True), 50))
     results["hough_acc"]["bound_ms"], results["hough_acc"]["bound_by"] = \
         bound_ms(th_n.numel() * 4 * 3 + tt * rho_bins * 4, n_edge * 20)
+    results["hough_acc"]["device_ms"], results["hough_acc"]["device_ms_by"] = \
+        device_ms(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt, rho_bins))
     print(f"phase 3: K7 hough_acc reproducible, err {k7_err:.3g} of max "
           f"{float(accp.max()):.1f}, {n_edge} voting pixels, "
-          f"{results['hough_acc']['ms']:.4f} ms; off the float64 scatter "
+          f"{results['hough_acc']['ms']:.4f} ms as called, "
+          f"{results['hough_acc']['device_ms']:.4f} ms on the device; off "
+          "the float64 scatter "
           f"by {float(k7_dev.max()):.3g}, every cell within its bound "
           f"(largest bound {float(k7_slack.max()):.3g})")
 
@@ -316,8 +414,9 @@ def main() -> int:
     print(f"phase 4: tracker {W}x{H}: {fps:.2f} frames/s over "
           f"{TRACK_FRAMES} frames, {live} live keypoints, launches "
           f"{track_counts}")
-    check(track_counts["flow_level"] > 0 and track_counts["fast9"] > 0,
-          "the tracker did not launch K1 and K2")
+    check(track_counts["flow_level"] == 2 * cfg.nscales * TRACK_FRAMES
+          and track_counts["fast9"] > 0,
+          "the tracker did not launch K1 twice per level and frame, and K2")
     check(tuple(hist_pos.shape) == (TRACK_FRAMES, cfg.capacity, 2)
           and bool(torch.isfinite(hist_pos).all()), "bad tracker output")
     check(live > 0, "no live keypoints")

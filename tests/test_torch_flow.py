@@ -9,6 +9,7 @@ there within rtol 1e-5. Integer-valued buffers make every sum exact, and
 there the level must be bit-equal.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -33,6 +34,14 @@ LEVELS = [
     (51, 73, 9, 9, 5, 1, 22, 2, 1),     # grid outgrows the image: padding
     (40, 50, 3, 7, 5, 3, 6, 1, 0),      # narrow border: edge padding
     (45, 58, 9, 9, 5, 2, 14, 0, 1),     # no propagation
+]
+
+# The tracker's three levels of a 640x480 frame (bench config): grids
+# (25, 33), (49, 65) and (96, 128), coarsest first.
+MAIN_LEVELS = [
+    (138, 178, 9, 9, 5, 5, 0, 2, 1),
+    (258, 338, 9, 9, 5, 1, 10, 2, 1),
+    (498, 658, 9, 9, 5, 1, 22, 2, 0),
 ]
 
 
@@ -90,15 +99,113 @@ def test_flow_level_matches_xla(case, integer):
     np.testing.assert_allclose(td.numpy()[clear], jd[clear], rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", MAIN_LEVELS)
+def test_main_path_level_matches_xla(case):
+    """The plain level at the tracker's three level shapes, on
+    integer-valued buffers: bit-equal, ties included."""
+    a1, a2, pred, g, props = _level_inputs(case, True, seed=case[0])
+    disp, offsets = jfl._displacement_table(g.R)
+    jf, jd = jfl._flow_level_xla(
+        jnp.asarray(a1), jnp.asarray(a2), jnp.asarray(pred), g.b, g.h, g.w,
+        g.ws, g.patch, g.gh, g.gw, g.R, offsets, disp, g.pred_bound, props)
+    tf, td = tfl.flow_level(torch.from_numpy(a1), torch.from_numpy(a2),
+                            torch.from_numpy(pred), g, props)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def _assert_plan_covers(g, plan):
+    """Launch A's blocks cover every (displacement, cell) once and launch
+    B's every cell once; shared memory stays within a Hopper block's
+    227 KB."""
+    d2, t = (2 * g.R + 1) ** 2, plan.a_tile
+    seen = np.zeros((d2, g.gh, g.gw), np.int32)
+    bx, by, bz = plan.a_grid
+    for z in range(bz):
+        for y in range(by):
+            for x in range(bx):
+                seen[z * plan.chunk:(z + 1) * plan.chunk,
+                     y * t:(y + 1) * t, x * t:(x + 1) * t] += 1
+    assert (seen == 1).all()
+    assert bz * plan.chunk >= d2 > (bz - 1) * plan.chunk
+    assert 1 <= plan.batch <= min(plan.chunk, 8)
+    t = plan.b_tile
+    cells = np.zeros((g.gh, g.gw), np.int32)
+    for y in range(plan.b_grid[1]):
+        for x in range(plan.b_grid[0]):
+            cells[y * t:(y + 1) * t, x * t:(x + 1) * t] += 1
+    assert (cells == 1).all()
+    assert max(plan.a_smem, plan.b_smem) <= 227 * 1024
+
+
+@pytest.mark.parametrize("shape", tfl._VOLUME_SHAPES)
+@pytest.mark.parametrize("case", MAIN_LEVELS + LEVELS)
+def test_k1_plan_covers_each_cell_once(case, shape):
+    """K1's tile plan at each of launch A's tile shapes, and the plan it
+    chooses: every cell and displacement covered once, shared memory within
+    a Hopper block; the finest level fills the H100's 132 SMs."""
+    *_, g, props = _level_inputs(case, True, seed=0)
+    plan = tfl._k1_plan(g, props, 132, (shape,))
+    assert (plan.a_tile, plan.a_threads) == shape
+    assert plan.iters == props
+    _assert_plan_covers(g, plan)
+    chosen = tfl._k1_plan(g, props, 132)
+    _assert_plan_covers(g, chosen)
+    if case == MAIN_LEVELS[-1]:
+        assert chosen.a_grid[0] * chosen.a_grid[1] * chosen.a_grid[2] >= 132
+
+
+def test_k1_plan_tile_choice():
+    """The larger tile where its tiles alone fill the 132 SMs (the finest
+    level), the smaller one at the two coarser levels."""
+    tiles = [tfl._k1_plan(_level_inputs(case, True, seed=0)[3], case[7],
+                          132).a_tile for case in MAIN_LEVELS]
+    assert tiles == [4, 4, 8]
+
+
+# (winsize, patch, R): windows that fit the larger tile only one
+# displacement at a time, windows that only the smaller tile takes, and
+# windows that fit the smaller tile at a batch of 4
+LARGE_WINDOWS = [(31, 16, 5), (31, 16, 10), (41, 24, 5)]
+
+
+@pytest.mark.parametrize("ws,patch,R", LARGE_WINDOWS)
+def test_k1_plan_fits_large_windows(ws, patch, R):
+    """Large windows split launch A's chunk into more batches until the
+    block's shared memory fits; a tile shape that does not fit at a batch of one is
+    passed over, and the plan raises only where no shape fits."""
+    g = tfl.LevelGeometry(b=ws, h=240, w=320, ws=ws, patch=patch,
+                          gh=240 // patch, gw=320 // patch, R=R,
+                          pred_bound=8)
+    for tile, threads in tfl._VOLUME_SHAPES:
+        try:
+            plan = tfl._k1_plan(g, 2, 132, ((tile, threads),))
+        except ValueError:
+            assert tfl._volume_smem(g, tile, threads, 1, 1) > tfl._SMEM_MAX
+            continue
+        _assert_plan_covers(g, plan)
+        nbatch = -(-plan.chunk // plan.batch)
+        if nbatch > -(-plan.chunk // 8):     # fewer batches do not fit
+            assert tfl._volume_smem(g, tile, threads, plan.chunk,
+                                    -(-plan.chunk // (nbatch - 1))) > \
+                tfl._SMEM_MAX
+    _assert_plan_covers(g, tfl._k1_plan(g, 2, 132))
+    huge = dataclasses.replace(g, ws=151, patch=40, gh=6, gw=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl._k1_plan(huge, 2, 132)
+
+
 def test_flow_match_then_propagate_is_the_level():
     a1, a2, pred, g, props = _level_inputs(LEVELS[0], False, seed=7)
     t1, t2, tp = (torch.from_numpy(x) for x in (a1, a2, pred))
     f, d, v = tfl.flow_match(t1, t2, tp, g)
     assert tuple(v.shape) == ((2 * g.R + 1) ** 2, g.gh, g.gw)
+    f1, d1 = tfl.flow_propagate(f, d, tp, v, g.R, iters=props)
     for _ in range(props):
         f, d = tfl.flow_propagate(f, d, tp, v, g.R)
     lf, ld = tfl.flow_level(t1, t2, tp, g, props)
     assert torch.equal(f, lf) and torch.equal(d, ld)
+    assert torch.equal(f1, lf) and torch.equal(d1, ld)
 
 
 def test_displacement_tables_match():

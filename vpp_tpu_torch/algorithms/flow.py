@@ -10,9 +10,11 @@ cost volume scores it strictly better (``flow_propagate``).
 
 Numerics follow the JAX package: the level buffers are rounded to bf16,
 |diff| is rounded to bf16 after the subtraction, window sums accumulate in
-float32. The level is kernel K1 (``kernels/csrc/flow_level.cu``):
-``flow_match`` and ``flow_propagate`` launch it for CUDA tensors and run
-their plain versions for CPU ones.
+float32. The level is kernel K1 (``kernels/csrc/flow_level.cu``), two
+launches per level on the card: the cost volume, then the argmin, the
+rejection and every propagation pass. ``flow_level``, ``flow_match`` and
+``flow_propagate`` launch it for CUDA tensors and run their plain
+versions for CPU ones.
 
 The epipolar-constrained branch (``epipolar_flow`` / ``epipolar_filter``
 with a fundamental matrix) is not ported yet and raises.
@@ -21,6 +23,7 @@ with a fundamental matrix) is not ported yet and raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -165,8 +168,8 @@ def _reject_out_of_domain(flow: torch.Tensor, dist: torch.Tensor,
 def flow_match_plain(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                      g: LevelGeometry
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the level launch of K1: warp, cost volume, ordered
-    argmin, in-domain rejection. Returns (flow, dist, volume)."""
+    """Plain version of K1 up to the propagation: warp, cost volume,
+    ordered argmin, in-domain rejection. Returns (flow, dist, volume)."""
     _, offsets = _displacement_table(g.R)
     a1 = a1.to(torch.bfloat16)
     a2 = a2.to(torch.bfloat16)
@@ -217,80 +220,247 @@ def flow_propagate_plain(flow: torch.Tensor, dist: torch.Tensor,
 
 # -- K1 wrappers ------------------------------------------------------------
 
+_SMEM_MAX = 232448    # shared memory one block may use on Hopper (227 KB)
+# (tile, threads) of launch A's instantiations in flow_level.cu, largest
+# tile first
+_VOLUME_SHAPES = ((8, 256), (4, 128))
+_SELECT_TILE = 8      # cells per tile side of launch B
+_BATCH = 8            # flow_level.cu: kBatch, displacements per batch of A
+_MAX_D2 = 1024        # flow_level.cu: kMaxD2
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """How K1's two launches cut one level (``flow_level.cu``). Launch A
+    (cost volume and each chunk's first minimum): ``a_tile`` x ``a_tile``
+    cells, ``a_threads`` threads and ``chunk`` displacements per block,
+    ``batch`` of them in shared memory at once, on an (x tiles, y tiles,
+    chunks) grid. Launch B (argmin over the chunks, rejection, ``iters``
+    passes): ``b_tile`` x ``b_tile`` cells per block with an ``iters``-cell
+    halo. ``*_smem`` are dynamic shared-memory bytes."""
+    a_tile: int
+    a_threads: int
+    chunk: int
+    batch: int
+    a_grid: Tuple[int, int, int]
+    a_smem: int
+    iters: int
+    b_tile: int
+    b_grid: Tuple[int, int]
+    b_smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _volume_smem(g: LevelGeometry, tile: int, threads: int, chunk: int,
+                 batch: int) -> int:
+    """Launch A's shared memory: the a1 window region and the warped a2
+    region with its R halo (float), the column sums of a batch (float), the
+    slots' minima and argmins, the chunk's offsets, a batch of bf16
+    |diffs|."""
+    span = (tile - 1) * g.patch + g.ws          # window region side, px
+    return (4 * (span * span + (span + 2 * g.R) ** 2 + batch * tile * span
+                 + chunk + 2 * threads) + 2 * batch * span * span)
+
+
+def _select_smem(tile: int, iters: int, R: int) -> int:
+    """Launch B's shared memory: flow and dist twice, the prediction, on
+    the tile and its halo; the (2R+1)² flat_to_k table."""
+    return (tile + 2 * iters) ** 2 * 32 + (2 * R + 1) ** 2 * 4
+
+
+def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
+                threads: int) -> Optional[K1Plan]:
+    """The plan at one tile shape, its chunk in the fewest even batches
+    (of at most 8 displacements) that fit in a block's shared memory; None
+    if a batch of one does not fit."""
+    d2 = (2 * g.R + 1) ** 2
+    tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
+    chunk = _cdiv(d2, min(d2, _cdiv(sms, max(1, tiles[0] * tiles[1]))))
+    for nbatch in range(_cdiv(chunk, _BATCH), chunk + 1):
+        batch = _cdiv(chunk, nbatch)
+        a_smem = _volume_smem(g, tile, threads, chunk, batch)
+        if a_smem <= _SMEM_MAX:
+            return K1Plan(a_tile=tile, a_threads=threads, chunk=chunk,
+                          batch=batch, a_grid=(*tiles, _cdiv(d2, chunk)),
+                          a_smem=a_smem, iters=prop_iters,
+                          b_tile=_SELECT_TILE,
+                          b_grid=(_cdiv(g.gw, _SELECT_TILE),
+                                  _cdiv(g.gh, _SELECT_TILE)),
+                          b_smem=_select_smem(_SELECT_TILE, prop_iters, g.R))
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_plan(g: LevelGeometry, prop_iters: int, sms: int,
+             shapes: Tuple[Tuple[int, int], ...] = _VOLUME_SHAPES) -> K1Plan:
+    """Tile plan of one level on a card with ``sms`` SMs. Launch A takes
+    the first of ``shapes`` (largest tile first) whose tiles alone fill the
+    SMs, else the last that fits: where tiles are too few, smaller ones
+    split the displacement table into fewer chunks, and every chunk loads
+    its tile again (``k1_tiles.py`` times the shapes). Raises if no shape
+    fits in shared memory at a batch of one displacement."""
+    plan = None
+    for tile, threads in shapes:
+        fit = _fit_volume(g, prop_iters, sms, tile, threads)
+        if fit is not None:
+            plan = fit
+            if fit.a_grid[0] * fit.a_grid[1] >= sms:
+                break
+    if plan is None:
+        raise ValueError(f"flow_level: {g.ws} px windows on {g.patch} px "
+                         f"cells with R = {g.R} need more than the "
+                         f"{_SMEM_MAX} bytes of shared memory a block may "
+                         "use")
+    return plan
+
+
+def _check_plan(name: str, d2: int, *smem: int) -> None:
+    if d2 > _MAX_D2:
+        raise ValueError(f"{name}: {d2} displacements exceed the kernel's "
+                         f"{_MAX_D2}")
+    if max(smem) > _SMEM_MAX:
+        raise ValueError(f"{name}: {max(smem)} bytes of shared memory exceed "
+                         f"the {_SMEM_MAX} a block may use")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_volume(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
+                   g: LevelGeometry, plan: K1Plan):
+    """Launch A: the (D², gh, gw) cost volume, and each chunk's first
+    minimum per cell as (cost, k) of shape (chunks, gh, gw)."""
+    from ..kernels import _build
+    lib = _build.load()
+    dev = a1.device
+    d2 = (2 * g.R + 1) ** 2
+    disp = _table(g.R, "disp", dev)
+    vol = torch.empty((d2, g.gh, g.gw), dtype=torch.float32, device=dev)
+    part = (torch.empty((plan.a_grid[2], g.gh, g.gw), dtype=torch.float32,
+                        device=dev),
+            torch.empty((plan.a_grid[2], g.gh, g.gw), dtype=torch.int32,
+                        device=dev))
+    hb, wb = a1.shape
+    code = lib.vpp_flow_volume(
+        a1.data_ptr(), a2.data_ptr(), pred.data_ptr(), disp.data_ptr(), d2,
+        hb, wb, g.b, g.h, g.w, g.ws, g.patch, g.gh, g.gw, g.R, g.pred_bound,
+        plan.a_tile, plan.a_threads, plan.chunk, plan.batch, plan.a_smem,
+        vol.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        stream_handle(a1))
+    LAUNCHES["flow_level"] += 1
+    _build.check(code, "flow level, volume launch")
+    return vol, part
+
+
+def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
+                   iters: int, tile: int, part=None,
+                   flow_in: Optional[torch.Tensor] = None,
+                   dist_in: Optional[torch.Tensor] = None,
+                   domain: Tuple[int, int, int] = (0, 0, 1)
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch B on ``tile`` x ``tile`` cell tiles: ``iters`` passes from
+    ``flow_in``/``dist_in``, or from the argmin over launch A's chunk
+    minima ``part`` and the rejection against ``domain`` = (h, w, patch)."""
+    from ..kernels import _build
+    lib = _build.load()
+    dev = vol.device
+    d2, gh, gw = vol.shape
+    flow = torch.empty((gh, gw, 2), dtype=torch.int32, device=dev)
+    dist = torch.empty((gh, gw), dtype=torch.float32, device=dev)
+    code = lib.vpp_flow_select(
+        vol.data_ptr(), None if part is None else part[0].data_ptr(),
+        None if part is None else part[1].data_ptr(),
+        0 if part is None else part[0].shape[0], pred.data_ptr(),
+        _table(R, "disp", dev).data_ptr(),
+        _table(R, "flat_to_k", dev).data_ptr(),
+        None if flow_in is None else flow_in.data_ptr(),
+        None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
+        *domain, tile, iters, _select_smem(tile, iters, R), flow.data_ptr(),
+        dist.data_ptr(), stream_handle(vol))
+    LAUNCHES["flow_level"] += 1
+    _build.check(code, "flow level, select launch")
+    return flow, dist
+
+
+def _level_operands(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
+                    g: LevelGeometry, prop_iters: int):
+    """Checked CUDA operands and the plan of one level."""
+    a1 = a1.to(torch.float32).contiguous()
+    a2 = a2.to(torch.float32).contiguous()
+    pred = pred.to(torch.int32).contiguous()
+    require_cuda("flow_level", a1, a2, pred,
+                 dtypes=(torch.float32, torch.float32, torch.int32))
+    if (a1.dim() != 2 or a1.shape != a2.shape
+            or tuple(pred.shape) != (g.gh, g.gw, 2)):
+        raise ValueError(f"flow_level: shapes {a1.shape}, {a2.shape}, "
+                         f"{pred.shape} do not fit {g}")
+    if prop_iters < 0:
+        raise ValueError("flow_level: prop_iters must be >= 0")
+    plan = _k1_plan(g, prop_iters, _sm_count(a1.device))
+    _check_plan("flow_level", (2 * g.R + 1) ** 2, plan.a_smem, plan.b_smem)
+    return a1, a2, pred, plan
+
+
 def flow_match(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                g: LevelGeometry
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 level launch on CUDA tensors (the plain version on CPU ones).
+    """K1 without propagation on CUDA tensors (the plain version on CPU
+    ones): the volume launch, then the select launch with no pass.
     a1, a2: (hb, wb) float32 level buffers; pred: (gh, gw, 2) int32.
     Returns (flow (gh, gw, 2) int32, dist (gh, gw) f32, vol (D², gh, gw))."""
     if a1.device.type == "cpu":
         return flow_match_plain(a1, a2, pred, g)
-    a1 = a1.to(torch.float32).contiguous()
-    a2 = a2.to(torch.float32).contiguous()
-    pred = pred.to(torch.int32).contiguous()
-    require_cuda("flow_match", a1, a2, pred,
-                 dtypes=(torch.float32, torch.float32, torch.int32))
-    if a1.shape != a2.shape or tuple(pred.shape) != (g.gh, g.gw, 2):
-        raise ValueError(f"flow_match: shapes {a1.shape}, {a2.shape}, "
-                         f"{pred.shape} do not fit {g}")
-    d2 = (2 * g.R + 1) ** 2
-    if d2 > 1024:
-        raise ValueError(f"flow_match: radius {g.R} exceeds the kernel's "
-                         "1024 displacements")
-    from ..kernels import _build
-    lib = _build.load()
-    dev = a1.device
-    disp = _table(g.R, "disp", dev)
-    flow = torch.empty((g.gh, g.gw, 2), dtype=torch.int32, device=dev)
-    dist = torch.empty((g.gh, g.gw), dtype=torch.float32, device=dev)
-    vol = torch.empty((d2, g.gh, g.gw), dtype=torch.float32, device=dev)
-    hb, wb = a1.shape
-    code = lib.vpp_flow_level(
-        a1.data_ptr(), a2.data_ptr(), pred.data_ptr(), disp.data_ptr(), d2,
-        hb, wb, g.b, g.h, g.w, g.ws, g.patch, g.gh, g.gw, g.pred_bound,
-        flow.data_ptr(), dist.data_ptr(), vol.data_ptr(), stream_handle(a1))
-    LAUNCHES["flow_level"] += 1
-    _build.check(code, "flow_match")
+    a1, a2, pred, plan = _level_operands(a1, a2, pred, g, 0)
+    vol, part = _launch_volume(a1, a2, pred, g, plan)
+    flow, dist = _launch_select(vol, pred, g.R, 0, plan.b_tile, part,
+                                domain=(g.h, g.w, g.patch))
     return flow, dist, vol
 
 
 def flow_propagate(flow: torch.Tensor, dist: torch.Tensor,
-                   pred: torch.Tensor, vol: torch.Tensor,
-                   R: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One K1 propagation pass on CUDA tensors (plain version on CPU ones);
-    reads ``flow``/``dist`` and writes fresh buffers (Jacobi)."""
+                   pred: torch.Tensor, vol: torch.Tensor, R: int,
+                   iters: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``iters`` K1 Jacobi passes in one launch on CUDA tensors (the plain
+    version, pass by pass, on CPU ones); reads ``flow``/``dist`` and writes
+    fresh buffers."""
     if flow.device.type == "cpu":
-        return flow_propagate_plain(flow, dist, pred, vol, R)
+        for _ in range(iters):
+            flow, dist = flow_propagate_plain(flow, dist, pred, vol, R)
+        return flow, dist
     require_cuda("flow_propagate", flow, dist, pred, vol,
                  dtypes=(torch.int32, torch.float32, torch.int32,
                          torch.float32))
     gh, gw = dist.shape
+    d2 = (2 * R + 1) ** 2
     if (tuple(flow.shape) != (gh, gw, 2) or pred.shape != flow.shape
-            or tuple(vol.shape) != ((2 * R + 1) ** 2, gh, gw)):
+            or tuple(vol.shape) != (d2, gh, gw)):
         raise ValueError("flow_propagate: inconsistent shapes")
-    from ..kernels import _build
-    lib = _build.load()
-    flat_to_k = _table(R, "flat_to_k", flow.device)
-    flow_out = torch.empty_like(flow)
-    dist_out = torch.empty_like(dist)
-    code = lib.vpp_flow_propagate(
-        flow.data_ptr(), dist.data_ptr(), pred.data_ptr(), vol.data_ptr(),
-        flat_to_k.data_ptr(), gh, gw, R, flow_out.data_ptr(),
-        dist_out.data_ptr(), stream_handle(flow))
-    LAUNCHES["flow_level"] += 1
-    _build.check(code, "flow_propagate")
-    return flow_out, dist_out
+    if iters < 0:
+        raise ValueError("flow_propagate: iters must be >= 0")
+    _check_plan("flow_propagate", d2, _select_smem(_SELECT_TILE, iters, R))
+    return _launch_select(vol, pred, R, iters, _SELECT_TILE, flow_in=flow,
+                          dist_in=dist)
 
 
 def flow_level(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                g: LevelGeometry, prop_iters: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One level (``_flow_level_xla``): match, then ``prop_iters`` Jacobi
-    passes. Returns (flow (gh, gw, 2) int32, dist (gh, gw) f32)."""
-    flow, dist, vol = flow_match(a1, a2, pred, g)
-    for _ in range(prop_iters):
-        flow, dist = flow_propagate(flow, dist, pred, vol, g.R)
-    return flow, dist
+    passes; on CUDA tensors two launches of K1 (the volume, then argmin,
+    rejection and every pass). Returns (flow (gh, gw, 2) int32, dist
+    (gh, gw) f32)."""
+    if a1.device.type == "cpu":
+        flow, dist, vol = flow_match_plain(a1, a2, pred, g)
+        return flow_propagate(flow, dist, pred, vol, g.R, prop_iters)
+    a1, a2, pred, plan = _level_operands(a1, a2, pred, g, prop_iters)
+    vol, part = _launch_volume(a1, a2, pred, g, plan)
+    return _launch_select(vol, pred, g.R, prop_iters, plan.b_tile, part,
+                          domain=(g.h, g.w, g.patch))
 
 
 def _level_radii(nscales: int, R_top: int, refine: int) -> list:

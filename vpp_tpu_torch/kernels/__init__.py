@@ -6,8 +6,8 @@ count in ``LAUNCHES`` where it launches, and nowhere else, so a run can
 show that it went through the kernels:
 
 * ``fast9``      — K2, ``algorithms/fast.py:fast9_cuda``
-* ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (the level launch
-  and each propagation pass)
+* ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
+  the volume launch, and the argmin/rejection/propagation launch)
 * ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc``
 """
 

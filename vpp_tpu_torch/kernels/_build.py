@@ -36,9 +36,8 @@ _I = ctypes.c_int
 # C signatures: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
     "vpp_fast9": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "vpp_flow_level": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P, _P, _P, _P],
-    "vpp_flow_propagate": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vpp_flow_volume": [_P] * 4 + [_I] * 17 + [_P] * 4,
+    "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 3,
     "vpp_hough_acc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
