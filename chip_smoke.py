@@ -21,7 +21,17 @@ Phases, in order; any failure exits nonzero and prints no result:
    (``device_ms``: CUDA events around replays of a CUDA graph of the
    calls, captured after warm-up; the profiler's device time where
    capture is refused; ``device_ms_by`` names which). K1 is timed per
-   level and per frame;
+   level and per frame. Then K3 block top-K bit-equal at the 640x480 SLAM
+   frame's score image and at 32768 blocks, the most K3 takes; K4
+   pyramid decimation bit-equal on integer-valued frames at 3 levels and
+   within 1e-6 relative on rendered float frames; K5 patches bit-equal at
+   1024 x 7x7 from the bordered VGA frame and on a 3-channel buffer; K6
+   window BA on a keyframe problem of a 24-frame SLAM warm-up run: S and
+   cost within 1e-4 of the plain assembly relative to their largest
+   magnitude, rhs within 1e-4 of the magnitude of its terms, two launches
+   bit-identical, and ``ba_solve_tracks`` within 1e-4 (poses) and 1e-3 px
+   (every landmark's reprojections into its observing keyframes) of the
+   plain LM loop on the same problem;
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
@@ -30,10 +40,23 @@ Phases, in order; any failure exits nonzero and prints no result:
 5. the Hough path: ``hough_tracker_update`` on 30 frames of the two-line
    clip at 640x480, ms/frame, K7's launch count, and the same frames on the
    plain CPU path (the same live tracks at the same (θ, ρ));
-6. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+6. the SLAM tracking+BA path: ``slam_run`` at the matched 640x480
+   configuration of ``benchmarks/bench_slam.py`` (2000-point cloud, lateral
+   dolly, capacity 1024, ring 6, 3 LM iterations, recovery off) on 240
+   frames rendered by ``vpp_tpu_torch/utils/synth.py`` (seed 1) and already
+   on the card: frames/s under ``torch.cuda.synchronize``, launch counts of
+   K1-K6, keyframes (60), live landmarks (> 200) and ATE (< 0.10). The
+   state just before keyframe 30 is copied to the CPU and ``_do_keyframe``
+   runs on both (poses within 1e-3, ``lm_valid`` agreeing on >= 99% of
+   slots), the card's call under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host synchronisation); the first 40 frames on the plain CPU path
+   give the card's keyframe count, landmark counts within 5% and ATE within
+   0.02;
+7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
-float32 outside the tensor cores, applied to every scalar operation). K1's
+float32 outside the tensor cores, applied to every scalar operation, and
+34 TFLOP/s float64 for K6's float64 landmark algebra). K1's
 bound counts its least work: both level buffers read once, flow and dist
 written once, and the separable window sums (one |diff| per region pixel
 and displacement, ws - 1 additions per column sum and per window). The
@@ -45,16 +68,22 @@ sums; the kernels line carries only ``bound_ms``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12       # float64 outside the tensor cores
 W, H = 640, 480
 TRACK_FRAMES = 60
 CPU_CHECK_FRAMES = 10
 HOUGH_FRAMES = 30
+SLAM_FRAMES = 240
+SLAM_WARMUP = 24
+SLAM_CPU_FRAMES = 40
+SLAM_CHECK_KF = 30
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -142,6 +171,7 @@ def check(cond: bool, what: str) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -154,13 +184,21 @@ def main() -> int:
     from vpp_tpu_torch.algorithms import hough_cuda as HC
     from vpp_tpu_torch.algorithms.hough_tracker import (
         HoughTrackerConfig, hough_tracker_init, hough_tracker_update)
+    from vpp_tpu_torch import convert
+    from vpp_tpu_torch.algorithms import pyramid as PY
     from vpp_tpu_torch.algorithms.pyramid import level_shapes, pyramid
     from vpp_tpu_torch.algorithms.video_extruder import (
         VideoExtruderConfig, video_extruder_run)
-    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.core import interp as IP
+    from vpp_tpu_torch.core.image import Image2d, from_array
     from vpp_tpu_torch.kernels import (_build, launch_counts,
                                        reset_launch_counts)
+    from vpp_tpu_torch.slam import ba as BA
+    from vpp_tpu_torch.slam import ba_cuda as BC
+    from vpp_tpu_torch.slam import pipeline as SP
     from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -398,6 +436,273 @@ def main() -> int:
           f"by {float(k7_dev.max()):.3g}, every cell within its bound "
           f"(largest bound {float(k7_slack.max()):.3g})")
 
+    # -- 3d-3g: the SLAM path's kernels, on the SLAM clip ---------------------
+    # the matched tracking+BA configuration of benchmarks/bench_slam.py at
+    # 640x480 (geometry vga_640x480, recovery off)
+    intr = (640.0, 640.0, 320.0, 240.0)
+    slam_cfg = SP.SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3, pnp_iters=6,
+        min_parallax=2.0, max_reproj=2.0, prune_reproj=2.5, history=64,
+        lc_min_gap=60, enable_recovery=False,
+        tracker=VideoExtruderConfig(capacity=1024, detect_k=512, nscales=3,
+                                    winsize=9, keypoint_spacing=10,
+                                    detector_period=1, detector_th=10))
+    t0 = time.perf_counter()
+    cloud = make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
+                       center=(3.2, 0.0, 5.0))
+    gt_poses = camera_path(SLAM_FRAMES, step=(0.02, 0.0, 0.0))
+    slam_clip = render_frames(cloud, gt_poses, intr, (H, W), seed=1,
+                              sigma=(1.2, 2.2))
+    print(f"phase 3: rendered {SLAM_FRAMES} SLAM frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sb = max(3, slam_cfg.tracker.winsize)
+    sframe = from_array(torch.from_numpy(slam_clip[100]).to(dev), border=sb,
+                        border_mode="mirror")
+
+    # -- 3d. K3 block top-K ---------------------------------------------------
+    bs, kdet = slam_cfg.tracker.keypoint_spacing, slam_cfg.tracker.detect_k
+    simg = F.fast9_score_image(sframe, slam_cfg.tracker.detector_th)
+    k3_out = F._blockwise_keypoints(simg, bs, kdet)
+    k3_plain = F._blockwise_keypoints_plain(simg, bs, kdet)
+    check(all(torch.equal(a, b) for a, b in zip(k3_out, k3_plain)),
+          "K3 block top-K differs from its plain version (640x480)")
+    rng = np.random.RandomState(3)
+    big = from_array(torch.from_numpy(
+        (rng.randint(1, 256, (128, 256)) * (rng.rand(128, 256) > 0.5))
+        .astype(np.uint8)).to(dev), border=1)
+    check(all(torch.equal(a, b) for a, b in zip(
+        F._blockwise_keypoints(big, 1, 4096),
+        F._blockwise_keypoints_plain(big, 1, 4096))),
+          "K3 block top-K differs from its plain version at 32768 blocks")
+    nbr, nbc = -(-H // bs), -(-W // bs)
+    nb = nbr * nbc
+    pad_scores = PY.pad2d(simg.interior.to(torch.int32), 0, nbr * bs - H, 0,
+                          nbc * bs - W, "constant", -1)
+    keys = torch.randint(-nb, 255 * nb, (nb,), dtype=torch.int32, device=dev)
+
+    def k3_library():
+        pad_scores.view(nbr, bs, nbc, bs).permute(0, 2, 1, 3).reshape(
+            nbr, nbc, bs * bs).argmax(-1)
+        torch.topk(keys, kdet, sorted=True)
+
+    results["block_topk"] = dict(
+        name="block_topk", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/block_topk.cu",
+        replaces="vpp_tpu/algorithms/fast.py:185", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: F._blockwise_keypoints(simg, bs, kdet),
+                   200),
+        plain_ms=cuda_ms(torch, lambda: F._blockwise_keypoints_plain(
+            simg, bs, kdet), 50),
+        library_ms=cuda_ms(torch, k3_library, 50))
+    results["block_topk"]["bound_ms"], results["block_topk"]["bound_by"] = \
+        bound_ms(simg.data.numel() + kdet * 13, H * W + nb * math.log2(nb))
+    results["block_topk"]["device_ms"], \
+        results["block_topk"]["device_ms_by"] = device_ms(
+            torch, lambda: F._blockwise_keypoints(simg, bs, kdet))
+    print(f"phase 3: K3 block top-K bit-equal ({int(k3_out[2].sum())} valid "
+          f"of {kdet}; and at 32768 blocks), "
+          f"{results['block_topk']['ms']:.4f} ms as called, "
+          f"{results['block_topk']['device_ms']:.4f} ms on the device")
+
+    # -- 3e. K4 pyramid decimation, two levels a frame ------------------------
+    shapes3 = level_shapes((H, W), 3)
+    k4_err = 0.0
+    ints = from_array(torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (H, W)).astype(np.float32)).to(dev), border=sb,
+        border_mode="mirror")
+    for kind, img0 in (("integer", ints), ("float", sframe)):
+        lvl = pyramid(img0, 1, border=sb)[0]
+        for i in (1, 2):
+            got = PY.decimate_level(lvl, *shapes3[i], sb)
+            want = Image2d(data=PY.pad2d(PY._binomial_decimate(
+                lvl.interior, *shapes3[i]), sb, sb, sb, sb, "symmetric"),
+                border=sb)
+            if kind == "integer":
+                check(torch.equal(got.data, want.data),
+                      f"K4 not bit-equal on integer frames at level {i}")
+            else:
+                rel = float(((got.data - want.data).abs()
+                             / want.data.abs().clamp(min=1e-30)).max())
+                check(rel <= 1e-6, f"K4 off by {rel} relative at level {i}")
+                k4_err = max(k4_err, float((got.data - want.data).abs()
+                                           .max()))
+            lvl = want
+    lvl0 = pyramid(sframe, 1, border=sb)[0]
+    decim_mats = [(PY._decim_tensor(H, shapes3[1][0], dev),
+                   PY._decim_tensor(W, shapes3[1][1], dev)),
+                  (PY._decim_tensor(shapes3[1][0], shapes3[2][0], dev),
+                   PY._decim_tensor(shapes3[1][1], shapes3[2][1], dev))]
+
+    def k4_frame():
+        lvl = lvl0
+        for i in (1, 2):
+            lvl = PY.decimate_level(lvl, *shapes3[i], sb)
+
+    def k4_plain():
+        cur = lvl0.interior
+        for i in (1, 2):
+            cur = PY._binomial_decimate(cur, *shapes3[i])
+            PY.pad2d(cur, sb, sb, sb, sb, "symmetric")
+
+    def k4_library():
+        cur = lvl0.interior
+        for a, bm in decim_mats:
+            cur = a @ cur @ bm.T
+
+    k4_bytes = 4 * (lvl0.data.numel() + sum(
+        (oh + 2 * sb) * (ow + 2 * sb) for oh, ow in shapes3[1:]))
+    k4_ops = sum(2 * 5 * oh * (pw + ow)
+                 for (ph, pw), (oh, ow) in zip(shapes3[:2], shapes3[1:]))
+    results["pyramid_decim"] = dict(
+        name="pyramid_decim", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/pyramid_decim.cu",
+        replaces="vpp_tpu/algorithms/pyramid.py:171", max_abs_err=k4_err,
+        ms=cuda_ms(torch, k4_frame, 200), plain_ms=cuda_ms(torch, k4_plain,
+                                                           50),
+        library_ms=cuda_ms(torch, k4_library, 50))
+    results["pyramid_decim"]["bound_ms"], \
+        results["pyramid_decim"]["bound_by"] = bound_ms(k4_bytes, k4_ops)
+    results["pyramid_decim"]["device_ms"], \
+        results["pyramid_decim"]["device_ms_by"] = device_ms(torch, k4_frame)
+    print(f"phase 3: K4 decimation bit-equal on integer frames, float err "
+          f"{k4_err:.3g}; per frame (2 levels) "
+          f"{results['pyramid_decim']['ms']:.4f} ms as called, "
+          f"{results['pyramid_decim']['device_ms']:.4f} ms on the device")
+
+    # -- 3f. K5 patches -------------------------------------------------------
+    psize = slam_cfg.desc_patch
+    ctr = torch.from_numpy(np.stack(
+        [rng.randint(-4, H + 4, 1024), rng.randint(-4, W + 4, 1024)],
+        -1)).to(dev) + sb
+    hb, wb = sframe.data.shape
+    tl = IP._clamp_tl(ctr - psize // 2, hb, wb, psize)
+    check(torch.equal(IP.extract_patches(sframe.data, ctr, psize),
+                      IP.extract_patches_at_tl_plain(sframe.data, tl, psize)),
+          "K5 patches differ from the plain version (1024 x 7x7)")
+    rgb = torch.from_numpy(rng.randint(0, 256, (hb, wb, 3)).astype(
+        np.uint8)).to(dev)
+    check(torch.equal(IP.extract_patches(rgb, ctr, psize),
+                      IP.extract_patches_at_tl_plain(rgb, tl, psize)),
+          "K5 patches differ from the plain version (3 channels)")
+    ar = torch.arange(psize, device=dev)
+    rows = (tl[:, 0, None] + ar)[:, :, None].long()
+    cols = (tl[:, 1, None] + ar)[:, None, :].long()
+    results["patches"] = dict(
+        name="patches", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/patches.cu",
+        replaces="vpp_tpu/core/interp.py:61", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: IP.extract_patches(sframe.data, ctr,
+                                                     psize), 200),
+        plain_ms=cuda_ms(torch, lambda: IP.extract_patches_at_tl_plain(
+            sframe.data, tl, psize), 50),
+        library_ms=cuda_ms(torch, lambda: sframe.data[rows, cols], 50))
+    results["patches"]["bound_ms"], results["patches"]["bound_by"] = \
+        bound_ms(1024 * (8 + 2 * 4 * psize * psize), 0)
+    results["patches"]["device_ms"], results["patches"]["device_ms_by"] = \
+        device_ms(torch, lambda: IP.extract_patches(sframe.data, ctr, psize))
+    print(f"phase 3: K5 patches bit-equal (1024 x {psize}x{psize}, and 3 "
+          f"channels), {results['patches']['ms']:.4f} ms as called, "
+          f"{results['patches']['device_ms']:.4f} ms on the device")
+
+    # -- 3g. K6 window BA, on a keyframe problem of a SLAM warm-up run --------
+    slam_dev = torch.from_numpy(slam_clip).to(dev)  # upload outside timing
+    boot = gt_poses[[0, slam_cfg.keyframe_period]]
+    problems = []
+    solve = SP.ba_solve_tracks
+
+    def capture(prob, **kw):
+        problems.append(prob)
+        return solve(prob, **kw)
+
+    SP.ba_solve_tracks = capture
+    try:
+        SP.slam_run(slam_dev[:SLAM_WARMUP], slam_cfg, bootstrap_poses=boot,
+                    device="cuda")
+    finally:
+        SP.ba_solve_tracks = solve
+    torch.cuda.synchronize()
+    prob = problems[-1]
+    n_lm, m_kf = prob.obs_valid.shape
+    lam = torch.full((), slam_cfg.ba_lam0, device=dev)
+    huber, linalg = slam_cfg.ba_huber, slam_cfg.ba_linalg
+    (S1, r1, c1), loc1 = BC.tracks_assemble(prob, lam, huber, linalg)
+    (S2, r2, c2), _ = BC.tracks_assemble(prob, lam, huber, linalg)
+    (Sp, rp, cp), locp = BA._tracks_assemble(prob, lam, huber, True, linalg)
+    torch.cuda.synchronize()
+    check(torch.equal(S1, S2) and torch.equal(r1, r2) and torch.equal(c1, c2),
+          "K6 is not bit-identical across two launches")
+    s_rel = float((S1 - Sp).abs().max()) / float(Sp.abs().max())
+    c_rel = float((c1 - cp).abs()) / float(cp.abs())
+    r_rel = float((r1 - rp).abs().max()) / BA.rhs_term_scale(prob, huber,
+                                                              True)
+    check(s_rel <= 1e-4 and c_rel <= 1e-4 and r_rel <= 1e-4,
+          f"K6 assembly off the plain one: S {s_rel}, rhs {r_rel} of its "
+          f"terms, cost {c_rel}")
+    dp = BA._tracks_solve_poses(Sp, rp, prob.fixed_poses, lam, linalg)
+    cand_poses = BA.apply_pose_step(prob.poses, dp, prob.fixed_poses)
+    sk, ck = BA.ba_solve_tracks(prob, iters=slam_cfg.ba_iters, huber=huber,
+                                lam0=slam_cfg.ba_lam0, ring_layout=True,
+                                linalg=linalg)
+    sp_, cp_ = BA._lm_tracks(prob, slam_cfg.ba_iters, huber,
+                             slam_cfg.ba_lam0, True, linalg, kernel=False)
+    pose_err = float((sk.poses - sp_.poses).abs().max())
+    lm_err = float((sk.landmarks - sp_.landmarks).abs().max())
+    # landmarks in the metric of their observations: the depth of a point
+    # seen with little parallax is not determined by the window, and there
+    # a 1e-7 change of the poses moves it along its ray by orders more
+    # without moving any of its reprojections
+    reproj_err = float((BA.track_residuals(sk, True) - BA.track_residuals(
+        sk._replace(landmarks=sp_.landmarks), True)).abs().max())
+    check(pose_err <= 1e-4 and reproj_err <= 1e-3,
+          f"K6 LM solve off the plain one: poses {pose_err}, landmark "
+          f"reprojections {reproj_err} px")
+
+    def k6_iteration():
+        _, loc = BC.tracks_assemble(prob, lam, huber, linalg)
+        BC.tracks_backsub_cost(prob, loc, dp, cand_poses, huber)
+
+    def k6_plain():
+        _, loc = BA._tracks_assemble(prob, lam, huber, True, linalg)
+        lms = prob.landmarks + BA._tracks_backsub(loc, dp)
+        BA._tracks_cost(prob._replace(poses=cand_poses, landmarks=lms),
+                        huber, True)
+
+    # float32 Jacobians (~60 operations an observation), float64 landmark
+    # algebra and Schur terms (216 a pair of observations of one landmark,
+    # ~486 an observation), the latter counted at the float64 rate
+    cnt = prob.obs_valid.sum(1).double()
+    k6_ops = float(60 * cnt.sum() + (216 * (cnt * cnt).sum()
+                                     + 486 * cnt.sum())
+                   * SCALAR_OPS_PER_S / FP64_OPS_PER_S)
+    k6_bytes = (4 * (2 * m_kf * 16 + n_lm * 3 * 2 + n_lm * m_kf * 2 + 4
+                     + m_kf * 6 + (6 * m_kf) ** 2 + 6 * m_kf + 2)
+                + n_lm * m_kf)
+    results["ba_tracks"] = dict(
+        name="ba_tracks", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/ba_tracks.cu",
+        replaces="vpp_tpu/slam/ba.py:453",
+        max_abs_err=float((S1 - Sp).abs().max()), S_rel_err=s_rel,
+        rhs_err_of_terms=r_rel, cost_rel_err=c_rel, lm_pose_err=pose_err,
+        lm_landmark_err=lm_err, lm_reprojection_err_px=reproj_err,
+        problem=dict(n=n_lm, m=m_kf,
+                                             obs=int(cnt.sum()),
+                                             seen_once=int(
+                                                 (cnt == 1).sum())),
+        ms=cuda_ms(torch, k6_iteration, 100),
+        plain_ms=cuda_ms(torch, k6_plain, 20), library_ms=None)
+    results["ba_tracks"]["bound_ms"], results["ba_tracks"]["bound_by"] = \
+        bound_ms(k6_bytes, k6_ops)
+    results["ba_tracks"]["device_ms"], \
+        results["ba_tracks"]["device_ms_by"] = device_ms(torch, k6_iteration)
+    print(f"phase 3: K6 window BA on keyframe {len(problems)} of the warm-up "
+          f"(N {n_lm}, M {m_kf}, {int(cnt.sum())} observations): S off by "
+          f"{s_rel:.3g}, rhs {r_rel:.3g} of its terms, cost {c_rel:.3g}; "
+          f"bit-identical twice; LM poses {pose_err:.3g}, landmarks "
+          f"{lm_err:.3g} ({reproj_err:.3g} px in their observations); one "
+          f"LM iteration (4 launches) "
+          f"{results['ba_tracks']['ms']:.4f} ms as called, "
+          f"{results['ba_tracks']['device_ms']:.4f} ms on the device")
+
     # -- 4. tracker main path -------------------------------------------------
     clip_dev = torch.from_numpy(clip).to(dev)   # upload outside the timing
     video_extruder_run(clip_dev[:6], cfg, device="cuda")     # warm-up
@@ -458,21 +763,111 @@ def main() -> int:
             and torch.equal(hst.rho.cpu(), cst.rho))
     check(same, "Hough tracks differ from the plain CPU path")
 
-    # -- 6. results -----------------------------------------------------------
-    per_frame = {"fast9": track_counts["fast9"] / TRACK_FRAMES,
-                 "flow_level": track_counts["flow_level"] / TRACK_FRAMES,
-                 "hough_acc": hough_counts["hough_acc"] / HOUGH_FRAMES}
+    # -- 6. SLAM tracking+BA path ---------------------------------------------
+    kf_states = {}
+    do_kf = SP._do_keyframe
+
+    def keep_state(state, frame2, cfg_, **kw):
+        if state.n_keyframes == SLAM_CHECK_KF:
+            kf_states["state"], kf_states["frame"] = state, frame2
+        return do_kf(state, frame2, cfg_, **kw)
+
+    torch.cuda.synchronize()
+    SP._do_keyframe = keep_state
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sst = SP.slam_run(slam_dev, slam_cfg, bootstrap_poses=boot,
+                          device="cuda")
+        torch.cuda.synchronize()
+        slam_dt = time.perf_counter() - t0
+        slam_counts = launch_counts()
+    finally:
+        SP._do_keyframe = do_kf
+    slam_fps = SLAM_FRAMES / slam_dt
+    est, fids = SP.keyframe_trajectory(sst)
+    slam_ate = float(SP.ate_rmse(est.cpu(), torch.from_numpy(
+        gt_poses[fids.cpu().numpy()])))
+    slam_lms = int(sst.lm_valid.sum())
+    slam_live = int(sst.tracker.keypoints.alive.sum())
+    print(f"phase 6: SLAM {W}x{H}: {slam_fps:.2f} frames/s over "
+          f"{SLAM_FRAMES} frames, {sst.n_keyframes} keyframes, {slam_lms} "
+          f"landmarks, {slam_live} live keypoints, ATE {slam_ate:.4f}; "
+          f"launches {slam_counts}")
+    for key in ("flow_level", "fast9", "block_topk", "pyramid_decim",
+                "patches", "ba_tracks"):
+        check(slam_counts[key] > 0, f"the SLAM path did not launch {key}")
+    check(sst.n_keyframes == SLAM_FRAMES // slam_cfg.keyframe_period,
+          f"{sst.n_keyframes} keyframes, expected 60")
+    check(slam_lms > 200, f"only {slam_lms} landmarks")
+    check(slam_ate < 0.10, f"SLAM ATE {slam_ate} >= 0.10")
+    check(bool(torch.isfinite(est).all()), "non-finite keyframe poses")
+
+    # the back end alone, from one state on both devices
+    kst, kframe = kf_states["state"], kf_states["frame"]
+    cst = convert.slam_state_from_numpy(convert.slam_state_to_numpy(kst),
+                                        device="cpu")
+    ckf = SP._do_keyframe(cst, Image2d(data=kframe.data.cpu(),
+                                       border=kframe.border), slam_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gkf = SP._do_keyframe(kst, kframe, slam_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    kf_err = float((gkf.kf_pose.cpu() - ckf.kf_pose).abs().max())
+    lm_agree = float((gkf.lm_valid.cpu() == ckf.lm_valid).double().mean())
+    print(f"phase 6: keyframe {SLAM_CHECK_KF} from one state: card and plain "
+          f"CPU poses within {kf_err:.3g}, lm_valid agrees on "
+          f"{100 * lm_agree:.2f}% of slots; the card's call made no host "
+          "synchronisation")
+    check(kf_err <= 1e-3, f"keyframe poses differ by {kf_err}")
+    check(lm_agree >= 0.99, f"lm_valid agrees on only {lm_agree}")
+
+    # the whole path, card against the plain CPU path
+    ga = SP.slam_run(slam_dev[:SLAM_CPU_FRAMES], slam_cfg,
+                     bootstrap_poses=boot, device="cuda")
+    ca = SP.slam_run(slam_clip[:SLAM_CPU_FRAMES], slam_cfg,
+                     bootstrap_poses=boot, device="cpu")
+
+    def ate_of(st):
+        e, f = SP.keyframe_trajectory(st)
+        return float(SP.ate_rmse(e.cpu(), torch.from_numpy(
+            gt_poses[f.cpu().numpy()])))
+
+    g_lm, c_lm = int(ga.lm_valid.sum()), int(ca.lm_valid.sum())
+    g_ate, c_ate = ate_of(ga), ate_of(ca)
+    print(f"phase 6: first {SLAM_CPU_FRAMES} frames: card {ga.n_keyframes} "
+          f"keyframes, {g_lm} landmarks, ATE {g_ate:.4f}; plain CPU "
+          f"{ca.n_keyframes}, {c_lm}, {c_ate:.4f}")
+    check(ga.n_keyframes == ca.n_keyframes, "keyframe counts differ")
+    check(abs(g_lm - c_lm) <= 0.05 * max(c_lm, 1),
+          "landmark counts differ by more than 5%")
+    check(abs(g_ate - c_ate) <= 0.02, "ATE differs by more than 0.02")
+
+    # -- 7. results -----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
+    per_frame = {"fast9": track_counts["fast9"] / TRACK_FRAMES,
+                 "flow_level": track_counts["flow_level"] / TRACK_FRAMES,
+                 "hough_acc": hough_counts["hough_acc"] / HOUGH_FRAMES}
+    for key in ("block_topk", "pyramid_decim", "patches", "ba_tracks"):
+        launches[key] = slam_counts[key]
+        per_frame[key] = slam_counts[key] / SLAM_FRAMES
     kernels = []
-    for key in ("flow_level", "fast9", "hough_acc"):
+    for key in ("flow_level", "fast9", "hough_acc", "block_topk",
+                "pyramid_decim", "patches", "ba_tracks"):
         r = results[key]
         r["launches"] = launches[key]
         r["launches_per_frame"] = per_frame[key]
         kernels.append(r)
     print(json.dumps({"tracker_fps": fps, "tracker_live": live,
-                      "hough_ms_per_frame": hough_ms, "card": smi}))
+                      "hough_ms_per_frame": hough_ms, "slam_fps": slam_fps,
+                      "slam_ate": slam_ate, "slam_landmarks": slam_lms,
+                      "slam_keyframes": sst.n_keyframes,
+                      "slam_launches": slam_counts, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes on the card: vpp_tpu_torch's tracker and Hough
-tracker under ``torch.profiler``.
+"""Where the time goes on the card: vpp_tpu_torch's tracker, Hough tracker
+and SLAM tracking+BA path under ``torch.profiler``.
 
     python3 profile_torch.py
 
-Both paths run at 640x480 on 30 frames already on the card (the tracker
-with the bench config, the Hough tracker on the two-line clip). For each: a
+Every path runs at 640x480 on 32 frames already on the card: the tracker
+with the bench config, the Hough tracker on the two-line clip, and
+``slam_run`` at the matched configuration of ``benchmarks/bench_slam.py``
+(geometry vga_640x480, recovery off; 8 keyframes) on the first frames of
+the clip ``chip_smoke.py`` renders. For each: a
 warm-up, then 7 timed runs under ``torch.cuda.synchronize`` without the
 profiler, then one run under the profiler. It reports the wall ms/frame
 (median of the 7, with min and max), the device's busy time (the sum of
@@ -30,9 +33,11 @@ from vpp_tpu_torch.algorithms.hough_tracker import (HoughTrackerConfig,
 from vpp_tpu_torch.algorithms.video_extruder import (VideoExtruderConfig,
                                                      video_extruder_run)
 from vpp_tpu_torch.core.image import from_array
+from vpp_tpu_torch.slam.pipeline import SlamConfig, slam_run
 from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
+from vpp_tpu_torch.utils.synth import camera_path, make_cloud, render_frames
 
-FRAMES = 30
+FRAMES = 32
 REPEATS = 7
 TOP = 12
 
@@ -107,9 +112,26 @@ def main() -> None:
             st, _ = hough_tracker_update(
                 st, from_array(f, border=3, border_mode="mirror"), hcfg)
 
+    intr = (640.0, 640.0, 320.0, 240.0)
+    scfg = SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3, pnp_iters=6,
+        min_parallax=2.0, max_reproj=2.0, prune_reproj=2.5, history=64,
+        lc_min_gap=60, enable_recovery=False,
+        tracker=VideoExtruderConfig(capacity=1024, detect_k=512, nscales=3,
+                                    winsize=9, keypoint_spacing=10,
+                                    detector_period=1, detector_th=10))
+    poses = camera_path(FRAMES, step=(0.02, 0.0, 0.0))
+    sclip = torch.from_numpy(render_frames(
+        make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
+                   center=(3.2, 0.0, 5.0)), poses, intr, (480, 640), seed=1,
+        sigma=(1.2, 2.2))).to(dev)
+    slam = _profile(lambda: slam_run(sclip, scfg,
+                                     bootstrap_poses=poses[[0, 4]],
+                                     device=dev))
+
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "frames": FRAMES, "tracker": tracker,
-                      "hough": _profile(hough_run)}))
+                      "hough": _profile(hough_run), "slam": slam}))
 
 
 if __name__ == "__main__":

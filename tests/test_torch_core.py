@@ -180,6 +180,7 @@ def test_pyramid_float_within_1e5(shape):
 
 @pytest.mark.parametrize("factor", [2.0, 1.5])
 def test_pyramid_integer_chain_bit_equal(factor):
+    """The reference filter/subsample chain of integer pixel types."""
     a = np.random.RandomState(5).randint(0, 256, (50, 61)).astype(np.uint8)
     jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=3), 3,
                        factor=factor, border=3)
@@ -187,3 +188,26 @@ def test_pyramid_integer_chain_bit_equal(factor):
                        border=3)
     for lj, lt in zip(jp.levels, tp.levels):
         _eq(lj.data, lt.data)
+
+
+@pytest.mark.parametrize("kind", ["integer", "float"])
+def test_decimate_level_bench_shape(kind):
+    """K4's plain version at the bench shape, 480x640 and 3 levels. On
+    integer-valued frames every partial sum is exact, so the levels equal
+    the JAX products bit for bit; on float frames within 1e-6 relative
+    (float32 sums in another order)."""
+    rng = np.random.RandomState(7)
+    a = (rng.randint(0, 256, (480, 640)) if kind == "integer"
+         else rng.rand(480, 640) * 255 + 12).astype(np.float32)
+    jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=9,
+                                          border_mode="mirror"), 3, border=9)
+    tp = t_pyr.pyramid(t_image.from_array(a, border=9, border_mode="mirror"),
+                       3, border=9)
+    nxt = t_pyr.decimate_level(tp[1], *t_pyr.level_shapes((480, 640), 3)[2],
+                               9)
+    for lj, lt in zip(jp.levels, tp.levels[:2] + (nxt,)):
+        if kind == "integer":
+            _eq(lj.data, lt.data)
+        else:
+            np.testing.assert_allclose(lt.data.numpy(), np.asarray(lj.data),
+                                       rtol=1e-6, atol=0)

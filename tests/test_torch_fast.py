@@ -1,7 +1,10 @@
 """Parity of vpp_tpu_torch's FAST9 (kernel K2's plain version and the
-selection passes) with vpp_tpu's on the CPU. Everything here is integer and
-must be bit-equal; top-K picks are compared on valid slots only (invalid
-slots share key -1, and torch.topk orders such ties differently)."""
+selection passes, kernel K3's plain version among them) with vpp_tpu's on
+the CPU. Everything here is integer and must be bit-equal. The blockwise
+top-K (K3) gives every candidate a distinct key, so it is compared on every
+slot; the full-image ``select_keypoints`` is compared on valid slots only
+(its invalid slots share key -1, and torch.topk orders such ties
+differently)."""
 
 import importlib
 
@@ -104,11 +107,40 @@ def test_blockwise_keypoints_valid_picks(k, block):
                           mask=jnp.asarray(mask))
     tp, ts, tv = tf.fast9(ti, 10, k=k, blockwise=True, block_size=block,
                           mask=torch.from_numpy(mask))
-    jv = np.array(jv)
-    _eq(jv, tv)
     assert tp.shape == (k, 2) and tv.shape == (k,)
-    _eq(np.asarray(jp)[jv], tp[torch.from_numpy(jv)])
-    _eq(np.asarray(js)[jv], ts[torch.from_numpy(jv)])
+    _eq(jv, tv)
+    _eq(jp, tp)
+    _eq(js, ts)
+
+
+@pytest.mark.parametrize("k", [512, 4096])
+def test_blockwise_keypoints_bench_shape(k):
+    """K3's plain version at the SLAM bench shape: a 640x480 rendered frame,
+    10 px blocks (3072 candidates), detect_k 512; and k above the block
+    count (padded)."""
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    pts = make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
+                     center=(3.2, 0.0, 5.0))
+    frame = render_frames(pts, camera_path(1), (640.0, 640.0, 320.0, 240.0),
+                          (480, 640), seed=1, sigma=(1.2, 2.2))[0]
+    ji = j_from_array(jnp.asarray(frame), border=9, border_mode="mirror")
+    ti = t_from_array(frame, border=9, border_mode="mirror")
+    jp, js, jv = jf.fast9(ji, 10, k=k, blockwise=True, block_size=10)
+    tp, ts, tv = tf.fast9(ti, 10, k=k, blockwise=True, block_size=10)
+    _eq(jv, tv)
+    _eq(jp, tp)
+    _eq(js, ts)
+    assert 0 < int(tv.sum()) <= min(k, 3072)
+
+
+def test_blockwise_keypoints_all_invalid_order():
+    """No positive score: every slot invalid, in ascending block order."""
+    s = t_from_array(np.zeros((30, 40), np.uint8), border=1)
+    js = j_from_array(jnp.zeros((30, 40), jnp.uint8), border=1)
+    for a, b in zip(jf._blockwise_keypoints(js, 10, 8),
+                    tf._blockwise_keypoints(s, 10, 8)):
+        _eq(a, b)
 
 
 def test_maxima_filters_bit_equal():

@@ -213,3 +213,201 @@ def test_trackers_on_card_match_cpu(cuda):
     assert torch.equal(sk.age.cpu(), sc.age)
     assert torch.equal(sk.rho.cpu(), sc.rho)
     assert launch_counts()["hough_acc"] > 0
+
+
+# -- K3 block top-K, K4 pyramid decimation, K5 patches, K6 window BA --------
+#
+# K3 and K5 are bit-equal to their plain versions; K4 is bit-equal on
+# integer-valued frames (every partial sum is exact) and within 1e-6
+# relative on float frames; K6's S and cost are within 1e-4 of the plain
+# assembly relative to their largest magnitude, rhs within 1e-4 of the
+# magnitude of its terms (``ba.rhs_term_scale``), two launches give
+# the same bits, and its LM solve lands within 1e-4 (poses) and 1e-3
+# (landmarks) of the plain LM loop on the same problem.
+
+
+def _score_image(device, h, w, seed, zero_frac=0.6):
+    rng = np.random.RandomState(seed)
+    s = rng.randint(1, 256, (h, w)) * (rng.rand(h, w) > zero_frac)
+    return from_array(torch.from_numpy(s.astype(np.uint8)).to(device),
+                      border=1)
+
+
+@pytest.mark.parametrize("h,w,bs,k", [(480, 640, 10, 512), (37, 53, 7, 64),
+                                      (128, 256, 1, 1000),
+                                      (30, 40, 10, 100)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_block_topk_kernel_bit_equal(cuda, h, w, bs, k, dtype):
+    """(128, 256, 1): nb = 32768, the most K3 takes; (30, 40, 10):
+    k > nb, padded."""
+    img = _score_image(cuda, h, w, h + bs)
+    img = from_array(img.interior.to(dtype), border=1)
+    got = fast._blockwise_keypoints(img, bs, k)
+    want = fast._blockwise_keypoints_plain(img, bs, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        fast._blockwise_keypoints(_score_image(cuda, 129, 256, 0), 1, 8)
+
+
+def test_block_topk_kernel_on_fast_scores(cuda):
+    frame = make_clip(640, 480, 1, seed=7)[0]
+    img = from_array(torch.from_numpy(frame).to(cuda), border=9,
+                     border_mode="mirror")
+    s = fast.fast9_score_image(img, 10)
+    got = fast._blockwise_keypoints(s, 10, 512)
+    want = fast._blockwise_keypoints_plain(s, 10, 512)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2].any())
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (61, 77), (96, 128)])
+def test_pyramid_decim_kernel(cuda, shape):
+    from vpp_tpu_torch.algorithms import pyramid as pyr
+    rng = np.random.RandomState(shape[0])
+    for kind in ("integer", "float"):
+        a = (rng.randint(0, 256, shape) if kind == "integer"
+             else rng.rand(*shape) * 255).astype(np.float32)
+        img = from_array(torch.from_numpy(a).to(cuda), border=9,
+                         border_mode="mirror")
+        shapes = pyr.level_shapes(shape, 3)
+        lvl_k = lvl_p = pyr.pyramid(img, 1, border=9)[0]
+        for i in range(1, 3):
+            lvl_k = pyr.decimate_level(lvl_k, *shapes[i], 9)
+            lvl_p = pyr.Image2d(
+                data=pyr.pad2d(pyr._binomial_decimate(lvl_p.interior,
+                                                      *shapes[i]),
+                               9, 9, 9, 9, "symmetric"), border=9)
+            if kind == "integer":
+                assert torch.equal(lvl_k.data, lvl_p.data), i
+            else:
+                rel = ((lvl_k.data - lvl_p.data).abs()
+                       / lvl_p.data.abs().clamp(min=1e-30))
+                assert float(rel.max()) <= 1e-6, (i, float(rel.max()))
+            lvl_k = pyr.Image2d(data=lvl_p.data.clone(), border=9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int32,
+                                   torch.float64, torch.int16])
+@pytest.mark.parametrize("channels", [0, 3])
+def test_patches_kernel_bit_equal(cuda, dtype, channels):
+    from vpp_tpu_torch.core import interp
+    rng = np.random.RandomState(channels)
+    shape = (498, 658) + ((channels,) if channels else ())
+    data = torch.from_numpy(rng.rand(*shape) * 255).to(dtype).to(cuda)
+    ctr = torch.from_numpy(rng.randint(-5, 670, (1024, 2))).to(cuda)
+    for size in (7, 9):
+        got = interp.extract_patches(data, ctr, size)
+        want = interp.extract_patches_at_tl_plain(
+            data, interp._clamp_tl(ctr - size // 2, 498, 658, size), size)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _ring_problem(device, n, m, seed, noise=0.5):
+    from vpp_tpu_torch.slam.ba import BATracks
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    rng = np.random.RandomState(seed)
+    xi = np.zeros((m, 6), np.float32)
+    xi[:, 3] = -np.linspace(0.0, 0.3, m)     # a 0.3 baseline
+    xi[:, :3] = rng.randn(m, 3) * 0.01
+    poses = se3_exp(torch.from_numpy(xi))
+    X = torch.from_numpy((rng.rand(n, 3) * [4, 3, 2] + [-2, -1.5, 4])
+                         .astype(np.float32))
+    intr = torch.tensor([640.0, 640.0, 320.0, 240.0])
+    pc = (poses[None, :, :3, :3] @ X[:, None, :, None])[..., 0] \
+        + poses[None, :, :3, 3]
+    uv = torch.stack([640 * pc[..., 1] / pc[..., 2] + 240,
+                      640 * pc[..., 0] / pc[..., 2] + 320], -1)
+    uv = uv + torch.from_numpy(rng.randn(n, m, 2).astype(np.float32) * noise)
+    valid = torch.from_numpy(rng.rand(n, m) > 0.3)
+    valid[:, 0] = valid[:, -1] = True       # two views a baseline apart
+    valid[n // 2:n // 2 + 5] = False        # unseen landmarks
+    Xn = X + torch.from_numpy(rng.randn(n, 3).astype(np.float32) * 0.02)
+    fixed = torch.zeros(m, dtype=torch.bool)
+    fixed[:2] = True
+    p = BATracks(poses=poses, landmarks=Xn,
+                 obs_pose=torch.arange(m, dtype=torch.int32)[None].expand(
+                     n, m).contiguous(),
+                 obs_uv=uv, obs_valid=valid, intrinsics=intr,
+                 fixed_poses=fixed)
+    return BATracks(*(t.to(device) for t in p))
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("n,m", [(1024, 6), (1000, 16), (37, 3)])
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ba_tracks_kernel_matches_plain(cuda, n, m, linalg):
+    from vpp_tpu_torch.slam import ba, ba_cuda
+    p = _ring_problem(cuda, n, m, n + m)
+    lam = torch.full((), 1e-4, device=cuda)
+    (S, rhs, cost), loc = ba_cuda.tracks_assemble(p, lam, 4.0, linalg)
+    (S2, rhs2, cost2), loc2 = ba_cuda.tracks_assemble(p, lam, 4.0, linalg)
+    (Sp, rhsp, costp), locp = ba._tracks_assemble(p, lam, 4.0, True, linalg)
+    assert torch.equal(S, S2) and torch.equal(rhs, rhs2)
+    assert torch.equal(cost, cost2)
+    assert _rel(S, Sp) <= 1e-4 and _rel(cost, costp) <= 1e-4
+    assert float((rhs - rhsp).abs().max()) <= 1e-4 * ba.rhs_term_scale(
+        p, 4.0, True)
+    for a, b in zip((loc[0], loc[1], loc[2]), (locp[0], locp[1], locp[2])):
+        assert _rel(a, b) <= 1e-4
+    assert torch.equal(loc[4], locp[4])
+    dp = ba._tracks_solve_poses(Sp, rhsp, p.fixed_poses, lam, linalg)
+    cand = ba.apply_pose_step(p.poses, dp, p.fixed_poses)
+    lms_k, c_k = ba_cuda.tracks_backsub_cost(p, locp, dp, cand, 4.0)
+    lms_p = p.landmarks + ba._tracks_backsub(locp, dp)
+    c_p = ba._tracks_cost(p._replace(poses=cand, landmarks=lms_p), 4.0, True)
+    assert _rel(lms_k, lms_p) <= 1e-5 and _rel(c_k, c_p) <= 1e-4
+    reset_launch_counts()
+    sk, ck = ba.ba_solve_tracks(p, iters=3, huber=4.0, lam0=1e-4,
+                                ring_layout=True, linalg=linalg)
+    assert launch_counts()["ba_tracks"] == 12
+    sp, cp = ba._lm_tracks(p, 3, 4.0, 1e-4, True, linalg, kernel=False)
+    assert float((sk.poses - sp.poses).abs().max()) <= 1e-4
+    assert float((sk.landmarks - sp.landmarks).abs().max()) <= 1e-3
+    assert _rel(ck, cp) <= 1e-4
+    with pytest.raises(NotImplementedError):
+        ba.ba_solve_tracks(p, iters=1, ring_layout=False)
+
+
+def test_ba_tracks_kernel_rejects_large_windows(cuda):
+    from vpp_tpu_torch.slam import ba_cuda
+    p = _ring_problem(cuda, 64, 17, 0)
+    with pytest.raises(ValueError):
+        ba_cuda.tracks_assemble(p, torch.ones((), device=cuda), 4.0, "chol")
+
+
+def test_slam_on_card_matches_cpu(cuda):
+    """A short SLAM run launches K1-K6 and tracks the plain CPU path."""
+    from vpp_tpu_torch.slam import pipeline as sp
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    intr = (160.0, 160.0, 80.0, 60.0)
+    pts = make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                     center=(0.8, 0.0, 5.0))
+    poses = camera_path(25, step=(0.06, 0.0, 0.0))
+    frames = render_frames(pts, poses, intr, (120, 160), seed=0)
+    cfg = sp.SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3,
+        min_parallax=2.0, max_reproj=2.0, history=16, enable_recovery=False,
+        tracker=VideoExtruderConfig(capacity=256, detect_k=128, nscales=3,
+                                    winsize=9, keypoint_spacing=8,
+                                    detector_period=1, detector_th=8))
+    boot = poses[[0, 4]]
+    reset_launch_counts()
+    sk = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cuda")
+    counts = launch_counts()
+    for name in ("flow_level", "fast9", "block_topk", "pyramid_decim",
+                 "patches", "ba_tracks"):
+        assert counts[name] > 0, name
+    sc = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cpu")
+    assert sk.n_keyframes == sc.n_keyframes == 7
+    ek, fk = sp.keyframe_trajectory(sk)
+    ec, fc = sp.keyframe_trajectory(sc)
+    ate_k = float(sp.ate_rmse(ek.cpu(), torch.from_numpy(
+        poses[fk.cpu().numpy()])))
+    ate_c = float(sp.ate_rmse(ec, torch.from_numpy(poses[fc.numpy()])))
+    assert ate_k < 0.065 and abs(ate_k - ate_c) < 0.01

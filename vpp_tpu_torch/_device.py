@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 
@@ -16,3 +18,22 @@ def resolve_device(device) -> torch.device:
             "vpp_tpu_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch path")
     return dev
+
+
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A small constant tensor on ``device``, made once per process and
+    then reused. On a card it is copied from pinned memory without
+    blocking the host, so no per-call copy stalls a step."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        host = torch.tensor(list(values), dtype=dtype)
+        if key[2].type == "cuda":
+            host = host.pin_memory()
+        t = host.to(key[2], non_blocking=True)
+        _CONSTANTS[key] = t
+    return t

@@ -10,7 +10,9 @@
 Pixel values are truncated to int32 before differencing, as the JAX package
 does. The score/detect stencil is kernel K2 (``kernels/csrc/fast9.cu``):
 ``fast9_cuda`` launches it for a CUDA image and takes the plain version
-``fast9_plain`` for a CPU one.
+``fast9_plain`` for a CPU one. The blockwise selection is kernel K3
+(``kernels/csrc/block_topk.cu``), ``_blockwise_keypoints``, with its plain
+version ``_blockwise_keypoints_plain``.
 """
 
 from __future__ import annotations
@@ -204,10 +206,14 @@ def select_keypoints(scores: Image2d, k: int
     return pos, score, valid
 
 
-def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused per-block argmax + top-K over the block winners, keys biased
-    by reverse block id so equal scores extract block-row-major."""
+def _blockwise_keypoints_plain(scores: Image2d, block_size: int, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of K3: per-block argmax, then the top k of the block
+    winners. Every key is distinct: ``score*nb + (nb-1-i)`` where the score
+    is positive (equal scores extract block-row-major, as in JAX) and
+    ``-1-i`` elsewhere (the invalid entries in ascending block order, as
+    ``lax.top_k`` orders its tied -1 keys), so every output is determined."""
     bs = block_size
     idx, vmax, nbr, nbc = _block_argmax(scores, bs)
     dev = idx.device
@@ -216,12 +222,11 @@ def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
     cand_score = vmax.clamp(min=0).reshape(-1)
     cand_pos = torch.stack([pos_r, pos_c], dim=-1).reshape(-1, 2)
     nb = cand_score.shape[0]
-    key = cand_score * nb + (nb - 1 - torch.arange(nb, dtype=torch.int32,
-                                                   device=dev))
+    ar = torch.arange(nb, dtype=torch.int32, device=dev)
+    key = torch.where(cand_score > 0, cand_score * nb + (nb - 1 - ar),
+                      -1 - ar)
     kk = min(k, nb)
-    topv, topi = torch.topk(torch.where(cand_score > 0, key,
-                                        torch.full_like(key, -1)),
-                            kk, sorted=True)
+    topv, topi = torch.topk(key, kk, sorted=True)
     valid = topv >= 0
     pos = cand_pos[topi].to(torch.int32)
     score = torch.where(valid, cand_score[topi], torch.zeros_like(topv))
@@ -233,6 +238,49 @@ def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
                                               device=dev)])
         valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
                                               device=dev)])
+    return pos, score, valid
+
+
+BLOCK_TOPK_MAX_BLOCKS = 32768   # every block key fits K3's shared memory
+
+
+def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 (``kernels/csrc/block_topk.cu``): fused per-block argmax + top-K
+    over the block winners on a CUDA score image, two launches; the plain
+    version on a CPU one. Returns (pos (k, 2) int32, score (k,) int32,
+    valid (k,) bool), bit-equal to the plain version."""
+    data = scores.data
+    if data.device.type == "cpu":
+        return _blockwise_keypoints_plain(scores, block_size, k)
+    h, w = scores.shape
+    bs = block_size
+    nb = -(-h // bs) * -(-w // bs)
+    if data.dim() != 2 or bs < 1 or k < 1 or h < 1 or w < 1:
+        raise ValueError(f"block_topk: needs a 2-D score image, block size "
+                         f">= 1 and k >= 1 (got {tuple(data.shape)}, {bs}, "
+                         f"{k})")
+    if nb > BLOCK_TOPK_MAX_BLOCKS:
+        raise ValueError(f"block_topk: {nb} blocks exceed the "
+                         f"{BLOCK_TOPK_MAX_BLOCKS} keys a CTA can stage")
+    if data.dtype not in (torch.uint8, torch.int32):
+        data = data.to(torch.int32)
+    data = data.contiguous()
+    require_cuda("block_topk", data, dtypes=(data.dtype,))
+    from ..kernels import _build
+    lib = _build.load()
+    dev = data.device
+    scratch = torch.empty((4 * nb,), dtype=torch.int32, device=dev)
+    pos = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    score = torch.empty((k,), dtype=torch.int32, device=dev)
+    valid = torch.empty((k,), dtype=torch.bool, device=dev)
+    code = lib.vpp_block_topk(
+        data.data_ptr(), data.element_size(), data.shape[1], scores.border,
+        h, w, bs, k, scratch.data_ptr(), scratch[nb:].data_ptr(),
+        scratch[3 * nb:].data_ptr(), pos.data_ptr(), score.data_ptr(),
+        valid.data_ptr(), stream_handle(data))
+    LAUNCHES["block_topk"] += 2
+    _build.check(code, "block_topk")
     return pos, score, valid
 
 

@@ -6,11 +6,14 @@
 * ``subsample2`` — stride-2 decimation at even coordinates.
 * level i+1 extent = ``1 + int(extent_i / factor)``.
 
-Float levels with factor 2 take the fused path: filter + decimate as two
-banded float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``), with the JAX
-package's documented 2-px rim behaviour (it mirrors the input, where the
-reference chain mirrors the filtered values between passes). The products
-run in full float32: TF32 is off in this package.
+Float levels with factor 2 take the fused path: filter + decimate, with
+the JAX package's documented 2-px rim behaviour (it mirrors the input,
+where the reference chain mirrors the filtered values between passes), and
+the level's symmetric border. On the card that is kernel K4
+(``kernels/csrc/pyramid_decim.cu``), one launch a level that writes the
+bordered buffer; its plain version is the JAX formulation, two banded
+float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``) and a pad, in full
+float32: TF32 is off in this package.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from ..core.border import fill_border_mirror
 from ..core.image import Image2d, from_array, pad2d
+from ..kernels import LAUNCHES, require_cuda, stream_handle
 
 _BINOMIAL = (1.0, 4.0, 6.0, 4.0, 1.0)
 
@@ -164,6 +168,37 @@ def _binomial_decimate(interior: torch.Tensor, oh: int,
     return (t @ bm.T).to(interior.dtype)
 
 
+def decimate_level(level: Image2d, oh: int, ow: int, border: int
+                   ) -> Image2d:
+    """The next float pyramid level, (oh, ow) with a ``border`` symmetric
+    pad: K4 on a CUDA level (one launch, computed in float32 and cast to the
+    level's dtype), the plain ``_binomial_decimate`` and a pad on a CPU
+    one."""
+    if level.data.device.type == "cpu":
+        return Image2d(data=pad2d(_binomial_decimate(level.interior, oh, ow),
+                                  border, border, border, border,
+                                  "symmetric"), border=border)
+    h, w = level.shape
+    if level.data.dim() != 2 or min(h, w) < 2 or min(oh, ow) < 1:
+        raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
+                         f"2x2, got {tuple(level.data.shape)}")
+    if 2 * oh > 2 * h - 1 or 2 * ow > 2 * w - 1:   # taps reach 2i + 2
+        raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
+                         f"decimation of ({h}, {w})")
+    src = level.data.to(torch.float32).contiguous()
+    require_cuda("pyramid_decim", src, dtypes=(torch.float32,))
+    from ..kernels import _build
+    lib = _build.load()
+    out = torch.empty((oh + 2 * border, ow + 2 * border),
+                      dtype=torch.float32, device=src.device)
+    code = lib.vpp_pyramid_decim(src.data_ptr(), src.shape[1], level.border,
+                                 h, w, out.data_ptr(), oh, ow, border,
+                                 stream_handle(src))
+    LAUNCHES["pyramid_decim"] += 1
+    _build.check(code, "pyramid_decim")
+    return Image2d(data=out.to(level.dtype), border=border)
+
+
 def pyramid(img: Image2d, nlevels: int, factor: float = 2.0,
             border: int = 3) -> Pyramid:
     """Build an ``nlevels`` pyramid from level-0 content; every level gets
@@ -174,11 +209,8 @@ def pyramid(img: Image2d, nlevels: int, factor: float = 2.0,
             and img.interior.dim() == 2):
         levels = [Image2d(data=pad2d(img.interior, b, b, b, b, "symmetric"),
                           border=b)]
-        cur = img.interior
         for i in range(1, nlevels):
-            cur = _binomial_decimate(cur, *shapes[i])
-            levels.append(Image2d(data=pad2d(cur, b, b, b, b, "symmetric"),
-                                  border=b))
+            levels.append(decimate_level(levels[-1], *shapes[i], b))
         return Pyramid(levels=tuple(levels), factor=factor)
     lvl0 = from_array(img.interior, border=b, border_mode="mirror")
     levels = [lvl0]

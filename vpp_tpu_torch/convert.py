@@ -5,7 +5,9 @@ this module needs neither framework's types from the other: build the
 mapping from a JAX state with ``np.asarray(getattr(state, name))`` per
 field (``keypoints`` of a ``VideoExtruderState`` as a nested mapping), and
 turn a port state back into one with the ``*_to_numpy`` functions.
-``frame_id`` may be a 0-d array or an int.
+``frame_id`` and ``n_keyframes`` may be 0-d arrays or ints; the port keeps
+them as host ints. A ``SlamState`` mapping nests its ``tracker`` the same
+way.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ._device import resolve_device
 from .algorithms.hough_tracker import HoughTrackerState
 from .algorithms.video_extruder import VideoExtruderState
 from .core.keypoints import Keypoints
+from .slam.pipeline import SlamState
 
 
 def _tensors(cls, m: Mapping[str, Any], dev: torch.device,
@@ -73,4 +76,21 @@ def hough_tracker_state_from_numpy(m: Mapping[str, Any],
 def hough_tracker_state_to_numpy(st: HoughTrackerState) -> Dict[str, Any]:
     out = _numpy(st, skip=("frame_id",))
     out["frame_id"] = np.int32(st.frame_id)
+    return out
+
+
+def slam_state_from_numpy(m: Mapping[str, Any], device="cuda") -> SlamState:
+    """Every ``SlamState`` field as a tensor on ``device``; ``tracker`` a
+    nested ``VideoExtruderState`` mapping, ``n_keyframes`` an int."""
+    dev = resolve_device(device)
+    fields = _tensors(SlamState, m, dev, skip=("tracker", "n_keyframes"))
+    return SlamState(
+        tracker=video_extruder_state_from_numpy(m["tracker"], dev),
+        n_keyframes=int(np.asarray(m["n_keyframes"])), **fields)
+
+
+def slam_state_to_numpy(st: SlamState) -> Dict[str, Any]:
+    out = _numpy(st, skip=("tracker", "n_keyframes"))
+    out["tracker"] = video_extruder_state_to_numpy(st.tracker)
+    out["n_keyframes"] = np.int32(st.n_keyframes)
     return out

@@ -9,6 +9,14 @@ show that it went through the kernels:
 * ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
   the volume launch, and the argmin/rejection/propagation launch)
 * ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc``
+* ``block_topk`` — K3, ``algorithms/fast.py:_blockwise_keypoints`` (two
+  per call: the block argmax launch, then the ranking launch)
+* ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_binomial_decimate``
+  (one per pyramid level above level 0)
+* ``patches``    — K5, ``core/interp.py:extract_patches_at_tl``
+* ``ba_tracks``  — K6, ``slam/ba_cuda.py`` (four per LM iteration:
+  assembly, reduction, back-substitution with the candidate's cost, and
+  that cost's reduction)
 """
 
 from __future__ import annotations
@@ -17,7 +25,9 @@ from typing import Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"fast9": 0, "flow_level": 0, "hough_acc": 0}
+LAUNCHES: Dict[str, int] = {"fast9": 0, "flow_level": 0, "hough_acc": 0,
+                            "block_topk": 0, "pyramid_decim": 0,
+                            "patches": 0, "ba_tracks": 0}
 
 
 def reset_launch_counts() -> None:

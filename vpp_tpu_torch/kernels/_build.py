@@ -26,19 +26,28 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpp_tpu_torch"
-SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu")
+SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu", "block_topk.cu",
+           "pyramid_decim.cu", "patches.cu", "ba_tracks.cu")
 TOOLKIT_ROOT = "/usr/local/cuda"       # the CUDA toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
     "vpp_fast9": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "vpp_flow_volume": [_P] * 4 + [_I] * 17 + [_P] * 4,
     "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 3,
     "vpp_hough_acc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "vpp_block_topk": [_P] + [_I] * 7 + [_P] * 7,
+    "vpp_pyramid_decim": [_P] + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "vpp_patches": [_P] + [_I] * 4 + [_P, _I, _I, _P, _P],
+    "vpp_ba_assemble": [_P] * 6 + [_F] + [_I] * 4 + [_P] * 6,
+    "vpp_ba_reduce": [_P, _I, _I, _P, _P],
+    "vpp_ba_backsub_cost": [_P] * 5 + [_F] + [_P] * 5 + [_I] * 2 + [_P] * 3,
+    "vpp_ba_backsub_threads": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
