@@ -22,16 +22,22 @@ Phases, in order; any failure exits nonzero and prints no result:
    calls, captured after warm-up; the profiler's device time where
    capture is refused; ``device_ms_by`` names which). K1 is timed per
    level and per frame. Then K3 block top-K bit-equal at the 640x480 SLAM
-   frame's score image and at 32768 blocks, the most K3 takes; K4
-   pyramid decimation bit-equal on integer-valued frames at 3 levels and
-   within 1e-6 relative on rendered float frames; K5 patches bit-equal at
-   1024 x 7x7 from the bordered VGA frame and on a 3-channel buffer; K6
-   window BA on a keyframe problem of a 24-frame SLAM warm-up run: S and
-   cost within 1e-4 of the plain assembly relative to their largest
-   magnitude, rhs within 1e-4 of the magnitude of its terms, two launches
-   bit-identical, and ``ba_solve_tracks`` within 1e-4 (poses) and 1e-3 px
-   (every landmark's reprojections into its observing keyframes) of the
-   plain LM loop on the same problem;
+   frame's score image (one launch a call), at 40000 and 82944 blocks
+   (a 4K frame at 10 px) and on images of long runs of tied scores, uint8
+   and int32, with its device time at each size; K4 pyramid decimation
+   bit-equal on integer-valued frames at 3 levels and within 1e-6 relative
+   on rendered float frames; K5 patches bit-equal at 1024 x 7x7 from the
+   bordered VGA frame and on a 3-channel buffer; K6, the whole window-BA
+   call in one launch, on a keyframe problem of a 24-frame SLAM warm-up
+   run: its trace's first-iteration S and cost within 1e-4 of the plain
+   assembly relative to their largest magnitude, rhs within 1e-4 of the
+   magnitude of its terms, the first pose solve's backward error within
+   1e-5, two launches bit-identical (trace included), and poses within
+   1e-4, every landmark's reprojections into its observing keyframes
+   within 1e-3 px and costs within 1e-4 of the plain LM loop on the same
+   problem; the same with every step rejected and with the pose
+   factorisation failing. K6 is timed per ``ba_solve_tracks`` call, beside
+   the parent tree's time of the same call (``ba_call_times.py``);
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
@@ -55,8 +61,9 @@ Phases, in order; any failure exits nonzero and prints no result:
 7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
-float32 outside the tensor cores, applied to every scalar operation, and
-34 TFLOP/s float64 for K6's float64 landmark algebra). K1's
+float32 outside the tensor cores, applied to every scalar operation; for
+K6, 34 TFLOP/s for its scalar float64 landmark algebra and 67 TFLOP/s for
+its Schur products on the float64 tensor cores). K1's
 bound counts its least work: both level buffers read once, flow and dist
 written once, and the separable window sums (one |diff| per region pixel
 and displacement, ws - 1 additions per column sum and per window). The
@@ -68,7 +75,6 @@ sums; the kernels line carries only ``bound_ms``.
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import sys
 import time
@@ -76,6 +82,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12       # float64 outside the tensor cores
+FP64_MMA_OPS_PER_S = 67e12   # float64 on the tensor cores
 W, H = 640, 480
 TRACK_FRAMES = 60
 CPU_CHECK_FRAMES = 10
@@ -84,6 +91,7 @@ SLAM_FRAMES = 240
 SLAM_WARMUP = 24
 SLAM_CPU_FRAMES = 40
 SLAM_CHECK_KF = 30
+SLAM_INTR = (640.0, 640.0, 320.0, 240.0)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -165,6 +173,38 @@ def bilinear_votes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
     return idx, torch.cat([a0 * (1 - fr), a0 * fr, a1 * (1 - fr), a1 * fr])
 
 
+def slam_config():
+    """The matched tracking+BA configuration of benchmarks/bench_slam.py at
+    640x480 (geometry vga_640x480, recovery off)."""
+    from vpp_tpu_torch.algorithms.video_extruder import VideoExtruderConfig
+    from vpp_tpu_torch.slam.pipeline import SlamConfig
+    return SlamConfig(
+        intrinsics=SLAM_INTR, keyframe_period=4, ring=6, ba_iters=3,
+        pnp_iters=6, min_parallax=2.0, max_reproj=2.0, prune_reproj=2.5,
+        history=64, lc_min_gap=60, enable_recovery=False,
+        tracker=VideoExtruderConfig(capacity=1024, detect_k=512, nscales=3,
+                                    winsize=9, keypoint_spacing=10,
+                                    detector_period=1, detector_th=10))
+
+
+def slam_clip(frames: int):
+    """``frames`` frames of the SLAM clip (2000-point cloud, lateral dolly,
+    seed 1) as a numpy array, and the ground-truth poses."""
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    cloud = make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
+                       center=(3.2, 0.0, 5.0))
+    gt_poses = camera_path(frames, step=(0.02, 0.0, 0.0))
+    return render_frames(cloud, gt_poses, SLAM_INTR, (H, W), seed=1,
+                         sigma=(1.2, 2.2)), gt_poses
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit-identical float32 tensors (NaN included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -197,8 +237,6 @@ def main() -> int:
     from vpp_tpu_torch.slam import ba_cuda as BC
     from vpp_tpu_torch.slam import pipeline as SP
     from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
-    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
-                                           render_frames)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -437,43 +475,51 @@ def main() -> int:
           f"(largest bound {float(k7_slack.max()):.3g})")
 
     # -- 3d-3g: the SLAM path's kernels, on the SLAM clip ---------------------
-    # the matched tracking+BA configuration of benchmarks/bench_slam.py at
-    # 640x480 (geometry vga_640x480, recovery off)
-    intr = (640.0, 640.0, 320.0, 240.0)
-    slam_cfg = SP.SlamConfig(
-        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3, pnp_iters=6,
-        min_parallax=2.0, max_reproj=2.0, prune_reproj=2.5, history=64,
-        lc_min_gap=60, enable_recovery=False,
-        tracker=VideoExtruderConfig(capacity=1024, detect_k=512, nscales=3,
-                                    winsize=9, keypoint_spacing=10,
-                                    detector_period=1, detector_th=10))
+    slam_cfg = slam_config()
     t0 = time.perf_counter()
-    cloud = make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
-                       center=(3.2, 0.0, 5.0))
-    gt_poses = camera_path(SLAM_FRAMES, step=(0.02, 0.0, 0.0))
-    slam_clip = render_frames(cloud, gt_poses, intr, (H, W), seed=1,
-                              sigma=(1.2, 2.2))
+    slam_frames, gt_poses = slam_clip(SLAM_FRAMES)
     print(f"phase 3: rendered {SLAM_FRAMES} SLAM frames in "
           f"{time.perf_counter() - t0:.1f} s")
     sb = max(3, slam_cfg.tracker.winsize)
-    sframe = from_array(torch.from_numpy(slam_clip[100]).to(dev), border=sb,
+    sframe = from_array(torch.from_numpy(slam_frames[100]).to(dev), border=sb,
                         border_mode="mirror")
 
     # -- 3d. K3 block top-K ---------------------------------------------------
     bs, kdet = slam_cfg.tracker.keypoint_spacing, slam_cfg.tracker.detect_k
     simg = F.fast9_score_image(sframe, slam_cfg.tracker.detector_th)
+    reset_launch_counts()
     k3_out = F._blockwise_keypoints(simg, bs, kdet)
+    check(launch_counts()["block_topk"] == 1, "K3 is not one launch a call")
     k3_plain = F._blockwise_keypoints_plain(simg, bs, kdet)
     check(all(torch.equal(a, b) for a, b in zip(k3_out, k3_plain)),
           "K3 block top-K differs from its plain version (640x480)")
     rng = np.random.RandomState(3)
-    big = from_array(torch.from_numpy(
-        (rng.randint(1, 256, (128, 256)) * (rng.rand(128, 256) > 0.5))
-        .astype(np.uint8)).to(dev), border=1)
-    check(all(torch.equal(a, b) for a, b in zip(
-        F._blockwise_keypoints(big, 1, 4096),
-        F._blockwise_keypoints_plain(big, 1, 4096))),
-          "K3 block top-K differs from its plain version at 32768 blocks")
+
+    def score_image(h, w, kind):
+        if kind == "random":
+            a = rng.randint(1, 256, (h, w)) * (rng.rand(h, w) > 0.5)
+        else:   # three scores: long runs of ties across the CTAs' ranges
+            a = rng.choice([0, 0, 7, 200], (h, w))
+        return from_array(torch.from_numpy(a.astype(np.uint8)).to(dev),
+                          border=1)
+
+    k3_sizes = {}
+    for h, w, b3, kind in ((400, 400, 2, "random"), (400, 400, 2, "ties"),
+                           (2160, 3840, 10, "random"),
+                           (2160, 3840, 10, "ties")):
+        big = score_image(h, w, kind)
+        nb3 = -(-h // b3) * -(-w // b3)
+        for dt in (torch.uint8, torch.int32):
+            img3 = from_array(big.interior.to(dt), border=1)
+            check(all(torch.equal(a, b) for a, b in zip(
+                F._blockwise_keypoints(img3, b3, 4096),
+                F._blockwise_keypoints_plain(img3, b3, 4096))),
+                  f"K3 differs from its plain version at {nb3} blocks "
+                  f"({kind}, {dt})")
+        if kind == "random":
+            k3_sizes[f"device_ms_{nb3}_blocks"] = device_ms(
+                torch, lambda big=big, b3=b3: F._blockwise_keypoints(
+                    big, b3, 4096))[0]
     nbr, nbc = -(-H // bs), -(-W // bs)
     nb = nbr * nbc
     pad_scores = PY.pad2d(simg.interior.to(torch.int32), 0, nbr * bs - H, 0,
@@ -495,14 +541,18 @@ def main() -> int:
             simg, bs, kdet), 50),
         library_ms=cuda_ms(torch, k3_library, 50))
     results["block_topk"]["bound_ms"], results["block_topk"]["bound_by"] = \
-        bound_ms(simg.data.numel() + kdet * 13, H * W + nb * math.log2(nb))
+        bound_ms(simg.data.numel() + kdet * 13, H * W + nb)
     results["block_topk"]["device_ms"], \
         results["block_topk"]["device_ms_by"] = device_ms(
             torch, lambda: F._blockwise_keypoints(simg, bs, kdet))
-    print(f"phase 3: K3 block top-K bit-equal ({int(k3_out[2].sum())} valid "
-          f"of {kdet}; and at 32768 blocks), "
+    results["block_topk"].update(k3_sizes)
+    print(f"phase 3: K3 block top-K bit-equal, one launch a call "
+          f"({int(k3_out[2].sum())} valid of {kdet}; and at 40000 and 82944 "
+          f"blocks, random and tied scores, uint8 and int32), "
           f"{results['block_topk']['ms']:.4f} ms as called, "
-          f"{results['block_topk']['device_ms']:.4f} ms on the device")
+          f"{results['block_topk']['device_ms']:.4f} ms on the device at "
+          f"{nb} blocks; " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in k3_sizes.items()))
 
     # -- 3e. K4 pyramid decimation, two levels a frame ------------------------
     shapes3 = level_shapes((H, W), 3)
@@ -605,7 +655,7 @@ def main() -> int:
           f"{results['patches']['device_ms']:.4f} ms on the device")
 
     # -- 3g. K6 window BA, on a keyframe problem of a SLAM warm-up run --------
-    slam_dev = torch.from_numpy(slam_clip).to(dev)  # upload outside timing
+    slam_dev = torch.from_numpy(slam_frames).to(dev)  # upload outside timing
     boot = gt_poses[[0, slam_cfg.keyframe_period]]
     problems = []
     solve = SP.ba_solve_tracks
@@ -623,85 +673,162 @@ def main() -> int:
     torch.cuda.synchronize()
     prob = problems[-1]
     n_lm, m_kf = prob.obs_valid.shape
-    lam = torch.full((), slam_cfg.ba_lam0, device=dev)
+    iters, lam0 = slam_cfg.ba_iters, slam_cfg.ba_lam0
     huber, linalg = slam_cfg.ba_huber, slam_cfg.ba_linalg
-    (S1, r1, c1), loc1 = BC.tracks_assemble(prob, lam, huber, linalg)
-    (S2, r2, c2), _ = BC.tracks_assemble(prob, lam, huber, linalg)
-    (Sp, rp, cp), locp = BA._tracks_assemble(prob, lam, huber, True, linalg)
-    torch.cuda.synchronize()
-    check(torch.equal(S1, S2) and torch.equal(r1, r2) and torch.equal(c1, c2),
-          "K6 is not bit-identical across two launches")
-    s_rel = float((S1 - Sp).abs().max()) / float(Sp.abs().max())
-    c_rel = float((c1 - cp).abs()) / float(cp.abs())
-    r_rel = float((r1 - rp).abs().max()) / BA.rhs_term_scale(prob, huber,
-                                                              True)
-    check(s_rel <= 1e-4 and c_rel <= 1e-4 and r_rel <= 1e-4,
-          f"K6 assembly off the plain one: S {s_rel}, rhs {r_rel} of its "
-          f"terms, cost {c_rel}")
-    dp = BA._tracks_solve_poses(Sp, rp, prob.fixed_poses, lam, linalg)
-    cand_poses = BA.apply_pose_step(prob.poses, dp, prob.fixed_poses)
-    sk, ck = BA.ba_solve_tracks(prob, iters=slam_cfg.ba_iters, huber=huber,
-                                lam0=slam_cfg.ba_lam0, ring_layout=True,
-                                linalg=linalg)
-    sp_, cp_ = BA._lm_tracks(prob, slam_cfg.ba_iters, huber,
-                             slam_cfg.ba_lam0, True, linalg, kernel=False)
-    pose_err = float((sk.poses - sp_.poses).abs().max())
-    lm_err = float((sk.landmarks - sp_.landmarks).abs().max())
-    # landmarks in the metric of their observations: the depth of a point
-    # seen with little parallax is not determined by the window, and there
-    # a 1e-7 change of the poses moves it along its ray by orders more
-    # without moving any of its reprojections
-    reproj_err = float((BA.track_residuals(sk, True) - BA.track_residuals(
-        sk._replace(landmarks=sp_.landmarks), True)).abs().max())
-    check(pose_err <= 1e-4 and reproj_err <= 1e-3,
-          f"K6 LM solve off the plain one: poses {pose_err}, landmark "
-          f"reprojections {reproj_err} px")
+    fixed = prob.fixed_poses
 
-    def k6_iteration():
-        _, loc = BC.tracks_assemble(prob, lam, huber, linalg)
-        BC.tracks_backsub_cost(prob, loc, dp, cand_poses, huber)
+    def k6_check(pr, lam_0, what):
+        """One fused call on ``pr``: one launch, the same bits twice, its
+        trace's first-iteration system against the plain assembly, its
+        first pose solve's backward error, and the result against the plain
+        LM loop. Returns (numbers, trace)."""
+        reset_launch_counts()
+        out = BC.lm_tracks(pr, iters, huber, lam_0, linalg)
+        check(launch_counts()["ba_tracks"] == 1,
+              f"K6 ({what}) is not one launch a call")
+        again = BC.lm_tracks(pr, iters, huber, lam_0, linalg)
+        check(all(same_bits(torch, a, b) for a, b in zip(
+            out[:3] + tuple(out[3]), again[:3] + tuple(again[3]))),
+              f"K6 ({what}) is not bit-identical across two launches")
+        poses, lms, costs, tr = out
+        lam = torch.full((), lam_0, device=dev)
+        (Sp, rp, cp), _ = BA._tracks_assemble(pr, lam, huber, True, linalg)
+        s_rel = float((tr.S - Sp).abs().max()) / float(Sp.abs().max())
+        c_rel = float((tr.cost - cp).abs()) / float(cp.abs())
+        r_rel = float((tr.rhs - rp).abs().max()) / BA.rhs_term_scale(
+            pr, huber, True)
+        check(s_rel <= 1e-4 and c_rel <= 1e-4 and r_rel <= 1e-4,
+              f"K6 ({what}) assembly off the plain one: S {s_rel}, rhs "
+              f"{r_rel} of its terms, cost {c_rel}")
+        # the first pose solve on the kernel's own system: the backward
+        # error of the Jacobi-scaled solve in float64, and dp against the
+        # plain solve (cuSOLVER) of the same system
+        D = 6 * m_kf
+        Sd = tr.S.reshape(D, D).double() + lam_0 * torch.eye(
+            D, dtype=torch.float64, device=dev)
+        fx = fixed[:, None].expand(m_kf, 6).reshape(-1)
+        Sd = torch.where(fx[:, None] | fx[None, :], torch.eye(
+            D, dtype=torch.float64, device=dev), Sd)
+        rhs_g = torch.where(fx, 0.0, tr.rhs.reshape(-1).double())
+        d = Sd.diagonal().clamp(min=1e-12).rsqrt()
+        Sps, y = Sd * d[:, None] * d[None, :], tr.dp[0].reshape(-1) / d
+        dp_plain = BA._tracks_solve_poses(tr.S, tr.rhs, fixed, lam, linalg)
+        failed = bool(torch.isnan(tr.dp[0]).all())
+        if failed:
+            back_err = dp_err = float("nan")
+            check(bool(torch.isnan(dp_plain).all()),
+                  f"K6 ({what}): the kernel's pose solve failed, the plain "
+                  "one did not")
+        else:
+            back_err = float((Sps @ y - d * rhs_g).abs().max() / (
+                Sps.abs().sum(1).max() * y.abs().max()
+                + (d * rhs_g).abs().max()))
+            dp_err = float((tr.dp[0] - dp_plain).abs().max()
+                           / dp_plain.abs().max())
+            check(back_err <= 1e-5, f"K6 ({what}) pose solve backward error "
+                  f"{back_err}")
+        sp_, cp_ = BA._lm_tracks(pr, iters, huber, lam_0, True, linalg,
+                                 kernel=False)
+        sk = pr._replace(poses=poses, landmarks=lms)
+        pose_err = float((poses - sp_.poses).abs().max())
+        lm_err = float((lms - sp_.landmarks).abs().max())
+        # landmarks in the metric of their observations: the depth of a
+        # point seen with little parallax is not determined by the window,
+        # and there a 1e-7 change of the poses moves it along its ray by
+        # orders more without moving any of its reprojections
+        reproj_err = float((BA.track_residuals(sk, True) - BA.track_residuals(
+            sk._replace(landmarks=sp_.landmarks), True)).abs().max())
+        cost_err = float((costs - cp_).abs().max() / cp_.abs().max())
+        check(pose_err <= 1e-4 and reproj_err <= 1e-3 and cost_err <= 1e-4,
+              f"K6 ({what}) LM solve off the plain one: poses {pose_err}, "
+              f"landmark reprojections {reproj_err} px, costs {cost_err}")
+        check(torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
+                                             tr.cost_before)),
+              f"K6 ({what}): costs are not the accepted ones")
+        return dict(S_rel_err=s_rel, rhs_err_of_terms=r_rel,
+                    cost_rel_err=c_rel, pose_solve_backward_err=back_err,
+                    dp_rel_err_vs_plain_solve=dp_err, lm_pose_err=pose_err,
+                    lm_landmark_err=lm_err, lm_reprojection_err_px=reproj_err,
+                    lm_cost_rel_err=cost_err,
+                    accept=[float(a) for a in tr.accept.cpu()]), tr
+
+    k6_main, tr_main = k6_check(prob, lam0, "warm-up window")
+    # every step rejected: the first free pose's observations displaced
+    # 2000 px, then one plain LM step; from there each candidate costs ~40%
+    # more (a CPU run of this window), and lam grows
+    free = int(torch.nonzero(~fixed)[0])
+    uv6 = prob.obs_uv.clone()
+    uv6[:, free] += 2000.0
+    rej, _ = BA._lm_tracks(prob._replace(obs_uv=uv6), 1, huber, 1e-8, True,
+                           linalg, kernel=False)
+    k6_rej, tr_rej = k6_check(rej, 1e-8, "rejected")
+    check(not bool((tr_rej.accept != 0).any())
+          and bool((tr_rej.lam[1:] > tr_rej.lam[:-1]).all())
+          and bool((tr_rej.cost_before == tr_rej.cost).all()),
+          "K6: the rejected-step case accepted a step")
+    # the pose factorisation fails: no damping and no observation of the
+    # first free pose, so S has a zero row and column and dp is NaN
+    valid6 = prob.obs_valid.clone()
+    valid6[:, free] = False
+    k6_fail, tr_fail = k6_check(prob._replace(obs_valid=valid6), 0.0,
+                                "failed factorisation")
+    check(not bool((tr_fail.accept != 0).any())
+          and bool(torch.isnan(tr_fail.dp).all()),
+          "K6: the failed-factorisation case took a step")
+
+    def k6_call():
+        return BA.ba_solve_tracks(prob, iters=iters, huber=huber, lam0=lam0,
+                                  ring_layout=True, linalg=linalg)
 
     def k6_plain():
-        _, loc = BA._tracks_assemble(prob, lam, huber, True, linalg)
-        lms = prob.landmarks + BA._tracks_backsub(loc, dp)
-        BA._tracks_cost(prob._replace(poses=cand_poses, landmarks=lms),
-                        huber, True)
+        return BA._lm_tracks(prob, iters, huber, lam0, True, linalg,
+                             kernel=False)
 
-    # float32 Jacobians (~60 operations an observation), float64 landmark
-    # algebra and Schur terms (216 a pair of observations of one landmark,
-    # ~486 an observation), the latter counted at the float64 rate
+    # per iteration, each part at its rate and the sum expressed in float32
+    # operations: float32 Jacobians (~60 operations an observation); the
+    # scalar float64 landmark algebra (~486 an observation); the Schur
+    # product W_k U_l^T (216 a pair of observations of one landmark, k <= l:
+    # S is symmetric) on the float64 tensor cores; the (6M)^3 / 3 of the
+    # float32 pose factorisation
     cnt = prob.obs_valid.sum(1).double()
-    k6_ops = float(60 * cnt.sum() + (216 * (cnt * cnt).sum()
-                                     + 486 * cnt.sum())
-                   * SCALAR_OPS_PER_S / FP64_OPS_PER_S)
+    D = 6 * m_kf
+    k6_ops = iters * float(
+        60 * cnt.sum() + D ** 3 / 3
+        + 486 * cnt.sum() * SCALAR_OPS_PER_S / FP64_OPS_PER_S
+        + 216 * (cnt * (cnt + 1) / 2).sum()
+        * SCALAR_OPS_PER_S / FP64_MMA_OPS_PER_S)
     k6_bytes = (4 * (2 * m_kf * 16 + n_lm * 3 * 2 + n_lm * m_kf * 2 + 4
-                     + m_kf * 6 + (6 * m_kf) ** 2 + 6 * m_kf + 2)
-                + n_lm * m_kf)
+                     + iters + D * D + D + 1 + iters * (D + 4))
+                + n_lm * m_kf + m_kf)
     results["ba_tracks"] = dict(
         name="ba_tracks", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/ba_tracks.cu",
-        replaces="vpp_tpu/slam/ba.py:453",
-        max_abs_err=float((S1 - Sp).abs().max()), S_rel_err=s_rel,
-        rhs_err_of_terms=r_rel, cost_rel_err=c_rel, lm_pose_err=pose_err,
-        lm_landmark_err=lm_err, lm_reprojection_err_px=reproj_err,
-        problem=dict(n=n_lm, m=m_kf,
-                                             obs=int(cnt.sum()),
-                                             seen_once=int(
-                                                 (cnt == 1).sum())),
-        ms=cuda_ms(torch, k6_iteration, 100),
-        plain_ms=cuda_ms(torch, k6_plain, 20), library_ms=None)
+        replaces="vpp_tpu/slam/ba.py:568", per="ba_solve_tracks call",
+        max_abs_err=float(k6_main["lm_pose_err"]), **k6_main,
+        rejected_case=k6_rej, failed_case=k6_fail,
+        problem=dict(n=n_lm, m=m_kf, iters=iters, obs=int(cnt.sum()),
+                     seen_once=int((cnt == 1).sum())),
+        ms=cuda_ms(torch, k6_call, 100), plain_ms=cuda_ms(torch, k6_plain, 20),
+        library_ms=None)
     results["ba_tracks"]["bound_ms"], results["ba_tracks"]["bound_by"] = \
         bound_ms(k6_bytes, k6_ops)
     results["ba_tracks"]["device_ms"], \
-        results["ba_tracks"]["device_ms_by"] = device_ms(torch, k6_iteration)
+        results["ba_tracks"]["device_ms_by"] = device_ms(torch, k6_call)
     print(f"phase 3: K6 window BA on keyframe {len(problems)} of the warm-up "
-          f"(N {n_lm}, M {m_kf}, {int(cnt.sum())} observations): S off by "
-          f"{s_rel:.3g}, rhs {r_rel:.3g} of its terms, cost {c_rel:.3g}; "
-          f"bit-identical twice; LM poses {pose_err:.3g}, landmarks "
-          f"{lm_err:.3g} ({reproj_err:.3g} px in their observations); one "
-          f"LM iteration (4 launches) "
+          f"(N {n_lm}, M {m_kf}, {int(cnt.sum())} observations, {iters} "
+          f"iterations in one launch): S off by {k6_main['S_rel_err']:.3g}, "
+          f"rhs {k6_main['rhs_err_of_terms']:.3g} of its terms, cost "
+          f"{k6_main['cost_rel_err']:.3g}; pose solve backward error "
+          f"{k6_main['pose_solve_backward_err']:.3g} (dp off cuSOLVER's by "
+          f"{k6_main['dp_rel_err_vs_plain_solve']:.3g}); bit-identical twice; "
+          f"LM poses {k6_main['lm_pose_err']:.3g}, landmarks "
+          f"{k6_main['lm_landmark_err']:.3g} "
+          f"({k6_main['lm_reprojection_err_px']:.3g} px in their "
+          f"observations), accepts {k6_main['accept']}; rejected-step and "
+          f"failed-factorisation cases agree with the plain loop; per call "
           f"{results['ba_tracks']['ms']:.4f} ms as called, "
-          f"{results['ba_tracks']['device_ms']:.4f} ms on the device")
+          f"{results['ba_tracks']['device_ms']:.4f} ms on the device, bound "
+          f"{results['ba_tracks']['bound_ms']:.5f} ms")
 
     # -- 4. tracker main path -------------------------------------------------
     clip_dev = torch.from_numpy(clip).to(dev)   # upload outside the timing
@@ -799,6 +926,10 @@ def main() -> int:
         check(slam_counts[key] > 0, f"the SLAM path did not launch {key}")
     check(sst.n_keyframes == SLAM_FRAMES // slam_cfg.keyframe_period,
           f"{sst.n_keyframes} keyframes, expected 60")
+    check(slam_counts["ba_tracks"] == sst.n_keyframes,
+          f"K6 launched {slam_counts['ba_tracks']} times, not once a keyframe")
+    check(slam_counts["block_topk"] == SLAM_FRAMES,
+          f"K3 launched {slam_counts['block_topk']} times, not once a frame")
     check(slam_lms > 200, f"only {slam_lms} landmarks")
     check(slam_ate < 0.10, f"SLAM ATE {slam_ate} >= 0.10")
     check(bool(torch.isfinite(est).all()), "non-finite keyframe poses")
@@ -828,7 +959,7 @@ def main() -> int:
     # the whole path, card against the plain CPU path
     ga = SP.slam_run(slam_dev[:SLAM_CPU_FRAMES], slam_cfg,
                      bootstrap_poses=boot, device="cuda")
-    ca = SP.slam_run(slam_clip[:SLAM_CPU_FRAMES], slam_cfg,
+    ca = SP.slam_run(slam_frames[:SLAM_CPU_FRAMES], slam_cfg,
                      bootstrap_poses=boot, device="cpu")
 
     def ate_of(st):

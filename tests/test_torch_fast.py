@@ -143,6 +143,39 @@ def test_blockwise_keypoints_all_invalid_order():
         _eq(a, b)
 
 
+def _score_image(shape, kind, seed):
+    """uint8 score images: random scores on 40% of the pixels; three
+    distinct scores (long runs of ties); one score everywhere."""
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        s = rng.randint(1, 256, shape) * (rng.rand(*shape) > 0.6)
+    elif kind == "ties":
+        s = rng.choice([0, 0, 7, 200], shape)
+    else:
+        s = np.full(shape, 9)
+    return s.astype(np.uint8)
+
+
+@pytest.mark.parametrize("shape,block,k,kind", [
+    ((400, 400), 2, 4096, "random"),     # 40000 blocks
+    ((400, 400), 2, 4096, "ties"),
+    ((300, 200), 1, 2048, "constant"),   # 60000 tied blocks
+    ((96, 128), 1, 20000, "ties"),       # k > nb: padded
+])
+def test_blockwise_keypoints_many_blocks(shape, block, k, kind):
+    """K3's plain version beyond the 32768 blocks that K3 once took, and on
+    score images whose equal scores run across long block ranges: every
+    slot equals JAX's."""
+    s = _score_image(shape, kind, shape[0] + k)
+    js = j_from_array(jnp.asarray(s), border=1)
+    ts = t_from_array(s, border=1)
+    got = tf._blockwise_keypoints(ts, block, k)
+    for a, b in zip(jf._blockwise_keypoints(js, block, k), got):
+        _eq(a, b)
+    nb = -(-shape[0] // block) * -(-shape[1] // block)
+    assert got[2].shape == (k,) and int(got[2].sum()) <= min(k, nb)
+
+
 def test_maxima_filters_bit_equal():
     ji, ti = _pair(6)
     js = jf.fast9_score_image(ji, 8)

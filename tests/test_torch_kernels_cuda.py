@@ -219,35 +219,48 @@ def test_trackers_on_card_match_cpu(cuda):
 #
 # K3 and K5 are bit-equal to their plain versions; K4 is bit-equal on
 # integer-valued frames (every partial sum is exact) and within 1e-6
-# relative on float frames; K6's S and cost are within 1e-4 of the plain
-# assembly relative to their largest magnitude, rhs within 1e-4 of the
-# magnitude of its terms (``ba.rhs_term_scale``), two launches give
-# the same bits, and its LM solve lands within 1e-4 (poses) and 1e-3
-# (landmarks) of the plain LM loop on the same problem.
+# relative on float frames; K6's first-iteration S and cost (its trace) are
+# within 1e-4 of the plain assembly relative to their largest magnitude,
+# rhs within 1e-4 of the magnitude of its terms (``ba.rhs_term_scale``),
+# two launches give the same bits, and its LM solve lands within 1e-4
+# (poses) and 1e-3 px (landmark reprojections) of the plain LM loop on the
+# same problem.
 
 
-def _score_image(device, h, w, seed, zero_frac=0.6):
+def _score_image(device, h, w, seed, zero_frac=0.6, kind="random"):
+    """Random scores on (1 - zero_frac) of the pixels; or three distinct
+    scores ("ties": long runs of equal scores across the CTAs' ranges); or
+    one score everywhere ("constant")."""
     rng = np.random.RandomState(seed)
-    s = rng.randint(1, 256, (h, w)) * (rng.rand(h, w) > zero_frac)
+    if kind == "random":
+        s = rng.randint(1, 256, (h, w)) * (rng.rand(h, w) > zero_frac)
+    elif kind == "ties":
+        s = rng.choice([0, 0, 7, 200], (h, w))
+    else:
+        s = np.full((h, w), 9)
     return from_array(torch.from_numpy(s.astype(np.uint8)).to(device),
                       border=1)
 
 
-@pytest.mark.parametrize("h,w,bs,k", [(480, 640, 10, 512), (37, 53, 7, 64),
-                                      (128, 256, 1, 1000),
-                                      (30, 40, 10, 100)])
+@pytest.mark.parametrize("h,w,bs,k,kind", [
+    (480, 640, 10, 512, "random"), (37, 53, 7, 64, "random"),
+    (128, 256, 1, 1000, "random"), (129, 256, 1, 8, "random"),
+    (400, 400, 2, 4096, "random"), (400, 400, 2, 4096, "ties"),
+    (2160, 3840, 10, 2048, "random"), (2160, 3840, 10, 2048, "ties"),
+    (300, 200, 1, 2048, "constant"), (30, 40, 10, 100, "random")])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
-def test_block_topk_kernel_bit_equal(cuda, h, w, bs, k, dtype):
-    """(128, 256, 1): nb = 32768, the most K3 takes; (30, 40, 10):
-    k > nb, padded."""
-    img = _score_image(cuda, h, w, h + bs)
+def test_block_topk_kernel_bit_equal(cuda, h, w, bs, k, kind, dtype):
+    """nb = 3072 (the SLAM frame), 32768 and 33024 (the old cap and just
+    above), 40000, 82944 (a 4K frame at 10 px), 60000 tied blocks; (30, 40,
+    10): k > nb, padded. One launch per call."""
+    img = _score_image(cuda, h, w, h + bs, kind=kind)
     img = from_array(img.interior.to(dtype), border=1)
+    reset_launch_counts()
     got = fast._blockwise_keypoints(img, bs, k)
+    assert launch_counts()["block_topk"] == 1
     want = fast._blockwise_keypoints_plain(img, bs, k)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    with pytest.raises(ValueError):
-        fast._blockwise_keypoints(_score_image(cuda, 129, 256, 0), 1, 8)
 
 
 def test_block_topk_kernel_on_fast_scores(cuda):
@@ -338,46 +351,92 @@ def _rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("n,m", [(1024, 6), (1000, 16), (37, 3)])
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _check_fused(p, iters, lam0, linalg, huber=4.0):
+    """K6's one launch against the plain LM loop on ``p``; returns the
+    kernel's trace."""
+    from vpp_tpu_torch.slam import ba, ba_cuda
+    reset_launch_counts()
+    out = ba_cuda.lm_tracks(p, iters, huber, lam0, linalg)
+    assert launch_counts()["ba_tracks"] == 1
+    again = ba_cuda.lm_tracks(p, iters, huber, lam0, linalg)
+    for a, b in zip(out[:3] + tuple(out[3]), again[:3] + tuple(again[3])):
+        assert _same_bits(a, b)
+    poses, lms, costs, tr = out
+    lam = torch.full((), lam0, device=p.poses.device)
+    (Sp, rhsp, costp), _ = ba._tracks_assemble(p, lam, huber, True, linalg)
+    assert _rel(tr.S, Sp) <= 1e-4 and _rel(tr.cost, costp) <= 1e-4
+    assert float((tr.rhs - rhsp).abs().max()) <= 1e-4 * ba.rhs_term_scale(
+        p, huber, True)
+    sp, cp = ba._lm_tracks(p, iters, huber, lam0, True, linalg,
+                           kernel=False)
+    assert float((poses - sp.poses).abs().max()) <= 1e-4
+    sk = p._replace(poses=poses, landmarks=lms)
+    reproj = (ba.track_residuals(sk, True) - ba.track_residuals(
+        sk._replace(landmarks=sp.landmarks), True)).abs().max()
+    assert float(reproj) <= 1e-3
+    assert _rel(costs, cp) <= 1e-4
+    assert torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
+                                          tr.cost_before))
+    return tr
+
+
+@pytest.mark.parametrize("n,m", [(1024, 6), (1000, 16), (37, 3), (500, 8)])
 @pytest.mark.parametrize("linalg", ["chol", "lu"])
 def test_ba_tracks_kernel_matches_plain(cuda, n, m, linalg):
+    """The fused LM solve (3 iterations, one launch) against the plain
+    loop, and its trace's first-iteration S, rhs and cost against the plain
+    assembly; ``ba_solve_tracks`` makes the same one launch. The windows
+    take each size of the kernel's Cholesky staging and both tile sizes."""
     from vpp_tpu_torch.slam import ba, ba_cuda
     p = _ring_problem(cuda, n, m, n + m)
-    lam = torch.full((), 1e-4, device=cuda)
-    (S, rhs, cost), loc = ba_cuda.tracks_assemble(p, lam, 4.0, linalg)
-    (S2, rhs2, cost2), loc2 = ba_cuda.tracks_assemble(p, lam, 4.0, linalg)
-    (Sp, rhsp, costp), locp = ba._tracks_assemble(p, lam, 4.0, True, linalg)
-    assert torch.equal(S, S2) and torch.equal(rhs, rhs2)
-    assert torch.equal(cost, cost2)
-    assert _rel(S, Sp) <= 1e-4 and _rel(cost, costp) <= 1e-4
-    assert float((rhs - rhsp).abs().max()) <= 1e-4 * ba.rhs_term_scale(
-        p, 4.0, True)
-    for a, b in zip((loc[0], loc[1], loc[2]), (locp[0], locp[1], locp[2])):
-        assert _rel(a, b) <= 1e-4
-    assert torch.equal(loc[4], locp[4])
-    dp = ba._tracks_solve_poses(Sp, rhsp, p.fixed_poses, lam, linalg)
-    cand = ba.apply_pose_step(p.poses, dp, p.fixed_poses)
-    lms_k, c_k = ba_cuda.tracks_backsub_cost(p, locp, dp, cand, 4.0)
-    lms_p = p.landmarks + ba._tracks_backsub(locp, dp)
-    c_p = ba._tracks_cost(p._replace(poses=cand, landmarks=lms_p), 4.0, True)
-    assert _rel(lms_k, lms_p) <= 1e-5 and _rel(c_k, c_p) <= 1e-4
+    tr = _check_fused(p, 3, 1e-4, linalg)
+    assert float(tr.accept[0]) == 1.0      # the last steps may be noise
     reset_launch_counts()
     sk, ck = ba.ba_solve_tracks(p, iters=3, huber=4.0, lam0=1e-4,
                                 ring_layout=True, linalg=linalg)
-    assert launch_counts()["ba_tracks"] == 12
-    sp, cp = ba._lm_tracks(p, 3, 4.0, 1e-4, True, linalg, kernel=False)
-    assert float((sk.poses - sp.poses).abs().max()) <= 1e-4
-    assert float((sk.landmarks - sp.landmarks).abs().max()) <= 1e-3
-    assert _rel(ck, cp) <= 1e-4
+    assert launch_counts()["ba_tracks"] == 1
+    poses, lms, costs, _ = ba_cuda.lm_tracks(p, 3, 4.0, 1e-4, linalg)
+    assert _same_bits(sk.poses, poses) and _same_bits(sk.landmarks, lms)
+    assert _same_bits(ck, costs)
     with pytest.raises(NotImplementedError):
         ba.ba_solve_tracks(p, iters=1, ring_layout=False)
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+@pytest.mark.parametrize("case", ["rejected", "failed"])
+def test_ba_tracks_kernel_branches(cuda, case, linalg):
+    """Every step rejected (landmarks thrown 2 units off: each candidate
+    costs more), and the pose factorisation failing (no damping, no
+    observation of free pose 2: dp is NaN): costs hold the first cost,
+    lam grows, and nothing moves, as in the plain loop."""
+    p = _ring_problem(cuda, 1024, 6, 7)
+    lam0 = 1e-3
+    if case == "rejected":
+        rng = np.random.RandomState(5)
+        p = p._replace(landmarks=p.landmarks + torch.from_numpy(
+            rng.randn(1024, 3).astype(np.float32) * 2.0).to(cuda))
+    else:
+        valid = p.obs_valid.clone()
+        valid[:, 2] = False
+        p, lam0 = p._replace(obs_valid=valid), 0.0
+    tr = _check_fused(p, 3, lam0, linalg)
+    assert not bool((tr.accept != 0).any())
+    assert bool((tr.cost_before == tr.cost).all())
+    assert bool(torch.isnan(tr.dp).all()) == (case == "failed")
+    if case == "rejected":
+        assert bool((tr.lam[1:] > tr.lam[:-1]).all())
 
 
 def test_ba_tracks_kernel_rejects_large_windows(cuda):
     from vpp_tpu_torch.slam import ba_cuda
     p = _ring_problem(cuda, 64, 17, 0)
     with pytest.raises(ValueError):
-        ba_cuda.tracks_assemble(p, torch.ones((), device=cuda), 4.0, "chol")
+        ba_cuda.lm_tracks(p, 1, 4.0, 1e-3, "chol")
 
 
 def test_slam_on_card_matches_cpu(cuda):

@@ -145,28 +145,58 @@ def test_tracks_assemble(linalg, ring):
 
 
 @pytest.mark.parametrize("linalg", ["chol", "lu"])
-@pytest.mark.parametrize("case", ["perturbed", "landmarks", "masked"])
+@pytest.mark.parametrize("case", ["perturbed", "landmarks", "masked",
+                                  "ring16", "rejected", "failed"])
 def test_ba_solve_tracks(linalg, case):
-    """The problems of tests/test_slam.py:51-98 in the tracks layout. Costs
-    are compared down to float32's noise floor of the first cost."""
-    prob = (_synthetic_tracks(n=64, perturb="landmarks")
-            if case == "landmarks" else _synthetic_tracks())
+    """The problems of tests/test_slam.py:51-98 in the tracks layout, a
+    ring of M = 16 poses (the card's ``MAX_POSES``), and the LM loop's two
+    other branches: every step rejected (landmarks thrown 2 units off, some
+    behind the cameras: each candidate's cost is larger), and the pose
+    factorisation failing (no damping and no observation of free pose 2:
+    S has a zero row and column, so dp is NaN and the step is rejected).
+    Costs are compared down to float32's noise floor of the first cost."""
+    iters, lam0 = 6, 1e-3
+    if case == "landmarks":
+        prob = _synthetic_tracks(n=64, perturb="landmarks")
+    elif case == "ring16":
+        prob = _synthetic_tracks(m=16, n=96)
+    else:
+        prob = _synthetic_tracks()
     if case == "masked":
         prob["obs_uv"][::2, 2] += 500.0
         prob["obs_valid"][::2, 2] = False
+    elif case == "rejected":
+        rng = np.random.RandomState(5)
+        prob["landmarks"] = (prob["landmarks"] + rng.randn(
+            *prob["landmarks"].shape) * 2.0).astype(np.float32)
+        iters = 3
+    elif case == "failed":
+        prob["obs_valid"][:, 2] = False
+        iters, lam0 = 3, 0.0
     jp, tp = _both(prob)
     js, jc = jax.jit(lambda p: jba.ba_solve_tracks(
-        p, iters=6, lam0=1e-3, ring_layout=True, linalg=linalg))(jp)
-    ts, tc = tba.ba_solve_tracks(tp, iters=6, lam0=1e-3, ring_layout=True,
-                                 linalg=linalg)
+        p, iters=iters, lam0=lam0, ring_layout=True, linalg=linalg))(jp)
+    ts, tc = tba.ba_solve_tracks(tp, iters=iters, lam0=lam0,
+                                 ring_layout=True, linalg=linalg)
     np.testing.assert_allclose(ts.poses.numpy(), np.asarray(js.poses),
                                atol=1e-4)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4,
                                atol=1e-6 * float(jc[0]))
-    if case == "perturbed":
+    if case in ("perturbed", "ring16"):
         assert float(tc[-1]) < float(tc[0]) * 1e-3
+    if case in ("rejected", "failed"):
+        # every step rejected: the costs hold the first cost, nothing moves
+        c0 = float(tba._tracks_cost(tp, 4.0, True))
+        np.testing.assert_allclose(tc.numpy(), c0, rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(jc), c0, rtol=1e-6)
+        assert torch.equal(ts.poses, tp.poses)
+        assert torch.equal(ts.landmarks, tp.landmarks)
+        lam = torch.full((), lam0)
+        (S, rhs, _), _ = tba._tracks_assemble(tp, lam, 4.0, True, linalg)
+        dp = tba._tracks_solve_poses(S, rhs, tp.fixed_poses, lam, linalg)
+        assert bool(torch.isnan(dp).all()) == (case == "failed")
     # the generic layout takes the same steps
-    gs, gc = tba.ba_solve_tracks(tp, iters=6, lam0=1e-3, linalg=linalg)
+    gs, gc = tba.ba_solve_tracks(tp, iters=iters, lam0=lam0, linalg=linalg)
     np.testing.assert_allclose(gs.poses.numpy(), ts.poses.numpy(), atol=1e-4)
 
 

@@ -241,28 +241,32 @@ def _blockwise_keypoints_plain(scores: Image2d, block_size: int, k: int
     return pos, score, valid
 
 
-BLOCK_TOPK_MAX_BLOCKS = 32768   # every block key fits K3's shared memory
+# the JAX key score*nb + (nb-1-i) of a score up to 255 fits int32
+BLOCK_TOPK_MAX_BLOCKS = 2 ** 31 // 256
 
 
 def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 (``kernels/csrc/block_topk.cu``): fused per-block argmax + top-K
-    over the block winners on a CUDA score image, two launches; the plain
-    version on a CPU one. Returns (pos (k, 2) int32, score (k,) int32,
-    valid (k,) bool), bit-equal to the plain version."""
+    """K3 (``kernels/csrc/block_topk.cu``): per-block argmax + top-K over
+    the block winners on a CUDA score image, one cooperative launch (a
+    stable counting sort over the 256 scores); the plain version on a CPU
+    one. Returns (pos (k, 2) int32, score (k,) int32, valid (k,) bool),
+    bit-equal to the plain version. Scores must lie in 0..255 (the uint8
+    score image; an int32 image with a larger block maximum makes the
+    kernel trap, a CUDA error at the next synchronisation)."""
     data = scores.data
     if data.device.type == "cpu":
         return _blockwise_keypoints_plain(scores, block_size, k)
     h, w = scores.shape
     bs = block_size
-    nb = -(-h // bs) * -(-w // bs)
     if data.dim() != 2 or bs < 1 or k < 1 or h < 1 or w < 1:
         raise ValueError(f"block_topk: needs a 2-D score image, block size "
                          f">= 1 and k >= 1 (got {tuple(data.shape)}, {bs}, "
                          f"{k})")
+    nb = -(-h // bs) * -(-w // bs)
     if nb > BLOCK_TOPK_MAX_BLOCKS:
-        raise ValueError(f"block_topk: {nb} blocks exceed the "
-                         f"{BLOCK_TOPK_MAX_BLOCKS} keys a CTA can stage")
+        raise ValueError(f"block_topk: {nb} blocks overflow the int32 key "
+                         f"(at most {BLOCK_TOPK_MAX_BLOCKS})")
     if data.dtype not in (torch.uint8, torch.int32):
         data = data.to(torch.int32)
     data = data.contiguous()
@@ -270,16 +274,18 @@ def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
     from ..kernels import _build
     lib = _build.load()
     dev = data.device
-    scratch = torch.empty((4 * nb,), dtype=torch.int32, device=dev)
+    # the winners' scores and indices, and a (CTAs, 256) histogram table
+    # for at most one CTA per 64 blocks
+    scratch = torch.empty((2 * nb + 256 * -(-nb // 64),), dtype=torch.int32,
+                          device=dev)
     pos = torch.empty((k, 2), dtype=torch.int32, device=dev)
     score = torch.empty((k,), dtype=torch.int32, device=dev)
     valid = torch.empty((k,), dtype=torch.bool, device=dev)
     code = lib.vpp_block_topk(
         data.data_ptr(), data.element_size(), data.shape[1], scores.border,
-        h, w, bs, k, scratch.data_ptr(), scratch[nb:].data_ptr(),
-        scratch[3 * nb:].data_ptr(), pos.data_ptr(), score.data_ptr(),
-        valid.data_ptr(), stream_handle(data))
-    LAUNCHES["block_topk"] += 2
+        h, w, bs, k, scratch.data_ptr(), scratch.numel(), pos.data_ptr(),
+        score.data_ptr(), valid.data_ptr(), stream_handle(data))
+    LAUNCHES["block_topk"] += 1
     _build.check(code, "block_topk")
     return pos, score, valid
 

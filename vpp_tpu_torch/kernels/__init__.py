@@ -9,14 +9,13 @@ show that it went through the kernels:
 * ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
   the volume launch, and the argmin/rejection/propagation launch)
 * ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc``
-* ``block_topk`` — K3, ``algorithms/fast.py:_blockwise_keypoints`` (two
-  per call: the block argmax launch, then the ranking launch)
+* ``block_topk`` — K3, ``algorithms/fast.py:_blockwise_keypoints`` (one
+  cooperative launch per call)
 * ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_binomial_decimate``
   (one per pyramid level above level 0)
 * ``patches``    — K5, ``core/interp.py:extract_patches_at_tl``
-* ``ba_tracks``  — K6, ``slam/ba_cuda.py`` (four per LM iteration:
-  assembly, reduction, back-substitution with the candidate's cost, and
-  that cost's reduction)
+* ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch
+  per ``ba_solve_tracks`` call, every LM iteration included)
 """
 
 from __future__ import annotations

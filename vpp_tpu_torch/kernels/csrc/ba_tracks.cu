@@ -1,57 +1,122 @@
-// K6 — window bundle adjustment on the ring layout: the landmark Schur
-// assembly, its block-ordered reduction, and back-substitution with the
-// candidate step's cost.
+// K6 — the whole window bundle adjustment on the ring layout: every
+// Levenberg-Marquardt iteration of ba_solve_tracks (Schur assembly, pose
+// solve, pose step, back-substitution, candidate cost, accept test and
+// damping update) in one thread-block-cluster launch.
 //
-// Replaces vpp_tpu/slam/ba.py:_tracks_assemble (:453) with _inv3 (:46),
+// Replaces vpp_tpu/slam/ba.py:ba_solve_tracks (:568, its LM scan :646) with
+// _tracks_assemble (:453), _inv3 (:46), _tracks_solve_poses (:530),
 // _tracks_backsub (:558) and _tracks_cost (:445), ring layout
-// (obs_pose[n, j] == j, K == M). On the TPU the per-landmark algebra was a
-// chain of dense einsums over (N, K, 6, 3) tensors so that it rides the
-// matrix unit. Here one block owns a tile of landmarks and keeps every
-// intermediate in shared memory:
-//   launch A (ba_assemble): per (landmark, observation) the residual, the
-//     analytic Jacobians Jp (2x6) and Jl (2x3) of proj_jacobians (with its
-//     |z| < 1e-6 -> 1e-6 clamp), the Huber weight and the obs_valid mask;
-//     per landmark Hll, bl, seen, Hll + (lam + 1e-6) I (I where unseen), its
+// (obs_pose[n, j] == j, K == M). On the TPU each stage was a chain of dense
+// einsums over (N, K, 6, 3) tensors for the matrix unit, and the pose solve
+// went to the library. Here one cluster of kCluster CTAs runs the LM loop
+// on-chip, each CTA owning a contiguous range of landmarks:
+//   assembly — the CTA walks its range in tiles of 32 landmarks (16 above
+//     8 poses): per observation the residual, the analytic Jacobians Jp
+//     (2x6) and Jl (2x3) of proj_jacobians (with its |z| < 1e-6 -> 1e-6
+//     clamp), the Huber weight, the obs_valid mask and the cost term; per
+//     landmark Hll, bl, seen, Hll + (lam + 1e-6) I (I where unseen) and its
 //     inverse (_inv3's scaled closed-form Cholesky, or a pivoted 3x3
 //     Gauss-Jordan for linalg="lu"); per observation U = Jp_w^T Jl and
-//     W = U Hll_inv. Hll_inv, bl, U and seen go to device memory for
-//     launch C. Then each thread owns fixed entries of the block's partial
-//     S (M,6,M,6: Hpp on the diagonal blocks minus sum W_k U_l^T), rhs
-//     (bp minus sum W_k bl) and cost, and walks the block's landmarks in
-//     order;
-//   launch B (ba_reduce): one thread per entry sums the partials in block
-//     order. No float atomics: the LM accept test compares two costs, so
+//     W = U Hll_inv. Hll_inv, bl, U and seen go to device memory (L2) for
+//     the back-substitution. The tile's Schur product sum W_k U_l^T runs on
+//     the float64 tensor cores (mma m8n8k4, each warp its 8x8 blocks of
+//     S); Hpp, rhs (bp minus sum W_k bl) and the cost are summed by
+//     threads that own fixed entries. All go into the CTA's partial S
+//     (M,6,M,6), rhs and cost in shared memory;
+//   reduction — after cluster.sync() each CTA sums its slice of the entries
+//     over the ranks' partials in rank order through distributed shared
+//     memory and writes them, rounded to float32, into rank 0's pose-solve
+//     workspace. No float atomics: the accept test compares two costs, so
 //     they must be the same bits on every run;
-//   launch C (ba_backsub_cost): per landmark dl = Hll_inv (bl - sum_k U_k^T
-//     dp_k) (zero where unseen), the candidate X + dl, and its Huber cost
-//     under the candidate poses, as per-block partials that launch B sums.
+//   pose solve — rank 0, in shared memory, as _tracks_solve_poses: lam I,
+//     identity rows and columns for fixed poses, Jacobi scaling, then a
+//     float32 Cholesky (linalg="chol": the block, one barrier a column,
+//     with the forward substitution carried along) or LU with partial
+//     pivoting ("lu": one warp), and the back substitution in one warp. A
+//     non-positive Cholesky pivot or an exactly zero LU pivot makes dp NaN,
+//     as chol_solve/lu_solve do, and the step is rejected. Then
+//     se3_exp(dp_k) @ T_k for every free pose;
+//   back-substitution and cost — every CTA copies dp and the candidate
+//     poses from rank 0, computes dl = Hll_inv (bl - sum_k U_k^T dp_k)
+//     (zero where unseen) and the candidate's Huber cost for its landmarks;
+//     rank 0 sums the ranks' costs in rank order, accepts where new < old
+//     (NaN rejects), and every CTA takes the candidate where accepted and
+//     updates lam = accept ? max(0.3 lam, 1e-8) : min(4 lam, 1e4).
+// The kernel also writes a trace: the first iteration's S, rhs and cost,
+// and per iteration dp, lam, the cost, the candidate's cost and accept.
 //
 // Precision, as in the plain version (slam/ba.py): residuals and Jacobians
 // in float32; each landmark's block algebra (Hll, its damped inverse, U, W,
 // its Schur terms and back-substitution) in float64, and S, rhs and the
-// costs summed in float64 and rounded to float32. A landmark seen once, or
-// with little parallax, has a damped Hll past float32's range of condition
-// numbers, where float32 Schur terms are rounding noise.
+// costs summed in float64 and rounded to float32; the pose solve and the
+// pose step in float32.
 //
-// Bound on the H100: at N = 1024, M = 6 about 4 M float64 multiply-adds for
-// the Schur blocks (~0.24 us at 34 TFLOP/s) and 0.6 MB moved (~0.18 us):
-// each launch sits at launch latency, far above either.
+// Bound on the H100: at N = 1024, M = 6, 3 iterations about 12 M float64
+// multiply-adds (~0.7 us at 34 TFLOP/s) and 0.1 MB moved. The launch sits
+// at latency: each CTA walks its tiles one after another with few warps,
+// rank 0's pose factorisation takes a block barrier a column, and every
+// iteration passes five cluster barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBacksubThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPoses = 16;
+// CTAs in the cluster: 16, above the portable 8 (16 ran the SLAM window's
+// call faster than 8 on the H100)
+constexpr int kCluster = 16;
 
-// shared memory of a block of L landmarks and M poses: float64 U, W (per
-// observation), Hll_inv, bl (per landmark); float32 Jp, Jl, r, w
-__host__ __device__ inline int smem_doubles(int L, int m) {
+// landmarks per assembly tile: 32 up to 8 poses, 16 above (the tile and
+// the partial sums then fit a CTA's shared memory up to kMaxPoses)
+__host__ __device__ inline int tile_landmarks(int m) {
+  return m <= 8 ? 32 : 16;
+}
+
+// the assembly tile of L landmarks and M poses: float64 U, W (per
+// observation), Hll_inv, bl (per landmark); float32 Jp, Jl, r, w and the
+// cost terms
+__host__ __device__ inline int tile_doubles(int m) {
+  const int L = tile_landmarks(m);
   return L * m * (18 + 18) + L * (9 + 3);
 }
-__host__ __device__ inline int smem_bytes(int L, int m) {
-  return smem_doubles(L, m) * 8 + L * m * (12 + 6 + 2 + 1) * 4;
+__host__ __device__ inline size_t tile_bytes(int m) {
+  return (size_t)tile_doubles(m) * 8
+         + (size_t)tile_landmarks(m) * m * (12 + 6 + 2 + 1 + 1) * 4;
 }
+// rank 0's pose-solve workspace (aliases its tile): float32 A (D*D), rhs
+// (D), cost (1) — the layout of the partial sums — then the scales, the
+// scaled rhs, the solution and the Cholesky column scales (D each) and the
+// scaled system with rows padded to D + 1 (no bank conflicts down a column)
+__host__ __device__ inline size_t solve_bytes(int m) {
+  const int D = 6 * m;
+  return (size_t)(D * D + D + 1 + 4 * D + D * (D + 1)) * 4;
+}
+__host__ __device__ inline size_t region_bytes(int m) {
+  const size_t t = tile_bytes(m), s = solve_bytes(m);
+  return ((t > s ? t : s) + 15) / 16 * 16;
+}
+__host__ __device__ inline int n_entries(int m) {
+  return 36 * m * m + 6 * m + 1;
+}
+
+// Per-CTA state. Each CTA keeps its own copy of the poses and of lam and
+// applies the same updates, so the copies stay bit-identical.
+struct LmState {
+  double warp_cost[kWarps];
+  double cost_part;                 // this CTA's share of the candidate cost
+  float poses[kMaxPoses * 16];      // the current iterate
+  float cand[kMaxPoses * 16];       // the candidate (rank 0 computes it)
+  float dp[kMaxPoses * 6];
+  float lam;
+  float cost;                       // rank 0: the current iterate's cost
+  int accept;                       // rank 0: this iteration's decision
+  unsigned char fixed[kMaxPoses];
+};
 
 // _inv3: scaled closed-form Cholesky inverse of a damped SPD 3x3 matrix.
 __device__ void inv3_chol(const double* A, double* out) {
@@ -142,30 +207,35 @@ __device__ __forceinline__ float huber_weight(float r0, float r1,
   return nrm <= huber ? 1.0f : huber / fmaxf(nrm, 1e-12f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-ba_assemble_kernel(const float* __restrict__ poses,
-                   const float* __restrict__ lms,
-                   const float* __restrict__ obs_uv,
-                   const unsigned char* __restrict__ obs_valid,
-                   const float* __restrict__ intr,
-                   const float* __restrict__ lam_p, float huber, int n, int m,
-                   int L, int use_lu, double* __restrict__ hinv_out,
-                   double* __restrict__ bl_out, double* __restrict__ u_out,
-                   unsigned char* __restrict__ seen_out,
-                   double* __restrict__ partials) {
-  extern __shared__ double smd[];
-  const int LM = L * m;
-  double* sU = smd;              // (L*M, 6, 3)
-  double* sW = sU + LM * 18;     // (L*M, 6, 3)
-  double* sHinv = sW + LM * 18;  // (L, 3, 3)
-  double* sbl = sHinv + L * 9;   // (L, 3)
-  float* sJp = (float*)(smd + smem_doubles(L, m));  // (L*M, 2, 6)
-  float* sJl = sJp + LM * 12;    // (L*M, 2, 3)
-  float* sr = sJl + LM * 6;      // (L*M, 2)
-  float* sw = sr + LM * 2;       // (L*M)
-  const int n0 = blockIdx.x * L;
-  const float fx = intr[0], fy = intr[1], cx = intr[2], cy = intr[3];
-  const float lam = *lam_p;
+struct Problem {
+  const float* obs_uv;
+  const unsigned char* obs_valid;
+  float fx, fy, cx, cy, huber;
+  int m, use_lu;
+};
+
+// One tile of landmarks [n0, n0 + L) clipped at `hi`: the landmark
+// blocks go to device memory and the tile's Schur terms are added to the
+// CTA's partial sums `part` (each thread its own entries, in tile order).
+__device__ void assemble_tile(const Problem& pb, const LmState& st,
+                              const float* __restrict__ lms, int n0, int hi,
+                              float lam, unsigned char* smem,
+                              double* __restrict__ part,
+                              double* __restrict__ hinv_out,
+                              double* __restrict__ bl_out,
+                              double* __restrict__ u_out,
+                              unsigned char* __restrict__ seen_out) {
+  const int m = pb.m, L = tile_landmarks(m), LM = L * m;
+  double* sU = (double*)smem;           // (L*M, 6, 3)
+  double* sW = sU + LM * 18;            // (L*M, 6, 3)
+  double* sHinv = sW + LM * 18;         // (L, 3, 3)
+  double* sbl = sHinv + L * 9;          // (L, 3)
+  float* sJp = (float*)(sbl + L * 3);   // (L*M, 2, 6)
+  float* sJl = sJp + LM * 12;           // (L*M, 2, 3)
+  float* sr = sJl + LM * 6;             // (L*M, 2)
+  float* sw = sr + LM * 2;              // (L*M)
+  float* sc = sw + LM;                  // (L*M) cost terms
+  const float fx = pb.fx, fy = pb.fy, cx = pb.cx, cy = pb.cy;
 
   // 1a. residual, Jacobians and weight per observation
   for (int o = threadIdx.x; o < LM; o += blockDim.x) {
@@ -175,8 +245,8 @@ ba_assemble_kernel(const float* __restrict__ poses,
     for (int i = 0; i < 12; ++i) Jp[i] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 6; ++i) Jl[i] = 0.0f;
-    if (gn < n) {
-      const float* T = poses + 16 * k;
+    if (gn < hi) {
+      const float* T = st.poses + 16 * k;
       const float X0 = lms[3 * gn], X1 = lms[3 * gn + 1], X2 = lms[3 * gn + 2];
       const float p0 = T[0] * X0 + T[1] * X1 + T[2] * X2 + T[3];
       const float p1 = T[4] * X0 + T[5] * X1 + T[6] * X2 + T[7];
@@ -186,9 +256,9 @@ ba_assemble_kernel(const float* __restrict__ poses,
       const float u = fx * p0 * iz + cx;
       const float v = fy * p1 * iz + cy;
       const size_t ob = (size_t)gn * m + k;
-      r0 = v - obs_uv[2 * ob];
-      r1 = u - obs_uv[2 * ob + 1];
-      wt = obs_valid[ob] ? huber_weight(r0, r1, huber) : 0.0f;
+      r0 = v - pb.obs_uv[2 * ob];
+      r1 = u - pb.obs_uv[2 * ob + 1];
+      wt = pb.obs_valid[ob] ? huber_weight(r0, r1, pb.huber) : 0.0f;
       // dproj rows: d(row)/d(pc) and d(col)/d(pc)
       const float d[2][3] = {{0.0f, fy * iz, -fy * p1 * iz * iz},
                              {fx * iz, 0.0f, -fx * p0 * iz * iz}};
@@ -214,6 +284,7 @@ ba_assemble_kernel(const float* __restrict__ poses,
     sr[2 * o] = r0;
     sr[2 * o + 1] = r1;
     sw[o] = wt;
+    sc[o] = wt * (r0 * r0 + r1 * r1);   // float32 per observation
   }
   __syncthreads();
 
@@ -232,7 +303,8 @@ ba_assemble_kernel(const float* __restrict__ poses,
         for (int i = 0; i < 3; ++i) {
           const double jw = (double)sJl[6 * o + 3 * rr + i] * wt;
 #pragma unroll
-          for (int j = 0; j < 3; ++j) H[3 * i + j] += jw * sJl[6 * o + 3 * rr + j];
+          for (int j = 0; j < 3; ++j)
+            H[3 * i + j] += jw * sJl[6 * o + 3 * rr + j];
           b[i] -= jw * sr[2 * o + rr];
         }
       }
@@ -249,13 +321,13 @@ ba_assemble_kernel(const float* __restrict__ poses,
       b[0] = b[1] = b[2] = 0.0;
     }
     double Hi[9];
-    if (use_lu) inv3_lu(H, Hi); else inv3_chol(H, Hi);
+    if (pb.use_lu) inv3_lu(H, Hi); else inv3_chol(H, Hi);
 #pragma unroll
     for (int i = 0; i < 9; ++i) sHinv[9 * nl + i] = Hi[i];
 #pragma unroll
     for (int i = 0; i < 3; ++i) sbl[3 * nl + i] = b[i];
     const int gn = n0 + nl;
-    if (gn < n) {
+    if (gn < hi) {
 #pragma unroll
       for (int i = 0; i < 9; ++i) hinv_out[9 * (size_t)gn + i] = Hi[i];
 #pragma unroll
@@ -267,7 +339,7 @@ ba_assemble_kernel(const float* __restrict__ poses,
 
   // 1c. U = Jp_w^T Jl and W = U Hll_inv per observation
   for (int o = threadIdx.x; o < LM; o += blockDim.x) {
-    const int nl = o / m, gn = n0 + nl;
+    const int nl = o / m;
     const double wt = sw[o];
     const double* Hi = sHinv + 9 * nl;
     double U[18];
@@ -289,186 +361,553 @@ ba_assemble_kernel(const float* __restrict__ poses,
     }
 #pragma unroll
     for (int i = 0; i < 18; ++i) sU[18 * o + i] = U[i];
-    if (gn < n) {
-#pragma unroll
-      for (int i = 0; i < 18; ++i) u_out[18 * ((size_t)gn * m + o % m) + i] = U[i];
+  }
+  __syncthreads();
+  // the tile's U to device memory in one coalesced copy
+  {
+    const int count = 18 * m * min(L, hi - n0);
+    double* dst = u_out + 18 * (size_t)n0 * m;
+    for (int idx = threadIdx.x; idx < count; idx += blockDim.x)
+      dst[idx] = sU[idx];
+  }
+
+  // 2a. S -= sum over the tile's landmarks of W_k U_l^T, an (D x 3L) by
+  // (3L x D) product, on the float64 tensor cores: each warp owns 8x8
+  // blocks of S and steps through the 3L inner terms four at a time
+  // (mma m8n8k4). Rows and columns past D, and masked observations (their
+  // U and W are zero), contribute zeros.
+  const int D = 6 * m, nb8 = (D + 7) / 8, K3 = 3 * L;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int fr = lane >> 2, fc = lane & 3;
+  for (int blk = wid; blk < nb8 * nb8; blk += blockDim.x >> 5) {
+    const int r = 8 * (blk / nb8) + fr;      // this lane's row of A
+    const int c = 8 * (blk % nb8) + fr;      // this lane's column of B
+    const double* wrow = sW + 18 * (r / 6) + 3 * (r % 6);
+    const double* ucol = sU + 18 * (c / 6) + 3 * (c % 6);
+    double d0 = 0.0, d1 = 0.0;
+    for (int kk = fc; kk < K3; kk += 4) {
+      const int off = 18 * m * (kk / 3) + kk % 3;   // landmark kk/3, term kk%3
+      const double a = r < D ? wrow[off] : 0.0;
+      const double bb = c < D ? ucol[off] : 0.0;
+      asm volatile(
+          "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+          "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+          : "+d"(d0), "+d"(d1) : "d"(a), "d"(bb));
+    }
+    const int row = 8 * (blk / nb8) + fr, col = 8 * (blk % nb8) + 2 * fc;
+    if (row < D) {
+      if (col < D) part[row * D + col] -= d0;
+      if (col + 1 < D) part[row * D + col + 1] -= d1;
     }
   }
   __syncthreads();
 
-  // 2. the block's partial S, rhs and cost; each thread owns fixed entries
-  const int ns = m * m * 36, nr = m * 6, P = ns + nr + 1;
-  for (int e = threadIdx.x; e < P; e += blockDim.x) {
-    double acc = 0.0;
-    if (e < ns) {
-      const int k = e / (36 * m), rem = e % (36 * m);
-      const int i = rem / (6 * m), rem2 = rem % (6 * m);
-      const int l = rem2 / 6, q = rem2 % 6;
-      if (k == l) {
-        for (int nl = 0; nl < L; ++nl) {
-          const int o = nl * m + k;
-          const double wt = sw[o];
-          acc += (double)sJp[12 * o + i] * wt * sJp[12 * o + q]
-                 + (double)sJp[12 * o + 6 + i] * wt * sJp[12 * o + 6 + q];
-        }
-      }
-      for (int nl = 0; nl < L; ++nl) {
-        const double* Wk = sW + 18 * (nl * m + k) + 3 * i;
-        const double* Ul = sU + 18 * (nl * m + l) + 3 * q;
-        acc -= Wk[0] * Ul[0] + Wk[1] * Ul[1] + Wk[2] * Ul[2];
-      }
-    } else if (e < ns + nr) {
-      const int k = (e - ns) / 6, i = (e - ns) % 6;
+  // 2b. Hpp on the diagonal blocks (a task owns six entries of a row) and
+  // rhs (one entry a task), each walking the tile's landmarks in order;
+  // masked observations are skipped (their weight is zero). Then warp 0
+  // sums the cost terms (a fixed pattern of lanes and shuffles).
+  const int nT = 2 * D;
+  for (int t = threadIdx.x; t < nT; t += blockDim.x) {
+    if (t < D) {
+      const int k = t / 6, i = t % 6;
+      double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
       for (int nl = 0; nl < L; ++nl) {
         const int o = nl * m + k;
         const double wt = sw[o];
+        if (wt == 0.0) continue;
+        const double a0 = (double)sJp[12 * o + i] * wt;
+        const double a1 = (double)sJp[12 * o + 6 + i] * wt;
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          acc[q] += a0 * sJp[12 * o + q] + a1 * sJp[12 * o + 6 + q];
+      }
+      double* dst = part + t * D + 6 * k;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) dst[q] += acc[q];
+    } else if (t < 2 * D) {
+      const int k = (t - D) / 6, i = (t - D) % 6;
+      double acc = 0.0;
+      for (int nl = 0; nl < L; ++nl) {
+        const int o = nl * m + k;
+        const double wt = sw[o];
+        if (wt == 0.0) continue;
+        const double* Wk = sW + 18 * o + 3 * i;
+        const double* bn = sbl + 3 * nl;
         acc -= (double)sJp[12 * o + i] * wt * sr[2 * o]
                + (double)sJp[12 * o + 6 + i] * wt * sr[2 * o + 1];
+        acc -= Wk[0] * bn[0] + Wk[1] * bn[1] + Wk[2] * bn[2];
       }
-      for (int nl = 0; nl < L; ++nl) {
-        const double* Wk = sW + 18 * (nl * m + k) + 3 * i;
-        const double* b = sbl + 3 * nl;
-        acc -= Wk[0] * b[0] + Wk[1] * b[1] + Wk[2] * b[2];
-      }
-    } else {
-      for (int o = 0; o < LM; ++o)  // float32 per observation, as the plain
-        acc += sw[o] * (sr[2 * o] * sr[2 * o] + sr[2 * o + 1] * sr[2 * o + 1]);
+      part[D * D + (t - D)] += acc;
     }
-    partials[(size_t)blockIdx.x * P + e] = acc;
   }
+  if (wid == 0) {
+    double acc = 0.0;
+    for (int o = lane; o < LM; o += 32) acc += sc[o];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) part[D * D + D] += acc;
+  }
+  __syncthreads();
 }
 
-__global__ void ba_reduce_kernel(const double* __restrict__ partials,
-                                 int nblocks, int p, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= p) return;
-  double acc = 0.0;
-  for (int b = 0; b < nblocks; ++b) acc += partials[(size_t)b * p + e];
-  out[e] = (float)acc;
+// The owner lane's value of row k, where a lane keeps rows lane + 32 s.
+__device__ __forceinline__ float row_of(const float (&v)[3], int k) {
+  const int s = k >> 5;
+  const float mine = s == 0 ? v[0] : (s == 1 ? v[1] : v[2]);
+  return __shfl_sync(0xffffffffu, mine, k & 31);
 }
 
-__global__ void __launch_bounds__(kBacksubThreads)
-ba_backsub_cost_kernel(const float* __restrict__ cand_poses,
-                       const float* __restrict__ lms,
-                       const float* __restrict__ obs_uv,
-                       const unsigned char* __restrict__ obs_valid,
-                       const float* __restrict__ intr, float huber,
-                       const double* __restrict__ hinv,
-                       const double* __restrict__ bl,
-                       const double* __restrict__ U,
-                       const unsigned char* __restrict__ seen,
-                       const float* __restrict__ dp, int n, int m,
-                       float* __restrict__ cand_lms,
-                       double* __restrict__ partials) {
-  __shared__ double sc[kBacksubThreads];
-  const int gn = blockIdx.x * blockDim.x + threadIdx.x;
-  double cost = 0.0;
-  if (gn < n) {
-    float X[3] = {lms[3 * gn], lms[3 * gn + 1], lms[3 * gn + 2]};
-    if (seen[gn]) {
-      double udp[3] = {0.0, 0.0, 0.0};
-      for (int k = 0; k < m; ++k) {
-        const double* Uk = U + 18 * ((size_t)gn * m + k);
+// float32 Cholesky of the D x D matrix P (row stride ld) and the solution
+// x of P x = b, by the whole block: right-looking, one barrier a column.
+// At column k the warps update the rows of the trailing lower triangle,
+// and b (the forward substitution), by l_ik l_jk with
+// l_ik = P[i][k] / sqrt(P[k][k]); column k itself is left
+// unscaled and its scale kept in `rs`. Then warp 0 substitutes backwards
+// in registers (lane owns rows lane, lane + 32, lane + 64; D <= 96). False
+// (uniformly) where a pivot is not positive, as LAPACK's potrf reports it.
+template <int kRows, int kCols>
+__device__ bool chol_solve_block(float* P, int ld, float* b, float* rs,
+                                 float* x, int D) {
+  // warp w updates rows w + kWarps r (r < kRows), its lanes columns
+  // lane + 32 c (c < kCols): every operand of a column step is loaded
+  // before the first store, so the loads of a thread overlap
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int k = 0; k < D; ++k) {
+    const float p = P[k * ld + k];
+    if (!(p > 0.0f)) return false;
+    const float il = 1.0f / sqrtf(p);
+    const float yk = b[k] * il;
+    float lc[kCols], lr[kRows], v[kRows][kCols];
 #pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          const double d = dp[6 * k + i];
+    for (int c = 0; c < kCols; ++c) {
+      const int j = lane + 32 * c;
+      lc[c] = (j > k && j < D) ? P[j * ld + k] * il : 0.0f;
+    }
 #pragma unroll
-          for (int j = 0; j < 3; ++j) udp[j] += Uk[3 * i + j] * d;
+    for (int r = 0; r < kRows; ++r) {
+      const int i = wid + kWarps * r;
+      lr[r] = (i > k && i < D) ? P[i * ld + k] * il : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int j = lane + 32 * c;
+        v[r][c] = (i > k && i < D && j > k && j <= i) ? P[i * ld + j] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = wid + kWarps * r;
+      if (!(i > k && i < D)) continue;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int j = lane + 32 * c;
+        if (j > k && j <= i) P[i * ld + j] = v[r][c] - lr[r] * lc[c];
+      }
+      if (lane == 0) b[i] -= lr[r] * yk;
+    }
+    if (threadIdx.x == 0) {
+      rs[k] = il;
+      x[k] = yk;                            // y, until the back substitution
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {                   // L^T x = y
+    float y[3], ri[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int i = lane + 32 * s;
+      y[s] = i < D ? x[i] : 0.0f;
+      ri[s] = i < D ? rs[i] : 0.0f;
+    }
+    __syncwarp();
+    for (int j = D - 1; j >= 0; --j) {
+      const float xj = row_of(y, j) * rs[j];
+      if (lane == (j & 31)) x[j] = xj;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int i = lane + 32 * s;
+        if (i < j) y[s] -= (P[j * ld + i] * ri[s]) * xj;
+      }
+    }
+  }
+  __syncthreads();
+  return true;
+}
+
+// One warp: float32 LU with partial pivoting (the first largest |pivot|)
+// in place in P (row stride ld), rows of b swapped alongside, and the
+// solution x of P x = b. False where a pivot is exactly zero, as LAPACK's
+// getrf reports it.
+__device__ bool lu_solve_warp(float* P, int ld, float* b, float* x, int D) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; k < D; ++k) {
+    float best = -1.0f;
+    int bi = D;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int i = lane + 32 * s;
+      if (i >= k && i < D) {
+        const float v = fabsf(P[i * ld + k]);
+        if (v > best) {
+          best = v;
+          bi = i;
         }
       }
-      double rhs[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) rhs[j] = bl[3 * (size_t)gn + j] - udp[j];
-      const double* Hi = hinv + 9 * (size_t)gn;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        X[i] += (float)(Hi[3 * i] * rhs[0] + Hi[3 * i + 1] * rhs[1]
-                        + Hi[3 * i + 2] * rhs[2]);
     }
 #pragma unroll
-    for (int i = 0; i < 3; ++i) cand_lms[3 * (size_t)gn + i] = X[i];
-    const float fx = intr[0], fy = intr[1], cx = intr[2], cy = intr[3];
-    for (int k = 0; k < m; ++k) {
-      const size_t ob = (size_t)gn * m + k;
-      if (!obs_valid[ob]) continue;
-      const float* T = cand_poses + 16 * k;
-      const float p0 = T[0] * X[0] + T[1] * X[1] + T[2] * X[2] + T[3];
-      const float p1 = T[4] * X[0] + T[5] * X[1] + T[6] * X[2] + T[7];
-      const float p2 = T[8] * X[0] + T[9] * X[1] + T[10] * X[2] + T[11];
-      const float z = fabsf(p2) < 1e-6f ? 1e-6f : p2;
-      const float r0 = fy * p1 / z + cy - obs_uv[2 * ob];
-      const float r1 = fx * p0 / z + cx - obs_uv[2 * ob + 1];
-      cost += huber_weight(r0, r1, huber) * (r0 * r0 + r1 * r1);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (ov > best || (ov == best && oi < bi)) {
+        best = ov;
+        bi = oi;
+      }
     }
+    if (bi >= D) return false;              // a column of NaN
+    if (bi != k) {
+      for (int j = lane; j < D; j += 32) {
+        const float t = P[k * ld + j];
+        P[k * ld + j] = P[bi * ld + j];
+        P[bi * ld + j] = t;
+      }
+      if (lane == 0) {
+        const float t = b[k];
+        b[k] = b[bi];
+        b[bi] = t;
+      }
+    }
+    __syncwarp();
+    const float pv = P[k * ld + k];
+    if (pv == 0.0f) return false;
+    const float bk = b[k];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int i = lane + 32 * s;
+      if (i > k && i < D) {
+        const float lik = P[i * ld + k] / pv;
+        P[i * ld + k] = lik;
+#pragma unroll 4
+        for (int j = k + 1; j < D; ++j) P[i * ld + j] -= lik * P[k * ld + j];
+        b[i] -= lik * bk;
+      }
+    }
+    __syncwarp();
   }
-  sc[threadIdx.x] = cost;
+  for (int j = D - 1; j >= 0; --j) {        // U x = y
+    const float xj = b[j] / P[j * ld + j];
+    if (lane == 0) x[j] = xj;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const int i = lane + 32 * s;
+      if (i < j) b[i] -= P[i * ld + j] * xj;
+    }
+    __syncwarp();
+  }
+  return true;
+}
+
+// se3_exp(xi) @ T in float32, with se3.py's small-angle branches.
+__device__ void se3_exp_apply(const float* xi, const float* T, float* out) {
+  const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
+  const float v0 = xi[3], v1 = xi[4], v2 = xi[5];
+  const float t2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const bool small = t2 < 1e-8f;
+  const float t2s = small ? 1.0f : t2;
+  const float th = sqrtf(t2s);
+  const float sn = sinf(th), cs = cosf(th);
+  const float a = small ? 1.0f - t2 / 6.0f : sn / th;
+  const float b = small ? 0.5f - t2 / 24.0f : (1.0f - cs) / t2s;
+  const float c = small ? 1.0f / 6.0f - t2 / 120.0f : (th - sn) / (t2s * th);
+  const float K[9] = {0.0f, -w2, w1, w2, 0.0f, -w0, -w1, w0, 0.0f};
+  float KK[9], R[9], V[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      KK[3 * i + j] = K[3 * i] * K[j] + K[3 * i + 1] * K[3 + j]
+                      + K[3 * i + 2] * K[6 + j];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const float e = (i % 4 == 0) ? 1.0f : 0.0f;
+    R[i] = e + a * K[i] + b * KK[i];
+    V[i] = e + b * K[i] + c * KK[i];
+  }
+  float E[12];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) E[4 * i + j] = R[3 * i + j];
+    E[4 * i + 3] = V[3 * i] * v0 + V[3 * i + 1] * v1 + V[3 * i + 2] * v2;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = E[4 * i] * T[j] + E[4 * i + 1] * T[4 + j]
+                       + E[4 * i + 2] * T[8 + j] + E[4 * i + 3] * T[12 + j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[12 + j] = T[12 + j];
+}
+
+// Rank 0: the damped, gauge-fixed, Jacobi-scaled pose solve of the reduced
+// system in `ws` (the block scales it into a padded copy and factors it;
+// "lu" is one warp's), dp, and the candidate poses.
+__device__ void pose_step(LmState& st, float* ws, int m, int use_lu,
+                          float lam) {
+  __shared__ int solved;
+  const int D = 6 * m, ld = D + 1;
+  const float* A = ws;
+  const float* b = A + D * D;
+  float* d = ws + D * D + D + 1;
+  float* bs = d + D;
+  float* x = bs + D;
+  float* rs = x + D;
+  float* P = rs + D;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float v = st.fixed[i / 6] ? 1.0f : A[i * D + i] + lam;
+    d[i] = 1.0f / sqrtf(fmaxf(v, 1e-12f));
+    bs[i] = d[i] * (st.fixed[i / 6] ? 0.0f : b[i]);
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int t = 0; t < kBacksubThreads; ++t) s += sc[t];
-    partials[blockIdx.x] = s;
+  for (int idx = threadIdx.x; idx < D * D; idx += blockDim.x) {
+    const int i = idx / D, j = idx % D;
+    float v = A[idx];
+    if (i == j) v += lam;
+    if (st.fixed[i / 6] || st.fixed[j / 6]) v = (i == j) ? 1.0f : 0.0f;
+    P[i * ld + j] = v * d[i] * d[j];
   }
+  __syncthreads();
+  if (use_lu) {
+    if (threadIdx.x < 32) {
+      const bool ok = lu_solve_warp(P, ld, bs, x, D);
+      if (threadIdx.x == 0) solved = ok ? 1 : 0;
+    }
+  } else {
+    // rows a warp and column slots a lane for this window's size
+    const bool ok =
+        D <= 40 ? chol_solve_block<5, 2>(P, ld, bs, rs, x, D)
+        : D <= 64 ? chol_solve_block<8, 2>(P, ld, bs, rs, x, D)
+                  : chol_solve_block<12, 3>(P, ld, bs, rs, x, D);
+    if (threadIdx.x == 0) solved = ok ? 1 : 0;
+  }
+  __syncthreads();
+  const float nan = __int_as_float(0x7fc00000);
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    st.dp[i] = solved ? d[i] * x[i] : nan;
+  __syncthreads();
+  if (threadIdx.x < m) {
+    const int k = threadIdx.x;
+    if (st.fixed[k]) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) st.cand[16 * k + i] = st.poses[16 * k + i];
+    } else {
+      se3_exp_apply(st.dp + 6 * k, st.poses + 16 * k, st.cand + 16 * k);
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+ba_lm_kernel(const float* __restrict__ poses_in,
+             const float* __restrict__ lms_in,
+             const float* __restrict__ obs_uv,
+             const unsigned char* __restrict__ obs_valid,
+             const float* __restrict__ intr,
+             const unsigned char* __restrict__ fixed, float lam0,
+             float huber, int n, int m, int iters, int use_lu,
+             float* __restrict__ poses_out, float* __restrict__ lms_out,
+             float* __restrict__ costs, float* __restrict__ trace,
+             double* __restrict__ hinv, double* __restrict__ bl,
+             double* __restrict__ U, unsigned char* __restrict__ seen,
+             float* __restrict__ cand_lms) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ws = (float*)smem;                        // rank 0's workspace
+  double* part = (double*)(smem + region_bytes(m));
+  __shared__ LmState st;
+  const int tid = threadIdx.x;
+  const int D = 6 * m, P = n_entries(m);
+  const int per = (n + csize - 1) / csize;
+  const int lo = min(n, rank * per), hi = min(n, lo + per);
+  const Problem pb{obs_uv, obs_valid, intr[0], intr[1], intr[2], intr[3],
+                   huber, m, use_lu};
+
+  for (int i = tid; i < 16 * m; i += blockDim.x) st.poses[i] = poses_in[i];
+  for (int i = tid; i < m; i += blockDim.x) st.fixed[i] = fixed[i];
+  for (int g = 3 * lo + tid; g < 3 * hi; g += blockDim.x)
+    lms_out[g] = lms_in[g];
+  if (tid == 0) st.lam = lam0;
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
+    const float lam = st.lam;
+    float* tr = trace + P + it * (D + 4);   // dp, lam, cost, new cost, accept
+    for (int e = tid; e < P; e += blockDim.x) part[e] = 0.0;
+    for (int n0 = lo; n0 < hi; n0 += tile_landmarks(m))
+      assemble_tile(pb, st, lms_out, n0, hi, lam, smem, part, hinv, bl, U,
+                    seen);
+    cluster.sync();
+    // this CTA's slice of the entries, summed over the ranks in rank order
+    float* ws0 = cluster.map_shared_rank(ws, 0);
+    for (int e = rank * blockDim.x + tid; e < P; e += csize * blockDim.x) {
+      double acc = 0.0;
+      for (int q = 0; q < csize; ++q)
+        acc += cluster.map_shared_rank(part, q)[e];
+      ws0[e] = (float)acc;
+    }
+    cluster.sync();
+    if (rank == 0) {
+      if (it == 0)
+        for (int e = tid; e < P; e += blockDim.x) trace[e] = ws[e];
+      if (tid == 0) st.cost = ws[P - 1];
+      __syncthreads();
+      pose_step(st, ws, m, use_lu, lam);
+      for (int i = tid; i < D; i += blockDim.x) tr[i] = st.dp[i];
+      if (tid == 0) tr[D] = lam;
+    }
+    cluster.sync();
+    if (rank != 0) {
+      const float* c0 = cluster.map_shared_rank(st.cand, 0);
+      const float* d0 = cluster.map_shared_rank(st.dp, 0);
+      for (int i = tid; i < 16 * m; i += blockDim.x) st.cand[i] = c0[i];
+      for (int i = tid; i < D; i += blockDim.x) st.dp[i] = d0[i];
+    }
+    __syncthreads();
+    // back-substitution and the candidate's cost, one thread a landmark
+    double cost = 0.0;
+    for (int gn = lo + tid; gn < hi; gn += blockDim.x) {
+      float X[3] = {lms_out[3 * gn], lms_out[3 * gn + 1], lms_out[3 * gn + 2]};
+      if (seen[gn]) {
+        double udp[3] = {0.0, 0.0, 0.0};
+        for (int k = 0; k < m; ++k) {
+          if (!obs_valid[(size_t)gn * m + k]) continue;   // U_k is zero
+          const double* Uk = U + 18 * ((size_t)gn * m + k);
+#pragma unroll
+          for (int i = 0; i < 6; ++i) {
+            const double dd = st.dp[6 * k + i];
+#pragma unroll
+            for (int j = 0; j < 3; ++j) udp[j] += Uk[3 * i + j] * dd;
+          }
+        }
+        double rhs[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) rhs[j] = bl[3 * (size_t)gn + j] - udp[j];
+        const double* Hi = hinv + 9 * (size_t)gn;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          X[i] += (float)(Hi[3 * i] * rhs[0] + Hi[3 * i + 1] * rhs[1]
+                          + Hi[3 * i + 2] * rhs[2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) cand_lms[3 * (size_t)gn + i] = X[i];
+      for (int k = 0; k < m; ++k) {
+        const size_t ob = (size_t)gn * m + k;
+        if (!obs_valid[ob]) continue;
+        const float* T = st.cand + 16 * k;
+        const float p0 = T[0] * X[0] + T[1] * X[1] + T[2] * X[2] + T[3];
+        const float p1 = T[4] * X[0] + T[5] * X[1] + T[6] * X[2] + T[7];
+        const float p2 = T[8] * X[0] + T[9] * X[1] + T[10] * X[2] + T[11];
+        const float z = fabsf(p2) < 1e-6f ? 1e-6f : p2;
+        const float r0 = pb.fy * p1 / z + pb.cy - obs_uv[2 * ob];
+        const float r1 = pb.fx * p0 / z + pb.cx - obs_uv[2 * ob + 1];
+        cost += huber_weight(r0, r1, huber) * (r0 * r0 + r1 * r1);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      cost += __shfl_down_sync(0xffffffffu, cost, off);
+    if ((tid & 31) == 0) st.warp_cost[tid >> 5] = cost;
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+      for (int w = 0; w < kWarps; ++w) s += st.warp_cost[w];
+      st.cost_part = s;
+    }
+    cluster.sync();
+    if (rank == 0 && tid == 0) {
+      double s = 0.0;
+      for (int q = 0; q < csize; ++q)
+        s += *cluster.map_shared_rank(&st.cost_part, q);
+      const float new_cost = (float)s, old = st.cost;
+      const bool accept = new_cost < old;
+      costs[it] = accept ? new_cost : old;
+      tr[D + 1] = old;
+      tr[D + 2] = new_cost;
+      tr[D + 3] = accept ? 1.0f : 0.0f;
+      st.accept = accept ? 1 : 0;
+    }
+    cluster.sync();
+    const int accept = *cluster.map_shared_rank(&st.accept, 0);
+    if (accept) {
+      for (int i = tid; i < 16 * m; i += blockDim.x) st.poses[i] = st.cand[i];
+      for (int gn = lo + tid; gn < hi; gn += blockDim.x)
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          lms_out[3 * (size_t)gn + i] = cand_lms[3 * (size_t)gn + i];
+    }
+    __syncthreads();
+    if (tid == 0)
+      st.lam = accept ? fmaxf(lam * 0.3f, 1e-8f) : fminf(lam * 4.0f, 1e4f);
+    __syncthreads();
+  }
+  if (rank == 0)
+    for (int i = tid; i < 16 * m; i += blockDim.x) poses_out[i] = st.poses[i];
+  cluster.sync();   // no CTA leaves while another may still read its memory
 }
 
 }  // namespace
 
-// Launch A. poses (m, 4, 4), lms (n, 3), obs_uv (n, m, 2) float32; obs_valid
-// (n, m) bytes; intr (4); lam (1) float32 on the device. Out: hinv (n, 3, 3),
-// bl (n, 3), U (n, m, 6, 3) float64, seen (n) bytes, partials
-// (ceil(n / L), m*m*36 + m*6 + 1) float64.
-extern "C" int vpp_ba_assemble(const float* poses, const float* lms,
-                               const float* obs_uv,
-                               const unsigned char* obs_valid,
-                               const float* intr, const float* lam,
-                               float huber, int n, int m, int L, int use_lu,
-                               double* hinv, double* bl, double* U,
-                               unsigned char* seen, double* partials,
-                               void* stream) {
-  const int blocks = (n + L - 1) / L;
-  if (blocks == 0) return 0;
-  const int smem = smem_bytes(L, m);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ba_assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  ba_assemble_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      poses, lms, obs_uv, obs_valid, intr, lam, huber, n, m, L, use_lu, hinv,
-      bl, U, seen, partials);
+// The whole LM solve in one cluster launch of kCluster CTAs. poses (m, 4,
+// 4), lms (n, 3), obs_uv (n, m, 2), intr (4) float32; obs_valid (n, m),
+// fixed (m) bytes. Out: poses_out (m, 4, 4), lms_out (n, 3), costs (iters)
+// float32; trace (P + iters * (6m + 4)) float32 with P = 36 m^2 + 6 m + 1.
+// Scratch: hinv (n, 3, 3), bl (n, 3), U (n, m, 6, 3) float64, seen (n)
+// bytes, cand_lms (n, 3) float32.
+extern "C" int vpp_ba_lm(const float* poses, const float* lms,
+                         const float* obs_uv, const unsigned char* obs_valid,
+                         const float* intr, const unsigned char* fixed,
+                         float lam0, float huber, int n, int m, int iters,
+                         int use_lu, float* poses_out,
+                         float* lms_out, float* costs, float* trace,
+                         double* hinv, double* bl, double* U,
+                         unsigned char* seen, float* cand_lms, void* stream) {
+  if (m < 1 || m > kMaxPoses || n < 0 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = region_bytes(m) + (size_t)n_entries(m) * 8;
+  // once, for the largest window, so that no later call (one inside a
+  // CUDA graph capture among them) sets an attribute
+  static cudaError_t attr_err = [] {
+    size_t most = 0;
+    for (int mm = 1; mm <= kMaxPoses; ++mm) {
+      const size_t b = region_bytes(mm) + (size_t)n_entries(mm) * 8;
+      most = b > most ? b : most;
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        ba_lm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(
+        ba_lm_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  cudaError_t e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ba_lm_kernel, poses, lms, obs_uv, obs_valid,
+                         intr, fixed, lam0, huber, n, m, iters, use_lu,
+                         poses_out, lms_out, costs, trace, hinv, bl, U, seen,
+                         cand_lms);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
-
-// Launch B: out[e] = sum over b of float64 partials[b, e], in block order,
-// rounded to float32.
-extern "C" int vpp_ba_reduce(const double* partials, int nblocks, int p,
-                             float* out, void* stream) {
-  const int threads = 256;
-  ba_reduce_kernel<<<(p + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(partials, nblocks, p, out);
-  return (int)cudaGetLastError();
-}
-
-// Launch C. cand_poses (m, 4, 4); dp (m, 6) float32; the float64
-// landmark-local arrays of launch A. Out: cand_lms (n, 3) float32, partials
-// (ceil(n / 128)) float64.
-extern "C" int vpp_ba_backsub_cost(const float* cand_poses, const float* lms,
-                                   const float* obs_uv,
-                                   const unsigned char* obs_valid,
-                                   const float* intr, float huber,
-                                   const double* hinv, const double* bl,
-                                   const double* U, const unsigned char* seen,
-                                   const float* dp, int n, int m,
-                                   float* cand_lms, double* partials,
-                                   void* stream) {
-  const int blocks = (n + kBacksubThreads - 1) / kBacksubThreads;
-  if (blocks == 0) return 0;
-  ba_backsub_cost_kernel<<<blocks, kBacksubThreads, 0,
-                           (cudaStream_t)stream>>>(
-      cand_poses, lms, obs_uv, obs_valid, intr, huber, hinv, bl, U, seen, dp,
-      n, m, cand_lms, partials);
-  return (int)cudaGetLastError();
-}
-
-// Landmarks a block of launch C takes (one thread each).
-extern "C" int vpp_ba_backsub_threads(void) { return kBacksubThreads; }

@@ -7,11 +7,12 @@ reduction of its observation pairs into the (6M, 6M) reduced camera system;
 a dense pose solve; back-substitution of the landmarks; a cost comparison
 that accepts or rejects the step on the device, without a host read.
 
-``_tracks_assemble``, ``_tracks_backsub`` and ``_tracks_cost`` here are the
-plain PyTorch versions of kernel K6. ``ba_solve_tracks`` on CUDA tensors
-in the ring layout runs K6 instead (``slam/ba_cuda.py``,
-``kernels/csrc/ba_tracks.cu``); the pose solve stays PyTorch on either
-device, as the JAX package leaves its dense solve to the library.
+The LM loop ``_lm_tracks`` with ``_tracks_assemble``,
+``_tracks_solve_poses``, ``apply_pose_step``, ``_tracks_backsub`` and
+``_tracks_cost`` here is the plain PyTorch version of kernel K6.
+``ba_solve_tracks`` on CUDA tensors in the ring layout runs K6 instead
+(``slam/ba_cuda.py``, ``kernels/csrc/ba_tracks.cu``): the whole loop, the
+pose solve included, in one launch.
 
 Precision. Residuals and Jacobians are float32, as in the JAX package, but
 each landmark's 3x3 block algebra (Hll, its damped inverse, U, W and the
@@ -319,9 +320,8 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
     problem, (iters,) accepted costs).
 
     ``ring_layout=True`` promises ``obs_pose[n, j] == j`` (K == M). On CUDA
-    tensors it runs kernel K6: four launches an iteration (assembly, the
-    block-ordered reduction of S/rhs/cost, back-substitution with the
-    candidate's cost, that cost's reduction). ``linalg`` is "lu" (pivoted
+    tensors it runs kernel K6: every iteration in one launch, M at most
+    ``ba_cuda.MAX_POSES``. ``linalg`` is "lu" (pivoted
     landmark inverses and pose solve) or "chol" (closed-form scaled
     Cholesky inverses and a Cholesky pose solve). Raises
     ``NotImplementedError`` for ``mesh`` and for the generic layout on a
@@ -346,32 +346,27 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
 
 def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
-    """The LM loop of ``ba_solve_tracks``: with ``kernel`` the assembly,
-    back-substitution and candidate cost are K6's launches, else their
-    plain versions (on any device)."""
+    """The LM loop of ``ba_solve_tracks``: with ``kernel`` (ring layout,
+    CUDA tensors) the whole loop is K6's one launch, else the plain version
+    below (on any device)."""
     if kernel:
         from . import ba_cuda
+        poses, lms, costs, _ = ba_cuda.lm_tracks(p, iters, huber, lam0,
+                                                 linalg)
+        return p._replace(poses=poses, landmarks=lms), costs
     poses0, lms0 = p.poses, p.landmarks
     lam = torch.full((), lam0, dtype=torch.float32, device=lms0.device)
     costs = []
     for _ in range(iters):
         prob = p._replace(poses=poses0, landmarks=lms0)
-        if kernel:
-            (S, rhs, cost), local = ba_cuda.tracks_assemble(
-                prob, lam, huber, linalg)
-        else:
-            (S, rhs, cost), local = _tracks_assemble(
-                prob, lam, huber, ring_layout, linalg)
+        (S, rhs, cost), local = _tracks_assemble(
+            prob, lam, huber, ring_layout, linalg)
         dp = _tracks_solve_poses(S, rhs, p.fixed_poses, lam, linalg)
         cand_poses = apply_pose_step(poses0, dp, p.fixed_poses)
-        if kernel:
-            cand_lms, new_cost = ba_cuda.tracks_backsub_cost(
-                prob, local, dp, cand_poses, huber)
-        else:
-            cand_lms = lms0 + _tracks_backsub(local, dp)
-            new_cost = _tracks_cost(p._replace(poses=cand_poses,
-                                               landmarks=cand_lms),
-                                    huber, ring_layout)
+        cand_lms = lms0 + _tracks_backsub(local, dp)
+        new_cost = _tracks_cost(p._replace(poses=cand_poses,
+                                           landmarks=cand_lms),
+                                huber, ring_layout)
         accept = new_cost < cost
         poses0 = torch.where(accept, cand_poses, poses0)
         lms0 = torch.where(accept, cand_lms, lms0)
