@@ -12,7 +12,10 @@ The BA problem is the last keyframe window of a 24-frame warm-up of
 "chol"), made by the plain CPU path so that every checkout gets the same
 bits; the K3 input is the FAST score image of that warm-up's last frame
 (3072 blocks of 10 px), and a random 4K score image (82944 blocks; null
-where the checkout refuses it). Each measurement prints one JSON line:
+where the checkout refuses it). K3's host time a call is also broken down
+(``block_topk_host_us``: the whole wrapper, its checks, allocations,
+stream query and C entry, host clock over 500 calls that only enqueue).
+Each measurement prints one JSON line:
 ``device_ms`` (CUDA events around replays of a CUDA graph of 20 calls, or
 the profiler's device time where capture is refused, as ``chip_smoke.py``
 times its kernels), the as-called ``ms`` (CUDA events around the Python
@@ -29,6 +32,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WARMUP = 24
@@ -111,6 +115,7 @@ def measure(root: str, path: str) -> dict:
               torch, lambda: F._blockwise_keypoints(scores, bs, kdet))[0],
           "block_topk_ms": CS.cuda_ms(
               torch, lambda: F._blockwise_keypoints(scores, bs, kdet), 200)}
+    k3["block_topk_host_us"] = host_breakdown(torch, scores, bs, kdet)
     big = from_array(saved["scores_4k"].cuda(), border=1)
     try:
         k3["block_topk_82944_blocks_device_ms"] = CS.device_ms(
@@ -125,6 +130,69 @@ def measure(root: str, path: str) -> dict:
             "ms": CS.cuda_ms(torch, call, 50),
             "ba_tracks_launches": launches, "device_kernels": kernels,
             **k3}
+
+
+def _host_us(torch, fn, reps: int = 500) -> float:
+    """Host microseconds a call: the host clock around ``reps`` calls that
+    only enqueue work (one synchronisation after the clock stops)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def host_breakdown(torch, scores, bs: int, k: int) -> dict:
+    """Where the host time of one K3 call goes: the whole wrapper, and
+    apart its operand checks, its four output and scratch allocations, the
+    stream query and the C entry alone (ctypes and the cooperative launch,
+    on buffers allocated once); ``rest`` is what those parts leave of the
+    whole (Python between them). ``one_empty`` prices one ``torch.empty``."""
+    from vpp_tpu_torch.algorithms import fast as F
+    from vpp_tpu_torch.kernels import _build, require_cuda, stream_handle
+    data = scores.data
+    b = scores.border
+    h, w = data.shape[0] - 2 * b, data.shape[1] - 2 * b
+    nb = -(-h // bs) * -(-w // bs)
+    n_scratch = 2 * nb + 256 * -(-nb // 64)
+    dev = data.device
+
+    def alloc():
+        torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+        torch.empty((k, 2), dtype=torch.int32, device=dev)
+        torch.empty((k,), dtype=torch.int32, device=dev)
+        torch.empty((k,), dtype=torch.bool, device=dev)
+
+    scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+    pos = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    score = torch.empty((k,), dtype=torch.int32, device=dev)
+    valid = torch.empty((k,), dtype=torch.bool, device=dev)
+    lib = _build.load()
+    stream = stream_handle(data)
+
+    def launch():
+        lib.vpp_block_topk(data.data_ptr(), data.element_size(),
+                           data.shape[1], b, h, w, bs, k, scratch.data_ptr(),
+                           n_scratch, pos.data_ptr(), score.data_ptr(),
+                           valid.data_ptr(), stream)
+
+    out = {
+        "call": _host_us(torch, lambda: F._blockwise_keypoints(scores, bs,
+                                                               k)),
+        "checks": _host_us(torch, lambda: require_cuda(
+            "block_topk", data.contiguous(), dtypes=(data.dtype,))),
+        "allocations": _host_us(torch, alloc),
+        "stream": _host_us(torch, lambda: stream_handle(data)),
+        "one_empty": _host_us(torch, lambda: torch.empty(
+            (k,), dtype=torch.int32, device=dev)),
+        "launch": _host_us(torch, launch)}
+    out["rest"] = out["call"] - sum(out[n] for n in (
+        "checks", "allocations", "stream", "launch"))
+    return out
 
 
 def main() -> int:

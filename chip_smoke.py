@@ -8,7 +8,11 @@ Phases, in order; any failure exits nonzero and prints no result:
 1. the card's name and power limit;
 2. build the CUDA kernels from ``vpp_tpu_torch/kernels/csrc`` (nvcc);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (640x480, the bench clip recipe): K2 fast9 bit-equal;
+   main path's shapes (640x480, the bench clip recipe): K2 fast9 bit-equal
+   in its three modes, each one launch a call (the full map; the cull at
+   the tracker's 4096 slots after 6 frames; the score image of the SLAM
+   frame after the 24-frame warm-up, with that warm-up's occupancy mask),
+   each mode timed as below (``*_per_mode``);
    K1 flow level on every pyramid level, volume and dist within rtol 1e-5
    and flow equal wherever the best and second-best SAD differ by more
    than 1e-5 relative, the whole level (volume, flow, dist) bit-equal on
@@ -26,8 +30,11 @@ Phases, in order; any failure exits nonzero and prints no result:
    (a 4K frame at 10 px) and on images of long runs of tied scores, uint8
    and int32, with its device time at each size; K4 pyramid decimation
    bit-equal on integer-valued frames at 3 levels and within 1e-6 relative
-   on rendered float frames; K5 patches bit-equal at 1024 x 7x7 from the
-   bordered VGA frame and on a 3-channel buffer; K6, the whole window-BA
+   on rendered float frames; K5 patches bit-equal at 1024 x 7x7 from int32
+   and int64 centres in the bordered VGA frame and on a 3-channel buffer,
+   one launch a call, beside the library's advanced indexing from the same
+   centres (index preparation and gather, each also timed alone); K6, the
+   whole window-BA
    call in one launch, on a keyframe problem of a 24-frame SLAM warm-up
    run: its trace's first-iteration S and cost within 1e-4 of the plain
    assembly relative to their largest magnitude, rhs within 1e-4 of the
@@ -36,12 +43,14 @@ Phases, in order; any failure exits nonzero and prints no result:
    1e-4, every landmark's reprojections into its observing keyframes
    within 1e-3 px and costs within 1e-4 of the plain LM loop on the same
    problem; the same with every step rejected and with the pose
-   factorisation failing. K6 is timed per ``ba_solve_tracks`` call, beside
-   the parent tree's time of the same call (``ba_call_times.py``);
+   factorisation failing. K6 is timed per ``ba_solve_tracks`` call. Each
+   row with a library call (K3, K4, K5, K7) also carries the library's
+   ``library_device_ms`` from the same CUDA-graph replays;
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
-   frame) and K2, and the first 10 frames against the plain CPU path
+   frame) and K2 (72: a cull a frame, a score image every 5th), and the
+   first 10 frames against the plain CPU path
    (alive counts within 1%);
 5. the Hough path: ``hough_tracker_update`` on 30 frames of the two-line
    clip at 640x480, ms/frame, K7's launch count, and the same frames on the
@@ -51,7 +60,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    dolly, capacity 1024, ring 6, 3 LM iterations, recovery off) on 240
    frames rendered by ``vpp_tpu_torch/utils/synth.py`` (seed 1) and already
    on the card: frames/s under ``torch.cuda.synchronize``, launch counts of
-   K1-K6, keyframes (60), live landmarks (> 200) and ATE (< 0.10). The
+   K1-K6 (K2 two a frame, K3 one a frame, K5 and K6 one a keyframe),
+   keyframes (60), live landmarks (> 200) and ATE (< 0.10). The
    state just before keyframe 30 is copied to the CPU and ``_do_keyframe``
    runs on both (poses within 1e-3, ``lm_valid`` agreeing on >= 99% of
    slots), the card's call under ``torch.cuda.set_sync_debug_mode("error")``
@@ -227,6 +237,7 @@ def main() -> int:
     from vpp_tpu_torch import convert
     from vpp_tpu_torch.algorithms import pyramid as PY
     from vpp_tpu_torch.algorithms.pyramid import level_shapes, pyramid
+    from vpp_tpu_torch.algorithms import video_extruder as VE
     from vpp_tpu_torch.algorithms.video_extruder import (
         VideoExtruderConfig, video_extruder_run)
     from vpp_tpu_torch.core import interp as IP
@@ -263,33 +274,70 @@ def main() -> int:
     clip = make_clip(W, H, TRACK_FRAMES, seed=0)
     results = {}
 
-    # -- 3a. K2 fast9 ---------------------------------------------------------
+    # -- 3a. K2 fast9: the full map and the cull (the score image follows the
+    # SLAM warm-up in 3g, with that frame's occupancy mask) ----------------
+    th = cfg.detector_th
     img = from_array(torch.from_numpy(clip[3]).to(dev), border=b,
                      border_mode="mirror")
-    sk, dk = F.fast9_cuda(img, cfg.detector_th, detect=True)
-    sp, dp = F.fast9_plain(img, cfg.detector_th, detect=True)
+    reset_launch_counts()
+    sk, dk = F.fast9_cuda(img, th, detect=True)
+    check(launch_counts()["fast9"] == 1, "K2's full map is not one launch")
+    sp, dp = F.fast9_plain(img, th, detect=True)
     torch.cuda.synchronize()
     k2_err = int((sk - sp).abs().max())
     check(torch.equal(sk, sp) and torch.equal(dk, dp),
           "K2 fast9 differs from its plain version")
-    k2_bytes = img.data.numel() * 4 + H * W * (4 + 1)
-    k2_ops = H * W * (16 * 8 + 20)
+    # the cull at the tracker's 4096 slots, after 6 frames of the clip
+    cull_state, _ = video_extruder_run(clip[:6], cfg, device="cuda")
+    cull_pos = cull_state.keypoints.position
+    cull_img = from_array(torch.from_numpy(clip[5]).to(dev), border=b,
+                          border_mode="mirror")
+    reset_launch_counts()
+    ck = F.fast9_cull_scores(cull_img, cull_pos, th)
+    check(launch_counts()["fast9"] == 1, "K2's cull is not one launch")
+    cp = F.fast9_cull_scores_plain(cull_img, cull_pos, th)
+    check(torch.equal(ck, cp), "K2's cull differs from its plain version")
+    k2_err = max(k2_err, int((ck - cp).abs().max()))
+    n_slots = cull_pos.shape[0]
+    k2_pixel_ops = H * W * (16 * 8 + 20)
+    k2_modes = {
+        "full": (lambda: F.fast9_cuda(img, th),
+                 lambda: F.fast9_plain(img, th),
+                 img.data.numel() * 4 + H * W * (4 + 1), k2_pixel_ops),
+        "cull": (lambda: F.fast9_cull_scores(cull_img, cull_pos, th),
+                 lambda: F.fast9_cull_scores_plain(cull_img, cull_pos, th),
+                 n_slots * (8 + 17 * 4 + 4), n_slots * (16 * 8 + 30))}
+
+    def k2_time(mode, fn, plain, nbytes, ops):
+        r = results["fast9"]
+        r["ms_per_mode"][mode] = cuda_ms(torch, fn, 200)
+        r["plain_ms_per_mode"][mode] = cuda_ms(torch, plain, 20)
+        r["bound_ms_per_mode"][mode] = bound_ms(nbytes, ops)[0]
+        r["device_ms_per_mode"][mode], r["device_ms_by"] = device_ms(
+            torch, fn)
+
     results["fast9"] = dict(
         name="fast9", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/fast9.cu",
         replaces="vpp_tpu/algorithms/fast.py:81",
         max_abs_err=float(k2_err),
-        ms=cuda_ms(torch, lambda: F.fast9_cuda(img, cfg.detector_th), 200),
-        plain_ms=cuda_ms(torch, lambda: F.fast9_plain(img, cfg.detector_th),
-                         20),
-        library_ms=None)
-    results["fast9"]["bound_ms"], results["fast9"]["bound_by"] = bound_ms(
-        k2_bytes, k2_ops)
-    results["fast9"]["device_ms"], results["fast9"]["device_ms_by"] = \
-        device_ms(torch, lambda: F.fast9_cuda(img, cfg.detector_th))
-    print("phase 3: K2 fast9 bit-equal; "
-          f"{int(dk.sum())} corners, {results['fast9']['ms']:.4f} ms as "
-          f"called, {results['fast9']['device_ms']:.4f} ms on the device")
+        modes="ms, device_ms, plain_ms and bound_ms are the full map's; "
+              "each mode's under *_per_mode",
+        ms_per_mode={}, plain_ms_per_mode={}, bound_ms_per_mode={},
+        device_ms_per_mode={}, library_ms=None)
+    for mode, args in k2_modes.items():
+        k2_time(mode, *args)
+    k2 = results["fast9"]
+    k2["ms"], k2["plain_ms"] = k2["ms_per_mode"]["full"], \
+        k2["plain_ms_per_mode"]["full"]
+    k2["device_ms"] = k2["device_ms_per_mode"]["full"]
+    k2["bound_ms"], k2["bound_by"] = bound_ms(*k2_modes["full"][2:])
+    print("phase 3: K2 fast9 full map and cull bit-equal, one launch each; "
+          f"{int(dk.sum())} corners, {n_slots} slots; "
+          + ", ".join(f"{m} {k2['ms_per_mode'][m]:.4f} ms as called, "
+                      f"{k2['device_ms_per_mode'][m]:.4f} on the device "
+                      f"(bound {k2['bound_ms_per_mode'][m]:.5f})"
+                      for m in k2_modes))
 
     # -- 3b. K1 flow level, every level of a 640x480 pyramid ------------------
     p1 = pyramid(from_array(torch.from_numpy(clip[0]).to(dev), border=b,
@@ -466,6 +514,8 @@ def main() -> int:
         bound_ms(th_n.numel() * 4 * 3 + tt * rho_bins * 4, n_edge * 20)
     results["hough_acc"]["device_ms"], results["hough_acc"]["device_ms_by"] = \
         device_ms(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt, rho_bins))
+    results["hough_acc"]["library_device_ms"] = device_ms(
+        torch, lambda: lib_acc.index_put_((idx,), vals, accumulate=True))[0]
     print(f"phase 3: K7 hough_acc reproducible, err {k7_err:.3g} of max "
           f"{float(accp.max()):.1f}, {n_edge} voting pixels, "
           f"{results['hough_acc']['ms']:.4f} ms as called, "
@@ -545,6 +595,8 @@ def main() -> int:
     results["block_topk"]["device_ms"], \
         results["block_topk"]["device_ms_by"] = device_ms(
             torch, lambda: F._blockwise_keypoints(simg, bs, kdet))
+    results["block_topk"]["library_device_ms"] = device_ms(torch,
+                                                           k3_library)[0]
     results["block_topk"].update(k3_sizes)
     print(f"phase 3: K3 block top-K bit-equal, one launch a call "
           f"({int(k3_out[2].sum())} valid of {kdet}; and at 40000 and 82944 "
@@ -614,45 +666,80 @@ def main() -> int:
         results["pyramid_decim"]["bound_by"] = bound_ms(k4_bytes, k4_ops)
     results["pyramid_decim"]["device_ms"], \
         results["pyramid_decim"]["device_ms_by"] = device_ms(torch, k4_frame)
+    results["pyramid_decim"]["library_device_ms"] = device_ms(
+        torch, k4_library)[0]
     print(f"phase 3: K4 decimation bit-equal on integer frames, float err "
           f"{k4_err:.3g}; per frame (2 levels) "
           f"{results['pyramid_decim']['ms']:.4f} ms as called, "
           f"{results['pyramid_decim']['device_ms']:.4f} ms on the device")
 
-    # -- 3f. K5 patches -------------------------------------------------------
+    # -- 3f. K5 patches, from centres ----------------------------------------
     psize = slam_cfg.desc_patch
-    ctr = torch.from_numpy(np.stack(
+    ctr64 = torch.from_numpy(np.stack(
         [rng.randint(-4, H + 4, 1024), rng.randint(-4, W + 4, 1024)],
         -1)).to(dev) + sb
+    ctr = ctr64.to(torch.int32)       # the SLAM path's centres are int32
     hb, wb = sframe.data.shape
-    tl = IP._clamp_tl(ctr - psize // 2, hb, wb, psize)
-    check(torch.equal(IP.extract_patches(sframe.data, ctr, psize),
-                      IP.extract_patches_at_tl_plain(sframe.data, tl, psize)),
-          "K5 patches differ from the plain version (1024 x 7x7)")
+    tl = IP._clamp_tl(ctr64 - psize // 2, hb, wb, psize)
+    want = IP.extract_patches_at_tl_plain(sframe.data, tl, psize)
+    for c in (ctr, ctr64):
+        reset_launch_counts()
+        got = IP.extract_patches(sframe.data, c, psize)
+        check(launch_counts()["patches"] == 1,
+              "K5 is not one launch a call")
+        check(torch.equal(got, want) and torch.equal(
+            IP.extract_patches_plain(sframe.data, c, psize), want),
+              f"K5 patches differ from the plain version (1024 x 7x7, "
+              f"{c.dtype} centres)")
     rgb = torch.from_numpy(rng.randint(0, 256, (hb, wb, 3)).astype(
         np.uint8)).to(dev)
     check(torch.equal(IP.extract_patches(rgb, ctr, psize),
                       IP.extract_patches_at_tl_plain(rgb, tl, psize)),
           "K5 patches differ from the plain version (3 channels)")
     ar = torch.arange(psize, device=dev)
-    rows = (tl[:, 0, None] + ar)[:, :, None].long()
-    cols = (tl[:, 1, None] + ar)[:, None, :].long()
+
+    def k5_index():
+        """The library call's index preparation from the same centres."""
+        t = IP._clamp_tl(ctr.long() - psize // 2, hb, wb, psize)
+        return (t[:, 0, None] + ar)[:, :, None], (t[:, 1, None] + ar)[:, None,
+                                                                      :]
+
+    rows, cols = k5_index()
+
+    def k5_library():
+        r, c = k5_index()
+        return sframe.data[r, c]
+
+    k5_call = lambda: IP.extract_patches(sframe.data, ctr, psize)  # noqa: E731
     results["patches"] = dict(
         name="patches", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/patches.cu",
         replaces="vpp_tpu/core/interp.py:61", max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: IP.extract_patches(sframe.data, ctr,
-                                                     psize), 200),
-        plain_ms=cuda_ms(torch, lambda: IP.extract_patches_at_tl_plain(
-            sframe.data, tl, psize), 50),
-        library_ms=cuda_ms(torch, lambda: sframe.data[rows, cols], 50))
+        ms=cuda_ms(torch, k5_call, 200),
+        plain_ms=cuda_ms(torch, lambda: IP.extract_patches_plain(
+            sframe.data, ctr, psize), 50),
+        library="advanced indexing from the same centres (index "
+                "preparation and gather)",
+        library_ms=cuda_ms(torch, k5_library, 200),
+        library_index_ms=cuda_ms(torch, k5_index, 200),
+        library_gather_ms=cuda_ms(torch, lambda: sframe.data[rows, cols],
+                                  200))
     results["patches"]["bound_ms"], results["patches"]["bound_by"] = \
         bound_ms(1024 * (8 + 2 * 4 * psize * psize), 0)
     results["patches"]["device_ms"], results["patches"]["device_ms_by"] = \
-        device_ms(torch, lambda: IP.extract_patches(sframe.data, ctr, psize))
-    print(f"phase 3: K5 patches bit-equal (1024 x {psize}x{psize}, and 3 "
-          f"channels), {results['patches']['ms']:.4f} ms as called, "
-          f"{results['patches']['device_ms']:.4f} ms on the device")
+        device_ms(torch, k5_call)
+    results["patches"]["library_device_ms"] = device_ms(torch,
+                                                        k5_library)[0]
+    results["patches"]["library_gather_device_ms"] = device_ms(
+        torch, lambda: sframe.data[rows, cols])[0]
+    k5 = results["patches"]
+    print(f"phase 3: K5 patches bit-equal from int32 and int64 centres, one "
+          f"launch a call (1024 x {psize}x{psize}, and 3 channels); "
+          f"{k5['ms']:.4f} ms as called, {k5['device_ms']:.4f} ms on the "
+          f"device; the library from the same centres {k5['library_ms']:.4f} "
+          f"ms as called (index preparation {k5['library_index_ms']:.4f}, "
+          f"gather {k5['library_gather_ms']:.4f}), "
+          f"{k5['library_device_ms']:.4f} ms on the device")
 
     # -- 3g. K6 window BA, on a keyframe problem of a SLAM warm-up run --------
     slam_dev = torch.from_numpy(slam_frames).to(dev)  # upload outside timing
@@ -666,11 +753,44 @@ def main() -> int:
 
     SP.ba_solve_tracks = capture
     try:
-        SP.slam_run(slam_dev[:SLAM_WARMUP], slam_cfg, bootstrap_poses=boot,
-                    device="cuda")
+        warm = SP.slam_run(slam_dev[:SLAM_WARMUP], slam_cfg,
+                           bootstrap_poses=boot, device="cuda")
     finally:
         SP.ba_solve_tracks = solve
     torch.cuda.synchronize()
+
+    # K2's score image on the next SLAM frame, with the warm-up's occupancy
+    # mask (the detection of the SLAM step)
+    tcfg = slam_cfg.tracker
+    occ = VE._occupancy_mask(warm.tracker.keypoints, (H, W),
+                             tcfg.keypoint_spacing)
+    nframe = from_array(slam_dev[SLAM_WARMUP], border=sb,
+                        border_mode="mirror")
+    reset_launch_counts()
+    si_k = F.fast9_score_image(nframe, tcfg.detector_th, mask=occ)
+    check(launch_counts()["fast9"] == 1, "K2's score image is not one launch")
+    si_p = F.fast9_score_image_plain(nframe, tcfg.detector_th, mask=occ)
+    check(si_k.border == 1 and torch.equal(si_k.data, si_p.data),
+          "K2's score image differs from its plain version")
+    # and on the textured tracker frame of 3a, with no mask and a bool mask
+    rmask = torch.from_numpy(rng.rand(H, W) > 0.3).to(dev)
+    for m in (None, rmask):
+        check(torch.equal(F.fast9_score_image(img, th, mask=m).data,
+                          F.fast9_score_image_plain(img, th, mask=m).data),
+              "K2's score image differs from its plain version on the "
+              "tracker frame")
+    k2_time("score_image",
+            lambda: F.fast9_score_image(nframe, tcfg.detector_th, mask=occ),
+            lambda: F.fast9_score_image_plain(nframe, tcfg.detector_th,
+                                              mask=occ),
+            nframe.data.numel() * 4 + H * W + (H + 2) * (W + 2),
+            k2_pixel_ops)
+    print(f"phase 3: K2 score image bit-equal with the SLAM frame's "
+          f"occupancy mask ({int(occ.sum())} of {H * W} pixels open, "
+          f"{int(si_k.data.count_nonzero())} scores), one launch; "
+          f"{k2['ms_per_mode']['score_image']:.4f} ms as called, "
+          f"{k2['device_ms_per_mode']['score_image']:.4f} on the device "
+          f"(bound {k2['bound_ms_per_mode']['score_image']:.5f})")
     prob = problems[-1]
     n_lm, m_kf = prob.obs_valid.shape
     iters, lam0 = slam_cfg.ba_iters, slam_cfg.ba_lam0
@@ -846,9 +966,12 @@ def main() -> int:
     print(f"phase 4: tracker {W}x{H}: {fps:.2f} frames/s over "
           f"{TRACK_FRAMES} frames, {live} live keypoints, launches "
           f"{track_counts}")
-    check(track_counts["flow_level"] == 2 * cfg.nscales * TRACK_FRAMES
-          and track_counts["fast9"] > 0,
-          "the tracker did not launch K1 twice per level and frame, and K2")
+    check(track_counts["flow_level"] == 2 * cfg.nscales * TRACK_FRAMES,
+          "the tracker did not launch K1 twice per level and frame")
+    k2_track = TRACK_FRAMES + -(-TRACK_FRAMES // cfg.detector_period)
+    check(track_counts["fast9"] == k2_track,
+          f"the tracker launched K2 {track_counts['fast9']} times, not "
+          f"{k2_track} (one cull a frame, one score image a detection)")
     check(tuple(hist_pos.shape) == (TRACK_FRAMES, cfg.capacity, 2)
           and bool(torch.isfinite(hist_pos).all()), "bad tracker output")
     check(live > 0, "no live keypoints")
@@ -930,6 +1053,10 @@ def main() -> int:
           f"K6 launched {slam_counts['ba_tracks']} times, not once a keyframe")
     check(slam_counts["block_topk"] == SLAM_FRAMES,
           f"K3 launched {slam_counts['block_topk']} times, not once a frame")
+    check(slam_counts["fast9"] == 2 * SLAM_FRAMES,
+          f"K2 launched {slam_counts['fast9']} times, not twice a frame")
+    check(slam_counts["patches"] == sst.n_keyframes,
+          f"K5 launched {slam_counts['patches']} times, not once a keyframe")
     check(slam_lms > 200, f"only {slam_lms} landmarks")
     check(slam_ate < 0.10, f"SLAM ATE {slam_ate} >= 0.10")
     check(bool(torch.isfinite(est).all()), "non-finite keyframe poses")

@@ -75,6 +75,58 @@ def test_fast9_score_image_with_mask():
     assert to.border == 1 and to.dtype == torch.uint8
 
 
+@pytest.mark.parametrize("th", [8, 20])
+@pytest.mark.parametrize("mask_kind", ["none", "uint8", "bool"])
+def test_fast9_score_image_masks(th, mask_kind):
+    """K2's score image (plain version) against JAX ``fast9_score_image``:
+    no mask, a uint8 mask with values other than 0/1, a bool mask."""
+    ji, ti = _pair(7)
+    rng = np.random.RandomState(th)
+    mask = None
+    if mask_kind == "uint8":
+        mask = (rng.randint(0, 4, (96, 128)) * 60).astype(np.uint8)
+    elif mask_kind == "bool":
+        mask = rng.rand(96, 128) > 0.4
+    jo = jf.fast9_score_image(
+        ji, th, mask=None if mask is None else jnp.asarray(mask))
+    to = tf.fast9_score_image(
+        ti, th, mask=None if mask is None else torch.from_numpy(mask))
+    _eq(jo.data, to.data)
+    assert to.border == 1 and to.dtype == torch.uint8
+    assert int(to.data.count_nonzero()) > 0
+
+
+def _cull_positions(h, w, seed):
+    """Float positions: random ones inside and around the domain, exact .5
+    fractions (rounded half to even), the edge rows and columns, and
+    points well outside the domain."""
+    rng = np.random.RandomState(seed)
+    rand = rng.rand(64, 2) * [h + 8, w + 8] - 4
+    halves = rng.randint(-2, max(h, w) + 2, (32, 2)) + 0.5
+    edges = np.array([[0, 0], [h - 1, w - 1], [0, w - 1], [h - 1, 0],
+                      [-0.5, -0.5], [h - 0.5, w - 0.5], [h - 1.5, 0.5],
+                      [0.49, w - 1.51], [-40.0, 17.0], [h + 300.0, -9.0]])
+    return np.concatenate([rand, halves, edges]).astype(np.float32)
+
+
+@pytest.mark.parametrize("th", [5, 10])
+@pytest.mark.parametrize("shape,border", [((96, 128), 9), ((37, 53), 3)])
+def test_fast9_cull_scores_match_jax_cull(th, shape, border):
+    """K2's cull (plain version) against the JAX tracker's cull expression
+    (vpp_tpu/algorithms/video_extruder.py:140-143)."""
+    ji, ti = _pair(8, shape=shape, border=border)
+    h, w = shape
+    pos = _cull_positions(h, w, th + h)
+    score_img = jf.fast9_score(ji, th)
+    pos_i = jnp.clip(jnp.round(jnp.asarray(pos)).astype(jnp.int32), 0,
+                     jnp.array([h - 1, w - 1]))
+    want = score_img[pos_i[:, 0], pos_i[:, 1]]
+    got = tf.fast9_cull_scores(ti, torch.from_numpy(pos), th)
+    assert got.dtype == torch.int32 and got.shape == (pos.shape[0],)
+    _eq(want, got)
+    assert int((got >= 3).sum()) > 0
+
+
 def test_fast9_score_at_matches():
     ji, ti = _pair(3)
     rng = np.random.RandomState(3)

@@ -48,6 +48,27 @@ def test_extract_patches_bit_equal(kind, shape, size):
     np.testing.assert_array_equal(j, t.numpy())
 
 
+@pytest.mark.parametrize("kind", ["float32", "uint8", "int32"])
+@pytest.mark.parametrize("index", ["int32", "int64"])
+def test_extract_patches_centre_types(kind, index):
+    """int32 and int64 centres, some of them beyond the buffer on every
+    side, at K5's SLAM patch size (7): the port's plain path from centres
+    against JAX ``extract_patches``."""
+    data = _data(kind, (48, 64, 3) if kind == "uint8" else (48, 64), 11)
+    rng = np.random.RandomState(12)
+    ctr = np.concatenate([rng.randint(-9, 73, (40, 2)),
+                          [[-20, 30], [30, -20], [70, 30], [30, 90],
+                           [47, 63], [0, 0], [3, 3], [44, 60]]])
+    ctr = ctr.astype(index)
+    j = np.asarray(ji.extract_patches(jnp.asarray(data), jnp.asarray(ctr),
+                                      7))
+    t = ti.extract_patches(torch.from_numpy(data), torch.from_numpy(ctr), 7)
+    np.testing.assert_array_equal(j, t.numpy())
+    np.testing.assert_array_equal(
+        t.numpy(), ti.extract_patches_plain(torch.from_numpy(data),
+                                            torch.from_numpy(ctr), 7).numpy())
+
+
 def test_extract_patches_at_tl_and_small_cases():
     arr = np.arange(100, dtype=np.float32).reshape(10, 10)
     p = ti.extract_patches(torch.from_numpy(arr),

@@ -5,7 +5,8 @@ nor vpp_tpu, so they also run on a machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
-Tolerances are chip_smoke.py's: K2 bit-equal; K1 flow equal wherever the
+Tolerances are chip_smoke.py's: K2 bit-equal in its three modes (full
+map, score image, cull); K1 flow equal wherever the
 best and second-best SAD differ by more than 1e-5 relative, dist and
 volume within rtol 1e-5, the whole level bit-equal on integer-valued
 buffers, propagation exactly equal on equal inputs; K7 bit-reproducible
@@ -34,15 +35,112 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,border", [((96, 128), 9), ((37, 53), 3)])
-def test_fast9_kernel_bit_equal(cuda, shape, border):
+K2_CASES = [((96, 128), 9), ((37, 53), 3)]
+
+
+def _k2_frame(device, shape, border):
     frame = make_clip(shape[1], shape[0], 1, seed=shape[0])[0]
-    img = from_array(torch.from_numpy(frame).to(cuda), border=border,
-                     border_mode="mirror")
+    return from_array(torch.from_numpy(frame).to(device), border=border,
+                      border_mode="mirror")
+
+
+@pytest.mark.parametrize("shape,border", K2_CASES)
+def test_fast9_kernel_bit_equal(cuda, shape, border):
+    """K2's full map, score and flag, and the score alone: one launch a
+    call, bit-equal to the plain version."""
+    img = _k2_frame(cuda, shape, border)
     for th in (5, 10, 20):
+        reset_launch_counts()
         sk, dk = fast.fast9_cuda(img, th)
+        assert launch_counts()["fast9"] == 1
         sp, dp = fast.fast9_plain(img, th)
         assert torch.equal(sk, sp) and torch.equal(dk, dp)
+        assert torch.equal(fast.fast9_cuda(img, th, detect=False)[0], sp)
+
+
+@pytest.mark.parametrize("shape,border", K2_CASES)
+def test_fast9_score_image_kernel_bit_equal(cuda, shape, border):
+    """K2's score image, with no mask, a uint8 mask (values other than 0/1)
+    and a bool mask: one launch a call writing the whole bordered image,
+    bit-equal to the plain composition."""
+    img = _k2_frame(cuda, shape, border)
+    rng = np.random.RandomState(border)
+    masks = [None,
+             torch.from_numpy((rng.randint(0, 4, shape) * 60).astype(
+                 np.uint8)).to(cuda),
+             torch.from_numpy(rng.rand(*shape) > 0.4).to(cuda)]
+    for th in (5, 10, 20):
+        for mask in masks:
+            reset_launch_counts()
+            got = fast.fast9_score_image(img, th, mask=mask)
+            assert launch_counts()["fast9"] == 1
+            want = fast.fast9_score_image_plain(img, th, mask=mask)
+            assert got.border == 1 and torch.equal(got.data, want.data)
+            assert int(got.data.count_nonzero()) > 0
+
+
+@pytest.mark.parametrize("shape,border", K2_CASES)
+def test_fast9_cull_kernel_bit_equal(cuda, shape, border):
+    """K2's cull at random positions in and around the domain, exact .5
+    fractions, the edge rows and columns and points far outside: one launch
+    a call, bit-equal to the full map read at the rounded, clamped
+    positions."""
+    img = _k2_frame(cuda, shape, border)
+    h, w = shape
+    rng = np.random.RandomState(h)
+    pos = np.concatenate([
+        rng.rand(4000, 2) * [h + 8, w + 8] - 4,
+        rng.randint(-2, max(h, w) + 2, (300, 2)) + 0.5,
+        [[0, 0], [h - 1, w - 1], [0, w - 1], [h - 1, 0], [-0.5, -0.5],
+         [h - 0.5, w - 0.5], [h - 1.5, 0.5], [0.49, w - 1.51],
+         [-40.0, 17.0], [h + 300.0, -9.0]]]).astype(np.float32)
+    pos = torch.from_numpy(pos).to(cuda)
+    for th in (5, 10, 20):
+        reset_launch_counts()
+        got = fast.fast9_cull_scores(img, pos, th)
+        assert launch_counts()["fast9"] == 1
+        want = fast.fast9_cull_scores_plain(img, pos, th)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` runs, by name and count, from
+    ``torch.profiler`` (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU}
+
+
+def test_k2_and_k5_calls_run_one_kernel(cuda):
+    """On the card, K2's score image and cull and K5 from centres of either
+    index type run their kernel and nothing else (no conversion, clamp,
+    pad or mask kernel around it); the tracker's cull and its compare and
+    mask are three kernels."""
+    from vpp_tpu_torch.core import interp
+    img = _k2_frame(cuda, (96, 128), 9)
+    mask = torch.ones((96, 128), dtype=torch.uint8, device=cuda)
+    pos = torch.rand((256, 2), device=cuda) * 90
+    alive = torch.rand((256,), device=cuda) > 0.5
+    data = torch.rand((114, 146), device=cuda)
+    calls = {"fast9_tile": lambda: fast.fast9_score_image(img, 10, mask),
+             "fast9_cull": lambda: fast.fast9_cull_scores(img, pos, 10)}
+    for index in (torch.int32, torch.int64):
+        ctr = (pos * 1.2).to(index)
+        calls[f"patches_{index}"] = (
+            lambda ctr=ctr: interp.extract_patches(data, ctr, 7))
+    for name, fn in calls.items():
+        kernels = _device_kernels(fn)
+        assert sum(kernels.values()) == 1, (name, kernels)
+        assert name.split("_")[0] in next(iter(kernels)), (name, kernels)
+    cull = _device_kernels(
+        lambda: alive & (fast.fast9_cull_scores(img, pos, 10) < 3))
+    assert sum(cull.values()) == 3, cull
 
 
 # (hb, wb, border, R, pred_bound, extra cells): the tracker's three levels
@@ -304,17 +402,30 @@ def test_pyramid_decim_kernel(cuda, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int32,
                                    torch.float64, torch.int16])
 @pytest.mark.parametrize("channels", [0, 3])
-def test_patches_kernel_bit_equal(cuda, dtype, channels):
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+def test_patches_kernel_bit_equal(cuda, dtype, channels, index):
+    """K5 from int32 and int64 centres (some beyond the buffer) and from
+    top-lefts: one launch a call, bit-equal to the plain versions."""
     from vpp_tpu_torch.core import interp
     rng = np.random.RandomState(channels)
     shape = (498, 658) + ((channels,) if channels else ())
     data = torch.from_numpy(rng.rand(*shape) * 255).to(dtype).to(cuda)
-    ctr = torch.from_numpy(rng.randint(-5, 670, (1024, 2))).to(cuda)
+    ctr = torch.from_numpy(rng.randint(-5, 670, (1024, 2))).to(index).to(
+        cuda)
     for size in (7, 9):
+        reset_launch_counts()
         got = interp.extract_patches(data, ctr, size)
+        assert launch_counts()["patches"] == 1
         want = interp.extract_patches_at_tl_plain(
-            data, interp._clamp_tl(ctr - size // 2, 498, 658, size), size)
+            data, interp._clamp_tl(ctr.long() - size // 2, 498, 658, size),
+            size)
         assert got.shape == want.shape and torch.equal(got, want)
+        assert torch.equal(interp.extract_patches_plain(data, ctr, size),
+                           want)
+        tl = ctr - size // 2
+        assert torch.equal(interp.extract_patches_at_tl(data, tl, size),
+                           interp.extract_patches_at_tl_plain(data, tl, size))
+        assert launch_counts()["patches"] == 2
 
 
 def _ring_problem(device, n, m, seed, noise=0.5):

@@ -8,11 +8,15 @@
   (K, 2) arrays with a validity mask.
 
 Pixel values are truncated to int32 before differencing, as the JAX package
-does. The score/detect stencil is kernel K2 (``kernels/csrc/fast9.cu``):
-``fast9_cuda`` launches it for a CUDA image and takes the plain version
-``fast9_plain`` for a CPU one. The blockwise selection is kernel K3
-(``kernels/csrc/block_topk.cu``), ``_blockwise_keypoints``, with its plain
-version ``_blockwise_keypoints_plain``.
+does. Kernel K2 (``kernels/csrc/fast9.cu``) has three entry points, each
+launching once for a CUDA image and taking its plain version for a CPU
+one: ``fast9_cuda`` (the full score map and flag; plain ``fast9_plain``),
+``fast9_score_image`` (the bordered uint8 detection image;
+``fast9_score_image_plain``) and ``fast9_cull_scores`` (the score at
+rounded positions, the tracker's cull; ``fast9_cull_scores_plain``). The
+blockwise selection is kernel K3 (``kernels/csrc/block_topk.cu``),
+``_blockwise_keypoints``, with its plain version
+``_blockwise_keypoints_plain``.
 """
 
 from __future__ import annotations
@@ -66,32 +70,41 @@ def fast9_plain(img: Image2d, th: int, detect: bool = True
     return score, kp.to(torch.uint8)
 
 
-def fast9_cuda(img: Image2d, th: int, detect: bool = True
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K2: score (and flag) in one launch on a CUDA image; the plain
-    version for a CPU image. Needs border >= 3."""
-    if img.border < 3:
-        raise ValueError("FAST needs a border of at least 3px")
+def _k2_frame(img: Image2d, name: str) -> torch.Tensor:
+    """K2's operand: the bordered frame as contiguous float32 on the card
+    (integer pixel types up to 24 bits convert exactly)."""
     data = img.data
-    if data.device.type == "cpu":
-        return fast9_plain(img, th, detect)
     if data.dim() != 2:
-        raise ValueError(f"fast9: expected a 2-D image, got {data.shape}")
+        raise ValueError(f"{name}: expected a 2-D image, got {data.shape}")
     if data.dtype != torch.float32:
-        # integer pixel types up to 24 bits convert exactly
         data = data.to(torch.float32)
     data = data.contiguous()
-    require_cuda("fast9", data, dtypes=(torch.float32,))
+    require_cuda(name, data, dtypes=(torch.float32,))
+    return data
+
+
+def _need_border_3(img: Image2d) -> None:
+    if img.border < 3:
+        raise ValueError("FAST needs a border of at least 3px")
+
+
+def fast9_cuda(img: Image2d, th: int, detect: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2's full map: score (and flag) in one launch on a CUDA image; the
+    plain version for a CPU image. Needs border >= 3."""
+    _need_border_3(img)
+    if img.data.device.type == "cpu":
+        return fast9_plain(img, th, detect)
+    data = _k2_frame(img, "fast9")
     from ..kernels import _build
-    lib = _build.load()
     h, w = img.shape
     score = torch.empty((h, w), dtype=torch.int32, device=data.device)
     flag = (torch.empty((h, w), dtype=torch.uint8, device=data.device)
             if detect else None)
-    code = lib.vpp_fast9(data.data_ptr(), data.shape[1], img.border, h, w,
-                         int(th), score.data_ptr(),
-                         flag.data_ptr() if detect else None,
-                         stream_handle(data))
+    code = _build.load().vpp_fast9(
+        data.data_ptr(), data.shape[1], img.border, h, w, int(th),
+        score.data_ptr(), flag.data_ptr() if detect else None,
+        stream_handle(data))
     LAUNCHES["fast9"] += 1
     _build.check(code, "fast9")
     return score, flag
@@ -111,8 +124,7 @@ def fast9_score_at(img: Image2d, positions: torch.Tensor,
                    th: int) -> torch.Tensor:
     """(K,) FAST score sampled at integer ``positions`` (row, col, interior
     coords); flat indices are clipped to the buffer."""
-    if img.border < 3:
-        raise ValueError("FAST needs a border of at least 3px")
+    _need_border_3(img)
     b = img.border
     wb = img.data.shape[1]
     p = positions.to(torch.int64) + b
@@ -129,17 +141,99 @@ def fast9_score_at(img: Image2d, positions: torch.Tensor,
     return torch.maximum(s_sup, s_inf)
 
 
-def fast9_score_image(img: Image2d, th: int,
-                      mask: Optional[torch.Tensor] = None) -> Image2d:
-    """uint8 score/16 image (border 1), non-zero only at detected
-    keypoints; an optional (H, W) ``mask`` zeroes masked-out pixels."""
-    score, flag = fast9_cuda(img, th, detect=True)
+def fast9_cull_scores_plain(img: Image2d, positions: torch.Tensor,
+                            th: int) -> torch.Tensor:
+    """Plain version of K2's cull: the JAX tracker's expression
+    ``fast9_score(img, th)[clip(round(positions))]`` written out, the full
+    map and a gather."""
+    h, w = img.shape
+    score, _ = fast9_plain(img, th, detect=False)
+    p = torch.round(positions.to(torch.float32)).to(torch.int32)
+    return score[p[:, 0].clamp(0, h - 1).long(),
+                 p[:, 1].clamp(0, w - 1).long()]
+
+
+def fast9_cull_scores(img: Image2d, positions: torch.Tensor,
+                      th: int) -> torch.Tensor:
+    """K2's cull: the (K,) int32 FAST score at (K, 2) float ``positions``
+    (row, col, interior coords) rounded half to even and clamped into the
+    domain, in one launch on a CUDA image (one thread a slot, 17 samples);
+    the plain version for a CPU image. Equal to the full map read at those
+    pixels for every position within the int32 range. Needs border >= 3."""
+    _need_border_3(img)
+    if img.data.device.type == "cpu":
+        return fast9_cull_scores_plain(img, positions, th)
+    if positions.dim() != 2 or positions.shape[1] != 2:
+        raise ValueError(f"fast9_cull_scores: positions must be (K, 2), got "
+                         f"{tuple(positions.shape)}")
+    data = _k2_frame(img, "fast9_cull_scores")
+    pos = positions
+    if pos.dtype != torch.float32:
+        pos = pos.to(torch.float32)
+    pos = pos.contiguous()
+    require_cuda("fast9_cull_scores", data, pos,
+                 dtypes=(torch.float32, torch.float32))
+    from ..kernels import _build
+    h, w = img.shape
+    k = pos.shape[0]
+    out = torch.empty((k,), dtype=torch.int32, device=data.device)
+    if k == 0:
+        return out
+    code = _build.load().vpp_fast9_cull(
+        data.data_ptr(), data.shape[1], img.border, h, w, int(th),
+        pos.data_ptr(), k, out.data_ptr(), stream_handle(data))
+    LAUNCHES["fast9"] += 1
+    _build.check(code, "fast9_cull")
+    return out
+
+
+def fast9_score_image_plain(img: Image2d, th: int,
+                            mask: Optional[torch.Tensor] = None) -> Image2d:
+    """Plain version of K2's score image: the full map and flag, the mask,
+    score // 16 clipped to uint8, and the zero border, as the JAX package
+    composes them."""
+    score, flag = fast9_plain(img, th, detect=True)
     kp = flag != 0
     if mask is not None:
         kp = kp & (torch.as_tensor(mask, device=kp.device) != 0)
     s = torch.where(kp, torch.div(score, 16, rounding_mode="floor"),
                     torch.zeros_like(score))
     return from_array(s.clamp(0, 255).to(torch.uint8), border=1)
+
+
+def fast9_score_image(img: Image2d, th: int,
+                      mask: Optional[torch.Tensor] = None) -> Image2d:
+    """uint8 score/16 image (border 1), non-zero only at detected
+    keypoints; an optional (H, W) ``mask`` zeroes masked-out pixels. On a
+    CUDA image, one K2 launch writes the whole bordered image (a uint8 or
+    bool mask is read as bytes); the plain version on a CPU image."""
+    _need_border_3(img)
+    if img.data.device.type == "cpu":
+        return fast9_score_image_plain(img, th, mask)
+    data = _k2_frame(img, "fast9_score_image")
+    h, w = img.shape
+    dev = data.device
+    operands, dtypes = [data], [torch.float32]
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev)
+        if mask.dtype not in (torch.uint8, torch.bool):
+            mask = mask != 0
+        mask = mask.contiguous()
+        if tuple(mask.shape) != (h, w):
+            raise ValueError(f"fast9_score_image: mask must be {(h, w)}, got "
+                             f"{tuple(mask.shape)}")
+        operands.append(mask)
+        dtypes.append(mask.dtype)
+    require_cuda("fast9_score_image", *operands, dtypes=dtypes)
+    from ..kernels import _build
+    out = torch.empty((h + 2, w + 2), dtype=torch.uint8, device=dev)
+    code = _build.load().vpp_fast9_image(
+        data.data_ptr(), data.shape[1], img.border, h, w, int(th),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        stream_handle(data))
+    LAUNCHES["fast9"] += 1
+    _build.check(code, "fast9_image")
+    return Image2d(data=out, border=1)
 
 
 def local_maxima_filter(scores: Image2d) -> Image2d:

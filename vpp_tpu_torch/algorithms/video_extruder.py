@@ -24,7 +24,7 @@ from .._device import resolve_device
 from ..core.image import Image2d, _as_tensor, from_array
 from ..core.keypoints import (Keypoints, keypoints_empty, kp_add,
                               kp_kill_where, kp_move_all)
-from .fast import fast9, fast9_score
+from .fast import fast9, fast9_cull_scores
 from .flow import semi_dense_optical_flow
 from .pyramid import Pyramid, pyramid
 
@@ -132,11 +132,10 @@ def video_extruder_update(state: VideoExtruderState, frame1: Image2d,
     # 2. Merge collided particles.
     kps = _merge_collided(kps, (h, w), cfg.keypoint_spacing)
 
-    # 3. Cull low-score points: full score map (K2) + one gather.
-    score_img = fast9_score(frame2, cfg.detector_th)
-    pos_i = torch.round(kps.position).to(torch.int32)
-    sc = score_img[pos_i[:, 0].clamp(0, h - 1).long(),
-                   pos_i[:, 1].clamp(0, w - 1).long()]
+    # 3. Cull low-score points: K2 scores each slot's rounded, clamped
+    # position from its 17 samples, the values of the JAX package's full
+    # score map read at those pixels.
+    sc = fast9_cull_scores(frame2, kps.position, cfg.detector_th)
     kps = kp_kill_where(kps, kps.alive & (sc < 3))
 
     # 4. Periodic detection of new keypoints.

@@ -1,12 +1,13 @@
 """Sampling: bilinear interpolation and batched patch extraction (port of
 ``vpp_tpu.core.interp``).
 
-``extract_patches_at_tl`` is kernel K5 (``kernels/csrc/patches.cu``): a
-plain gather of N size × size patches, bit-equal to the JAX one-hot
-matmuls (exact at ``Precision.HIGHEST``) and to its gather branch for
-integer types. A CUDA tensor launches the kernel; a CPU tensor takes the
-plain version, ``extract_patches_at_tl_plain``. The other functions are
-plain PyTorch.
+``extract_patches`` (from centres) and ``extract_patches_at_tl`` (from
+top-lefts) are kernel K5 (``kernels/csrc/patches.cu``): a plain gather of
+N size × size patches, bit-equal to the JAX one-hot matmuls (exact at
+``Precision.HIGHEST``) and to its gather branch for integer types. A CUDA
+tensor launches the kernel, which also subtracts ``size // 2`` and clamps;
+a CPU tensor takes the plain versions, ``extract_patches_plain`` and
+``extract_patches_at_tl_plain``. The other functions are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -50,13 +51,21 @@ def _clamp_tl(tl: torch.Tensor, h: int, w: int, size: int) -> torch.Tensor:
 def extract_patches_at_tl_plain(data: torch.Tensor, tl: torch.Tensor,
                                 size: int) -> torch.Tensor:
     """Plain version of K5: advanced indexing at top-lefts clamped into the
-    buffer (the callers clamp already; the JAX gather branch clamps too)."""
+    buffer (the JAX gather branch clamps too)."""
     h, w = data.shape[0], data.shape[1]
     tl = _clamp_tl(tl.to(torch.int64), h, w, size)
     ar = torch.arange(size, device=data.device)
     rows = (tl[:, 0, None] + ar)[:, :, None]                 # (N, S, 1)
     cols = (tl[:, 1, None] + ar)[:, None, :]                 # (N, 1, S)
     return data[rows, cols]
+
+
+def extract_patches_plain(data: torch.Tensor, centers: torch.Tensor,
+                          size: int) -> torch.Tensor:
+    """Plain version of K5 from centres: top-left = centre - size // 2,
+    clamped into the buffer."""
+    return extract_patches_at_tl_plain(data, centers.to(torch.int64)
+                                       - size // 2, size)
 
 
 def _check_patches(data: torch.Tensor, tl: torch.Tensor, size: int) -> None:
@@ -74,6 +83,37 @@ def _check_patches(data: torch.Tensor, tl: torch.Tensor, size: int) -> None:
 _ELEM_BYTES = (1, 2, 4, 8)
 
 
+def _launch_patches(data: torch.Tensor, idx: torch.Tensor, off: int,
+                    size: int) -> torch.Tensor:
+    """K5 on CUDA tensors: one launch into one ``torch.empty``. The kernel
+    reads int32 or int64 ``idx`` as they come and clamps ``idx - off`` into
+    the buffer; any other index type is converted first."""
+    esize = data.element_size()
+    if esize not in _ELEM_BYTES:
+        raise ValueError(f"extract_patches: {data.dtype} is not 1, 2, 4 or "
+                         "8 bytes wide")
+    h, w = data.shape[0], data.shape[1]
+    ch = data.shape[2] if data.dim() == 3 else 1
+    n = idx.shape[0]
+    if h * w * ch >= 2 ** 31 or n * size * size * ch >= 2 ** 31:
+        raise ValueError("extract_patches: more than 2^31 elements")
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int64)
+    data, idx = data.contiguous(), idx.contiguous()
+    require_cuda("extract_patches", data, idx, dtypes=(data.dtype, idx.dtype))
+    out = torch.empty((n, size, size) + tuple(data.shape[2:]),
+                      dtype=data.dtype, device=data.device)
+    if n == 0:
+        return out
+    from ..kernels import _build
+    code = _build.load().vpp_patches(
+        data.data_ptr(), h, w, ch, esize, idx.data_ptr(), idx.element_size(),
+        off, n, size, out.data_ptr(), stream_handle(data))
+    LAUNCHES["patches"] += 1
+    _build.check(code, "patches")
+    return out
+
+
 def extract_patches_at_tl(data: torch.Tensor, tl: torch.Tensor,
                           size: int) -> torch.Tensor:
     """K5: (N, size, size[, C]) patches at (N, 2) integer top-lefts
@@ -81,42 +121,19 @@ def extract_patches_at_tl(data: torch.Tensor, tl: torch.Tensor,
     _check_patches(data, tl, size)
     if data.device.type == "cpu":
         return extract_patches_at_tl_plain(data, tl, size)
-    esize = data.element_size()
-    if esize not in _ELEM_BYTES:
-        raise ValueError(f"extract_patches: {data.dtype} is not 1, 2, 4 or "
-                         "8 bytes wide")
-    h, w = data.shape[0], data.shape[1]
-    ch = data.shape[2] if data.dim() == 3 else 1
-    n = tl.shape[0]
-    if h * w * ch >= 2 ** 31 or n * size * size * ch >= 2 ** 31:
-        raise ValueError("extract_patches: more than 2^31 elements")
-    data = data.contiguous()
-    tl32 = tl.to(torch.int32).contiguous()
-    require_cuda("extract_patches", data, tl32,
-                 dtypes=(data.dtype, torch.int32))
-    out = torch.empty((n, size, size) + tuple(data.shape[2:]),
-                      dtype=data.dtype, device=data.device)
-    if n == 0:
-        return out
-    from ..kernels import _build
-    lib = _build.load()
-    code = lib.vpp_patches(data.data_ptr(), h, w, ch, esize, tl32.data_ptr(),
-                           n, size, out.data_ptr(), stream_handle(data))
-    LAUNCHES["patches"] += 1
-    _build.check(code, "patches")
-    return out
+    return _launch_patches(data, tl, 0, size)
 
 
 def extract_patches(data: torch.Tensor, centers: torch.Tensor,
                     size: int) -> torch.Tensor:
-    """Integer-aligned (size × size) patches around (N, 2) int centers,
-    clamped so every patch lies inside the buffer. Returns
-    (N, size, size[, C])."""
+    """K5 from centres: integer-aligned (size × size) patches around (N, 2)
+    int centers, clamped so every patch lies inside the buffer. Returns
+    (N, size, size[, C]). On a CUDA tensor, one launch: the kernel takes
+    int32 or int64 centres as they are and does the arithmetic itself."""
     _check_patches(data, centers, size)
-    h, w = data.shape[0], data.shape[1]
-    half = size // 2
-    tl = _clamp_tl(centers.to(torch.int32) - half, h, w, size)
-    return extract_patches_at_tl(data, tl, size)
+    if data.device.type == "cpu":
+        return extract_patches_plain(data, centers, size)
+    return _launch_patches(data, centers, size // 2, size)
 
 
 def extract_patches_bilinear(data: torch.Tensor, centers: torch.Tensor,

@@ -5,7 +5,9 @@ wrapper (in the algorithm module that owns the kernel) adds one to its
 count in ``LAUNCHES`` where it launches, and nowhere else, so a run can
 show that it went through the kernels:
 
-* ``fast9``      — K2, ``algorithms/fast.py:fast9_cuda``
+* ``fast9``      — K2, every launch of ``algorithms/fast.py``'s three
+  entries: ``fast9_cuda`` (full map), ``fast9_score_image`` and
+  ``fast9_cull_scores``
 * ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
   the volume launch, and the argmin/rejection/propagation launch)
 * ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc``
@@ -13,7 +15,8 @@ show that it went through the kernels:
   cooperative launch per call)
 * ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_binomial_decimate``
   (one per pyramid level above level 0)
-* ``patches``    — K5, ``core/interp.py:extract_patches_at_tl``
+* ``patches``    — K5, ``core/interp.py:extract_patches`` (from centres)
+  and ``extract_patches_at_tl``
 * ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch
   per ``ba_solve_tracks`` call, every LM iteration included)
 """
@@ -39,8 +42,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on the tensor's device, as an address."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on the tensor's device, as an address: the
+    raw handle, without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtypes) -> None:

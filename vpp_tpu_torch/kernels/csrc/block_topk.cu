@@ -53,6 +53,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
 constexpr int kGroups = 2;          // sets of blocks a warp reduces at once
 constexpr int kBlocksPerCta = 64;   // the fewest blocks a CTA takes
+constexpr int kMaxDevices = 64;
 static_assert(kThreads == 2 * kBins, "phase 2 takes two threads a score");
 
 template <typename T>
@@ -252,15 +253,24 @@ cudaError_t launch(const T* data, int stride, int border, int h, int w,
                    long long scratch_ints, int* pos_out, int* score_out,
                    unsigned char* valid_out, cudaStream_t stream) {
   // G: one CTA per pass of its warps, at most one per SM, and no more than
-  // can be resident at once (a cooperative launch needs them all)
-  int dev = 0, sms = 0, per_sm = 0;
+  // can be resident at once (a cooperative launch needs them all). The SM
+  // count and the occupancy are asked once per device (0: not yet asked).
+  static int sms_of[kMaxDevices], per_sm_of[kMaxDevices];
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, block_topk_kernel<T>, kThreads, 0);
-  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, block_topk_kernel<T>, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    per_sm_of[dev] = per_sm;
+    sms_of[dev] = sms;
+  }
+  const int sms = sms_of[dev], per_sm = per_sm_of[dev];
   const int want = (nb + kBlocksPerCta - 1) / kBlocksPerCta;
   const int G = want < sms ? want : sms;
   if (per_sm < 1 || 2LL * nb + (long long)kBins * G > scratch_ints)

@@ -1,69 +1,105 @@
-// K5 — patch extraction: N exact size x size patches at integer top-lefts.
+// K5 — patch extraction: N exact size x size patches around integer
+// centres (or at integer top-lefts), in one launch.
 //
-// Replaces vpp_tpu/core/interp.py:extract_patches_at_tl (:61). On the TPU
-// the gather was recast as one-hot selector matrix products (rows via an
-// (N*size, H) @ (H, W*C) product, columns via a batched einsum), exact at
-// Precision.HIGHEST because every selector row holds a single 1.0; integer
-// types took a vmapped dynamic_slice. Here it is the gather itself: one
-// thread per output element (n, i, j, c) copies
-// data[tl_r + i, tl_c + j, c]. Elements are moved as raw 1, 2, 4 or 8-byte
-// words, so every dtype is bit-exact, 2-D data being the case C = 1.
-// Top-lefts are clamped into the buffer, as dynamic_slice clamps them (the
-// callers clamp already).
+// Replaces vpp_tpu/core/interp.py:extract_patches (:99) and
+// extract_patches_at_tl (:61). On the TPU the gather was recast as one-hot
+// selector matrix products (rows via an (N*size, H) @ (H, W*C) product,
+// columns via a batched einsum), exact at Precision.HIGHEST because every
+// selector row holds a single 1.0; integer types took a vmapped
+// dynamic_slice. Here it is the gather itself, and the centre arithmetic
+// comes with it: the kernel reads the (N, 2) centres as they come (int32 or
+// int64, a template on the index type), subtracts `off` (size // 2 for
+// centres, 0 for top-lefts) and clamps each top-left to [0, h - size] x
+// [0, w - size], as interp.py:109-111 clips and as dynamic_slice clamps. So
+// the wrapper makes one launch into one torch.empty, with no conversion or
+// clamp before it.
 //
-// Bound on the H100: device-memory bytes (N*size*size*C elements written and
-// as many read; 1024 x 7 x 7 float32 is 0.4 MB, ~0.12 us), far below one
-// launch: the kernel sits at launch latency.
+// Bound on the H100: device-memory bytes, N x 8 for the centres plus twice
+// N x size^2 x C elements (1024 x 7x7 float32: ~0.41 MB, ~0.12 us), far
+// below the time of one launch: the design aims at the launch floor. One
+// warp takes one patch (a CTA of 8 warps, 8 patches): a patch is `size`
+// row spans of size*C contiguous elements, and the lanes walk the
+// patch's size*size*C elements row by row, so neighbouring lanes read
+// neighbouring addresses of one span and write neighbouring addresses of
+// the output. Index arithmetic is 32-bit (the wrapper refuses buffers of
+// 2^31 elements or more) and elements move as raw 1, 2, 4 or 8-byte words,
+// so every dtype is bit-exact, 2-D data being the case C = 1. Spans start at
+// any column, so no wider aligned move is taken.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-template <typename T>
-__global__ void patches_kernel(const T* __restrict__ data, int h, int w,
-                               int ch, const int* __restrict__ tl, int n,
-                               int size, T* __restrict__ out) {
-  const long long total = (long long)n * size * size * ch;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int c = (int)(e % ch);
-  long long q = e / ch;
-  const int j = (int)(q % size);
-  q /= size;
-  const int i = (int)(q % size);
-  const int p = (int)(q / size);
-  int r0 = tl[2 * p], c0 = tl[2 * p + 1];
-  r0 = r0 < 0 ? 0 : (r0 > h - size ? h - size : r0);
-  c0 = c0 < 0 ? 0 : (c0 > w - size ? w - size : c0);
-  out[e] = data[((size_t)(r0 + i) * w + (c0 + j)) * ch + c];
+constexpr int kWarps = 8;
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kWarps * 32)
+patches_kernel(const T* __restrict__ data, int h, int w, int ch,
+               const I* __restrict__ ctr, int off, int n, int size,
+               T* __restrict__ out) {
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= n) return;
+  const int lane = threadIdx.x & 31;
+  // every lane reads the same two words: one broadcast transaction
+  I r0 = ctr[2 * p] - (I)off, c0 = ctr[2 * p + 1] - (I)off;
+  r0 = r0 < 0 ? 0 : (r0 > (I)(h - size) ? (I)(h - size) : r0);
+  c0 = c0 < 0 ? 0 : (c0 > (I)(w - size) ? (I)(w - size) : c0);
+  const int span = size * ch;                 // elements of one patch row
+  const int stride = w * ch;                  // elements of one data row
+  const T* src = data + ((int)r0 * w + (int)c0) * ch;
+  T* dst = out + p * size * span;
+  const int total = size * span;
+  int i = lane / span, j = lane - (lane / span) * span;
+  const int di = 32 / span, dj = 32 - di * span;
+  for (int e = lane; e < total; e += 32) {
+    dst[e] = src[i * stride + j];
+    i += di;
+    j += dj;
+    if (j >= span) {
+      j -= span;
+      ++i;
+    }
+  }
 }
 
-template <typename T>
-int launch(const void* data, int h, int w, int ch, const int* tl, int n,
-           int size, void* out, cudaStream_t st) {
-  const long long total = (long long)n * size * size * ch;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  patches_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
-      (const T*)data, h, w, ch, tl, n, size, (T*)out);
+template <typename T, typename I>
+int launch(const void* data, int h, int w, int ch, const void* ctr, int off,
+           int n, int size, void* out, cudaStream_t st) {
+  const int blocks = (n + kWarps - 1) / kWarps;
+  patches_kernel<T, I><<<blocks, kWarps * 32, 0, st>>>(
+      (const T*)data, h, w, ch, (const I*)ctr, off, n, size, (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename I>
+int dispatch(const void* data, int h, int w, int ch, int esize,
+             const void* ctr, int off, int n, int size, void* out,
+             cudaStream_t st) {
+  switch (esize) {
+    case 1: return launch<uint8_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
+    case 2: return launch<uint16_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
+    case 4: return launch<uint32_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
+    case 8: return launch<uint64_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// data: contiguous (h, w, ch) elements of esize bytes; tl: (n, 2) int32;
+// data: contiguous (h, w, ch) elements of esize bytes, fewer than 2^31 of
+// them; ctr: contiguous (n, 2) int32 (ibytes 4) or int64 (ibytes 8) centres
+// or top-lefts; each top-left is ctr - off, clamped into the buffer.
 // out: (n, size, size, ch) elements.
 extern "C" int vpp_patches(const void* data, int h, int w, int ch, int esize,
-                           const int* tl, int n, int size, void* out,
-                           void* stream) {
+                           const void* ctr, int ibytes, int off, int n,
+                           int size, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  switch (esize) {
-    case 1: return launch<uint8_t>(data, h, w, ch, tl, n, size, out, st);
-    case 2: return launch<uint16_t>(data, h, w, ch, tl, n, size, out, st);
-    case 4: return launch<uint32_t>(data, h, w, ch, tl, n, size, out, st);
-    case 8: return launch<uint64_t>(data, h, w, ch, tl, n, size, out, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (size < 1 || size > h || size > w) return (int)cudaErrorInvalidValue;
+  if (ibytes == 4)
+    return dispatch<int32_t>(data, h, w, ch, esize, ctr, off, n, size, out, st);
+  if (ibytes == 8)
+    return dispatch<int64_t>(data, h, w, ch, esize, ctr, off, n, size, out, st);
+  return (int)cudaErrorInvalidValue;
 }
