@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device time of the SLAM keyframe's whole window-BA call (K6,
-``ba_solve_tracks``) and of the SLAM frame's block top-K call (K3,
-``_blockwise_keypoints``), on one CUDA card, for this checkout or against
-another one.
+``ba_solve_tracks``), of the SLAM frame's block top-K call (K3,
+``_blockwise_keypoints``), of a frame's pyramid as the run loops build it
+(K4) and of the Hough accumulator (K7), on one CUDA card, for this
+checkout or against another one.
 
     python3 call_times.py                   # this checkout
     python3 call_times.py --compare DIR     # DIR's checkout against this
@@ -15,6 +16,17 @@ bits; the K3 input is the FAST score image of that warm-up's last frame
 where the checkout refuses it). K3's host time a call is also broken down
 (``block_topk_host_us``: the whole wrapper, its checks, allocations,
 stream query and C entry, host clock over 500 calls that only enqueue).
+The pyramid is that frame's, 3 levels with border 9, by both routes a run
+loop has taken: the frame image (``from_array``, mirror) then ``pyramid``
+of it (``frame_pyramid_*``), and ``pyramid`` of the unbordered frame
+(``raw_pyramid_*``); each with its device time, its device operations
+under the profiler and its K4 launches. Where the checkout's K4 can take
+level 2 after a grid barrier instead of from the frame (``_k4``'s
+``fuse``), the raw frame's pyramid is also timed both ways, fused,
+barrier, barrier, fused (``k4_fused_device_ms``, ``k4_barrier_device_ms``),
+after a check that both give the same bits. K7's input is the vote vectors of
+the 640x480 two-line Hough clip's frame 5 (``hough_acc_*``: device time,
+as called, device operations).
 Each measurement prints one JSON line:
 ``device_ms`` (CUDA events around replays of a CUDA graph of 20 calls, or
 the profiler's device time where capture is refused, as ``chip_smoke.py``
@@ -27,6 +39,7 @@ own process, and prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -68,9 +81,19 @@ def make_problem(path: str) -> None:
     scores = F.fast9_score_image(frame, cfg.tracker.detector_th)
     rng = np.random.RandomState(3)
     big = rng.randint(1, 256, (2160, 3840)) * (rng.rand(2160, 3840) > 0.5)
+    from vpp_tpu_torch.algorithms import hough as HG
+    from vpp_tpu_torch.utils.clips import synthetic_line_clip
+    himg = from_array(torch.from_numpy(synthetic_line_clip(640, 480, 6)[5]),
+                      border=3, border_mode="mirror")
+    t0i, r0i, ft, fr, wgt, rho_bins = HG._vote_bins(himg, 255, None, 40.0,
+                                                    "binary", None)
     torch.save({"ba": tuple(problems[-1]), "scores": scores.data,
                 "border": scores.border,
-                "scores_4k": torch.from_numpy(big.astype(np.uint8))}, path)
+                "scores_4k": torch.from_numpy(big.astype(np.uint8)),
+                "frame": torch.from_numpy(clip[-1]),
+                "hough": ((t0i.float() + ft).reshape(-1),
+                          (r0i.float() + fr).reshape(-1),
+                          wgt.reshape(-1).contiguous(), 255, rho_bins)}, path)
 
 
 def measure(root: str, path: str) -> dict:
@@ -122,6 +145,7 @@ def measure(root: str, path: str) -> dict:
             torch, lambda: F._blockwise_keypoints(big, 10, 4096))[0]
     except ValueError:      # a checkout that caps the block count
         k3["block_topk_82944_blocks_device_ms"] = None
+    k4k7 = pyramid_and_hough(torch, CS, saved)
     import vpp_tpu_torch
     return {"root": root, "package": os.path.dirname(vpp_tpu_torch.__file__),
             "n": int(prob.landmarks.shape[0]), "m": int(prob.poses.shape[0]),
@@ -129,7 +153,60 @@ def measure(root: str, path: str) -> dict:
             "device_ms": dev_ms, "device_ms_by": by,
             "ms": CS.cuda_ms(torch, call, 50),
             "ba_tracks_launches": launches, "device_kernels": kernels,
-            **k3}
+            **k3, **k4k7}
+
+
+def _device_ops(torch, CS, fn) -> int:
+    """Device operations one call of ``fn`` runs (``torch.profiler``)."""
+    return sum(CS.device_kernels(torch, fn).values())
+
+
+def pyramid_and_hough(torch, CS, saved) -> dict:
+    """K4 by both run-loop routes and K7, on the saved inputs."""
+    from vpp_tpu_torch.algorithms import hough_cuda as HC
+    from vpp_tpu_torch.algorithms import pyramid as P
+    from vpp_tpu_torch.algorithms.pyramid import pyramid
+    from vpp_tpu_torch.core.image import Image2d, from_array
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    frame = saved["frame"].cuda()
+    routes = {
+        "frame_pyramid": lambda: pyramid(
+            from_array(frame, border=9, border_mode="mirror"), 3, border=9),
+        "raw_pyramid": lambda: pyramid(Image2d(data=frame, border=0), 3,
+                                       border=9)}
+    out = {}
+    for name, fn in routes.items():
+        fn()
+        reset_launch_counts()
+        fn()
+        out[f"{name}_k4_launches"] = launch_counts()["pyramid_decim"]
+        out[f"{name}_device_ms"] = CS.device_ms(torch, fn)[0]
+        out[f"{name}_ms"] = CS.cuda_ms(torch, fn, 200)
+        out[f"{name}_device_ops"] = _device_ops(torch, CS, fn)
+    k4 = getattr(P, "_k4", None)     # a checkout older than the fused K4
+    if k4 is not None and "fuse" in inspect.signature(k4).parameters:
+        shapes = P.level_shapes(tuple(frame.shape), 3)
+        designs = {"fused": lambda: P._k4(frame, shapes, 9, first=0),
+                   "barrier": lambda: P._k4(frame, shapes, 9, first=0,
+                                            fuse=False)}
+        for a, b in zip(designs["fused"](), designs["barrier"]()):
+            if not torch.equal(a.data, b.data):
+                raise RuntimeError("K4's fused and barrier designs differ")
+        for name in ("fused", "barrier"):
+            out[f"k4_{name}_device_ms"] = []
+        for name in ("fused", "barrier", "barrier", "fused"):
+            out[f"k4_{name}_device_ms"].append(
+                CS.device_ms(torch, designs[name])[0])
+    th, rho, w, tt, rb = saved["hough"]
+    th, rho, w = th.cuda(), rho.cuda(), w.cuda()
+
+    def k7():
+        return HC.hough_acc(th, rho, w, tt, rb)
+
+    out["hough_acc_device_ms"] = CS.device_ms(torch, k7)[0]
+    out["hough_acc_ms"] = CS.cuda_ms(torch, k7, 200)
+    out["hough_acc_device_ops"] = _device_ops(torch, CS, k7)
+    return out
 
 
 def _host_us(torch, fn, reps: int = 500) -> float:

@@ -18,9 +18,10 @@ Phases, in order; any failure exits nonzero and prints no result:
    than 1e-5 relative, the whole level (volume, flow, dist) bit-equal on
    the level buffers rounded to integers, propagation (pass by pass and
    all passes in one launch) exactly equal on equal inputs; K7 Hough
-   accumulator bit-identical across two launches, within 1e-4 * max of
-   the float32 scatter, and in every cell within its fixed-point rounding
-   bound of a float64 scatter. Each is timed as called (``ms``: CUDA
+   accumulator one device kernel a call (the profiler shows no memset),
+   bit-identical across two launches, within 1e-4 * max of the float32
+   scatter, and in every cell within its fixed-point rounding bound of a
+   float64 scatter. Each is timed as called (``ms``: CUDA
    events around the Python calls, host work included) and on the device
    (``device_ms``: CUDA events around replays of a CUDA graph of the
    calls, captured after warm-up; the profiler's device time where
@@ -28,9 +29,14 @@ Phases, in order; any failure exits nonzero and prints no result:
    level and per frame. Then K3 block top-K bit-equal at the 640x480 SLAM
    frame's score image (one launch a call), at 40000 and 82944 blocks
    (a 4K frame at 10 px) and on images of long runs of tied scores, uint8
-   and int32, with its device time at each size; K4 pyramid decimation
-   bit-equal on integer-valued frames at 3 levels and within 1e-6 relative
-   on rendered float frames; K5 patches bit-equal at 1024 x 7x7 from int32
+   and int32, with its device time at each size; K4, the whole pyramid in
+   one launch from the raw frame and from a bordered frame's interior, at
+   640x480 and 357x493, 3 levels with border 9: bit-equal to the plain
+   chain on integer-valued frames and within 1e-6 relative on float ones,
+   one device kernel, timed beside the library route (``index_select``
+   pads and banded ``torch.matmul`` pairs) and the parent's route (the
+   frame image, a second pad of level 0 and one K4 launch a level); K5
+   patches bit-equal at 1024 x 7x7 from int32
    and int64 centres in the bordered VGA frame and on a 3-channel buffer,
    one launch a call, beside the library's advanced indexing from the same
    centres (index preparation and gather, each also timed alone); K6, the
@@ -43,24 +49,28 @@ Phases, in order; any failure exits nonzero and prints no result:
    1e-4, every landmark's reprojections into its observing keyframes
    within 1e-3 px and costs within 1e-4 of the plain LM loop on the same
    problem; the same with every step rejected and with the pose
-   factorisation failing. K6 is timed per ``ba_solve_tracks`` call. Each
+   factorisation failing; and ``ba_solve_tracks(iters=0)`` returning the
+   problem bit-equal with empty costs and no launch. K6 is timed per ``ba_solve_tracks`` call. Each
    row with a library call (K3, K4, K5, K7) also carries the library's
    ``library_device_ms`` from the same CUDA-graph replays;
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
-   frame) and K2 (72: a cull a frame, a score image every 5th), and the
+   frame), K2 (72: a cull a frame, a score image every 5th) and K4 (61:
+   one pyramid a frame and the first frame's), and the
    first 10 frames against the plain CPU path
    (alive counts within 1%);
 5. the Hough path: ``hough_tracker_update`` on 30 frames of the two-line
-   clip at 640x480, ms/frame, K7's launch count, and the same frames on the
+   clip at 640x480, ms/frame, K7's launch count (one a frame), and the
+   same frames on the
    plain CPU path (the same live tracks at the same (θ, ρ));
 6. the SLAM tracking+BA path: ``slam_run`` at the matched 640x480
    configuration of ``benchmarks/bench_slam.py`` (2000-point cloud, lateral
    dolly, capacity 1024, ring 6, 3 LM iterations, recovery off) on 240
    frames rendered by ``vpp_tpu_torch/utils/synth.py`` (seed 1) and already
    on the card: frames/s under ``torch.cuda.synchronize``, launch counts of
-   K1-K6 (K2 two a frame, K3 one a frame, K5 and K6 one a keyframe),
+   K1-K6 (K2 two a frame, K3 one a frame, K4 241, K5 and K6 one a
+   keyframe),
    keyframes (60), live landmarks (> 200) and ATE (< 0.10). The
    state just before keyframe 30 is copied to the CPU and ``_do_keyframe``
    runs on both (poses within 1e-3, ``lm_valid`` agreeing on >= 99% of
@@ -169,6 +179,23 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 20):
     return start.elapsed_time(end) / (replays * calls), "cuda_graph"
 
 
+def device_kernels(torch, fn) -> dict:
+    """The device operations (kernels, memsets, copies) one call of ``fn``
+    runs, by name and count, from ``torch.profiler``, after a warm-up call
+    under a profiler session of its own (a process's first session can
+    miss device events)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        fn()
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU}
+
+
 def bilinear_votes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
     """The four bilinear votes of every pixel as flat cell indices and
     float32 values, computed as K7 computes them: (idx (4N,), votes (4N,))."""
@@ -241,7 +268,7 @@ def main() -> int:
     from vpp_tpu_torch.algorithms.video_extruder import (
         VideoExtruderConfig, video_extruder_run)
     from vpp_tpu_torch.core import interp as IP
-    from vpp_tpu_torch.core.image import Image2d, from_array
+    from vpp_tpu_torch.core.image import Image2d, from_array, pad_index
     from vpp_tpu_torch.kernels import (_build, launch_counts,
                                        reset_launch_counts)
     from vpp_tpu_torch.slam import ba as BA
@@ -478,6 +505,10 @@ def main() -> int:
     accp = HC.hough_acc_plain(th_n, rho_n, wv, tt, rho_bins)
     torch.cuda.synchronize()
     check(torch.equal(acc1, acc2), "K7 is not bit-reproducible")
+    k7_ops = device_kernels(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt,
+                                                         rho_bins))
+    check(sum(k7_ops.values()) == 1 and "hough" in next(iter(k7_ops)),
+          f"K7 is not one device kernel a call: {k7_ops}")
     k7_err = float((acc1 - accp).abs().max())
     check(k7_err <= 1e-4 * float(accp.max()),
           f"K7 off by {k7_err} (max {float(accp.max())})")
@@ -510,14 +541,27 @@ def main() -> int:
             th_n, rho_n, wv, tt, rho_bins), 50),
         library_ms=cuda_ms(torch, lambda: lib_acc.index_put_(
             (idx,), vals, accumulate=True), 50))
+    # the bytes K7 must move: w in full, th and rho only in the 32-byte
+    # sectors that hold a voting pixel, the float32 accumulator out
+    voters = torch.nonzero(wv != 0).reshape(-1)
+    k7_sectors = sum(
+        int(torch.unique((t.data_ptr() % 32 // 4 + voters) // 8).numel())
+        for t in (th_n, rho_n))
+    k7_bytes = wv.numel() * 4 + k7_sectors * 32 + tt * rho_bins * 4
     results["hough_acc"]["bound_ms"], results["hough_acc"]["bound_by"] = \
-        bound_ms(th_n.numel() * 4 * 3 + tt * rho_bins * 4, n_edge * 20)
+        bound_ms(k7_bytes, n_edge * 20)
     results["hough_acc"]["device_ms"], results["hough_acc"]["device_ms_by"] = \
         device_ms(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt, rho_bins))
     results["hough_acc"]["library_device_ms"] = device_ms(
         torch, lambda: lib_acc.index_put_((idx,), vals, accumulate=True))[0]
-    print(f"phase 3: K7 hough_acc reproducible, err {k7_err:.3g} of max "
-          f"{float(accp.max()):.1f}, {n_edge} voting pixels, "
+    results["hough_acc"]["device_ops"] = k7_ops
+    print(f"phase 3: K7 hough_acc one device kernel a call "
+          f"({next(iter(k7_ops))}, no memset), reproducible, err "
+          f"{k7_err:.3g} of max "
+          f"{float(accp.max()):.1f}, {n_edge} voting pixels "
+          f"({k7_sectors} sectors of th and rho; bound "
+          f"{results['hough_acc']['bound_ms']:.5f} ms for {k7_bytes} "
+          "bytes), "
           f"{results['hough_acc']['ms']:.4f} ms as called, "
           f"{results['hough_acc']['device_ms']:.4f} ms on the device; off "
           "the float64 scatter "
@@ -606,72 +650,105 @@ def main() -> int:
           f"{nb} blocks; " + ", ".join(f"{k} {v:.4f}"
                                        for k, v in k3_sizes.items()))
 
-    # -- 3e. K4 pyramid decimation, two levels a frame ------------------------
+    # -- 3e. K4: the whole pyramid from the raw frame in one launch -------
     shapes3 = level_shapes((H, W), 3)
     k4_err = 0.0
-    ints = from_array(torch.from_numpy(np.random.RandomState(4).randint(
-        0, 256, (H, W)).astype(np.float32)).to(dev), border=sb,
-        border_mode="mirror")
-    for kind, img0 in (("integer", ints), ("float", sframe)):
-        lvl = pyramid(img0, 1, border=sb)[0]
-        for i in (1, 2):
-            got = PY.decimate_level(lvl, *shapes3[i], sb)
-            want = Image2d(data=PY.pad2d(PY._binomial_decimate(
-                lvl.interior, *shapes3[i]), sb, sb, sb, sb, "symmetric"),
-                border=sb)
-            if kind == "integer":
-                check(torch.equal(got.data, want.data),
-                      f"K4 not bit-equal on integer frames at level {i}")
-            else:
-                rel = float(((got.data - want.data).abs()
-                             / want.data.abs().clamp(min=1e-30)).max())
-                check(rel <= 1e-6, f"K4 off by {rel} relative at level {i}")
-                k4_err = max(k4_err, float((got.data - want.data).abs()
-                                           .max()))
-            lvl = want
-    lvl0 = pyramid(sframe, 1, border=sb)[0]
-    decim_mats = [(PY._decim_tensor(H, shapes3[1][0], dev),
-                   PY._decim_tensor(W, shapes3[1][1], dev)),
-                  (PY._decim_tensor(shapes3[1][0], shapes3[2][0], dev),
-                   PY._decim_tensor(shapes3[1][1], shapes3[2][1], dev))]
+    rng4 = np.random.RandomState(4)
+    for hh, ww in ((H, W), (357, 493)):
+        shp = level_shapes((hh, ww), 3)
+        for kind in ("integer", "float"):
+            a = torch.from_numpy(
+                rng4.randint(0, 256, (hh, ww)).astype(np.float32)
+                if kind == "integer" else
+                slam_frames[100] if (hh, ww) == (H, W) else
+                (rng4.rand(hh, ww) * 255 + 1).astype(np.float32)).to(dev)
+            want = PY.pyramid_plain(a, shp, sb)
+            for src in ("raw", "bordered"):
+                src_img = (Image2d(data=a, border=0) if src == "raw" else
+                           from_array(a, border=sb, border_mode="mirror"))
+                reset_launch_counts()
+                got = pyramid(src_img, 3, border=sb)
+                check(launch_counts()["pyramid_decim"] == 1,
+                      f"K4 is not one launch a pyramid ({hh}x{ww}, {src})")
+                for lvl, (g, wl) in enumerate(zip(got.levels, want)):
+                    if kind == "integer":
+                        check(torch.equal(g.data, wl.data),
+                              f"K4 not bit-equal on integer frames at level "
+                              f"{lvl} ({hh}x{ww}, {src})")
+                        continue
+                    rel = float(((g.data - wl.data).abs()
+                                 / wl.data.abs().clamp(min=1e-30)).max())
+                    check(rel <= 1e-6, f"K4 off by {rel} relative at level "
+                          f"{lvl} ({hh}x{ww}, {src})")
+                    k4_err = max(k4_err, float((g.data - wl.data).abs()
+                                               .max()))
+    raw = torch.from_numpy(slam_frames[100]).to(dev)
+    raw_img = Image2d(data=raw, border=0)
+    decim_mats = [(PY._decim_tensor(ph, oh, dev), PY._decim_tensor(pw, ow, dev))
+                  for (ph, pw), (oh, ow) in zip(shapes3, shapes3[1:])]
+    pad_idx = [(pad_index(oh, sb, sb, "symmetric", dev),
+                pad_index(ow, sb, sb, "symmetric", dev))
+               for oh, ow in shapes3]
 
-    def k4_frame():
-        lvl = lvl0
-        for i in (1, 2):
-            lvl = PY.decimate_level(lvl, *shapes3[i], sb)
-
-    def k4_plain():
-        cur = lvl0.interior
-        for i in (1, 2):
-            cur = PY._binomial_decimate(cur, *shapes3[i])
-            PY.pad2d(cur, sb, sb, sb, sb, "symmetric")
+    def k4_call():
+        return pyramid(raw_img, 3, border=sb)
 
     def k4_library():
-        cur = lvl0.interior
-        for a, bm in decim_mats:
+        """The PyTorch route: the index_select pad pair (index tensors made
+        beforehand), and per level the banded matmul pair and the pad."""
+        ri, ci = pad_idx[0]
+        raw.index_select(0, ri).index_select(1, ci)
+        cur = raw
+        for (a, bm), (ri, ci) in zip(decim_mats, pad_idx[1:]):
             cur = a @ cur @ bm.T
+            cur.index_select(0, ri).index_select(1, ci)
 
-    k4_bytes = 4 * (lvl0.data.numel() + sum(
-        (oh + 2 * sb) * (ow + 2 * sb) for oh, ow in shapes3[1:]))
+    def k4_parent_route():
+        """The run loops' route before this kernel took the raw frame: the
+        frame image (``from_array``), level 0 padded again, and one K4
+        launch a level."""
+        f = from_array(raw, border=sb, border_mode="mirror")
+        lvl = Image2d(data=PY.pad2d(f.interior, sb, sb, sb, sb, "symmetric"),
+                      border=sb)
+        for oh, ow in shapes3[1:]:
+            lvl = PY.decimate_level(lvl, oh, ow, sb)
+
+    k4_bytes = 4 * (H * W + sum((oh + 2 * sb) * (ow + 2 * sb)
+                                for oh, ow in shapes3))
     k4_ops = sum(2 * 5 * oh * (pw + ow)
-                 for (ph, pw), (oh, ow) in zip(shapes3[:2], shapes3[1:]))
+                 for (ph, pw), (oh, ow) in zip(shapes3, shapes3[1:]))
     results["pyramid_decim"] = dict(
         name="pyramid_decim", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/pyramid_decim.cu",
-        replaces="vpp_tpu/algorithms/pyramid.py:171", max_abs_err=k4_err,
-        ms=cuda_ms(torch, k4_frame, 200), plain_ms=cuda_ms(torch, k4_plain,
-                                                           50),
-        library_ms=cuda_ms(torch, k4_library, 50))
-    results["pyramid_decim"]["bound_ms"], \
-        results["pyramid_decim"]["bound_by"] = bound_ms(k4_bytes, k4_ops)
-    results["pyramid_decim"]["device_ms"], \
-        results["pyramid_decim"]["device_ms_by"] = device_ms(torch, k4_frame)
-    results["pyramid_decim"]["library_device_ms"] = device_ms(
-        torch, k4_library)[0]
-    print(f"phase 3: K4 decimation bit-equal on integer frames, float err "
-          f"{k4_err:.3g}; per frame (2 levels) "
-          f"{results['pyramid_decim']['ms']:.4f} ms as called, "
-          f"{results['pyramid_decim']['device_ms']:.4f} ms on the device")
+        replaces="vpp_tpu/algorithms/pyramid.py:171",
+        per="pyramid of a raw 640x480 frame, 3 levels, border 9",
+        max_abs_err=k4_err, ms=cuda_ms(torch, k4_call, 200),
+        plain_ms=cuda_ms(torch, lambda: PY.pyramid_plain(raw, shapes3, sb),
+                         50),
+        library="index_select pads and banded torch.matmul pairs",
+        library_ms=cuda_ms(torch, k4_library, 50),
+        parent_route="from_array, a second pad of level 0, one K4 launch a "
+                     "level",
+        parent_route_ms=cuda_ms(torch, k4_parent_route, 200),
+        device_ops=sum(device_kernels(torch, k4_call).values()),
+        parent_route_device_ops=sum(device_kernels(
+            torch, k4_parent_route).values()))
+    r4 = results["pyramid_decim"]
+    r4["bound_ms"], r4["bound_by"] = bound_ms(k4_bytes, k4_ops)
+    r4["device_ms"], r4["device_ms_by"] = device_ms(torch, k4_call)
+    r4["library_device_ms"] = device_ms(torch, k4_library)[0]
+    r4["parent_route_device_ms"] = device_ms(torch, k4_parent_route)[0]
+    check(r4["device_ops"] == 1, f"K4's pyramid ran {r4['device_ops']} "
+          "device operations, not one kernel")
+    print(f"phase 3: K4 whole pyramid one launch, bit-equal on integer "
+          f"frames (640x480 and 357x493, raw and bordered), float err "
+          f"{k4_err:.3g}; {r4['ms']:.4f} ms as called, "
+          f"{r4['device_ms']:.4f} ms on the device (bound "
+          f"{r4['bound_ms']:.5f}); the library route "
+          f"{r4['library_device_ms']:.4f} on the device; the parent's route "
+          f"({r4['parent_route_device_ops']} device ops) "
+          f"{r4['parent_route_ms']:.4f} ms as called, "
+          f"{r4['parent_route_device_ms']:.4f} on the device")
 
     # -- 3f. K5 patches, from centres ----------------------------------------
     psize = slam_cfg.desc_patch
@@ -896,6 +973,15 @@ def main() -> int:
           and bool(torch.isnan(tr_fail.dp).all()),
           "K6: the failed-factorisation case took a step")
 
+    # no iteration: the problem back unchanged, empty costs, no launch
+    reset_launch_counts()
+    s0, c0 = BA.ba_solve_tracks(prob, iters=0, huber=huber, lam0=lam0,
+                                ring_layout=True, linalg=linalg)
+    check(launch_counts()["ba_tracks"] == 0 and tuple(c0.shape) == (0,)
+          and same_bits(torch, s0.poses, prob.poses)
+          and same_bits(torch, s0.landmarks, prob.landmarks),
+          "K6's route at iters=0 does not return its problem unchanged")
+
     def k6_call():
         return BA.ba_solve_tracks(prob, iters=iters, huber=huber, lam0=lam0,
                                   ring_layout=True, linalg=linalg)
@@ -945,7 +1031,8 @@ def main() -> int:
           f"{k6_main['lm_landmark_err']:.3g} "
           f"({k6_main['lm_reprojection_err_px']:.3g} px in their "
           f"observations), accepts {k6_main['accept']}; rejected-step and "
-          f"failed-factorisation cases agree with the plain loop; per call "
+          f"failed-factorisation cases agree with the plain loop; iters=0 "
+          f"returns the problem unchanged with no launch; per call "
           f"{results['ba_tracks']['ms']:.4f} ms as called, "
           f"{results['ba_tracks']['device_ms']:.4f} ms on the device, bound "
           f"{results['ba_tracks']['bound_ms']:.5f} ms")
@@ -968,6 +1055,9 @@ def main() -> int:
           f"{track_counts}")
     check(track_counts["flow_level"] == 2 * cfg.nscales * TRACK_FRAMES,
           "the tracker did not launch K1 twice per level and frame")
+    check(track_counts["pyramid_decim"] == TRACK_FRAMES + 1,
+          f"the tracker launched K4 {track_counts['pyramid_decim']} times, "
+          f"not {TRACK_FRAMES + 1} (one pyramid a frame, and the first's)")
     k2_track = TRACK_FRAMES + -(-TRACK_FRAMES // cfg.detector_period)
     check(track_counts["fast9"] == k2_track,
           f"the tracker launched K2 {track_counts['fast9']} times, not "
@@ -1003,7 +1093,9 @@ def main() -> int:
     print(f"phase 5: hough tracker {W}x{H}: {hough_ms:.3f} ms/frame, "
           f"{n_tracks} live tracks, launches {hough_counts}")
     check(n_tracks >= 2, "fewer than 2 live line tracks")
-    check(hough_counts["hough_acc"] > 0, "the Hough path did not launch K7")
+    check(hough_counts["hough_acc"] == HOUGH_FRAMES,
+          f"the Hough path launched K7 {hough_counts['hough_acc']} times, "
+          f"not once a frame")
     cst = hough_tracker_init(hcfg, device="cpu")
     for f in lines:
         cst, _ = hough_tracker_update(
@@ -1051,6 +1143,9 @@ def main() -> int:
           f"{sst.n_keyframes} keyframes, expected 60")
     check(slam_counts["ba_tracks"] == sst.n_keyframes,
           f"K6 launched {slam_counts['ba_tracks']} times, not once a keyframe")
+    check(slam_counts["pyramid_decim"] == SLAM_FRAMES + 1,
+          f"K4 launched {slam_counts['pyramid_decim']} times, not "
+          f"{SLAM_FRAMES + 1} (one pyramid a frame, and the first's)")
     check(slam_counts["block_topk"] == SLAM_FRAMES,
           f"K3 launched {slam_counts['block_topk']} times, not once a frame")
     check(slam_counts["fast9"] == 2 * SLAM_FRAMES,

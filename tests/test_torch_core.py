@@ -211,3 +211,28 @@ def test_decimate_level_bench_shape(kind):
         else:
             np.testing.assert_allclose(lt.data.numpy(), np.asarray(lj.data),
                                        rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (61, 77), (37, 53)])
+def test_pyramid_from_raw_frame_and_strided_interior(shape):
+    """K4's entry as the run loops call it: the pyramid of an unbordered
+    frame, and of a bordered image's (strided) interior, equals the JAX
+    pyramid of the mirrored frame bit for bit on integer-valued pixels; its
+    level 0 is ``from_array(frame, border=9, border_mode="mirror")``."""
+    a = np.random.RandomState(shape[1]).randint(0, 256, shape).astype(
+        np.float32)
+    jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=9,
+                                          border_mode="mirror"), 3, border=9)
+    raw = t_pyr.pyramid(t_image.Image2d(data=torch.from_numpy(a), border=0),
+                        3, border=9)
+    bordered = t_image.from_array(a, border=5, border_mode="closest")
+    assert not bordered.interior.is_contiguous()
+    strided = t_pyr.pyramid(bordered, 3, border=9)
+    for tp in (raw, strided):
+        assert len(tp) == len(jp) == 3
+        for lj, lt in zip(jp.levels, tp.levels):
+            assert lt.border == lj.border == 9
+            _eq(lj.data, lt.data)
+    _eq(raw[0].data, t_image.from_array(a, border=9,
+                                        border_mode="mirror").data)
+

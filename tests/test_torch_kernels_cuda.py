@@ -10,7 +10,9 @@ map, score image, cull); K1 flow equal wherever the
 best and second-best SAD differ by more than 1e-5 relative, dist and
 volume within rtol 1e-5, the whole level bit-equal on integer-valued
 buffers, propagation exactly equal on equal inputs; K7 bit-reproducible
-and within 1e-4 * max of the float32 scatter.
+and within 1e-4 * max of the float32 scatter, one device kernel a call;
+K4's whole pyramid one launch, bit-equal to the plain chain on
+integer-valued frames up to level 2 and within 1e-6 relative elsewhere.
 """
 
 import numpy as np
@@ -105,11 +107,13 @@ def test_fast9_cull_kernel_bit_equal(cuda, shape, border):
 
 def _device_kernels(fn):
     """The device kernels one call of ``fn`` runs, by name and count, from
-    ``torch.profiler`` (after a warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
+    ``torch.profiler``, after a warm-up call under a profiler session of
+    its own (a process's first session can miss device events)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        fn()
+        torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -289,6 +293,41 @@ def test_hough_acc_kernel_reproducible(cuda):
         assert float((a - p).abs().max()) <= 1e-4 * float(p.max())
 
 
+def _hough_votes(device, w, h, t_theta, weight):
+    frame = synthetic_line_clip(w, h, 1)[0]
+    img = from_array(torch.from_numpy(frame).to(device), border=3,
+                     border_mode="mirror")
+    t0i, r0i, ft, fr, wgt, rho_bins = hough._vote_bins(
+        img, t_theta, None, 40.0, weight, None)
+    return ((t0i.float() + ft).reshape(-1), (r0i.float() + fr).reshape(-1),
+            wgt.reshape(-1).contiguous(), t_theta, rho_bins)
+
+
+@pytest.mark.parametrize("weight", ["binary", "magnitude"])
+def test_hough_acc_kernel_one_launch(cuda, weight):
+    """K7 is one device kernel a call (no memset beside it), and gives the
+    same bits across calls, across two shapes in a row, and from a weight
+    vector that is not 16-byte aligned."""
+    small = _hough_votes(cuda, 160, 120, 63, weight)
+    large = _hough_votes(cuda, 640, 480, 255, weight)
+    kernels = _device_kernels(lambda: hough_cuda.hough_acc(*small))
+    assert sum(kernels.values()) == 1, kernels
+    assert "hough" in next(iter(kernels)), kernels
+    first = hough_cuda.hough_acc(*small)
+    big = hough_cuda.hough_acc(*large)
+    assert torch.equal(hough_cuda.hough_acc(*small), first)
+    assert torch.equal(hough_cuda.hough_acc(*large), big)
+    th, rho, w, tt, rb = small
+    shifted = torch.cat([w.new_zeros(1), w])[1:]
+    assert shifted.data_ptr() % 16 != 0
+    reset_launch_counts()
+    assert torch.equal(hough_cuda.hough_acc(th, rho, shifted, tt, rb), first)
+    assert launch_counts()["hough_acc"] == 1
+    for got, args in ((first, small), (big, large)):
+        want = hough_cuda.hough_acc_plain(*args)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.max())
+
+
 def test_trackers_on_card_match_cpu(cuda):
     cfg = VideoExtruderConfig(capacity=256, detect_k=128, detector_period=2)
     clip = make_clip(128, 96, 6, seed=1)
@@ -397,6 +436,101 @@ def test_pyramid_decim_kernel(cuda, shape):
                        / lvl_p.data.abs().clamp(min=1e-30))
                 assert float(rel.max()) <= 1e-6, (i, float(rel.max()))
             lvl_k = pyr.Image2d(data=lvl_p.data.clone(), border=9)
+
+
+def _level_close(got, want, exact):
+    """Bit-equal where ``exact``, else within 1e-6 relative per pixel."""
+    if exact:
+        return torch.equal(got, want)
+    rel = (got - want).abs() / want.abs().clamp(min=1e-30)
+    return float(rel.max()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (61, 77), (37, 53)])
+@pytest.mark.parametrize("nlevels", [1, 2, 3, 4])
+def test_pyramid_kernel_whole_pyramid(cuda, shape, nlevels):
+    """K4 builds the whole pyramid in one launch, from a raw frame and from
+    a bordered frame's strided interior: bit-equal to the plain chain on
+    integer-valued frames up to level 2 (every partial sum exact there;
+    level 3 within 1e-6 relative), within 1e-6 relative on float frames."""
+    from vpp_tpu_torch.algorithms import pyramid as pyr
+    rng = np.random.RandomState(nlevels + shape[0])
+    shapes = pyr.level_shapes(shape, nlevels)
+    for kind in ("integer", "float"):
+        a = torch.from_numpy((rng.randint(0, 256, shape) if kind == "integer"
+                              else rng.rand(*shape) * 255 + 1).astype(
+                                  np.float32)).to(cuda)
+        want = pyr.pyramid_plain(a, shapes, 9)
+        for img in (pyr.Image2d(data=a, border=0),
+                    from_array(a, border=5, border_mode="closest")):
+            reset_launch_counts()
+            got = pyr.pyramid(img, nlevels, border=9)
+            assert launch_counts()["pyramid_decim"] == 1
+            assert len(got) == nlevels
+            for lvl, (g, wl) in enumerate(zip(got.levels, want)):
+                assert g.border == 9 and g.data.is_contiguous()
+                assert _level_close(g.data, wl.data,
+                                    kind == "integer" and lvl <= 2), (
+                    kind, lvl)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (61, 77), (37, 53)])
+@pytest.mark.parametrize("nlevels", [3, 4])
+def test_pyramid_kernel_barrier_design_same_bits(cuda, shape, nlevels):
+    """Level 2 after a grid barrier (the design the fused level-2 tiles
+    replaced, which ``call_times.py`` times beside them) gives the same
+    bits as the fused tiles, in one launch."""
+    from vpp_tpu_torch.algorithms import pyramid as pyr
+    a = torch.from_numpy(np.random.RandomState(shape[1]).rand(*shape)
+                         .astype(np.float32) * 255).to(cuda)
+    shapes = pyr.level_shapes(shape, nlevels)
+    fused = pyr._k4(a, shapes, 9, first=0)
+    reset_launch_counts()
+    barrier = pyr._k4(a, shapes, 9, first=0, fuse=False)
+    assert launch_counts()["pyramid_decim"] == 1
+    for f, b in zip(fused, barrier):
+        assert torch.equal(f.data, b.data)
+
+
+def test_pyramid_kernel_other_routes(cuda):
+    """A float64 frame pads level 0 and launches K4 once a level; a uint8
+    frame takes the integer chain (no K4); a level that cannot be
+    decimated raises; nlevels 1 is the pad alone."""
+    from vpp_tpu_torch.algorithms import pyramid as pyr
+    a = np.random.RandomState(1).randint(0, 256, (61, 77))
+    shapes = pyr.level_shapes((61, 77), 3)
+    f64 = torch.from_numpy(a.astype(np.float64)).to(cuda)
+    reset_launch_counts()
+    got = pyr.pyramid(pyr.Image2d(data=f64, border=0), 3, border=9)
+    assert launch_counts()["pyramid_decim"] == 2
+    for g, wl in zip(got.levels, pyr.pyramid_plain(f64, shapes, 9)):
+        assert g.data.dtype == torch.float64 and torch.equal(g.data, wl.data)
+    u8 = torch.from_numpy(a.astype(np.uint8))
+    reset_launch_counts()
+    got = pyr.pyramid(pyr.Image2d(data=u8.to(cuda), border=0), 3, border=9)
+    assert launch_counts()["pyramid_decim"] == 0
+    for g, c in zip(got.levels, pyr.pyramid(pyr.Image2d(data=u8, border=0),
+                                            3, border=9).levels):
+        assert torch.equal(g.data.cpu(), c.data)
+    thin = torch.ones((2, 40), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        pyr.pyramid(pyr.Image2d(data=thin, border=0), 2, border=3)
+    one = pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 1, border=3)
+    assert torch.equal(one[0].data, from_array(thin[:1], border=3,
+                                               border_mode="mirror").data)
+
+
+def test_run_loops_build_one_pyramid_a_frame(cuda):
+    """The tracker's run loop makes one K4 launch a frame, and one for the
+    first frame's pyramid, and takes level 0 as the frame image."""
+    cfg = VideoExtruderConfig(capacity=256, detect_k=128, detector_period=2)
+    clip = make_clip(128, 96, 6, seed=2)
+    reset_launch_counts()
+    _, (pos_k, alive_k) = video_extruder_run(clip, cfg, device="cuda")
+    assert launch_counts()["pyramid_decim"] == 7
+    _, (pos_c, alive_c) = video_extruder_run(clip, cfg, device="cpu")
+    nk, nc = int(alive_k[-1].sum()), int(alive_c[-1].sum())
+    assert abs(nk - nc) <= 0.01 * nc
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int32,
@@ -541,6 +675,23 @@ def test_ba_tracks_kernel_branches(cuda, case, linalg):
     assert bool(torch.isnan(tr.dp).all()) == (case == "failed")
     if case == "rejected":
         assert bool((tr.lam[1:] > tr.lam[:-1]).all())
+
+
+def test_ba_tracks_zero_iterations_on_card(cuda):
+    """``ba_solve_tracks(iters=0)`` on a CUDA problem launches nothing and
+    returns its inputs bit-equal with costs of shape (0,); K6's own entry
+    refuses 0 iterations."""
+    from vpp_tpu_torch.slam import ba, ba_cuda
+    p = _ring_problem(cuda, 1024, 6, 3)
+    reset_launch_counts()
+    sk, ck = ba.ba_solve_tracks(p, iters=0, ring_layout=True, linalg="chol")
+    assert launch_counts()["ba_tracks"] == 0
+    assert _same_bits(sk.poses, p.poses) and _same_bits(sk.landmarks,
+                                                        p.landmarks)
+    assert tuple(ck.shape) == (0,) and ck.device.type == "cuda"
+    assert ck.dtype == torch.float32
+    with pytest.raises(ValueError):
+        ba_cuda.lm_tracks(p, 0, 4.0, 1e-3, "chol")
 
 
 def test_ba_tracks_kernel_rejects_large_windows(cuda):

@@ -200,6 +200,27 @@ def test_ba_solve_tracks(linalg, case):
     np.testing.assert_allclose(gs.poses.numpy(), ts.poses.numpy(), atol=1e-4)
 
 
+@pytest.mark.parametrize("ring", [True, False])
+def test_ba_solve_tracks_zero_iterations(ring):
+    """``iters=0``: the JAX package's ``lax.scan(length=0)`` returns the
+    problem unchanged and costs of shape (0,); so does the port, on the
+    ring and on the generic layout (observation columns reversed)."""
+    prob = _synthetic_tracks()
+    if not ring:
+        for k in ("obs_pose", "obs_uv", "obs_valid"):
+            prob[k] = np.ascontiguousarray(prob[k][:, ::-1])
+    jp, tp = _both(prob)
+    js, jc = jax.jit(lambda p: jba.ba_solve_tracks(
+        p, iters=0, ring_layout=ring))(jp)
+    ts, tc = tba.ba_solve_tracks(tp, iters=0, ring_layout=ring)
+    assert tuple(tc.shape) == np.asarray(jc).shape == (0,)
+    assert tc.dtype == torch.float32
+    for name in ("poses", "landmarks"):
+        assert torch.equal(getattr(ts, name), getattr(tp, name))
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)))
+
+
 def test_ba_solve_tracks_guards():
     _, tp = _both(_synthetic_tracks())
     with pytest.raises(NotImplementedError):

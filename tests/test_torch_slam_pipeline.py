@@ -7,6 +7,7 @@ scene and config.
   on at least 99% of slots (a float32 gate can fall the other way).
 * ``slam_run``: the same keyframe count, ATE < 0.065 on both (the JAX
   test's bound) and within 0.01 of each other.
+* ``slam_run`` with ``ba_iters=0``: the same keyframes, poses atol 1e-4.
 * ``convert`` round trip of a JAX state after two keyframes, and the
   configurations the port does not run yet raise ``NotImplementedError``.
 """
@@ -181,6 +182,24 @@ def test_convert_round_trip_after_two_keyframes():
         np.testing.assert_array_equal(back["tracker"][k], m["tracker"][k])
     np.testing.assert_array_equal(back["tracker"]["keypoints"]["position"],
                                   m["tracker"]["keypoints"]["position"])
+
+
+def test_slam_run_without_ba_iterations():
+    """``SlamConfig(ba_iters=0)``: every keyframe's window BA returns its
+    problem unchanged, so the keyframe poses are PnP's: the JAX package's
+    within 1e-4."""
+    poses, frames = _scene(n_frames=13)
+    jcfg, tcfg = (dataclasses.replace(c, ba_iters=0) for c in _cfgs())
+    boot = poses[[0, 4]]
+    js = jax.jit(lambda f, b: jp.slam_run(f, jcfg, bootstrap_poses=b))(
+        jnp.asarray(frames), jnp.asarray(boot))
+    ts = tp.slam_run(frames, tcfg, bootstrap_poses=boot, device="cpu")
+    assert ts.n_keyframes == int(js.n_keyframes) == 4
+    je, jf = jp.keyframe_trajectory(js)
+    te, tf = tp.keyframe_trajectory(ts)
+    np.testing.assert_array_equal(np.asarray(jf), tf.numpy())
+    assert bool(torch.isfinite(te).all())
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-4)
 
 
 def test_unported_configurations_raise():

@@ -6,10 +6,11 @@ coordinates θ_n = t0 + ft, ρ_n = r0 + fr and vote weights w — and returns
 the (t_theta, rho_bins) accumulator of the four bilinear votes of every
 pixel, clipped at the last bin like ``hough.hough_accumulator``.
 
-On the card (``kernels/csrc/hough_acc.cu``) the votes are summed as 2^24
-fixed-point integers with 64-bit atomics, so the result is bit-identical
-from run to run; weights stay float32 (the Pallas kernel's bf16 operands
-were the price of the TPU's matrix unit).
+On the card (``kernels/csrc/hough_acc.cu``) one cooperative launch zeroes
+the wrapper's scratch, sums the votes as 2^24 fixed-point integers with
+64-bit atomics, and converts them, so the result is bit-identical from run
+to run; weights stay float32 (the Pallas kernel's bf16 operands were the
+price of the TPU's matrix unit).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def hough_acc_plain(th_n: torch.Tensor, rho_n: torch.Tensor,
 def hough_acc(th_n: torch.Tensor, rho_n: torch.Tensor, w: torch.Tensor,
               t_theta: int, rho_bins: int) -> torch.Tensor:
     """K7 on CUDA vectors (the plain version on CPU ones): (t_theta,
-    rho_bins) float32 accumulator."""
+    rho_bins) float32 accumulator, one launch a call."""
     if th_n.device.type == "cpu":
         return hough_acc_plain(th_n, rho_n, w, t_theta, rho_bins)
     _check_votes(th_n, rho_n, w)

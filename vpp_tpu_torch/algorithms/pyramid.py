@@ -9,15 +9,18 @@
 Float levels with factor 2 take the fused path: filter + decimate, with
 the JAX package's documented 2-px rim behaviour (it mirrors the input,
 where the reference chain mirrors the filtered values between passes), and
-the level's symmetric border. On the card that is kernel K4
-(``kernels/csrc/pyramid_decim.cu``), one launch a level that writes the
-bordered buffer; its plain version is the JAX formulation, two banded
-float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``) and a pad, in full
-float32: TF32 is off in this package.
+each level's symmetric border. On the card that is kernel K4
+(``kernels/csrc/pyramid_decim.cu``): one launch builds the whole float32
+pyramid from the frame's interior (a raw frame, or a bordered image's
+strided interior), level 0's bordered copy included, into one buffer.
+Its plain version (``pyramid_plain``) is the JAX formulation, a pad and,
+per level, two banded float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``)
+and a pad, in full float32: TF32 is off in this package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, Tuple
 
@@ -26,7 +29,7 @@ import torch
 
 from ..core.border import fill_border_mirror
 from ..core.image import Image2d, from_array, pad2d
-from ..kernels import LAUNCHES, require_cuda, stream_handle
+from ..kernels import LAUNCHES, stream_handle
 
 _BINOMIAL = (1.0, 4.0, 6.0, 4.0, 1.0)
 
@@ -168,49 +171,115 @@ def _binomial_decimate(interior: torch.Tensor, oh: int,
     return (t @ bm.T).to(interior.dtype)
 
 
+def pyramid_plain(interior: torch.Tensor,
+                  shapes: Tuple[Tuple[int, int], ...],
+                  border: int) -> Tuple[Image2d, ...]:
+    """Plain version of K4: the float pyramid of ``interior`` at ``shapes``
+    (level 0 first), each level padded ``border`` symmetric."""
+    b = border
+    levels = [Image2d(data=pad2d(interior, b, b, b, b, "symmetric"),
+                      border=b)]
+    cur = interior
+    for oh, ow in shapes[1:]:
+        cur = _binomial_decimate(cur, oh, ow)
+        levels.append(Image2d(data=pad2d(cur, b, b, b, b, "symmetric"),
+                              border=b))
+    return tuple(levels)
+
+
+# (shapes, border, first) -> (ctypes rows of (h, w, offset), [(offset,
+# size)] of the written levels, buffer length): made once a geometry, since
+# the host's time a call is what the per-frame path pays
+_K4_LAYOUT: Dict[tuple, tuple] = {}
+
+
+def _k4_layout(shapes, border: int, first: int):
+    key = (shapes, border, first)
+    if key not in _K4_LAYOUT:
+        rows, spans, off = [], [], 0
+        for lvl, (h, w) in enumerate(shapes):
+            size = (h + 2 * border) * (w + 2 * border)
+            rows += [h, w, off if lvl >= first else -1]
+            if lvl >= first:
+                spans.append((off, size))
+                off += size
+        _K4_LAYOUT[key] = ((ctypes.c_longlong * len(rows))(*rows), spans, off)
+    return _K4_LAYOUT[key]
+
+
+def _k4(interior: torch.Tensor, shapes: Tuple[Tuple[int, int], ...],
+        border: int, first: int, fuse: bool = True) -> Tuple[Image2d, ...]:
+    """One K4 launch on a float32 CUDA interior (any row stride): levels
+    ``first`` .. ``len(shapes) - 1`` of its pyramid, each bordered and a
+    contiguous view of one buffer. ``first`` 1 leaves level 0 unwritten.
+    ``fuse`` False computes level 2 after a grid barrier instead of from
+    the frame (the same bits; ``call_times.py`` times the two)."""
+    for (h, w), (oh, ow) in zip(shapes, shapes[1:]):
+        if min(h, w) < 2 or min(oh, ow) < 1:
+            raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
+                             f"2x2, got ({h}, {w})")
+        if 2 * oh > 2 * h - 1 or 2 * ow > 2 * w - 1:   # taps reach 2i + 2
+            raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
+                             f"decimation of ({h}, {w})")
+    if interior.dtype != torch.float32 or interior.device.type != "cuda":
+        raise ValueError(f"pyramid_decim: needs a float32 CUDA frame, got "
+                         f"{interior.dtype} on {interior.device}")
+    if interior.stride(1) != 1:
+        interior = interior.contiguous()
+    rows, spans, total = _k4_layout(tuple(shapes), border, first)
+    from ..kernels import _build
+    lib = _build.load()
+    out = torch.empty((total,), dtype=torch.float32, device=interior.device)
+    code = lib.vpp_pyramid(interior.data_ptr(), interior.stride(0), rows,
+                           len(shapes), first, border, int(fuse),
+                           out.data_ptr(),
+                           stream_handle(interior))
+    LAUNCHES["pyramid_decim"] += 1
+    _build.check(code, "pyramid_decim")
+    return tuple(
+        Image2d(data=out[off:off + size].view(h + 2 * border,
+                                              w + 2 * border), border=border)
+        for (off, size), (h, w) in zip(spans, shapes[first:]))
+
+
 def decimate_level(level: Image2d, oh: int, ow: int, border: int
                    ) -> Image2d:
     """The next float pyramid level, (oh, ow) with a ``border`` symmetric
-    pad: K4 on a CUDA level (one launch, computed in float32 and cast to the
-    level's dtype), the plain ``_binomial_decimate`` and a pad on a CPU
-    one."""
+    pad: K4 on a CUDA level (one launch that writes this level alone,
+    computed in float32 and cast to the level's dtype), the plain
+    ``_binomial_decimate`` and a pad on a CPU one."""
     if level.data.device.type == "cpu":
         return Image2d(data=pad2d(_binomial_decimate(level.interior, oh, ow),
                                   border, border, border, border,
                                   "symmetric"), border=border)
-    h, w = level.shape
-    if level.data.dim() != 2 or min(h, w) < 2 or min(oh, ow) < 1:
+    if level.data.dim() != 2:
         raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
                          f"2x2, got {tuple(level.data.shape)}")
-    if 2 * oh > 2 * h - 1 or 2 * ow > 2 * w - 1:   # taps reach 2i + 2
-        raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
-                         f"decimation of ({h}, {w})")
-    src = level.data.to(torch.float32).contiguous()
-    require_cuda("pyramid_decim", src, dtypes=(torch.float32,))
-    from ..kernels import _build
-    lib = _build.load()
-    out = torch.empty((oh + 2 * border, ow + 2 * border),
-                      dtype=torch.float32, device=src.device)
-    code = lib.vpp_pyramid_decim(src.data_ptr(), src.shape[1], level.border,
-                                 h, w, out.data_ptr(), oh, ow, border,
-                                 stream_handle(src))
-    LAUNCHES["pyramid_decim"] += 1
-    _build.check(code, "pyramid_decim")
-    return Image2d(data=out.to(level.dtype), border=border)
+    (out,) = _k4(level.interior.to(torch.float32), (level.shape, (oh, ow)),
+                 border, first=1)
+    return Image2d(data=out.data.to(level.dtype), border=border)
 
 
 def pyramid(img: Image2d, nlevels: int, factor: float = 2.0,
             border: int = 3) -> Pyramid:
     """Build an ``nlevels`` pyramid from level-0 content; every level gets
-    a ``max(border, 3)`` mirror border."""
+    a ``max(border, 3)`` mirror border. A float32 CUDA image takes K4's one
+    launch (from a raw frame, ``border=0``, as well as from a bordered
+    one); other float types on the card pad level 0 and launch K4 once a
+    level."""
     shapes = level_shapes(img.shape, nlevels, factor)
     b = max(border, 3)
     if (factor == 2.0 and _is_float(img.dtype)
             and img.interior.dim() == 2):
-        levels = [Image2d(data=pad2d(img.interior, b, b, b, b, "symmetric"),
-                          border=b)]
-        for i in range(1, nlevels):
-            levels.append(decimate_level(levels[-1], *shapes[i], b))
+        if img.data.device.type == "cpu":
+            levels = pyramid_plain(img.interior, shapes, b)
+        elif img.dtype == torch.float32:
+            levels = _k4(img.interior, shapes, b, first=0)
+        else:
+            levels = [Image2d(data=pad2d(img.interior, b, b, b, b,
+                                         "symmetric"), border=b)]
+            for i in range(1, nlevels):
+                levels.append(decimate_level(levels[-1], *shapes[i], b))
         return Pyramid(levels=tuple(levels), factor=factor)
     lvl0 = from_array(img.interior, border=b, border_mode="mirror")
     levels = [lvl0]

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..core.image import Image2d, _as_tensor, from_array
+from ..core.image import Image2d, _as_tensor
 from ..core.keypoints import (Keypoints, keypoints_empty, kp_add,
                               kp_kill_where, kp_move_all)
 from .fast import fast9, fast9_cull_scores
@@ -168,8 +168,10 @@ def video_extruder_run(frames, cfg: VideoExtruderConfig,
 
     Returns (final_state, (positions (T, K, 2), alive (T, K))): the JAX
     package's scan, frame by frame. The first step tracks frame 0 against
-    itself, and each frame's pyramid is built once and reused as the next
-    step's frame-1 pyramid."""
+    itself, and each frame's pyramid is built once, from the unbordered
+    frame, and reused as the next step's frame-1 pyramid. Its level 0 is
+    the frame image: ``pyramid`` pads it ``max(border, 3) = b`` symmetric,
+    as ``from_array(frame, border=b, border_mode="mirror")`` would."""
     dev = resolve_device(device)
     frames = _as_tensor(frames, dev)
     b = border if border is not None else max(3, cfg.winsize)
@@ -179,14 +181,13 @@ def video_extruder_run(frames, cfg: VideoExtruderConfig,
                            device=dev)
     hist_alive = torch.empty((t, cfg.capacity), dtype=torch.bool, device=dev)
 
-    f1 = from_array(frames[0], border=b, border_mode="mirror")
-    pyr1 = pyramid(f1, cfg.nscales, border=b)
+    pyr1 = pyramid(Image2d(data=frames[0], border=0), cfg.nscales, border=b)
     for i in range(t):
-        f2 = from_array(frames[i], border=b, border_mode="mirror")
-        pyr2 = pyramid(f2, cfg.nscales, border=b)
-        state = video_extruder_update(state, f1, f2, cfg, pyr1=pyr1,
-                                      pyr2=pyr2)
+        pyr2 = pyramid(Image2d(data=frames[i], border=0), cfg.nscales,
+                       border=b)
+        state = video_extruder_update(state, pyr1[0], pyr2[0], cfg,
+                                      pyr1=pyr1, pyr2=pyr2)
         hist_pos[i] = state.keypoints.position
         hist_alive[i] = state.keypoints.alive
-        f1, pyr1 = f2, pyr2
+        pyr1 = pyr2
     return state, (hist_pos, hist_alive)

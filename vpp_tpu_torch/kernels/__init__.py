@@ -10,11 +10,13 @@ show that it went through the kernels:
   ``fast9_cull_scores``
 * ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
   the volume launch, and the argmin/rejection/propagation launch)
-* ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc``
+* ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc`` (one
+  cooperative launch per call)
 * ``block_topk`` — K3, ``algorithms/fast.py:_blockwise_keypoints`` (one
   cooperative launch per call)
-* ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_binomial_decimate``
-  (one per pyramid level above level 0)
+* ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_k4`` (one launch per
+  float32 pyramid on the card, every level included; one per level
+  through ``decimate_level``)
 * ``patches``    — K5, ``core/interp.py:extract_patches`` (from centres)
   and ``extract_patches_at_tl``
 * ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch

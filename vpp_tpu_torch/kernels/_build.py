@@ -45,7 +45,7 @@ _SIGNATURES = {
     "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 3,
     "vpp_hough_acc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vpp_block_topk": [_P] + [_I] * 7 + [_P, _L] + [_P] * 4,
-    "vpp_pyramid_decim": [_P] + [_I] * 4 + [_P] + [_I] * 3 + [_P],
+    "vpp_pyramid": [_P, _I, ctypes.POINTER(_L)] + [_I] * 4 + [_P, _P],
     "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 4 + [_P, _P],
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 4 + [_P] * 10,
 }

@@ -348,7 +348,12 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
     """The LM loop of ``ba_solve_tracks``: with ``kernel`` (ring layout,
     CUDA tensors) the whole loop is K6's one launch, else the plain version
-    below (on any device)."""
+    below (on any device). No iteration returns ``p`` itself and empty
+    costs, as the JAX package's ``lax.scan(length=0)`` does, and launches
+    nothing."""
+    if iters == 0:
+        return p, torch.empty((0,), dtype=torch.float32,
+                              device=p.landmarks.device)
     if kernel:
         from . import ba_cuda
         poses, lms, costs, _ = ba_cuda.lm_tracks(p, iters, huber, lam0,

@@ -64,8 +64,11 @@ def _operands(p: BATracks):
 def lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
               linalg: str):
     """K6: ``iters`` LM iterations in one launch. Returns (poses (M,4,4),
-    landmarks (N,3), costs (iters,), ``LMTrace``)."""
+    landmarks (N,3), costs (iters,), ``LMTrace``). ``iters`` is at least
+    1: ``ba_solve_tracks(iters=0)`` returns before it."""
     from ..kernels import _build
+    if iters < 1:
+        raise ValueError(f"K6: takes at least one iteration, got {iters}")
     (poses, lms, uv, valid, intr, fixed), n, m = _operands(p)
     dev = lms.device
     lib = _build.load()

@@ -39,7 +39,7 @@ from ..algorithms.video_extruder import (VideoExtruderConfig,
                                          VideoExtruderState,
                                          video_extruder_init,
                                          video_extruder_update)
-from ..core.image import Image2d, _as_tensor, from_array
+from ..core.image import Image2d, _as_tensor
 from ..core.interp import extract_patches
 from ..core.keypoints import drop_scatter
 from .ba import (BATracks, ba_solve_tracks, chol_solve, project,
@@ -426,8 +426,10 @@ def slam_step(state: SlamState, frame1: Image2d, frame2: Image2d,
 def slam_run(frames, cfg: SlamConfig, bootstrap_poses=None, mesh=None,
              axis: str = "lm", collect_tracks: bool = False, device="cuda"):
     """Whole-clip SLAM on ``device`` (frames (T, H, W)): the JAX package's
-    scan, frame by frame; each frame's pyramid is built once and reused as
-    the next step's frame-1 pyramid.
+    scan, frame by frame; each frame's pyramid is built once, from the
+    unbordered frame, and reused as the next step's frame-1 pyramid, with
+    its level 0 as the frame image (the ``b``-bordered symmetric pad that
+    ``from_array(frame, border=b, border_mode="mirror")`` gives).
 
     With ``collect_tracks`` returns (state, (positions (T, K, 2),
     alive (T, K))), the per-frame tracker history."""
@@ -441,16 +443,17 @@ def slam_run(frames, cfg: SlamConfig, bootstrap_poses=None, mesh=None,
         k = cfg.tracker.capacity
         hist_pos = torch.empty((t, k, 2), dtype=torch.float32, device=dev)
         hist_alive = torch.empty((t, k), dtype=torch.bool, device=dev)
-    f1 = from_array(frames[0], border=b, border_mode="mirror")
-    pyr1 = build_pyramid(f1, cfg.tracker.nscales, border=b)
+    pyr1 = build_pyramid(Image2d(data=frames[0], border=0),
+                         cfg.tracker.nscales, border=b)
     for i in range(t):
-        f2 = from_array(frames[i], border=b, border_mode="mirror")
-        pyr2 = build_pyramid(f2, cfg.tracker.nscales, border=b)
-        state = slam_step(state, f1, f2, cfg, pyr1=pyr1, pyr2=pyr2)
+        pyr2 = build_pyramid(Image2d(data=frames[i], border=0),
+                             cfg.tracker.nscales, border=b)
+        state = slam_step(state, pyr1[0], pyr2[0], cfg, pyr1=pyr1,
+                          pyr2=pyr2)
         if collect_tracks:
             hist_pos[i] = state.tracker.keypoints.position
             hist_alive[i] = state.tracker.keypoints.alive
-        f1, pyr1 = f2, pyr2
+        pyr1 = pyr2
     return (state, (hist_pos, hist_alive)) if collect_tracks else state
 
 
