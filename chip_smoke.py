@@ -18,7 +18,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    than 1e-5 relative, the whole level (volume, flow, dist) bit-equal on
    the level buffers rounded to integers, propagation (pass by pass and
    all passes in one launch) exactly equal on equal inputs; K7 Hough
-   accumulator one device kernel a call (the profiler shows no memset),
+   accumulator one device kernel a call (its CUDA graph holds one kernel
+   node and no memset),
    bit-identical across two launches, within 1e-4 * max of the float32
    scatter, and in every cell within its fixed-point rounding bound of a
    float64 scatter. Each is timed as called (``ms``: CUDA
@@ -39,7 +40,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    patches bit-equal at 1024 x 7x7 from int32
    and int64 centres in the bordered VGA frame and on a 3-channel buffer,
    one launch a call, beside the library's advanced indexing from the same
-   centres (index preparation and gather, each also timed alone); K6, the
+   centres (index preparation and gather, each also timed alone), and at
+   the archive PnP's 512 x 9x9 from the SLAM frame's detections; K6, the
    whole window-BA
    call in one launch, on a keyframe problem of a 24-frame SLAM warm-up
    run: its trace's first-iteration S and cost within 1e-4 of the plain
@@ -52,7 +54,13 @@ Phases, in order; any failure exits nonzero and prints no result:
    factorisation failing; and ``ba_solve_tracks(iters=0)`` returning the
    problem bit-equal with empty costs and no launch. K6 is timed per ``ba_solve_tracks`` call. Each
    row with a library call (K3, K4, K5, K7) also carries the library's
-   ``library_device_ms`` from the same CUDA-graph replays;
+   ``library_device_ms`` from the same CUDA-graph replays. Last, K8's
+   map-vote round, one launch a round, bit-equal to its plain version in
+   every output (twice in a row) at A 1024 x Q 512 and A 1000 x Q 333,
+   with exact distance ties, with no valid detection (tx0 = ty0 = 0) and
+   with NaN ``pred`` rows, timed at 1024 x 512 (no single PyTorch call
+   computes the round: ``library_ms`` null; its bound counts each of the
+   A*Q distances once and one compare a pair);
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
@@ -78,7 +86,32 @@ Phases, in order; any failure exits nonzero and prints no result:
    (no host synchronisation); the first 40 frames on the plain CPU path
    give the card's keyframe count, landmark counts within 5% and ATE within
    0.02;
-7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+7. the full SLAM engine: the same clip and configuration with
+   ``enable_recovery=True`` (``bench_slam.py``'s ``recovery=True`` run):
+   frames/s, keyframes (60), landmarks (> 200), ATE (< 0.10), ``lc_ptr``,
+   launch counts (K6 60, K8 240: four rounds a keyframe); keyframe 30 from
+   one state on both devices (poses within 1e-3, the smoothed history
+   within 1e-2, ``lm_valid`` on >= 99% of slots, the same ``lc_ptr``), the
+   card's call under ``set_sync_debug_mode("error")`` with exactly one
+   host read, the smoother's branch flags; the pose-graph smoother at the
+   run's full width (history 64, 384x384 systems) from the run's final
+   state with one closure edge put in, both branches on both devices
+   (within 1e-4, the history moved by more than 1e-3) and timed on the
+   card; the first 40 frames against the plain CPU path on phase 6's
+   fields; and K8 bit-equal on the 4 rounds of that card run's last
+   keyframe;
+8. recovery at 120x160, on the card, with the port's copies of the scene
+   recipes and the thresholds of tests/test_pose_graph_loop.py:59,83 and
+   tests/test_pipeline.py:71: the out-and-back loop with a drift spike
+   (at least one closure, ATE below the run without the archive; its last
+   keyframe again with the smoother on, one host read; its last closure
+   keyframe from one state on both devices, the ring equal and ``lc_w``,
+   ``lc_T``, the history and the window poses within 1e-4), the blackout
+   clip
+   (the frame-16 keyframe within 0.45, ATE < 0.8), and ``relocalize`` at
+   frame 24 (>= ``lc_min_inliers`` inliers, error < 2.5 px, centre within
+   0.1);
+9. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
 float32 outside the tensor cores, applied to every scalar operation; for
@@ -94,6 +127,7 @@ sums; the kernels line carries only ``bound_ms``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -179,21 +213,42 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 20):
     return start.elapsed_time(end) / (replays * calls), "cuda_graph"
 
 
-def device_kernels(torch, fn) -> dict:
-    """The device operations (kernels, memsets, copies) one call of ``fn``
-    runs, by name and count, from ``torch.profiler``, after a warm-up call
-    under a profiler session of its own (a process's first session can
-    miss device events)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):
+_GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_GRAPH_NODES_NO_WORK = (5, 6, 7)     # empty, event wait, event record
+
+
+def graph_ops(torch, fn) -> dict:
+    """The device operations one call of ``fn`` runs, by kind ("kernel",
+    "memcpy", "memset"), read from a CUDA graph of that call (captured
+    after a warm-up call) through the driver's graph API. Nodes that do no
+    work on the device (empty, event) are left out; any other node type
+    counts under ``type<n>``. This needs no device tracing: the profiler has
+    been seen to return a session without any device event."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU}
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    ops: dict = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        if kind.value not in _GRAPH_NODES_NO_WORK:
+            name = _GRAPH_NODE_KINDS.get(kind.value, f"type{kind.value}")
+            ops[name] = ops.get(name, 0) + 1
+    graph.reset()
+    return ops
 
 
 def bilinear_votes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
@@ -236,6 +291,265 @@ def slam_clip(frames: int):
                          sigma=(1.2, 2.2)), gt_poses
 
 
+K8_ARGS = (24.0, 1.2)    # r_wide = 3 * lc_search_radius, bmax
+
+
+def vote_inputs(torch, np, dev, a_n, q_n, kind, seed):
+    """Seeded K8 operands at 640x480 (tests/test_torch_kernels_cuda.py's
+    recipe): detections, map entries projected near them under a common
+    shift, outliers, a few depths behind the camera. ``kind``: "random",
+    "ties" (integer positions, duplicated detections), "no_valid",
+    "nan_row". Returns (pred, z, posf, valid, base, intr)."""
+    rng = np.random.RandomState(seed)
+    posf = np.stack([rng.uniform(0, H, q_n), rng.uniform(0, W, q_n)], 1)
+    if kind == "ties":
+        posf = np.round(posf)
+        posf[q_n // 2:] = posf[:q_n - q_n // 2]
+    pred = posf[rng.randint(0, q_n, a_n)] + rng.normal(0, 3.0, (a_n, 2)) \
+        + [6.0, -4.0]
+    if kind == "ties":
+        pred = np.round(pred)
+    pred[rng.rand(a_n) < 0.2] = rng.uniform(0, W, 2)
+    z = rng.uniform(2.0, 8.0, a_n)
+    z[:3] = [0.05, -1.0, 0.1]
+    valid = rng.rand(q_n) > 0.15
+    if kind == "no_valid":
+        valid[:] = False
+    if kind == "nan_row":
+        pred[5] = np.nan
+        pred[9, 0] = np.nan
+    base = rng.rand(a_n) > 0.1
+    return tuple(torch.from_numpy(v).to(dev) for v in (
+        pred.astype(np.float32), z.astype(np.float32),
+        posf.astype(np.float32), valid, base,
+        np.asarray(SLAM_INTR, np.float32)))
+
+
+def k8_check(torch, MV, args, what, rest=K8_ARGS):
+    """K8 on ``args``: one launch a round, every output bit-equal to the
+    plain version, twice in a row (the arrival counter resets itself)."""
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    want = MV._vote_round_plain(*args, *rest)
+    for _ in range(2):
+        reset_launch_counts()
+        got = MV.vote_round(*args, *rest)
+        check(launch_counts()["map_vote"] == 1,
+              f"K8 ({what}) is not one launch a round")
+        check(all(g.dtype == w.dtype and same_bits(torch, g, w)
+                  for g, w in zip(got, want)),
+              f"K8 ({what}) differs from its plain version")
+
+
+def k8_bound(a_n: int, q_n: int):
+    """K8's least time: its operands read once and outputs written once,
+    and the work the round needs at the float32 rate: each of the A*Q
+    squared distances once (2 subtractions, 2 products, 1 sum) and one
+    compare a pair to keep a top-4. The kernel's four passes recompute
+    every distance four times; that is its design's overhead, not counted."""
+    nbytes = (a_n * (8 + 4 + 1) + q_n * (8 + 1) + 16
+              + a_n * 4 * (4 + 4 + 8 + 4) + 8)
+    return bound_ms(nbytes, (5 + 1) * a_n * q_n)
+
+
+SCENE_INTR = (160.0, 160.0, 80.0, 60.0)
+
+
+def keyframe_host_reads(torch, SP, state, frame, cfg):
+    """``_do_keyframe`` on the card under ``set_sync_debug_mode("error")``,
+    the smoother's branch read (``_smoother_branch``) exempted and counted:
+    any other host synchronisation fails. Returns (state, reads)."""
+    branch, reads = SP._smoother_branch, []
+
+    def exempt(*a):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return branch(*a)
+        finally:
+            reads.append(a)
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    SP._smoother_branch = exempt
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = SP._do_keyframe(state, frame, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        SP._smoother_branch = branch
+    torch.cuda.synchronize()
+    return out, len(reads)
+
+
+def smoother_full_width(torch, SP, st, cfg):
+    """``_smooth_history`` at the run's full width (history 64: 384x384
+    systems) from the 240-frame run's final state, with one closure edge
+    put in (keyframe 40 measured 0.05 off its pose along x), on the card
+    and on the plain CPU path. Returns {branch: (card ms, largest pose
+    difference card/CPU, largest move of the history)}."""
+    kf = st.n_keyframes - 1
+    lc_j, lc_T, lc_w = st.lc_j.clone(), st.lc_T.clone(), st.lc_w.clone()
+    lc_j[0].fill_(40)
+    lc_T[0] = st.hist_pose[40]
+    lc_T[0, 0, 3].add_(0.05)
+    lc_w[0].fill_(1.0)
+    args = (st.hist_pose, st.pg_T, st.pg_w, lc_j, lc_T, lc_w, kf, cfg)
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    out = {}
+    for branch, full in (("full", True), ("refresh", False)):
+        got = SP._smooth_history(*args, full=full).cpu()
+        want = SP._smooth_history(*cpu_args, full=full)
+        ms = cuda_ms(torch, lambda: SP._smooth_history(*args, full=full), 5,
+                     warmup=1)
+        out[branch] = (ms, float((got - want).abs().max()),
+                       float((want - cpu_args[0]).abs().max()))
+    return out
+
+
+def scenario_cfg(SP, **kw):
+    """tests/test_pose_graph_loop.py's 120x160 configuration (recovery
+    on)."""
+    from vpp_tpu_torch.algorithms.video_extruder import VideoExtruderConfig
+    base = dict(
+        intrinsics=SCENE_INTR, keyframe_period=4, ring=6, ba_iters=3,
+        min_parallax=2.0, max_reproj=2.0, history=16, lc_min_gap=10,
+        lc_min_inliers=10, lc_max_err=1.5,
+        tracker=VideoExtruderConfig(capacity=256, detect_k=128, nscales=3,
+                                    winsize=9, keypoint_spacing=8,
+                                    detector_period=1, detector_th=8))
+    base.update(kw)
+    return SP.SlamConfig(**base)
+
+
+def scenario_run(torch, SP, frames, poses_gt, cfg):
+    """``slam_run`` on the card; (state, keyframe ids, estimated poses on
+    the host, ATE)."""
+    st = SP.slam_run(torch.from_numpy(frames).cuda(), cfg,
+                     bootstrap_poses=poses_gt[[0, cfg.keyframe_period]],
+                     device="cuda")
+    est, fids = SP.keyframe_trajectory(st)
+    est, fids = est.cpu(), fids.cpu().numpy()
+    return st, fids, est, float(SP.ate_rmse(est, torch.from_numpy(
+        poses_gt[fids])))
+
+
+def centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def scenario_recovery(torch, np, SP):
+    """The recovery scenarios of tests/test_pose_graph_loop.py:59,83 and
+    the relocalization of tests/test_pipeline.py:71, on the card, with the
+    port's copies of their scene recipes, held to those tests' own
+    thresholds."""
+    from vpp_tpu_torch import convert
+    from vpp_tpu_torch.core.image import Image2d, from_array
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    hw = (120, 160)
+    # out and back along x with a blackout spike on the way out
+    pts = make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                     center=(0.4, 0.0, 5.0))
+    xs = list(np.arange(20) * 0.06)
+    xs += list(xs[-1] - np.arange(1, 21) * 0.06)
+    poses_gt = np.tile(np.eye(4, dtype=np.float32), (len(xs), 1, 1))
+    poses_gt[:, 0, 3] = -np.asarray(xs)
+    frames = render_frames(pts, poses_gt, SCENE_INTR, hw, seed=0,
+                           sigma=(1.0, 1.8)).copy()
+    frames[10:13] = 0.0
+    cfg_on = scenario_cfg(SP, history=24, lc_max_err=4.5, lc_min_gap=8)
+    do_kf, kept = SP._do_keyframe, {}
+
+    def keep_last(state, frame2, cfg_, **kw):
+        kept["last"] = (state, frame2)
+        out = do_kf(state, frame2, cfg_, **kw)
+        if int(out.lc_ptr) > int(state.lc_ptr):
+            kept["closure"] = (state, frame2)
+        return out
+
+    SP._do_keyframe = keep_last
+    try:
+        on, _, _, ate_on = scenario_run(torch, SP, frames, poses_gt, cfg_on)
+    finally:
+        SP._do_keyframe = do_kf
+    off, _, _, ate_off = scenario_run(torch, SP, frames, poses_gt,
+                                      scenario_cfg(SP, history=24,
+                                                   lc_min_inliers=10 ** 6))
+    print(f"phase 8: loop with a drift spike: {int(on.lc_ptr)} closures, "
+          f"ATE {ate_on:.4f} against {ate_off:.4f} without the archive")
+    check(int(off.lc_ptr) == 0 and int(on.lc_ptr) >= 1,
+          "the loop scenario fired no closure")
+    check(ate_on < ate_off, f"closures did not lower the ATE ({ate_on} >= "
+          f"{ate_off})")
+    # the last keyframe again, the smoother on: its branch read only
+    kst, kframe = kept["last"]
+    check(bool((kst.lc_w > 0).any()), "no closure edge before the last "
+          "keyframe")
+    _, reads = keyframe_host_reads(torch, SP, kst, kframe, cfg_on)
+    print(f"phase 8: the loop's last keyframe (smoother on) made {reads} "
+          "host read, no other synchronisation")
+    check(reads == 1, f"{reads} smoother reads in one keyframe")
+    # the last keyframe that accepted a closure (the smoother's full
+    # branch), from one state on both devices, at the CPU tests' 1e-4
+    kst, kframe = kept["closure"]
+    gkf, reads = keyframe_host_reads(torch, SP, kst, kframe, cfg_on)
+    ckf = SP._do_keyframe(
+        convert.slam_state_from_numpy(convert.slam_state_to_numpy(kst),
+                                      device="cpu"),
+        Image2d(data=kframe.data.cpu(), border=kframe.border), cfg_on)
+    errs = {name: float((getattr(gkf, name).cpu()
+                         - getattr(ckf, name)).abs().max())
+            for name in ("lc_w", "lc_T", "hist_pose", "kf_pose")}
+    moved = float((ckf.hist_pose - kst.hist_pose.cpu()).abs().max())
+    print(f"phase 8: the loop's last closure keyframe (lc_ptr "
+          f"{int(kst.lc_ptr)} -> {int(gkf.lc_ptr)}, smoother full branch, "
+          f"history moved {moved:.4f}): card and plain CPU within "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; {reads} host read")
+    check(reads == 1, f"{reads} smoother reads in the closure keyframe")
+    check(int(gkf.lc_ptr) == int(ckf.lc_ptr) == int(kst.lc_ptr) + 1
+          and torch.equal(gkf.lc_j.cpu(), ckf.lc_j),
+          "the closure keyframe's ring differs between card and CPU")
+    check(max(errs.values()) <= 1e-4, f"the closure keyframe differs "
+          f"between card and CPU: {errs}")
+    # a blackout: the keyframe after it re-localised from the archive
+    pts = make_cloud(220, seed=1, extent=(6.0, 4.0, 3.0),
+                     center=(0.6, 0.0, 5.0))
+    poses_gt = camera_path(26, step=(0.05, 0.0, 0.0))
+    frames = render_frames(pts, poses_gt, SCENE_INTR, hw, seed=1,
+                           sigma=(1.0, 1.8)).copy()
+    frames[13:15] = 0.0
+    st, fids, est, ate = scenario_run(torch, SP, frames, poses_gt,
+                                      scenario_cfg(SP, lc_min_gap=6,
+                                                   min_tracked=10))
+    k16 = int(np.where(fids == 16)[0][0])
+    err16 = float(np.linalg.norm(centre(est[k16].numpy())
+                                 - centre(poses_gt[16])))
+    print(f"phase 8: blackout: keyframes at frames {fids.tolist()}, "
+          f"{int(st.lm_valid.sum())} landmarks, frame-16 keyframe off by "
+          f"{err16:.4f}, ATE {ate:.4f}")
+    check(fids[-1] >= 20 and int(st.lm_valid.sum()) > 30,
+          "the engine did not survive the blackout")
+    check(err16 < 0.45, f"the frame-16 keyframe is off by {err16}")
+    check(ate < 0.8, f"blackout ATE {ate}")
+    # relocalize at the last keyframe of tests/test_pipeline.py's scene
+    pts = make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                     center=(0.8, 0.0, 5.0))
+    poses_gt = camera_path(25, step=(0.06, 0.0, 0.0))
+    frames = render_frames(pts, poses_gt, SCENE_INTR, hw, seed=0)
+    cfg = scenario_cfg(SP, lc_min_gap=12, lc_min_inliers=12)
+    st, _, _, _ = scenario_run(torch, SP, frames, poses_gt, cfg)
+    frame = from_array(torch.from_numpy(frames[24]).cuda(), border=9,
+                       border_mode="mirror")
+    T, err, n = SP.relocalize(st, frame, cfg)
+    cerr = float(np.linalg.norm(centre(T.cpu().numpy())
+                                - centre(poses_gt[24])))
+    print(f"phase 8: relocalize at frame 24: {int(n)} inliers, error "
+          f"{float(err):.4f} px, centre off by {cerr:.4f}")
+    check(int(n) >= cfg.lc_min_inliers and float(err) < 2.5 and cerr < 0.1,
+          "relocalize missed its gates")
+
+
 def same_bits(torch, a, b) -> bool:
     """Bit-identical float32 tensors (NaN included)."""
     return a.shape == b.shape and torch.equal(
@@ -273,6 +587,7 @@ def main() -> int:
                                        reset_launch_counts)
     from vpp_tpu_torch.slam import ba as BA
     from vpp_tpu_torch.slam import ba_cuda as BC
+    from vpp_tpu_torch.slam import map_vote as MV
     from vpp_tpu_torch.slam import pipeline as SP
     from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
 
@@ -505,10 +820,13 @@ def main() -> int:
     accp = HC.hough_acc_plain(th_n, rho_n, wv, tt, rho_bins)
     torch.cuda.synchronize()
     check(torch.equal(acc1, acc2), "K7 is not bit-reproducible")
-    k7_ops = device_kernels(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt,
-                                                         rho_bins))
-    check(sum(k7_ops.values()) == 1 and "hough" in next(iter(k7_ops)),
-          f"K7 is not one device kernel a call: {k7_ops}")
+    reset_launch_counts()
+    k7_ops = graph_ops(torch, lambda: HC.hough_acc(th_n, rho_n, wv, tt,
+                                                    rho_bins))
+    # two wrapper launches: graph_ops' warm-up call and the captured one
+    check(k7_ops == {"kernel": 1} and launch_counts()["hough_acc"] == 2,
+          f"K7 is not one device kernel a call: {k7_ops}, "
+          f"{launch_counts()['hough_acc']} launches")
     k7_err = float((acc1 - accp).abs().max())
     check(k7_err <= 1e-4 * float(accp.max()),
           f"K7 off by {k7_err} (max {float(accp.max())})")
@@ -556,7 +874,8 @@ def main() -> int:
         torch, lambda: lib_acc.index_put_((idx,), vals, accumulate=True))[0]
     results["hough_acc"]["device_ops"] = k7_ops
     print(f"phase 3: K7 hough_acc one device kernel a call "
-          f"({next(iter(k7_ops))}, no memset), reproducible, err "
+          f"(one kernel node in the call's CUDA graph, no memset), "
+          f"reproducible, err "
           f"{k7_err:.3g} of max "
           f"{float(accp.max()):.1f}, {n_edge} voting pixels "
           f"({k7_sectors} sectors of th and rho; bound "
@@ -730,8 +1049,8 @@ def main() -> int:
         parent_route="from_array, a second pad of level 0, one K4 launch a "
                      "level",
         parent_route_ms=cuda_ms(torch, k4_parent_route, 200),
-        device_ops=sum(device_kernels(torch, k4_call).values()),
-        parent_route_device_ops=sum(device_kernels(
+        device_ops=sum(graph_ops(torch, k4_call).values()),
+        parent_route_device_ops=sum(graph_ops(
             torch, k4_parent_route).values()))
     r4 = results["pyramid_decim"]
     r4["bound_ms"], r4["bound_by"] = bound_ms(k4_bytes, k4_ops)
@@ -817,6 +1136,40 @@ def main() -> int:
           f"ms as called (index preparation {k5['library_index_ms']:.4f}, "
           f"gather {k5['library_gather_ms']:.4f}), "
           f"{k5['library_device_ms']:.4f} ms on the device")
+    # the archive PnP's shape: 512 detections of the SLAM frame, 9x9
+    # (``_det_shift_patches``: desc_patch + 2)
+    dpos = F.fast9(sframe, slam_cfg.tracker.detector_th, k=kdet,
+                   blockwise=True, block_size=bs)[0] + sb
+    dsz = psize + 2
+    reset_launch_counts()
+    got = IP.extract_patches(sframe.data, dpos, dsz)
+    check(launch_counts()["patches"] == 1, "K5 is not one launch a call")
+    check(torch.equal(got, IP.extract_patches_plain(sframe.data, dpos, dsz)),
+          f"K5 patches differ from the plain version ({kdet} x {dsz}x{dsz})")
+    ar9 = torch.arange(dsz, device=dev)
+
+    def k5_library_9():
+        t = IP._clamp_tl(dpos.long() - dsz // 2, hb, wb, dsz)
+        return sframe.data[(t[:, 0, None] + ar9)[:, :, None],
+                           (t[:, 1, None] + ar9)[:, None, :]]
+
+    def k5_call_9():
+        return IP.extract_patches(sframe.data, dpos, dsz)
+
+    k5["shape_512x9x9"] = dict(
+        ms=cuda_ms(torch, k5_call_9, 200),
+        device_ms=device_ms(torch, k5_call_9)[0],
+        plain_ms=cuda_ms(torch, lambda: IP.extract_patches_plain(
+            sframe.data, dpos, dsz), 50),
+        library_ms=cuda_ms(torch, k5_library_9, 200),
+        library_device_ms=device_ms(torch, k5_library_9)[0],
+        bound_ms=bound_ms(kdet * (8 + 2 * 4 * dsz * dsz), 0)[0])
+    k59 = k5["shape_512x9x9"]
+    print(f"phase 3: K5 bit-equal at {kdet} x {dsz}x{dsz} (the archive PnP's "
+          f"detections), {k59['ms']:.4f} ms as called, "
+          f"{k59['device_ms']:.4f} on the device (bound "
+          f"{k59['bound_ms']:.5f}); the library {k59['library_ms']:.4f} / "
+          f"{k59['library_device_ms']:.4f}")
 
     # -- 3g. K6 window BA, on a keyframe problem of a SLAM warm-up run --------
     slam_dev = torch.from_numpy(slam_frames).to(dev)  # upload outside timing
@@ -1037,6 +1390,38 @@ def main() -> int:
           f"{results['ba_tracks']['device_ms']:.4f} ms on the device, bound "
           f"{results['ba_tracks']['bound_ms']:.5f} ms")
 
+    # -- 3h. K8 map-vote round, at the archive PnP's shapes -----------------
+    k8_cases = [(1024, 512, "random"), (1000, 333, "random"),
+                (1024, 512, "ties"), (1024, 512, "no_valid"),
+                (1000, 333, "nan_row")]
+    for a_n, q_n, kind in k8_cases:
+        args = vote_inputs(torch, np, dev, a_n, q_n, kind, a_n + q_n)
+        k8_check(torch, MV, args, f"{a_n} x {q_n}, {kind}")
+        if kind == "no_valid":
+            txy = MV._vote_round_plain(*args, *K8_ARGS)[0]
+            check(bool((txy == 0).all()), "K8: no valid detection must "
+                  "give tx0 = ty0 = 0")
+    k8_args = vote_inputs(torch, np, dev, 1024, 512, "random", 1536)
+    results["map_vote"] = dict(
+        name="map_vote", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/map_vote.cu",
+        replaces="vpp_tpu/slam/pipeline.py:369", per="map-vote round",
+        max_abs_err=0.0, ms=cuda_ms(torch, lambda: MV.vote_round(
+            *k8_args, *K8_ARGS), 200),
+        plain_ms=cuda_ms(torch, lambda: MV._vote_round_plain(
+            *k8_args, *K8_ARGS), 50),
+        library="none", library_ms=None)
+    results["map_vote"]["bound_ms"], results["map_vote"]["bound_by"] = \
+        k8_bound(1024, 512)
+    results["map_vote"]["device_ms"], results["map_vote"]["device_ms_by"] = \
+        device_ms(torch, lambda: MV.vote_round(*k8_args, *K8_ARGS))
+    k8 = results["map_vote"]
+    print(f"phase 3: K8 map-vote round bit-equal, one launch a round "
+          f"({', '.join(f'{a} x {q} {k}' for a, q, k in k8_cases)}); "
+          f"1024 x 512: {k8['ms']:.4f} ms as called, {k8['device_ms']:.4f} "
+          f"ms on the device, bound {k8['bound_ms']:.5f} "
+          f"({k8['bound_by']}), plain {k8['plain_ms']:.4f}")
+
     # -- 4. tracker main path -------------------------------------------------
     clip_dev = torch.from_numpy(clip).to(dev)   # upload outside the timing
     video_extruder_run(clip_dev[:6], cfg, device="cuda")     # warm-up
@@ -1199,7 +1584,133 @@ def main() -> int:
           "landmark counts differ by more than 5%")
     check(abs(g_ate - c_ate) <= 0.02, "ATE differs by more than 0.02")
 
-    # -- 7. results -----------------------------------------------------------
+    # -- 7. the full SLAM engine (recovery, loop closure, smoother) ----------
+    full_cfg = dataclasses.replace(slam_cfg, enable_recovery=True)
+    full_states = {}
+
+    def keep_full(state, frame2, cfg_, **kw):
+        if state.n_keyframes == SLAM_CHECK_KF:
+            full_states["state"], full_states["frame"] = state, frame2
+        return do_kf(state, frame2, cfg_, **kw)
+
+    torch.cuda.synchronize()
+    SP._do_keyframe = keep_full
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        fst = SP.slam_run(slam_dev, full_cfg, bootstrap_poses=boot,
+                          device="cuda")
+        torch.cuda.synchronize()
+        full_dt = time.perf_counter() - t0
+        full_counts = launch_counts()
+    finally:
+        SP._do_keyframe = do_kf
+    full_fps = SLAM_FRAMES / full_dt
+    full_ate = ate_of(fst)
+    full_lms = int(fst.lm_valid.sum())
+    full_lc = int(fst.lc_ptr)
+    n_lost = int((fst.pg_w < 1).sum())
+    print(f"phase 7: full SLAM engine {W}x{H}: {full_fps:.2f} frames/s over "
+          f"{SLAM_FRAMES} frames, {fst.n_keyframes} keyframes, {full_lms} "
+          f"landmarks, ATE {full_ate:.4f}, lc_ptr {full_lc}, {n_lost} lost "
+          f"keyframes in the history; launches {full_counts}")
+    check(fst.n_keyframes == SLAM_FRAMES // slam_cfg.keyframe_period,
+          f"{fst.n_keyframes} keyframes, expected 60")
+    for key in ("flow_level", "fast9", "block_topk", "pyramid_decim",
+                "patches", "ba_tracks", "map_vote"):
+        check(full_counts[key] > 0, f"the full engine did not launch {key}")
+    check(full_counts["ba_tracks"] == fst.n_keyframes,
+          f"K6 launched {full_counts['ba_tracks']} times, not once a "
+          "keyframe")
+    check(full_counts["map_vote"] == 4 * fst.n_keyframes,
+          f"K8 launched {full_counts['map_vote']} times, not 4 a keyframe")
+    check(full_lms > 200, f"only {full_lms} landmarks")
+    check(full_ate < 0.10, f"full engine ATE {full_ate} >= 0.10")
+    check(bool(torch.isfinite(fst.hist_pose).all()),
+          "non-finite keyframe poses")
+
+    # one keyframe from one state on both devices; on the card the
+    # smoother's branch flags are its only host read
+    kst, kframe = full_states["state"], full_states["frame"]
+    cst = convert.slam_state_from_numpy(convert.slam_state_to_numpy(kst),
+                                        device="cpu")
+    ckf = SP._do_keyframe(cst, Image2d(data=kframe.data.cpu(),
+                                       border=kframe.border), full_cfg)
+    gkf, reads = keyframe_host_reads(torch, SP, kst, kframe, full_cfg)
+    kf_err = float((gkf.kf_pose.cpu() - ckf.kf_pose).abs().max())
+    hist_err = float((gkf.hist_pose.cpu() - ckf.hist_pose).abs().max())
+    lm_agree = float((gkf.lm_valid.cpu() == ckf.lm_valid).double().mean())
+    print(f"phase 7: keyframe {SLAM_CHECK_KF} from one state: card and plain "
+          f"CPU poses within {kf_err:.3g}, history within {hist_err:.3g}, "
+          f"lm_valid agrees on {100 * lm_agree:.2f}% of slots, lc_ptr "
+          f"{int(gkf.lc_ptr)} / {int(ckf.lc_ptr)}; {reads} host read "
+          "(the smoother's branch), no other synchronisation")
+    check(reads == 1, f"{reads} smoother reads in one keyframe")
+    check(kf_err <= 1e-3, f"keyframe poses differ by {kf_err}")
+    check(hist_err <= 1e-2, f"smoothed history differs by {hist_err}")
+    check(lm_agree >= 0.99, f"lm_valid agrees on only {lm_agree}")
+    check(int(gkf.lc_ptr) == int(ckf.lc_ptr), "lc_ptr differs")
+
+    # the smoother at full width, on both devices, and its card time
+    smooth = smoother_full_width(torch, SP, fst, full_cfg)
+    print("phase 7: the smoother at history 64 (384x384 systems), one "
+          "closure edge put in: " + "; ".join(
+              f"{b} {ms:.2f} ms on the card, card and plain CPU within "
+              f"{err:.3g} (history moved {mv:.4f})"
+              for b, (ms, err, mv) in smooth.items()))
+    for b, (_, err, mv) in smooth.items():
+        check(err <= 1e-4, f"the smoother's {b} branch differs between "
+              f"card and CPU by {err}")
+        check(mv > 1e-3, f"the smoother's {b} branch moved nothing")
+
+    # the first frames, card against the plain CPU path; the card run's
+    # last keyframe gives K8 its real rounds
+    rounds = []
+    vote = SP.vote_round
+
+    def keep_round(*a):
+        rounds.append(a)
+        return vote(*a)
+
+    SP.vote_round = keep_round
+    try:
+        gf = SP.slam_run(slam_dev[:SLAM_CPU_FRAMES], full_cfg,
+                         bootstrap_poses=boot, device="cuda")
+    finally:
+        SP.vote_round = vote
+    cf = SP.slam_run(slam_frames[:SLAM_CPU_FRAMES], full_cfg,
+                     bootstrap_poses=boot, device="cpu")
+    g_lm, c_lm = int(gf.lm_valid.sum()), int(cf.lm_valid.sum())
+    g_ate, c_ate = ate_of(gf), ate_of(cf)
+    print(f"phase 7: first {SLAM_CPU_FRAMES} frames: card {gf.n_keyframes} "
+          f"keyframes, {g_lm} landmarks, ATE {g_ate:.4f}, lc_ptr "
+          f"{int(gf.lc_ptr)}; plain CPU {cf.n_keyframes}, {c_lm}, "
+          f"{c_ate:.4f}, {int(cf.lc_ptr)}")
+    check(gf.n_keyframes == cf.n_keyframes, "keyframe counts differ")
+    check(abs(g_lm - c_lm) <= 0.05 * max(c_lm, 1),
+          "landmark counts differ by more than 5%")
+    check(abs(g_ate - c_ate) <= 0.02, "ATE differs by more than 0.02")
+    check(len(rounds) == 4 * gf.n_keyframes, "K8 rounds were not 4 a "
+          "keyframe")
+    for i, a in enumerate(rounds[-4:]):
+        k8_check(torch, MV, a[:6], f"keyframe round {i}", rest=a[6:])
+    k8_kf = rounds[-4]
+    k8["device_ms_keyframe_round"] = device_ms(torch, lambda: MV.vote_round(
+        *k8_kf))[0]
+    k8["keyframe_round_votes"] = int((MV._vote_round_plain(*k8_kf)[4]
+                                      < 1e29).sum())
+    print(f"phase 7: K8 bit-equal on the last keyframe's 4 rounds (A "
+          f"{k8_kf[0].shape[0]}, Q {k8_kf[2].shape[0]}, "
+          f"{k8['keyframe_round_votes']} voting pairs in the first), "
+          f"{k8['device_ms_keyframe_round']:.4f} ms on the device")
+
+    # -- 8. recovery scenarios at 120x160 (tests/test_pose_graph_loop.py) --
+    t0 = time.perf_counter()
+    scenario_recovery(torch, np, SP)
+    print(f"phase 8: recovery scenarios passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 9. results -----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -1209,9 +1720,11 @@ def main() -> int:
     for key in ("block_topk", "pyramid_decim", "patches", "ba_tracks"):
         launches[key] = slam_counts[key]
         per_frame[key] = slam_counts[key] / SLAM_FRAMES
+    launches["map_vote"] = full_counts["map_vote"]
+    per_frame["map_vote"] = full_counts["map_vote"] / SLAM_FRAMES
     kernels = []
     for key in ("flow_level", "fast9", "hough_acc", "block_topk",
-                "pyramid_decim", "patches", "ba_tracks"):
+                "pyramid_decim", "patches", "ba_tracks", "map_vote"):
         r = results[key]
         r["launches"] = launches[key]
         r["launches_per_frame"] = per_frame[key]
@@ -1220,7 +1733,13 @@ def main() -> int:
                       "hough_ms_per_frame": hough_ms, "slam_fps": slam_fps,
                       "slam_ate": slam_ate, "slam_landmarks": slam_lms,
                       "slam_keyframes": sst.n_keyframes,
-                      "slam_launches": slam_counts, "card": smi}))
+                      "slam_launches": slam_counts, "full_slam_fps": full_fps,
+                      "full_slam_ate": full_ate,
+                      "full_slam_landmarks": full_lms,
+                      "full_slam_lc_ptr": full_lc,
+                      "full_slam_launches": full_counts,
+                      "smoother_ms": {b: v[0] for b, v in smooth.items()},
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -12,8 +12,13 @@ volume within rtol 1e-5, the whole level bit-equal on integer-valued
 buffers, propagation exactly equal on equal inputs; K7 bit-reproducible
 and within 1e-4 * max of the float32 scatter, one device kernel a call;
 K4's whole pyramid one launch, bit-equal to the plain chain on
-integer-valued frames up to level 2 and within 1e-6 relative elsewhere.
+integer-valued frames up to level 2 and within 1e-6 relative elsewhere;
+K8's map-vote round one launch, bit-equal in every output; a loop
+closure keyframe (the pose-graph smoother's full and refresh branches)
+within 1e-4 of the plain CPU path from one state.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -732,3 +737,162 @@ def test_slam_on_card_matches_cpu(cuda):
         poses[fk.cpu().numpy()])))
     ate_c = float(sp.ate_rmse(ec, torch.from_numpy(poses[fc.numpy()])))
     assert ate_k < 0.065 and abs(ate_k - ate_c) < 0.01
+
+
+def _vote_case(device, a_n, q_n, kind, seed):
+    """Seeded K8 inputs on a 640x480 frame: detections, map entries
+    projected near them under a common shift, some outliers, depths with a
+    few behind the camera. ``kind``: "random", "ties" (integer positions,
+    duplicated detections: exact distance ties), "no_valid", "nan_row"."""
+    rng = np.random.RandomState(seed)
+    posf = np.stack([rng.uniform(0, 480, q_n), rng.uniform(0, 640, q_n)], 1)
+    if kind == "ties":
+        posf = np.round(posf)
+        posf[q_n // 2:] = posf[:q_n - q_n // 2]
+    pred = posf[rng.randint(0, q_n, a_n)] + rng.normal(0, 3.0, (a_n, 2)) \
+        + [6.0, -4.0]
+    if kind == "ties":
+        pred = np.round(pred)
+    pred[rng.rand(a_n) < 0.2] = rng.uniform(0, 640, 2)
+    z = rng.uniform(2.0, 8.0, a_n)
+    z[:3] = [0.05, -1.0, 0.1]
+    valid = rng.rand(q_n) > 0.15
+    if kind == "no_valid":
+        valid[:] = False
+    if kind == "nan_row":
+        pred[5] = np.nan
+        pred[9, 0] = np.nan
+    base = rng.rand(a_n) > 0.1
+    return tuple(torch.from_numpy(v).to(device) for v in (
+        pred.astype(np.float32), z.astype(np.float32),
+        posf.astype(np.float32), valid, base))
+
+
+@pytest.mark.parametrize("a_n,q_n,kind", [
+    (1024, 512, "random"), (1000, 333, "random"), (1024, 512, "ties"),
+    (1024, 512, "no_valid"), (1000, 333, "nan_row"), (7, 1, "random"),
+    (300, 40, "ties")])
+def test_map_vote_kernel_bit_equal(cuda, a_n, q_n, kind):
+    """K8, one launch a round, bit-equal to ``_vote_round_plain`` in every
+    output (js, ds, cand_uv, dd, tx0/ty0), twice in a row (the arrival
+    counter resets itself)."""
+    from vpp_tpu_torch.slam import map_vote as mv
+    pred, z, posf, valid, base = _vote_case(cuda, a_n, q_n, kind, a_n + q_n)
+    intr = torch.tensor([640.0, 640.0, 320.0, 240.0], device=cuda)
+    want = mv._vote_round_plain(pred, z, posf, valid, base, intr, 24.0, 1.2)
+    for _ in range(2):
+        reset_launch_counts()
+        got = mv.vote_round(pred, z, posf, valid, base, intr, 24.0, 1.2)
+        assert launch_counts()["map_vote"] == 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and _same_bits(g, w)
+    txy, js, _, _, dd = want
+    if kind == "no_valid":
+        assert bool((txy == 0).all()) and bool((dd == 1e30).all())
+        assert bool((js == 0).all())
+    elif kind != "nan_row" and q_n > 1:
+        assert int((dd < 1e29).sum()) > 100
+
+
+def test_full_slam_engine_on_card_matches_cpu(cuda):
+    """``SlamConfig(intrinsics=...)`` at its defaults (recovery on) on a
+    short run: K8 launches 4 times a keyframe, and the card tracks the
+    plain CPU path."""
+    from vpp_tpu_torch.slam import pipeline as sp
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    intr = (160.0, 160.0, 80.0, 60.0)
+    pts = make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                     center=(0.8, 0.0, 5.0))
+    poses = camera_path(25, step=(0.06, 0.0, 0.0))
+    frames = render_frames(pts, poses, intr, (120, 160), seed=0)
+    cfg = sp.SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3,
+        min_parallax=2.0, max_reproj=2.0, history=16,
+        tracker=VideoExtruderConfig(capacity=256, detect_k=128, nscales=3,
+                                    winsize=9, keypoint_spacing=8,
+                                    detector_period=1, detector_th=8))
+    boot = poses[[0, 4]]
+    reset_launch_counts()
+    sk = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cuda")
+    assert launch_counts()["map_vote"] == 4 * sk.n_keyframes
+    sc = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cpu")
+    assert sk.n_keyframes == sc.n_keyframes == 7
+    assert int(sk.lc_ptr) == int(sc.lc_ptr)
+    assert torch.equal(sk.pg_w.cpu(), sc.pg_w)
+    assert float((sk.hist_pose.cpu() - sc.hist_pose).abs().max()) < 1e-2
+
+
+@pytest.fixture
+def card_loop_keyframe(cuda):
+    """The card's state and frame just before the last keyframe that
+    accepts a closure in the first 29 frames of the out-and-back loop with
+    a drift spike (tests/test_pose_graph_loop.py:59's scene)."""
+    from vpp_tpu_torch.slam import pipeline as sp
+    from vpp_tpu_torch.utils.synth import make_cloud, render_frames
+    intr = (160.0, 160.0, 80.0, 60.0)
+    pts = make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                     center=(0.4, 0.0, 5.0))
+    xs = list(np.arange(20) * 0.06)
+    xs += list(xs[-1] - np.arange(1, 21) * 0.06)
+    poses = np.tile(np.eye(4, dtype=np.float32), (len(xs), 1, 1))
+    poses[:, 0, 3] = -np.asarray(xs)
+    frames = render_frames(pts, poses, intr, (120, 160), seed=0,
+                           sigma=(1.0, 1.8)).copy()
+    frames[10:13] = 0.0
+    cfg = sp.SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3,
+        min_parallax=2.0, max_reproj=2.0, history=24, lc_min_gap=8,
+        lc_min_inliers=10, lc_max_err=4.5,
+        tracker=VideoExtruderConfig(capacity=256, detect_k=128, nscales=3,
+                                    winsize=9, keypoint_spacing=8,
+                                    detector_period=1, detector_th=8))
+    kept, do_kf = [], sp._do_keyframe
+
+    def keep(state, frame2, cfg_, **kw):
+        out = do_kf(state, frame2, cfg_, **kw)
+        if int(out.lc_ptr) > int(state.lc_ptr):
+            kept.append((state, frame2))
+        return out
+
+    sp._do_keyframe = keep
+    try:
+        sp.slam_run(frames[:29], cfg, bootstrap_poses=poses[[0, 4]],
+                    device="cuda")
+    finally:
+        sp._do_keyframe = do_kf
+    assert len(kept) >= 1
+    return kept[-1] + (cfg,)
+
+
+@pytest.mark.parametrize("branch", ["full", "refresh"])
+def test_loop_closure_keyframe_on_card_matches_cpu(card_loop_keyframe,
+                                                   branch, monkeypatch):
+    """A closure keyframe of the loop scenario from one state on the card
+    and on the plain CPU path: the ring (``lc_ptr``, ``lc_j``) equal, and
+    ``lc_w``, ``lc_T``, the smoothed history and the window poses within
+    1e-4 (the CPU tests' tolerance against JAX), in the smoother's full
+    branch (a new closure) and its refresh branch."""
+    from vpp_tpu_torch import convert
+    from vpp_tpu_torch.core.image import Image2d
+    from vpp_tpu_torch.slam import pipeline as sp
+    state, frame, cfg = card_loop_keyframe
+    if branch == "refresh":      # no new closure: the refresh branch
+        cfg = dataclasses.replace(cfg, lc_min_inliers=10 ** 6)
+    m = convert.slam_state_to_numpy(state)
+    cframe = Image2d(data=frame.data.cpu(), border=frame.border)
+    got = sp._do_keyframe(state, frame, cfg)
+    want = sp._do_keyframe(convert.slam_state_from_numpy(m, device="cpu"),
+                           cframe, cfg)
+    assert int(got.lc_ptr) == int(want.lc_ptr) == int(state.lc_ptr) + (
+        branch == "full")
+    assert torch.equal(got.lc_j.cpu(), want.lc_j)
+    for name in ("lc_w", "lc_T", "hist_pose", "kf_pose"):
+        err = float((getattr(got, name).cpu()
+                     - getattr(want, name)).abs().max())
+        assert err <= 1e-4, (name, err)
+    # the smoother ran: without it the history ends elsewhere
+    monkeypatch.setattr(sp, "_smooth_history", lambda h, *a, **k: h)
+    raw = sp._do_keyframe(convert.slam_state_from_numpy(m, device="cpu"),
+                          cframe, cfg).hist_pose
+    assert float((want.hist_pose - raw).abs().max()) > 0.05

@@ -1,18 +1,21 @@
-"""Carry tracker state between the JAX package and the port.
+"""Carry state between the JAX package and the port.
 
 Both directions go through plain ``{field: numpy array}`` mappings, so
 this module needs neither framework's types from the other: build the
 mapping from a JAX state with ``np.asarray(getattr(state, name))`` per
-field (``keypoints`` of a ``VideoExtruderState`` as a nested mapping), and
-turn a port state back into one with the ``*_to_numpy`` functions.
-``frame_id`` and ``n_keyframes`` may be 0-d arrays or ints; the port keeps
-them as host ints. A ``SlamState`` mapping nests its ``tracker`` the same
-way.
+field (nested states as nested mappings), and turn a port state back into
+one with ``state_to_numpy``. One walk serves every state type
+(dataclasses and NamedTuples of tensors, host ints and nested states,
+read from their field annotations); the ``*_from_numpy``/``*_to_numpy``
+functions name it per type. Host ints (``frame_id``, ``n_keyframes``)
+come out as ``np.int32`` and go in from 0-d arrays or ints. Checkpoints
+(``slam/checkpoint.py``) store the same mappings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -23,74 +26,90 @@ from .algorithms.hough_tracker import HoughTrackerState
 from .algorithms.video_extruder import VideoExtruderState
 from .core.keypoints import Keypoints
 from .slam.pipeline import SlamState
+from .slam.pose_graph import PoseGraph
 
 
-def _tensors(cls, m: Mapping[str, Any], dev: torch.device,
-             skip=()) -> Dict[str, Any]:
+def _is_state(cls) -> bool:
+    return dataclasses.is_dataclass(cls) or (
+        isinstance(cls, type) and issubclass(cls, tuple)
+        and hasattr(cls, "_fields"))
+
+
+def _names(cls):
+    if dataclasses.is_dataclass(cls):
+        return [f.name for f in dataclasses.fields(cls)]
+    return list(cls._fields)
+
+
+def state_to_numpy(obj) -> Dict[str, Any]:
+    """Every field of a port state as numpy: tensors copied to the host,
+    host ints as ``np.int32``, nested states as nested mappings."""
     out = {}
-    for f in dataclasses.fields(cls):
-        if f.name in skip:
-            continue
-        out[f.name] = torch.as_tensor(np.array(m[f.name]), device=dev)
+    for name in _names(type(obj)):
+        v = getattr(obj, name)
+        if isinstance(v, torch.Tensor):
+            out[name] = v.detach().cpu().numpy()
+        elif isinstance(v, int):
+            out[name] = np.int32(v)
+        elif _is_state(type(v)):
+            out[name] = state_to_numpy(v)
+        else:
+            raise TypeError(f"state_to_numpy: field {name} is a "
+                            f"{type(v).__name__}")
     return out
 
 
-def _numpy(obj, skip=()) -> Dict[str, Any]:
-    return {f.name: getattr(obj, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(obj) if f.name not in skip}
+def state_from_numpy(cls, m: Mapping[str, Any], device="cuda", *,
+                     like=None, where: str = "state"):
+    """A ``cls`` from a ``state_to_numpy`` mapping, its tensors on
+    ``device``. With ``like`` (a ``cls``), each tensor must have the shape
+    and dtype of ``like``'s and goes to its device (``ValueError`` if not)."""
+    dev = resolve_device(device)
+    hints = typing.get_type_hints(cls)
+    out = {}
+    for name in _names(cls):
+        t, v = hints[name], m[name]
+        ref = None if like is None else getattr(like, name)
+        at = f"{where}.{name}"
+        if t is int:
+            out[name] = int(np.asarray(v))
+        elif _is_state(t):
+            out[name] = state_from_numpy(t, v, dev, like=ref, where=at)
+        else:
+            x = torch.as_tensor(np.array(v))
+            if ref is not None:
+                if x.shape != ref.shape or x.dtype != ref.dtype:
+                    raise ValueError(
+                        f"{at} is {tuple(x.shape)} {x.dtype}, the target's "
+                        f"{tuple(ref.shape)} {ref.dtype}")
+                out[name] = x.to(ref.device)
+            else:
+                out[name] = x.to(dev)
+    return cls(**out)
+
+
+keypoints_to_numpy = video_extruder_state_to_numpy = state_to_numpy
+hough_tracker_state_to_numpy = slam_state_to_numpy = state_to_numpy
+pose_graph_to_numpy = state_to_numpy
 
 
 def keypoints_from_numpy(m: Mapping[str, Any], device="cuda") -> Keypoints:
-    return Keypoints(**_tensors(Keypoints, m, resolve_device(device)))
-
-
-def keypoints_to_numpy(kps: Keypoints) -> Dict[str, np.ndarray]:
-    return _numpy(kps)
+    return state_from_numpy(Keypoints, m, device)
 
 
 def video_extruder_state_from_numpy(m: Mapping[str, Any],
                                     device="cuda") -> VideoExtruderState:
-    dev = resolve_device(device)
-    fields = _tensors(VideoExtruderState, m, dev,
-                      skip=("keypoints", "frame_id"))
-    return VideoExtruderState(
-        keypoints=keypoints_from_numpy(m["keypoints"], dev),
-        frame_id=int(np.asarray(m["frame_id"])), **fields)
-
-
-def video_extruder_state_to_numpy(st: VideoExtruderState) -> Dict[str, Any]:
-    out = _numpy(st, skip=("keypoints", "frame_id"))
-    out["keypoints"] = keypoints_to_numpy(st.keypoints)
-    out["frame_id"] = np.int32(st.frame_id)
-    return out
+    return state_from_numpy(VideoExtruderState, m, device)
 
 
 def hough_tracker_state_from_numpy(m: Mapping[str, Any],
                                    device="cuda") -> HoughTrackerState:
-    dev = resolve_device(device)
-    fields = _tensors(HoughTrackerState, m, dev, skip=("frame_id",))
-    return HoughTrackerState(frame_id=int(np.asarray(m["frame_id"])),
-                             **fields)
-
-
-def hough_tracker_state_to_numpy(st: HoughTrackerState) -> Dict[str, Any]:
-    out = _numpy(st, skip=("frame_id",))
-    out["frame_id"] = np.int32(st.frame_id)
-    return out
+    return state_from_numpy(HoughTrackerState, m, device)
 
 
 def slam_state_from_numpy(m: Mapping[str, Any], device="cuda") -> SlamState:
-    """Every ``SlamState`` field as a tensor on ``device``; ``tracker`` a
-    nested ``VideoExtruderState`` mapping, ``n_keyframes`` an int."""
-    dev = resolve_device(device)
-    fields = _tensors(SlamState, m, dev, skip=("tracker", "n_keyframes"))
-    return SlamState(
-        tracker=video_extruder_state_from_numpy(m["tracker"], dev),
-        n_keyframes=int(np.asarray(m["n_keyframes"])), **fields)
+    return state_from_numpy(SlamState, m, device)
 
 
-def slam_state_to_numpy(st: SlamState) -> Dict[str, Any]:
-    out = _numpy(st, skip=("tracker", "n_keyframes"))
-    out["tracker"] = video_extruder_state_to_numpy(st.tracker)
-    out["n_keyframes"] = np.int32(st.n_keyframes)
-    return out
+def pose_graph_from_numpy(m: Mapping[str, Any], device="cuda") -> PoseGraph:
+    return state_from_numpy(PoseGraph, m, device)

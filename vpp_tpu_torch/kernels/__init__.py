@@ -21,6 +21,8 @@ show that it went through the kernels:
   and ``extract_patches_at_tl``
 * ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch
   per ``ba_solve_tracks`` call, every LM iteration included)
+* ``map_vote``   — K8, ``slam/map_vote.py:vote_round`` (one launch per
+  map-vote round: two per ``_map_vote_pnp`` call)
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"fast9": 0, "flow_level": 0, "hough_acc": 0,
                             "block_topk": 0, "pyramid_decim": 0,
-                            "patches": 0, "ba_tracks": 0}
+                            "patches": 0, "ba_tracks": 0, "map_vote": 0}
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpp_tpu_torch"
 SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu", "block_topk.cu",
-           "pyramid_decim.cu", "patches.cu", "ba_tracks.cu")
+           "pyramid_decim.cu", "patches.cu", "ba_tracks.cu", "map_vote.cu")
 TOOLKIT_ROOT = "/usr/local/cuda"       # the CUDA toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "vpp_pyramid": [_P, _I, ctypes.POINTER(_L)] + [_I] * 4 + [_P, _P],
     "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 4 + [_P, _P],
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 4 + [_P] * 10,
+    "vpp_map_vote": [_P] * 6 + [_I, _I, _F, _F, _F] + [_P] * 7,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -142,7 +142,12 @@ def project(T: torch.Tensor, X: torch.Tensor,
             intr: torch.Tensor) -> torch.Tensor:
     """Pinhole projection of world points X by camera-from-world T:
     (row, col) = (fy y/z + cy, fx x/z + cx)."""
-    xc = se3_apply(T, X)
+    return pinhole(se3_apply(T, X), intr)
+
+
+def pinhole(xc: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """``project`` of camera-frame points xc (..., 3), depth clamped away
+    from 0 as in ``project``."""
     z = torch.where(xc[..., 2].abs() < 1e-6,
                     torch.full_like(xc[..., 2], 1e-6), xc[..., 2])
     u = intr[0] * xc[..., 0] / z + intr[2]

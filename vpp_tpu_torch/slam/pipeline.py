@@ -1,5 +1,6 @@
-"""End-to-end SLAM: tracker -> keyframes -> triangulation -> sliding-window
-BA (port of ``vpp_tpu.slam.pipeline``, the tracking+BA configuration).
+"""End-to-end SLAM engine: tracker -> keyframes -> triangulation ->
+sliding-window BA, with tracking recovery, loop closure and a pose-graph
+smoother over the keyframe history (port of ``vpp_tpu.slam.pipeline``).
 
 The design is the JAX package's, slot-parallel and of static shape: the
 tracker's keypoint slot IS the landmark id, keyframes live in a ring of
@@ -7,22 +8,32 @@ tracker's keypoint slot IS the landmark id, keyframes live in a ring of
 (N, R) is a ring-layout ``BATracks`` problem. New landmarks triangulate
 from their oldest and newest ring observations, keyframe poses come from a
 Gauss-Newton PnP against the live map, and the window refines with
-``ba_solve_tracks``, which on the card runs kernel K6.
+``ba_solve_tracks``, which on the card runs kernel K6. Every keyframe also
+archives its new landmarks; with ``enable_recovery`` (the default) one FAST
+pass per keyframe matches the frame against that archive
+(``_archive_pnp``): the full archive re-localises a starved tracker, the
+entries at least ``lc_min_gap`` frames old measure a revisit, which
+becomes a loop-closure edge, and a pose-graph smoother
+(``slam/pose_graph.py``) pulls the keyframe history onto the closures.
+``relocalize`` runs the same map vote (``_map_vote_pnp``, whose vote round
+is kernel K8) against the live map.
 
 PyTorch runs eagerly, so ``slam_step``'s keyframe branch is a host ``if``
 on the frame count, and ``SlamState.n_keyframes`` is a Python int like the
 tracker's ``frame_id``: the ring column, the history indices and the
 bootstrap test are host arithmetic. Everything that depends on data (the
-BA gate, the LM accept, the archive pointer, the lost flag) stays on the
-device and selects with ``torch.where``: a keyframe makes no host read.
+BA gate, the LM accept, the archive pointer, the lost flag, the recovery
+and closure gates, the loop-closure ring's writes) stays on the device and
+selects with ``torch.where``. A keyframe of ``enable_recovery=False`` makes
+no host read. A keyframe with recovery makes exactly one: the two flags
+(closure accepted now, any closure edge stored) that pick the smoother's
+branch, a full double solve, a 2-iteration refresh or nothing, where the
+JAX package's two ``lax.cond`` run only the chosen branch; running every
+branch and selecting would cost 18 Gauss-Newton iterations a keyframe,
+each a dense (6H, 6H) solve.
 
-Ported: the ``enable_recovery=False``, ``subpix_refine=False``
-configuration (the matched tracking+BA benchmark). The landmark archive is
-written as in the JAX package. Not yet: the archive PnP (tracking recovery
-and loop-closure measurement), the pose-graph smoother, ``relocalize``,
-checkpoints and ``slam_run_streams``. ``SlamConfig`` keeps the JAX
-defaults, so ``SlamConfig(intrinsics=...)`` alone (``enable_recovery=True``)
-raises ``NotImplementedError`` at ``slam_init`` until recovery is ported.
+Not ported yet: ``slam_run_streams`` and the landmark-sharded BA
+(``mesh=``, which raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._device import device_constant, resolve_device
+from ..algorithms.fast import fast9
 from ..algorithms.geometry import triangulate_ls
 from ..algorithms.pyramid import pyramid as build_pyramid
 from ..algorithms.video_extruder import (VideoExtruderConfig,
@@ -40,19 +52,22 @@ from ..algorithms.video_extruder import (VideoExtruderConfig,
                                          video_extruder_init,
                                          video_extruder_update)
 from ..core.image import Image2d, _as_tensor
-from ..core.interp import extract_patches
+from ..core.interp import extract_patches, extract_patches_bilinear
 from ..core.keypoints import drop_scatter
-from .ba import (BATracks, ba_solve_tracks, chol_solve, project,
+from .ba import (BATracks, ba_solve_tracks, chol_solve, pinhole, project,
                  proj_jacobians, track_residuals)
-from .se3 import se3_exp, se3_inverse
+from .map_vote import vote_round, vote_step
+from .pose_graph import PoseGraph, pose_graph_residuals, pose_graph_solve
+from .se3 import se3_apply, se3_exp, se3_inverse
 
 
 @dataclasses.dataclass(frozen=True)
 class SlamConfig:
-    """Static pipeline knobs; names and defaults are the JAX package's.
-    ``tracker.capacity`` is also the landmark table size; ``ring`` is the
-    sliding-window length (BA poses). The port runs only
-    ``enable_recovery=False`` and ``subpix_refine=False`` so far."""
+    """Static pipeline knobs; names, defaults and meanings are the JAX
+    package's. ``tracker.capacity`` is also the landmark table size;
+    ``ring`` is the sliding-window length (BA poses); ``enable_recovery``
+    runs the archive PnP (tracking recovery and loop-closure measurement)
+    and the pose-graph smoother every keyframe."""
     intrinsics: Tuple[float, float, float, float]   # fx, fy, cx, cy
     keyframe_period: int = 4
     ring: int = 8
@@ -115,15 +130,7 @@ class SlamState:
     lc_ptr: torch.Tensor        # () int32 ring write pointer
 
 
-def _check_supported(cfg: SlamConfig, mesh=None) -> None:
-    if cfg.enable_recovery:
-        raise NotImplementedError(
-            "vpp_tpu_torch SLAM: enable_recovery=True (archive PnP, loop "
-            "closure, pose graph) is not ported yet; pass "
-            "enable_recovery=False")
-    if cfg.subpix_refine:
-        raise NotImplementedError(
-            "vpp_tpu_torch SLAM: subpix_refine=True is not ported yet")
+def _check_supported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "vpp_tpu_torch SLAM: the landmark-sharded BA (mesh) is not "
@@ -140,7 +147,6 @@ def slam_init(cfg: SlamConfig, bootstrap_poses=None,
     """Empty state on ``device``. ``bootstrap_poses``: (2, 4, 4) poses of
     the first two keyframes (they pin the gauge and the monocular scale);
     identity for both when omitted."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     n, r = cfg.tracker.capacity, cfg.ring
     f32, i32 = torch.float32, torch.int32
@@ -213,13 +219,188 @@ def _projection_matrix(T: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     return K @ T[..., :3, :]
 
 
+def _refine_obs_subpix(frame: Image2d, pos: torch.Tensor,
+                       templ: torch.Tensor, valid: torch.Tensor, patch: int,
+                       iters: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sub-pixel KLT alignment of each slot's position against its stored
+    template (``lm_desc``): forward-additive Gauss-Newton on a pure
+    translation, batched over slots, bilinear samples of the frame and of
+    its central-difference gradient (``torch.gradient``, one-sided at the
+    edges, as ``jnp.gradient``). Returns (refined (N, 2), ok (N,)); ``ok``
+    is False where the alignment diverged or the patch no longer matches
+    its template (see the JAX module for why that gate matters)."""
+    b = frame.border
+    data = frame.data.to(torch.float32)
+    gr, gc = torch.gradient(data, dim=(0, 1))
+    grad = torch.stack([gr, gc], dim=-1)
+    t = templ.reshape(templ.shape[0], patch, patch)
+    p = pos
+    for _ in range(iters):
+        smp = extract_patches_bilinear(data, p + b, patch)       # (N,P,P)
+        g = extract_patches_bilinear(grad, p + b, patch)         # (N,P,P,2)
+        r = smp - t
+        g1, g2 = g[..., 0], g[..., 1]
+        a11 = (g1 * g1).sum((1, 2))
+        a12 = (g1 * g2).sum((1, 2))
+        a22 = (g2 * g2).sum((1, 2))
+        b1 = (g1 * r).sum((1, 2))
+        b2 = (g2 * r).sum((1, 2))
+        det = a11 * a22 - a12 * a12
+        inv = torch.where(det.abs() > 1e-8, 1.0 / det,
+                          torch.zeros_like(det))
+        step = -torch.stack([(a22 * b1 - a12 * b2) * inv,
+                             (a11 * b2 - a12 * b1) * inv], dim=-1)
+        p = p + step.clamp(-1.0, 1.0)
+    drift = torch.linalg.norm(p - pos, dim=1)
+    smp = extract_patches_bilinear(data, p + b, patch)
+    sad = (smp - t).abs().sum((1, 2))
+    energy = t.abs().sum((1, 2)).clamp(min=1.0)
+    ok = valid & (drift <= 0.75) & (sad < 0.08 * energy)
+    return torch.where(ok[:, None], p, pos), ok
+
+
+def _det_shift_patches(frame: Image2d, pos: torch.Tensor,
+                       patch: int) -> torch.Tensor:
+    """(9, K, patch²) patches around each detection at the 9 ±1-px shifts,
+    the appearance-gate templates of ``_map_vote_pnp``: one K5 launch of
+    (patch + 2)² patches, then 9 static sub-views of it."""
+    big = extract_patches(frame.data, pos + frame.border, patch + 2)
+    return torch.stack([big[:, dr:dr + patch, dc:dc + patch].reshape(
+        -1, patch * patch) for dr in range(3) for dc in range(3)])
+
+
+def _map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
+                  pos: torch.Tensor, valid: torch.Tensor, frame: Image2d,
+                  cfg: SlamConfig, T_prior: torch.Tensor, intr: torch.Tensor,
+                  *, rounds: int = 2, det_patches: torch.Tensor = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Drift-robust PnP of a frame's FAST detections against a landmark
+    map (``X`` (A, 3), ``desc`` (A, P²), ``base`` (A,) usable entries): the
+    matching routine behind tracking recovery, loop-closure measurement and
+    ``relocalize``. ``rounds`` translation-consensus vote rounds (K8, each
+    shifting the pose by its histogram peak), then each entry's candidate
+    nearest that peak, gated by the min-over-±1-px-shift SAD against the
+    entry's descriptor, feeds two Huber PnP solves on the same pair set.
+    Returns (T, err, n): the pose, the mean PnP reprojection error, and the
+    number of distinct detections among the inlier pairs (0-d tensors)."""
+    posf = pos.to(torch.float32)
+    energy = desc.abs().sum(1).clamp(min=1.0)
+    bmax = float(cfg.lc_vote_range)
+    T = T_prior
+    for _ in range(rounds):
+        xc = se3_apply(T, X)
+        txy, js, _, cand_uv, dd = vote_round(
+            pinhole(xc, intr), xc[:, 2], posf, valid, base, intr,
+            3.0 * cfg.lc_search_radius, bmax)
+        T = T.clone()
+        T[:2, 3] += txy
+    cb = torch.argmin(dd, dim=1, keepdim=True)
+    db = dd.gather(1, cb)[:, 0]
+    uv1 = cand_uv.gather(1, cb[:, :, None].expand(-1, 1, 2))[:, 0]
+    j1 = js.gather(1, cb)[:, 0].long()
+    inl = base & (db <= (2.0 * vote_step(bmax)) ** 2)
+    # the appearance gate on the chosen pairs, at twice the claim-time
+    # threshold (see the JAX module)
+    if det_patches is None:
+        det_patches = _det_shift_patches(frame, pos, cfg.desc_patch)
+    best = (det_patches[:, j1] - desc).abs().sum(-1).amin(0)
+    inl = inl & (best < 2.0 * cfg.lc_appearance_gate * energy)
+    T1, _ = pnp_gn(T, X, uv1, inl, intr, iters=cfg.pnp_iters,
+                   huber=cfg.ba_huber)
+    T1, err = pnp_gn(T1, X, uv1, inl, intr, iters=cfg.pnp_iters,
+                     huber=cfg.ba_huber / 2)
+    seen = drop_scatter(torch.zeros((posf.shape[0],), dtype=torch.bool,
+                                    device=X.device), j1,
+                        torch.ones_like(inl), inl)
+    return T1, err, seen.sum()
+
+
+def _archive_pnp(state: SlamState, frame2: Image2d, cfg: SlamConfig,
+                 T_prior: torch.Tensor, intr: torch.Tensor,
+                 min_frame_gap: int):
+    """PnP of the frame against the landmark archive through
+    ``_map_vote_pnp``: ((T_rec, err_rec, n_rec), (T_lc, err_lc, n_lc)),
+    against every filled entry (tracking recovery) and against the entries
+    at least ``min_frame_gap`` frames old (the revisit that measures a loop
+    closure). One blockwise FAST pass (K2, K3) and one patch extraction
+    (K5) serve both."""
+    pos, _, valid = fast9(frame2, cfg.tracker.detector_th,
+                          k=cfg.tracker.detect_k, blockwise=True,
+                          block_size=cfg.tracker.keypoint_spacing)
+    filled = state.arch_frame >= 0
+    old_enough = filled & (state.arch_frame
+                           <= state.tracker.frame_id - min_frame_gap)
+    det_patches = _det_shift_patches(frame2, pos, cfg.desc_patch)
+    rec = _map_vote_pnp(state.arch_X, state.arch_desc, filled, pos, valid,
+                        frame2, cfg, T_prior, intr, det_patches=det_patches)
+    lc = _map_vote_pnp(state.arch_X, state.arch_desc, old_enough, pos, valid,
+                       frame2, cfg, T_prior, intr, det_patches=det_patches)
+    return rec, lc
+
+
+def _smoother_branch(lc_good: torch.Tensor,
+                     lc_w: torch.Tensor) -> Tuple[bool, bool]:
+    """(a closure accepted at this keyframe, any closure edge stored): the
+    one host read of a keyframe with recovery, which picks the smoother's
+    branch."""
+    new_closure, any_closure = torch.stack(
+        [lc_good, (lc_w > 0).any()]).tolist()
+    return new_closure, any_closure
+
+
+def _smooth_history(hist: torch.Tensor, pg_T: torch.Tensor,
+                    pg_w: torch.Tensor, lc_j: torch.Tensor,
+                    lc_T: torch.Tensor, lc_w: torch.Tensor, kf: int,
+                    cfg: SlamConfig, *, full: bool) -> torch.Tensor:
+    """The pose-graph smoother over the keyframe history: the odometry
+    chain plus the absolute revisit edges from the gauge node 0, nodes
+    beyond keyframe ``kf`` fixed. With ``full`` (a keyframe that accepted a
+    new closure) two ``pose_graph_iters`` solves, the second with the
+    closures reweighted by the Dynamic Covariance Scaling kernel of their
+    residuals at the first's poses; else a 2-iteration refresh with those
+    weights taken at the current history. Returns the smoothed (H, 4, 4)
+    history; it does not feed back into the live window."""
+    hcap, lc_cap = hist.shape[0], lc_w.shape[0]
+    dev = hist.device
+    k_ids = torch.arange(hcap, dtype=torch.int32, device=dev)
+    last = min(kf, hcap - 1)
+    edge_i = torch.cat([(k_ids - 1).clamp(min=0),
+                        torch.zeros((lc_cap,), dtype=torch.int32,
+                                    device=dev)])
+    edge_j = torch.cat([k_ids, lc_j])
+    edge_valid = torch.cat([(k_ids >= 1) & (k_ids <= last), lc_w > 0])
+    fixed = (k_ids == 0) | (k_ids > last)
+    c2 = device_constant((cfg.lc_dcs_c ** 2,), torch.float32, dev)
+
+    def build(h, lcw):
+        return PoseGraph(poses=h, edge_i=edge_i, edge_j=edge_j,
+                         edge_T=torch.cat([pg_T, se3_inverse(h[0]) @ lc_T]),
+                         edge_w=torch.cat([pg_w, lcw]),
+                         edge_valid=edge_valid, fixed=fixed)
+
+    def dcs_weights(g):
+        res = pose_graph_residuals(g)[hcap:]
+        return (2.0 * c2 / (c2 + (res * res).sum(-1))).clamp(max=1.0)
+
+    if full:
+        g = build(hist, lc_w)
+        solved, _ = pose_graph_solve(g, iters=cfg.pose_graph_iters)
+        s = dcs_weights(g._replace(poses=solved.poses))
+        solved, _ = pose_graph_solve(build(solved.poses, lc_w * s),
+                                     iters=cfg.pose_graph_iters)
+        return solved.poses
+    s = dcs_weights(build(hist, lc_w))
+    solved, _ = pose_graph_solve(build(hist, lc_w * s), iters=2)
+    return solved.poses
+
+
 def _do_keyframe(state: SlamState, frame2: Image2d, cfg: SlamConfig,
                  mesh=None, axis: str = "lm") -> SlamState:
     """Keyframe work: obs write -> PnP pose -> triangulate -> window BA ->
     prune -> archive and history writes. Float32 with TF32 off (the JAX
     package runs this at "highest" matmul precision); the window BA's
     landmark blocks are float64 (``slam/ba.py``)."""
-    _check_supported(cfg, mesh)
+    _check_supported(mesh)
     dev = state.lm_X.device
     intr = device_constant(cfg.intrinsics, torch.float32, dev)
     kps = state.tracker.keypoints
@@ -239,17 +420,33 @@ def _do_keyframe(state: SlamState, frame2: Image2d, cfg: SlamConfig,
     lm_valid = state.lm_valid & continuous
 
     # new rows observe at the integer centre their template is cut at
+    prev_col = (kf - 1) % r if kf >= 1 else 0
     obs_pos = torch.where(continuous[:, None], kps.position,
                           torch.round(kps.position))
+    if cfg.subpix_refine:
+        # continuing rows chain the sub-pixel motion of the previous
+        # keyframe's patch onto its refined observation
+        refined, ref_ok = _refine_obs_subpix(
+            frame2, kps.position, state.lm_desc, continuous & alive,
+            cfg.desc_patch)
+        chain = state.obs_uv[:, prev_col] + (refined - state.desc_ctr)
+        near = (chain - kps.position).abs().amax(1) <= 1.5
+        obs_pos = torch.where((continuous & ref_ok & near)[:, None], chain,
+                              obs_pos)
 
     # --- pose estimate for this keyframe (PnP on live landmarks) ------
-    prev_col = (kf - 1) % r if kf >= 1 else 0
     T_prior = state.kf_pose[prev_col]
     tracked = lm_valid & alive
     T_pnp, _ = pnp_gn(T_prior, state.lm_X, obs_pos, tracked, intr,
                       iters=cfg.pnp_iters, huber=cfg.ba_huber)
-    # recovery is compiled out: no recovery pose can replace T_pnp
     lost = tracked.sum() < cfg.min_tracked
+
+    # --- tracking-lost recovery and loop-closure measurement ----------
+    if cfg.enable_recovery:
+        (T_rec, err_rec, n_rec), (T_lc, err_lc, n_lc) = _archive_pnp(
+            state, frame2, cfg, T_prior, intr, cfg.lc_min_gap)
+        rec_ok = (n_rec >= cfg.lc_min_inliers) & (err_rec < cfg.rec_max_err)
+        T_pnp = torch.where(lost & rec_ok, T_rec, T_pnp)
     # bootstrap: keyframes 0 and 1 keep their preset (gauge/scale) poses
     T_new = state.kf_pose[col] if kf < 2 else T_pnp
 
@@ -385,20 +582,28 @@ def _do_keyframe(state: SlamState, frame2: Image2d, cfg: SlamConfig,
     if kf < hcap:
         pg_w[kf] = torch.where(lost, cfg.pg_lost_w, 1.0)
 
-    # loop closure: with recovery compiled out the revisit PnP reports no
-    # inliers (n_lc = 0, err_lc = 0); the JAX gate then decides on the host
-    n_lc, err_lc = 0, 0.0
     lc_j, lc_T, lc_w, lc_ptr = state.lc_j, state.lc_T, state.lc_w, \
         state.lc_ptr
-    if (2 <= kf < hcap and n_lc >= cfg.lc_min_inliers
-            and err_lc < cfg.lc_max_err):
+    if cfg.enable_recovery:
+        # loop closure: the revisit PnP becomes an absolute-pose edge from
+        # the gauge node when enough old archive entries agree
         lc_cap = lc_w.shape[0]
-        li = torch.remainder(lc_ptr, lc_cap).long().reshape(1)
-        lc_j = lc_j.index_fill(0, li, kf)
-        lc_T = lc_T.index_copy(0, li, T_prior[None])
-        w_lc = (min(n_lc / 8.0, 4.0) * (1.5 / max(err_lc, 1.5)) ** 2)
-        lc_w = lc_w.index_fill(0, li, w_lc)
-        lc_ptr = lc_ptr + 1
+        lc_good = ((n_lc >= cfg.lc_min_inliers) & (err_lc < cfg.lc_max_err)
+                   & (2 <= kf < hcap))
+        li = torch.remainder(lc_ptr, lc_cap).reshape(1)
+        keep = lc_good.reshape(1)
+        lc_j = drop_scatter(lc_j, li, torch.full_like(li, kf), keep)
+        lc_T = drop_scatter(lc_T, li, T_lc[None], keep)
+        # weight: inlier support up, the PnP residual down quadratically
+        w_lc = ((n_lc.to(torch.float32) / 8.0).clamp(max=4.0)
+                * (1.5 / err_lc.clamp(min=1.5)) ** 2)
+        lc_w = drop_scatter(lc_w, li, w_lc.reshape(1), keep)
+        lc_ptr = lc_ptr + lc_good.to(torch.int32)
+        new_closure, any_closure = _smoother_branch(lc_good, lc_w)
+        if new_closure or any_closure:
+            hist_pose = _smooth_history(
+                hist_pose, pg_T, pg_w, lc_j, lc_T, lc_w, kf, cfg,
+                full=new_closure)
 
     return dataclasses.replace(
         state, kf_pose=kf_pose, kf_valid=kf_valid, obs_uv=obs_uv,
@@ -414,7 +619,7 @@ def slam_step(state: SlamState, frame1: Image2d, frame2: Image2d,
               cfg: SlamConfig, mesh=None, axis: str = "lm",
               pyr1=None, pyr2=None) -> SlamState:
     """One frame: track, and on keyframe frames run the back end."""
-    _check_supported(cfg, mesh)
+    _check_supported(mesh)
     tracker = video_extruder_update(state.tracker, frame1, frame2,
                                     cfg.tracker, pyr1=pyr1, pyr2=pyr2)
     state = dataclasses.replace(state, tracker=tracker)
@@ -433,7 +638,7 @@ def slam_run(frames, cfg: SlamConfig, bootstrap_poses=None, mesh=None,
 
     With ``collect_tracks`` returns (state, (positions (T, K, 2),
     alive (T, K))), the per-frame tracker history."""
-    _check_supported(cfg, mesh)
+    _check_supported(mesh)
     dev = resolve_device(device)
     frames = _as_tensor(frames, dev)
     b = max(3, cfg.tracker.winsize)
@@ -455,6 +660,26 @@ def slam_run(frames, cfg: SlamConfig, bootstrap_poses=None, mesh=None,
             hist_alive[i] = state.tracker.keypoints.alive
         pyr1 = pyr2
     return (state, (hist_pos, hist_alive)) if collect_tracks else state
+
+
+def relocalize(state: SlamState, frame: Image2d, cfg: SlamConfig,
+               detect_th: int = 10
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The camera pose of ``frame`` from the live map alone: FAST
+    detections at ``detect_th`` (K2, K3), then ``_map_vote_pnp`` (two K8
+    rounds) from the last keyframe's pose. Returns (pose (4, 4), mean
+    reprojection error of the matches, number of distinct inlier
+    detections); accept on ``n >= cfg.lc_min_inliers`` (with no eligible
+    match the pose is the prior and the error 0)."""
+    dev = state.lm_X.device
+    intr = device_constant(cfg.intrinsics, torch.float32, dev)
+    pos, _, valid = fast9(frame, detect_th, k=cfg.tracker.detect_k,
+                          blockwise=True,
+                          block_size=cfg.tracker.keypoint_spacing)
+    n_kf = state.n_keyframes
+    T_prior = state.kf_pose[(n_kf - 1) % cfg.ring if n_kf > 0 else 0]
+    return _map_vote_pnp(state.lm_X, state.lm_desc, state.lm_valid, pos,
+                         valid, frame, cfg, T_prior, intr)
 
 
 def keyframe_trajectory(state: SlamState
