@@ -2,8 +2,8 @@
 """Device time of the SLAM keyframe's whole window-BA call (K6,
 ``ba_solve_tracks``), of the SLAM frame's block top-K call (K3,
 ``_blockwise_keypoints``), of a frame's pyramid as the run loops build it
-(K4) and of the Hough accumulator (K7), on one CUDA card, for this
-checkout or against another one.
+(K4), of the Hough accumulator (K7) and of a keyframe's archive PnP (K8's
+caller), on one CUDA card, for this checkout or against another one.
 
     python3 call_times.py                   # this checkout
     python3 call_times.py --compare DIR     # DIR's checkout against this
@@ -26,7 +26,10 @@ level 2 after a grid barrier instead of from the frame (``_k4``'s
 barrier, barrier, fused (``k4_fused_device_ms``, ``k4_barrier_device_ms``),
 after a check that both give the same bits. K7's input is the vote vectors of
 the 640x480 two-line Hough clip's frame 5 (``hough_acc_*``: device time,
-as called, device operations).
+as called, device operations). The archive PnP (K8's caller, with FAST and
+the patches) runs on the warm-up's last keyframe state at the full
+engine's configuration (``archive_pnp_*``), with K8's device time split
+by rounds and PnP iterations where the checkout has ``map_vote_pnp``.
 Each measurement prints one JSON line:
 ``device_ms`` (CUDA events around replays of a CUDA graph of 20 calls, or
 the profiler's device time where capture is refused, as ``chip_smoke.py``
@@ -62,19 +65,25 @@ def make_problem(path: str) -> None:
     from vpp_tpu_torch.slam import pipeline as SP
     cfg = CS.slam_config()
     clip, gt = CS.slam_clip(WARMUP)
-    problems = []
-    solve = SP.ba_solve_tracks
+    problems, keyframes = [], []
+    solve, do_kf = SP.ba_solve_tracks, SP._do_keyframe
 
     def capture(prob, **kw):
         problems.append(prob)
         return solve(prob, **kw)
 
-    SP.ba_solve_tracks = capture
+    def keep(state, frame2, cfg_, **kw):
+        keyframes.append((state, frame2))
+        return do_kf(state, frame2, cfg_, **kw)
+
+    SP.ba_solve_tracks, SP._do_keyframe = capture, keep
     try:
         SP.slam_run(clip, cfg, bootstrap_poses=gt[[0, cfg.keyframe_period]],
                     device="cpu")
     finally:
-        SP.ba_solve_tracks = solve
+        SP.ba_solve_tracks, SP._do_keyframe = solve, do_kf
+    from vpp_tpu_torch import convert
+    kf_state, kf_frame = keyframes[-1]
     frame = from_array(torch.from_numpy(clip[-1]),
                        border=max(3, cfg.tracker.winsize),
                        border_mode="mirror")
@@ -88,12 +97,73 @@ def make_problem(path: str) -> None:
     t0i, r0i, ft, fr, wgt, rho_bins = HG._vote_bins(himg, 255, None, 40.0,
                                                     "binary", None)
     torch.save({"ba": tuple(problems[-1]), "scores": scores.data,
+                "kf_state": _tensors(convert.slam_state_to_numpy(kf_state)),
+                "kf_frame": kf_frame.data, "kf_border": kf_frame.border,
                 "border": scores.border,
                 "scores_4k": torch.from_numpy(big.astype(np.uint8)),
                 "frame": torch.from_numpy(clip[-1]),
                 "hough": ((t0i.float() + ft).reshape(-1),
                           (r0i.float() + fr).reshape(-1),
                           wgt.reshape(-1).contiguous(), 255, rho_bins)}, path)
+
+
+def _tensors(m):
+    """A ``state_to_numpy`` mapping with its arrays as tensors (what
+    ``torch.load`` reads back by default)."""
+    import numpy as np
+    import torch
+    return {k: _tensors(v) if isinstance(v, dict)
+            else torch.from_numpy(np.asarray(v)) for k, v in m.items()}
+
+
+def archive_pnp(torch, CS, saved) -> dict:
+    """The archive PnP of the warm-up's last keyframe (``_archive_pnp`` at
+    the full engine's configuration: FAST, patches, both match sets' vote
+    rounds, gates and PnPs): device time, as called, device operations and
+    K8 launches a call. Where the checkout has K8 as ``map_vote_pnp``, also
+    its device time on that call's operands with fewer rounds and no PnP
+    iteration (``k8_device_ms_split``)."""
+    import dataclasses
+    from vpp_tpu_torch import convert
+    from vpp_tpu_torch.core.image import Image2d
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.slam import pipeline as SP
+    cfg = dataclasses.replace(CS.slam_config(), enable_recovery=True)
+    st = convert.slam_state_from_numpy(saved["kf_state"], device="cuda")
+    frame = Image2d(data=saved["kf_frame"].cuda(), border=saved["kf_border"])
+    intr = torch.tensor(cfg.intrinsics, device="cuda")
+    T0 = st.kf_pose[(st.n_keyframes - 1) % cfg.ring]
+
+    def call():
+        return SP._archive_pnp(st, frame, cfg, T0, intr, cfg.lc_min_gap)
+
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    call()
+    out = {"archive_pnp_map_vote_launches": launch_counts()["map_vote"],
+           "archive_pnp_device_ms": CS.device_ms(torch, call, calls=5)[0],
+           "archive_pnp_ms": CS.cuda_ms(torch, call, 20),
+           "archive_pnp_device_ops": _device_ops(torch, CS, call)}
+    if hasattr(SP, "map_vote_pnp"):
+        kept, mvp = [], SP.map_vote_pnp
+
+        def keep(*a, **kw):
+            kept.append((a, kw))
+            return mvp(*a, **kw)
+
+        SP.map_vote_pnp = keep
+        try:
+            call()
+        finally:
+            SP.map_vote_pnp = mvp
+        a, kw = kept[-1]
+        out["k8_device_ms_split"] = {
+            f"rounds{r}_iters{i}": CS.device_ms(torch, lambda: mvp(
+                *a, **dict(kw, rounds=r, pnp_iters=i)))[0]
+            for r, i in ((kw["rounds"], kw["pnp_iters"]),
+                         (kw["rounds"], 0), (1, 0))}
+    return out
 
 
 def measure(root: str, path: str) -> dict:
@@ -146,6 +216,7 @@ def measure(root: str, path: str) -> dict:
     except ValueError:      # a checkout that caps the block count
         k3["block_topk_82944_blocks_device_ms"] = None
     k4k7 = pyramid_and_hough(torch, CS, saved)
+    k8 = archive_pnp(torch, CS, saved)
     import vpp_tpu_torch
     return {"root": root, "package": os.path.dirname(vpp_tpu_torch.__file__),
             "n": int(prob.landmarks.shape[0]), "m": int(prob.poses.shape[0]),
@@ -153,12 +224,13 @@ def measure(root: str, path: str) -> dict:
             "device_ms": dev_ms, "device_ms_by": by,
             "ms": CS.cuda_ms(torch, call, 50),
             "ba_tracks_launches": launches, "device_kernels": kernels,
-            **k3, **k4k7}
+            **k3, **k4k7, **k8}
 
 
 def _device_ops(torch, CS, fn) -> int:
-    """Device operations one call of ``fn`` runs (``torch.profiler``)."""
-    return sum(CS.device_kernels(torch, fn).values())
+    """Device operations one call of ``fn`` runs (the nodes of a CUDA
+    graph of the call, ``chip_smoke.graph_ops``)."""
+    return sum(CS.graph_ops(torch, fn).values())
 
 
 def pyramid_and_hough(torch, CS, saved) -> dict:

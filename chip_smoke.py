@@ -52,15 +52,21 @@ Phases, in order; any failure exits nonzero and prints no result:
    within 1e-3 px and costs within 1e-4 of the plain LM loop on the same
    problem; the same with every step rejected and with the pose
    factorisation failing; and ``ba_solve_tracks(iters=0)`` returning the
-   problem bit-equal with empty costs and no launch. K6 is timed per ``ba_solve_tracks`` call. Each
+   problem bit-equal with empty costs and no launch. K6 is timed per
+   ``ba_solve_tracks`` call. Each
    row with a library call (K3, K4, K5, K7) also carries the library's
    ``library_device_ms`` from the same CUDA-graph replays. Last, K8's
-   map-vote round, one launch a round, bit-equal to its plain version in
-   every output (twice in a row) at A 1024 x Q 512 and A 1000 x Q 333,
-   with exact distance ties, with no valid detection (tx0 = ty0 = 0) and
-   with NaN ``pred`` rows, timed at 1024 x 512 (no single PyTorch call
-   computes the round: ``library_ms`` null; its bound counts each of the
-   A*Q distances once and one compare a pair);
+   map-vote PnP (vote rounds, pick, appearance gate, both PnP solves), one
+   cluster launch for every match set, against its plain version: the
+   shifts, ``j1``, ``uv1`` and ``inl`` bit-equal, T and err within 1e-4,
+   ``n`` equal, two launches bit-identical, at A 1024 x Q 512 x B 2, A 37
+   x Q 3, Q 4096, B 1, A 9000 (over 512 entries a CTA), with no usable
+   entry and with no valid detection
+   (the prior pose, err 0, n 0), with three valid detections and with a
+   NaN map point; timed at 1024 x 512 x 2 (no single PyTorch call
+   computes it: ``library_ms`` null; its bound
+   counts the projections, each distance to a valid detection once, the
+   gate of every inlier and both PnP solves over every entry);
 4. the tracker main path: ``video_extruder_run`` at 640x480 with the bench
    config on 60 frames already on the card, frames/s under
    ``torch.cuda.synchronize``, launch counts of K1 (two per level and
@@ -89,7 +95,7 @@ Phases, in order; any failure exits nonzero and prints no result:
 7. the full SLAM engine: the same clip and configuration with
    ``enable_recovery=True`` (``bench_slam.py``'s ``recovery=True`` run):
    frames/s, keyframes (60), landmarks (> 200), ATE (< 0.10), ``lc_ptr``,
-   launch counts (K6 60, K8 240: four rounds a keyframe); keyframe 30 from
+   launch counts (K6 60, K8 60: one a keyframe); keyframe 30 from
    one state on both devices (poses within 1e-3, the smoothed history
    within 1e-2, ``lm_valid`` on >= 99% of slots, the same ``lc_ptr``), the
    card's call under ``set_sync_debug_mode("error")`` with exactly one
@@ -98,8 +104,9 @@ Phases, in order; any failure exits nonzero and prints no result:
    state with one closure edge put in, both branches on both devices
    (within 1e-4, the history moved by more than 1e-3) and timed on the
    card; the first 40 frames against the plain CPU path on phase 6's
-   fields; and K8 bit-equal on the 4 rounds of that card run's last
-   keyframe;
+   fields; and K8 held to its plain version as in phase 3 on that card
+   run's last archive PnP, with each set's err and its distance to the
+   gate it meets (``rec_max_err``, ``lc_max_err``);
 8. recovery at 120x160, on the card, with the port's copies of the scene
    recipes and the thresholds of tests/test_pose_graph_loop.py:59,83 and
    tests/test_pipeline.py:71: the out-and-back loop with a drift spike
@@ -109,8 +116,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``lc_T``, the history and the window poses within 1e-4), the blackout
    clip
    (the frame-16 keyframe within 0.45, ATE < 0.8), and ``relocalize`` at
-   frame 24 (>= ``lc_min_inliers`` inliers, error < 2.5 px, centre within
-   0.1);
+   frame 24 (one K8 launch, >= ``lc_min_inliers`` inliers, error < 2.5 px,
+   centre within 0.1);
 9. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
@@ -291,64 +298,140 @@ def slam_clip(frames: int):
                          sigma=(1.2, 2.2)), gt_poses
 
 
-K8_ARGS = (24.0, 1.2)    # r_wide = 3 * lc_search_radius, bmax
+K8_KW = dict(r_wide=24.0, bmax=1.2, gate=0.35, rounds=2, pnp_iters=6,
+             huber=4.0)   # the SLAM configuration's map_vote_pnp scalars
 
 
-def vote_inputs(torch, np, dev, a_n, q_n, kind, seed):
+def pnp_inputs(torch, np, dev, a_n, q_n, b_n, kind, seed, p=7):
     """Seeded K8 operands at 640x480 (tests/test_torch_kernels_cuda.py's
-    recipe): detections, map entries projected near them under a common
-    shift, outliers, a few depths behind the camera. ``kind``: "random",
-    "ties" (integer positions, duplicated detections), "no_valid",
-    "nan_row". Returns (pred, z, posf, valid, base, intr)."""
+    recipe): map points in front of the camera, detections at their
+    projections under the true pose (rounded) and outliers, the prior pose
+    off by a drift, binary descriptors that the true detection's centre
+    patch repeats. ``kind``: "random", "ties" (the second half of the
+    detections repeats the first: exact distance ties), "empty_base",
+    "no_valid", "three_valid", "nan_row". Returns ``map_vote_pnp``'s
+    operands."""
     rng = np.random.RandomState(seed)
-    posf = np.stack([rng.uniform(0, H, q_n), rng.uniform(0, W, q_n)], 1)
+    intr = np.asarray(SLAM_INTR, np.float32)
+    z = rng.uniform(3.0, 8.0, a_n)
+    X = np.stack([(rng.uniform(0, W, a_n) - W / 2) * z / intr[0],
+                  (rng.uniform(0, H, a_n) - H / 2) * z / intr[1], z], 1)
+    T_true = np.eye(4)
+    T_true[:3, 3] = [0.05, -0.03, 0.02]
+    T_prior = T_true.copy()
+    T_prior[:2, 3] += [0.12, -0.08]
+    xc = X @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = np.stack([intr[1] * xc[:, 1] / xc[:, 2] + intr[3],
+                   intr[0] * xc[:, 0] / xc[:, 2] + intr[2]], 1)
+    n_src = min(q_n, a_n) if q_n <= 8 else min(q_n, a_n) * 3 // 4
+    src = rng.permutation(a_n)[:n_src]
+    pos = np.stack([rng.randint(0, H, q_n), rng.randint(0, W, q_n)], 1)
+    pos[:len(src)] = np.round(uv[src])
+    pos = np.clip(pos, 0, [H - 1, W - 1])
     if kind == "ties":
-        posf = np.round(posf)
-        posf[q_n // 2:] = posf[:q_n - q_n // 2]
-    pred = posf[rng.randint(0, q_n, a_n)] + rng.normal(0, 3.0, (a_n, 2)) \
-        + [6.0, -4.0]
-    if kind == "ties":
-        pred = np.round(pred)
-    pred[rng.rand(a_n) < 0.2] = rng.uniform(0, W, 2)
-    z = rng.uniform(2.0, 8.0, a_n)
-    z[:3] = [0.05, -1.0, 0.1]
-    valid = rng.rand(q_n) > 0.15
+        pos[q_n // 2:] = pos[:q_n - q_n // 2]
+    valid = rng.rand(q_n) > 0.1
+    desc = (rng.rand(a_n, p * p) > 0.5) * 8.0
+    det = (rng.rand(9, q_n, p * p) > 0.5) * 8.0
+    det[4, :len(src)] = desc[src] + rng.normal(0, 0.1, (len(src), p * p))
+    base = rng.rand(b_n, a_n) > np.linspace(0.1, 0.5, b_n)[:, None]
+    if kind == "empty_base":
+        base[:] = False
     if kind == "no_valid":
         valid[:] = False
+    if kind == "three_valid":
+        valid[:] = False
+        valid[:3] = True
     if kind == "nan_row":
-        pred[5] = np.nan
-        pred[9, 0] = np.nan
-    base = rng.rand(a_n) > 0.1
+        X[5] = np.nan
     return tuple(torch.from_numpy(v).to(dev) for v in (
-        pred.astype(np.float32), z.astype(np.float32),
-        posf.astype(np.float32), valid, base,
-        np.asarray(SLAM_INTR, np.float32)))
+        X.astype(np.float32), desc.astype(np.float32), base,
+        pos.astype(np.int32), valid, det.astype(np.float32),
+        T_prior.astype(np.float32), intr))
 
 
-def k8_check(torch, MV, args, what, rest=K8_ARGS):
-    """K8 on ``args``: one launch a round, every output bit-equal to the
-    plain version, twice in a row (the arrival counter resets itself)."""
+def pnp_diff(torch, got, want, one_pair=False) -> float:
+    """The largest difference of T and err, card against plain; inf where
+    their NaN patterns differ. With ``one_pair`` (every set has a single
+    pair) only where the plain version's are finite: one pair leaves four
+    of the pose's six directions to the 1e-4 damping, which float32 loses
+    beside the 6x6's other terms, so rounding decides whether a
+    factorisation fails, the plain one as K8's."""
+    worst = 0.0
+    for g, w in ((got.T, want.T), (got.err, want.err)):
+        if not one_pair and not torch.equal(torch.isnan(g), torch.isnan(w)):
+            return float("inf")
+        ok = ~torch.isnan(w)
+        if bool(ok.any()):
+            worst = max(worst, float((g[ok] - w[ok]).abs().max()))
+    return worst
+
+
+def k8_check(torch, MV, ops, kw, what, one_pair=False):
+    """K8 on ``ops``: one launch for every match set; the shifts, j1, uv1
+    and inl bit-equal to the plain version, T and err within 1e-4 (see
+    ``pnp_diff`` for ``one_pair``), n equal; two launches bit-identical.
+    Returns (largest T/err difference, the plain result)."""
     from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
-    want = MV._vote_round_plain(*args, *rest)
+    want = MV._map_vote_pnp_plain(*ops, **kw)
+    runs = []
     for _ in range(2):
         reset_launch_counts()
-        got = MV.vote_round(*args, *rest)
+        runs.append(MV.map_vote_pnp(*ops, **kw))
+        torch.cuda.synchronize()
         check(launch_counts()["map_vote"] == 1,
-              f"K8 ({what}) is not one launch a round")
-        check(all(g.dtype == w.dtype and same_bits(torch, g, w)
-                  for g, w in zip(got, want)),
-              f"K8 ({what}) differs from its plain version")
+              f"K8 ({what}) is not one launch for every match set")
+    got = runs[0]
+    check(same_bits(torch, got.txy, want.txy)
+          and same_bits(torch, got.uv1, want.uv1)
+          and torch.equal(got.j1, want.j1)
+          and torch.equal(got.inl, want.inl),
+          f"K8 ({what}): shifts, j1, uv1 or inl differ from the plain "
+          "version")
+    check(torch.equal(got.n, want.n), f"K8 ({what}): n {got.n.tolist()} "
+          f"against the plain version's {want.n.tolist()}")
+    if one_pair:
+        check(bool((want.inl.sum(1) == 1).all()),
+              f"K8 ({what}): a set without exactly one pair")
+    diff = pnp_diff(torch, got, want, one_pair)
+    check(diff <= 1e-4, f"K8 ({what}): T or err off the plain version by "
+          f"{diff}")
+    check(all(same_bits(torch, a, b) if a.dtype == torch.float32
+              else torch.equal(a, b) for a, b in zip(*runs)),
+          f"K8 ({what}): two launches differ")
+    return diff, want
 
 
-def k8_bound(a_n: int, q_n: int):
-    """K8's least time: its operands read once and outputs written once,
-    and the work the round needs at the float32 rate: each of the A*Q
-    squared distances once (2 subtractions, 2 products, 1 sum) and one
-    compare a pair to keep a top-4. The kernel's four passes recompute
-    every distance four times; that is its design's overhead, not counted."""
-    nbytes = (a_n * (8 + 4 + 1) + q_n * (8 + 1) + 16
-              + a_n * 4 * (4 + 4 + 8 + 4) + 8)
-    return bound_ms(nbytes, (5 + 1) * a_n * q_n)
+def k8_bound(torch, MV, ops, want, kw):
+    """K8's least time for this call's data, the larger of its bytes and
+    its operations. Bytes: X, pos, valid, base, T_prior and intr read
+    once, the outputs written once, and of desc and the detection patches
+    only the rows the gate needs: the desc row of every entry that is a
+    pair before the gate in some match set, and the 9 patch rows of every
+    distinct j1 of those pairs (from the plain version's vote and pick).
+    Operations, at the float32 rate: per match set and round, every
+    entry's projection (~25 operations) and its squared distance to each
+    valid detection (5) with one compare to keep a top-4; the gate of
+    every pair before it (9 shifts x P² x 3, and the energy, P² x 2); and
+    both PnP solves over the inliers (~190 operations an inlier and
+    iteration: projection, Jacobian, Huber weight, 27 normal-equation
+    terms). Returns ((ms, bound by), bytes, operations)."""
+    X, desc, base, pos, valid, det, T_prior, intr = ops
+    a_n, p2 = desc.shape
+    b_n, rounds, iters = base.shape[0], kw["rounds"], kw["pnp_iters"]
+    picks = [MV._vote_pick_plain(X, base[i], pos.to(torch.float32), valid,
+                                 T_prior, intr, kw["r_wide"], kw["bmax"],
+                                 rounds) for i in range(b_n)]
+    pre = torch.stack([pk[4] for pk in picks])
+    j1 = torch.stack([pk[2] for pk in picks])
+    rows = int(pre.any(0).sum()) + MV.SHIFTS * int(j1[pre].unique().numel())
+    nbytes = (sum(t.numel() * t.element_size() for t in (
+        X, pos, valid, base, T_prior, intr) + tuple(want))
+        + rows * p2 * desc.element_size())
+    n_ops = (b_n * rounds * a_n * (25 + 6 * int(valid.sum()))
+             + int(pre.sum()) * (9 * p2 * 3 + 2 * p2)
+             + 2 * iters * int(want.inl.sum()) * 190)
+    return bound_ms(nbytes, n_ops), nbytes, n_ops
 
 
 SCENE_INTR = (160.0, 160.0, 80.0, 60.0)
@@ -541,7 +624,11 @@ def scenario_recovery(torch, np, SP):
     st, _, _, _ = scenario_run(torch, SP, frames, poses_gt, cfg)
     frame = from_array(torch.from_numpy(frames[24]).cuda(), border=9,
                        border_mode="mirror")
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
     T, err, n = SP.relocalize(st, frame, cfg)
+    check(launch_counts()["map_vote"] == 1,
+          "relocalize is not one K8 launch")
     cerr = float(np.linalg.norm(centre(T.cpu().numpy())
                                 - centre(poses_gt[24])))
     print(f"phase 8: relocalize at frame 24: {int(n)} inliers, error "
@@ -1390,37 +1477,55 @@ def main() -> int:
           f"{results['ba_tracks']['device_ms']:.4f} ms on the device, bound "
           f"{results['ba_tracks']['bound_ms']:.5f} ms")
 
-    # -- 3h. K8 map-vote round, at the archive PnP's shapes -----------------
-    k8_cases = [(1024, 512, "random"), (1000, 333, "random"),
-                (1024, 512, "ties"), (1024, 512, "no_valid"),
-                (1000, 333, "nan_row")]
-    for a_n, q_n, kind in k8_cases:
-        args = vote_inputs(torch, np, dev, a_n, q_n, kind, a_n + q_n)
-        k8_check(torch, MV, args, f"{a_n} x {q_n}, {kind}")
-        if kind == "no_valid":
-            txy = MV._vote_round_plain(*args, *K8_ARGS)[0]
-            check(bool((txy == 0).all()), "K8: no valid detection must "
-                  "give tx0 = ty0 = 0")
-    k8_args = vote_inputs(torch, np, dev, 1024, 512, "random", 1536)
+    # -- 3h. K8 map-vote PnP, at the archive PnP's shapes --------------------
+    k8_cases = [(1024, 512, 2, "random"), (37, 3, 2, "random"),
+                (1024, 4096, 2, "random"), (1000, 333, 1, "random"),
+                (9000, 512, 1, "random"), (7, 1, 2, "random"),
+                (1024, 512, 2, "ties"), (300, 40, 2, "ties"),
+                (1024, 512, 2, "empty_base"), (1024, 512, 2, "no_valid"),
+                (1024, 512, 2, "three_valid"), (1000, 333, 2, "nan_row")]
+    k8_diff = 0.0
+    for a_n, q_n, b_n, kind in k8_cases:
+        ops = pnp_inputs(torch, np, dev, a_n, q_n, b_n, kind,
+                         a_n + q_n + b_n)
+        diff, want = k8_check(torch, MV, ops, K8_KW,
+                              f"{a_n} x {q_n} x {b_n}, {kind}", q_n == 1)
+        k8_diff = max(k8_diff, diff)
+        if q_n == 1:       # which factorisations failed, card and plain
+            k8_one_pair = (
+                torch.isnan(MV.map_vote_pnp(*ops, **K8_KW).err).tolist(),
+                torch.isnan(want.err).tolist())
+        if kind in ("empty_base", "no_valid"):
+            check(torch.equal(want.T, ops[6].expand(b_n, 4, 4))
+                  and bool((want.err == 0).all() and (want.n == 0).all()),
+                  f"K8 ({kind}): the prior pose, err 0 and n 0 expected")
+    k8_ops = pnp_inputs(torch, np, dev, 1024, 512, 2, "random", 1538)
+    k8_want = MV._map_vote_pnp_plain(*k8_ops, **K8_KW)
     results["map_vote"] = dict(
         name="map_vote", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/map_vote.cu",
-        replaces="vpp_tpu/slam/pipeline.py:369", per="map-vote round",
-        max_abs_err=0.0, ms=cuda_ms(torch, lambda: MV.vote_round(
-            *k8_args, *K8_ARGS), 200),
-        plain_ms=cuda_ms(torch, lambda: MV._vote_round_plain(
-            *k8_args, *K8_ARGS), 50),
+        replaces="vpp_tpu/slam/pipeline.py:325",
+        per="map_vote_pnp call (2 match sets)", max_abs_err=k8_diff,
+        ms=cuda_ms(torch, lambda: MV.map_vote_pnp(*k8_ops, **K8_KW), 200),
+        plain_ms=cuda_ms(torch, lambda: MV._map_vote_pnp_plain(
+            *k8_ops, **K8_KW), 10, warmup=1),
         library="none", library_ms=None)
-    results["map_vote"]["bound_ms"], results["map_vote"]["bound_by"] = \
-        k8_bound(1024, 512)
-    results["map_vote"]["device_ms"], results["map_vote"]["device_ms_by"] = \
-        device_ms(torch, lambda: MV.vote_round(*k8_args, *K8_ARGS))
     k8 = results["map_vote"]
-    print(f"phase 3: K8 map-vote round bit-equal, one launch a round "
-          f"({', '.join(f'{a} x {q} {k}' for a, q, k in k8_cases)}); "
-          f"1024 x 512: {k8['ms']:.4f} ms as called, {k8['device_ms']:.4f} "
-          f"ms on the device, bound {k8['bound_ms']:.5f} "
-          f"({k8['bound_by']}), plain {k8['plain_ms']:.4f}")
+    (k8["bound_ms"], k8["bound_by"]), k8["bound_bytes"], \
+        k8["bound_operations"] = k8_bound(torch, MV, k8_ops, k8_want, K8_KW)
+    k8["device_ms"], k8["device_ms_by"] = device_ms(
+        torch, lambda: MV.map_vote_pnp(*k8_ops, **K8_KW))
+    print(f"phase 3: K8 map-vote PnP one launch for every match set, shifts, "
+          f"j1, uv1 and inl bit-equal, T and err within {k8_diff:.3g}, n "
+          f"equal, bit-identical twice "
+          f"({', '.join(f'{a} x {q} x {b} {k}' for a, q, b, k in k8_cases)}"
+          f"; one pair a set: NaN on the card {k8_one_pair[0]}, plain "
+          f"{k8_one_pair[1]}); "
+          f"1024 x 512 x 2: {k8['ms']:.4f} ms as called, "
+          f"{k8['device_ms']:.4f} ms on the device, bound {k8['bound_ms']:.5f} "
+          f"({k8['bound_by']}: {k8['bound_bytes']} bytes, "
+          f"{k8['bound_operations']:.3g} operations), "
+          f"plain {k8['plain_ms']:.3f}")
 
     # -- 4. tracker main path -------------------------------------------------
     clip_dev = torch.from_numpy(clip).to(dev)   # upload outside the timing
@@ -1622,8 +1727,9 @@ def main() -> int:
     check(full_counts["ba_tracks"] == fst.n_keyframes,
           f"K6 launched {full_counts['ba_tracks']} times, not once a "
           "keyframe")
-    check(full_counts["map_vote"] == 4 * fst.n_keyframes,
-          f"K8 launched {full_counts['map_vote']} times, not 4 a keyframe")
+    check(full_counts["map_vote"] == fst.n_keyframes,
+          f"K8 launched {full_counts['map_vote']} times, not once a "
+          "keyframe")
     check(full_lms > 200, f"only {full_lms} landmarks")
     check(full_ate < 0.10, f"full engine ATE {full_ate} >= 0.10")
     check(bool(torch.isfinite(fst.hist_pose).all()),
@@ -1664,20 +1770,20 @@ def main() -> int:
         check(mv > 1e-3, f"the smoother's {b} branch moved nothing")
 
     # the first frames, card against the plain CPU path; the card run's
-    # last keyframe gives K8 its real rounds
-    rounds = []
-    vote = SP.vote_round
+    # last keyframe gives K8 its real archive PnP
+    k8_calls = []
+    mvp = SP.map_vote_pnp
 
-    def keep_round(*a):
-        rounds.append(a)
-        return vote(*a)
+    def keep_call(*a, **kw):
+        k8_calls.append((a, kw))
+        return mvp(*a, **kw)
 
-    SP.vote_round = keep_round
+    SP.map_vote_pnp = keep_call
     try:
         gf = SP.slam_run(slam_dev[:SLAM_CPU_FRAMES], full_cfg,
                          bootstrap_poses=boot, device="cuda")
     finally:
-        SP.vote_round = vote
+        SP.map_vote_pnp = mvp
     cf = SP.slam_run(slam_frames[:SLAM_CPU_FRAMES], full_cfg,
                      bootstrap_poses=boot, device="cpu")
     g_lm, c_lm = int(gf.lm_valid.sum()), int(cf.lm_valid.sum())
@@ -1690,19 +1796,23 @@ def main() -> int:
     check(abs(g_lm - c_lm) <= 0.05 * max(c_lm, 1),
           "landmark counts differ by more than 5%")
     check(abs(g_ate - c_ate) <= 0.02, "ATE differs by more than 0.02")
-    check(len(rounds) == 4 * gf.n_keyframes, "K8 rounds were not 4 a "
-          "keyframe")
-    for i, a in enumerate(rounds[-4:]):
-        k8_check(torch, MV, a[:6], f"keyframe round {i}", rest=a[6:])
-    k8_kf = rounds[-4]
-    k8["device_ms_keyframe_round"] = device_ms(torch, lambda: MV.vote_round(
-        *k8_kf))[0]
-    k8["keyframe_round_votes"] = int((MV._vote_round_plain(*k8_kf)[4]
-                                      < 1e29).sum())
-    print(f"phase 7: K8 bit-equal on the last keyframe's 4 rounds (A "
-          f"{k8_kf[0].shape[0]}, Q {k8_kf[2].shape[0]}, "
-          f"{k8['keyframe_round_votes']} voting pairs in the first), "
-          f"{k8['device_ms_keyframe_round']:.4f} ms on the device")
+    check(len(k8_calls) == gf.n_keyframes
+          and all(a[2].shape[0] == 2 for a, _ in k8_calls),
+          "the archive PnP was not one K8 call of two match sets a keyframe")
+    k8_kf, k8_kw = k8_calls[-1]
+    k8["keyframe_max_abs_err"], kf_want = k8_check(
+        torch, MV, k8_kf, k8_kw, "the last keyframe's archive PnP")
+    k8["device_ms_keyframe"] = device_ms(torch, lambda: MV.map_vote_pnp(
+        *k8_kf, **k8_kw))[0]
+    margins = (abs(float(kf_want.err[0]) - full_cfg.rec_max_err),
+               abs(float(kf_want.err[1]) - full_cfg.lc_max_err))
+    print(f"phase 7: K8 on the last keyframe's archive PnP (A "
+          f"{k8_kf[0].shape[0]}, Q {k8_kf[3].shape[0]}, B 2): shifts, j1, "
+          f"uv1 and inl bit-equal, T and err within "
+          f"{k8['keyframe_max_abs_err']:.3g}, n {kf_want.n.tolist()} equal, "
+          f"err {kf_want.err.tolist()} ({margins[0]:.4g} from rec_max_err, "
+          f"{margins[1]:.4g} from lc_max_err); "
+          f"{k8['device_ms_keyframe']:.4f} ms on the device")
 
     # -- 8. recovery scenarios at 120x160 (tests/test_pose_graph_loop.py) --
     t0 = time.perf_counter()

@@ -13,7 +13,9 @@ buffers, propagation exactly equal on equal inputs; K7 bit-reproducible
 and within 1e-4 * max of the float32 scatter, one device kernel a call;
 K4's whole pyramid one launch, bit-equal to the plain chain on
 integer-valued frames up to level 2 and within 1e-6 relative elsewhere;
-K8's map-vote round one launch, bit-equal in every output; a loop
+K8's map-vote PnP one launch for every match set, bit-equal to its plain
+version up to the PnP (shifts, j1, uv1, inl), T and err within 1e-4 and
+n equal after it; a loop
 closure keyframe (the pose-graph smoother's full and refresh branches)
 within 1e-4 of the plain CPU path from one state.
 """
@@ -739,65 +741,112 @@ def test_slam_on_card_matches_cpu(cuda):
     assert ate_k < 0.065 and abs(ate_k - ate_c) < 0.01
 
 
-def _vote_case(device, a_n, q_n, kind, seed):
-    """Seeded K8 inputs on a 640x480 frame: detections, map entries
-    projected near them under a common shift, some outliers, depths with a
-    few behind the camera. ``kind``: "random", "ties" (integer positions,
-    duplicated detections: exact distance ties), "no_valid", "nan_row"."""
+def _pnp_case(device, a_n, q_n, b_n, kind, seed, p=7):
+    """Seeded K8 operands on a 640x480 frame: map points in front of the
+    camera, detections at their projections under the true pose (rounded,
+    some entries unseen) and outliers, the prior pose off by a drift, and
+    descriptors that the true detection's centre patch repeats. ``kind``:
+    "random", "ties" (the second half of the detections repeats the first:
+    exact distance ties), "empty_base" (no usable entry), "no_valid",
+    "three_valid" (three valid detections), "nan_row" (a NaN map point).
+    Returns (operands, keyword arguments) of ``map_vote_pnp``."""
     rng = np.random.RandomState(seed)
-    posf = np.stack([rng.uniform(0, 480, q_n), rng.uniform(0, 640, q_n)], 1)
+    intr = np.asarray([640.0, 640.0, 320.0, 240.0], np.float32)
+    z = rng.uniform(3.0, 8.0, a_n)
+    X = np.stack([(rng.uniform(0, 640, a_n) - 320) * z / 640,
+                  (rng.uniform(0, 480, a_n) - 240) * z / 640, z], 1)
+    T_true = np.eye(4)
+    T_true[:3, 3] = [0.05, -0.03, 0.02]
+    T_prior = T_true.copy()
+    T_prior[:2, 3] += [0.12, -0.08]                 # the drift to undo
+    xc = X @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = np.stack([640 * xc[:, 1] / xc[:, 2] + 240,
+                   640 * xc[:, 0] / xc[:, 2] + 320], 1)
+    n_src = min(q_n, a_n) if q_n <= 8 else min(q_n, a_n) * 3 // 4
+    src = rng.permutation(a_n)[:n_src]
+    pos = np.stack([rng.randint(0, 480, q_n), rng.randint(0, 640, q_n)], 1)
+    pos[:len(src)] = np.round(uv[src])
+    pos = np.clip(pos, 0, [479, 639])
     if kind == "ties":
-        posf = np.round(posf)
-        posf[q_n // 2:] = posf[:q_n - q_n // 2]
-    pred = posf[rng.randint(0, q_n, a_n)] + rng.normal(0, 3.0, (a_n, 2)) \
-        + [6.0, -4.0]
-    if kind == "ties":
-        pred = np.round(pred)
-    pred[rng.rand(a_n) < 0.2] = rng.uniform(0, 640, 2)
-    z = rng.uniform(2.0, 8.0, a_n)
-    z[:3] = [0.05, -1.0, 0.1]
-    valid = rng.rand(q_n) > 0.15
+        pos[q_n // 2:] = pos[:q_n - q_n // 2]
+    valid = rng.rand(q_n) > 0.1
+    desc = (rng.rand(a_n, p * p) > 0.5) * 8.0   # binary textures
+    det = (rng.rand(9, q_n, p * p) > 0.5) * 8.0
+    det[4, :len(src)] = desc[src] + rng.normal(0, 0.1, (len(src), p * p))
+    base = rng.rand(b_n, a_n) > np.linspace(0.1, 0.5, b_n)[:, None]
+    if kind == "empty_base":
+        base[:] = False
     if kind == "no_valid":
         valid[:] = False
+    if kind == "three_valid":
+        valid[:] = False
+        valid[:3] = True
     if kind == "nan_row":
-        pred[5] = np.nan
-        pred[9, 0] = np.nan
-    base = rng.rand(a_n) > 0.1
-    return tuple(torch.from_numpy(v).to(device) for v in (
-        pred.astype(np.float32), z.astype(np.float32),
-        posf.astype(np.float32), valid, base))
+        X[5] = np.nan
+    ops = (X.astype(np.float32), desc.astype(np.float32), base,
+           pos.astype(np.int32), valid, det.astype(np.float32),
+           T_prior.astype(np.float32), intr)
+    kw = dict(r_wide=24.0, bmax=1.2, gate=0.35, rounds=2, pnp_iters=6,
+              huber=4.0)
+    return tuple(torch.from_numpy(v).to(device) for v in ops), kw
 
 
-@pytest.mark.parametrize("a_n,q_n,kind", [
-    (1024, 512, "random"), (1000, 333, "random"), (1024, 512, "ties"),
-    (1024, 512, "no_valid"), (1000, 333, "nan_row"), (7, 1, "random"),
-    (300, 40, "ties")])
-def test_map_vote_kernel_bit_equal(cuda, a_n, q_n, kind):
-    """K8, one launch a round, bit-equal to ``_vote_round_plain`` in every
-    output (js, ds, cand_uv, dd, tx0/ty0), twice in a row (the arrival
-    counter resets itself)."""
+def _same_pnp_outputs(got, want, one_pair=False):
+    """Shifts, j1, uv1 and inl bit-equal; T and err within 1e-4 (NaN where
+    the plain version has NaN); n equal. With ``one_pair`` (every set has
+    a single pair) T and err are held only where the plain version's are
+    finite: one pair leaves four of the pose's six directions to the 1e-4
+    damping, which float32 loses beside the 6x6's other terms, so rounding
+    decides whether a factorisation fails, the plain one as K8's."""
+    assert _same_bits(got.txy, want.txy) and _same_bits(got.uv1, want.uv1)
+    assert torch.equal(got.j1, want.j1) and torch.equal(got.inl, want.inl)
+    assert torch.equal(got.n, want.n)
+    if one_pair:
+        assert bool((want.inl.sum(1) == 1).all())
+    for g, w in ((got.T, want.T), (got.err, want.err)):
+        if not one_pair:
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+        ok = ~torch.isnan(w)
+        if bool(ok.any()):
+            assert float((g[ok] - w[ok]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("a_n,q_n,b_n,kind", [
+    (1024, 512, 2, "random"), (37, 3, 2, "random"), (1024, 4096, 2, "random"),
+    (1000, 333, 1, "random"), (9000, 512, 1, "random"),
+    (7, 1, 2, "random"), (1024, 512, 2, "ties"), (300, 40, 2, "ties"),
+    (1024, 512, 2, "empty_base"),
+    (1024, 512, 2, "no_valid"), (1024, 512, 2, "three_valid"),
+    (1000, 333, 2, "nan_row")])
+def test_map_vote_kernel_bit_equal(cuda, a_n, q_n, b_n, kind):
+    """K8, one cluster launch for every match set, against
+    ``_map_vote_pnp_plain`` on the card: the shifts, ``j1``, ``uv1`` and
+    ``inl`` bit-equal, T and err within 1e-4, ``n`` equal, and two
+    launches bit-identical."""
     from vpp_tpu_torch.slam import map_vote as mv
-    pred, z, posf, valid, base = _vote_case(cuda, a_n, q_n, kind, a_n + q_n)
-    intr = torch.tensor([640.0, 640.0, 320.0, 240.0], device=cuda)
-    want = mv._vote_round_plain(pred, z, posf, valid, base, intr, 24.0, 1.2)
+    ops, kw = _pnp_case(cuda, a_n, q_n, b_n, kind, a_n + q_n + b_n)
+    want = mv._map_vote_pnp_plain(*ops, **kw)
+    runs = []
     for _ in range(2):
         reset_launch_counts()
-        got = mv.vote_round(pred, z, posf, valid, base, intr, 24.0, 1.2)
+        runs.append(mv.map_vote_pnp(*ops, **kw))
         assert launch_counts()["map_vote"] == 1
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and _same_bits(g, w)
-    txy, js, _, _, dd = want
-    if kind == "no_valid":
-        assert bool((txy == 0).all()) and bool((dd == 1e30).all())
-        assert bool((js == 0).all())
-    elif kind != "nan_row" and q_n > 1:
-        assert int((dd < 1e29).sum()) > 100
+        _same_pnp_outputs(runs[-1], want, one_pair=q_n == 1)
+    assert all(_same_bits(a, b) if a.dtype == torch.float32
+               else torch.equal(a, b) for a, b in zip(*runs))
+    if kind in ("empty_base", "no_valid"):
+        assert torch.equal(runs[0].T, ops[6].expand(b_n, 4, 4))
+        assert bool((runs[0].err == 0).all() and (runs[0].n == 0).all())
+    elif kind in ("random", "ties") and q_n > 40:
+        assert int(runs[0].n.min()) > 50
+    elif kind == "nan_row":
+        assert bool(torch.isnan(runs[0].T).all())
 
 
 def test_full_slam_engine_on_card_matches_cpu(cuda):
     """``SlamConfig(intrinsics=...)`` at its defaults (recovery on) on a
-    short run: K8 launches 4 times a keyframe, and the card tracks the
-    plain CPU path."""
+    short run: K8 launches once a keyframe, and the card tracks the plain
+    CPU path."""
     from vpp_tpu_torch.slam import pipeline as sp
     from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
                                            render_frames)
@@ -815,7 +864,7 @@ def test_full_slam_engine_on_card_matches_cpu(cuda):
     boot = poses[[0, 4]]
     reset_launch_counts()
     sk = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cuda")
-    assert launch_counts()["map_vote"] == 4 * sk.n_keyframes
+    assert launch_counts()["map_vote"] == sk.n_keyframes
     sc = sp.slam_run(frames, cfg, bootstrap_poses=boot, device="cpu")
     assert sk.n_keyframes == sc.n_keyframes == 7
     assert int(sk.lc_ptr) == int(sc.lc_ptr)

@@ -8,17 +8,18 @@ Against vpp_tpu, on the same seeded numpy inputs:
   residuals, with an invalid edge, with a second fixed node, and the drift
   correction of ``test_pose_graph_corrects_drift``): residuals and poses
   atol 1e-4, Jacobians atol 1e-4 and finite;
-* ``_vote_round_plain`` (kernel K8's plain version) against the JAX round
-  (``vpp_tpu/slam/pipeline.py:369-409``, transcribed below from after the
-  projection, run op by op): ``js``, ``tx0``/``ty0`` and the vote mask
-  equal, ``ds`` and ``cand_uv`` equal, ``dd`` atol 1e-5, on random inputs
-  with exact distance ties, with no valid detection, at A != Q and with a
-  NaN ``pred`` row;
+* ``_vote_round_plain`` (the vote round of kernel K8's plain version)
+  against the JAX round (``vpp_tpu/slam/pipeline.py:369-409``, transcribed
+  below from after the projection, run op by op): ``js``, ``tx0``/``ty0``
+  and the vote mask equal, ``ds`` and ``cand_uv`` equal, ``dd`` atol 1e-5,
+  on random inputs with exact distance ties, with no valid detection, at
+  A != Q and with a NaN ``pred`` row;
 * ``_det_shift_patches`` bit-equal; ``_refine_obs_subpix`` on
   tests/test_pipeline.py:115's inputs atol 1e-4 (``ok`` equal), and
   ``torch.gradient`` equal to ``jnp.gradient``.
 
-The port alone: ``save_state``/``restore_state`` round trips of
+The port alone: ``map_vote_pnp``'s one output allocation and its operand
+checks; ``save_state``/``restore_state`` round trips of
 ``SlamState``, ``BATracks`` and ``PoseGraph``, and the three scenarios of
 tests/test_pose_graph_loop.py held to that file's own assertions.
 """
@@ -202,7 +203,7 @@ def test_vote_round_plain_matches_jax(case):
                            jnp.asarray(base), jnp.asarray(intr)[0],
                            jnp.asarray(intr)[1], r_wide, bmax, 33)
     tx0, ty0, jjs, jds, jcand, jdd, jm = (np.asarray(v) for v in jout)
-    txy, js, ds, cand_uv, dd = tmv.vote_round(
+    txy, js, ds, cand_uv, dd = tmv._vote_round_plain(
         *(torch.from_numpy(v) for v in (pred, z, posf, valid, base)),
         torch.from_numpy(intr), r_wide, bmax)
     assert tmv.NB == 33 and js.dtype == torch.int32
@@ -222,37 +223,71 @@ def test_vote_round_plain_matches_jax(case):
         assert jm.sum() > 20 and (tx0, ty0) != (0.0, 0.0)
 
 
+def _pnp_operands(a_n=37, q_n=11, b_n=2, p=3, rounds=2):
+    """Seeded ``map_vote_pnp`` operands at a small size (CPU tensors)."""
+    rng = np.random.RandomState(5)
+    X = np.stack([rng.uniform(-2, 2, a_n), rng.uniform(-1.5, 1.5, a_n),
+                  rng.uniform(3, 8, a_n)], 1)
+    pos = np.stack([rng.randint(0, H, q_n), rng.randint(0, W, q_n)], 1)
+    return (torch.from_numpy(X.astype(np.float32)),
+            torch.from_numpy(rng.rand(a_n, p * p).astype(np.float32)),
+            torch.from_numpy(rng.rand(b_n, a_n) > 0.3),
+            torch.from_numpy(pos.astype(np.int32)),
+            torch.from_numpy(rng.rand(q_n) > 0.2),
+            torch.from_numpy(rng.rand(9, q_n, p * p).astype(np.float32)),
+            torch.eye(4), torch.tensor(INTR))
+
+
+PNP_ARGS = dict(r_wide=24.0, bmax=1.2, gate=0.35, rounds=2, pnp_iters=6,
+                huber=4.0)
+
+
 def test_vote_round_kernel_outputs_layout():
-    """K8's outputs share one allocation without overlap, shaped and typed
-    as the plain version's."""
-    a_n = 37
-    outs = tmv._outputs(a_n, torch.device("cpu"))
-    plain = tmv._vote_round_plain(*(torch.from_numpy(v) for v in
-                                    _vote_inputs("odd")[:5]),
-                                  torch.tensor(INTR), 24.0, 1.2)
-    want = [(2,), (a_n, 4), (a_n, 4), (a_n, 4, 2), (a_n, 4)]
-    for o, p, shape in zip(outs, plain, want):
-        assert o.shape == shape and o.dtype == p.dtype and o.is_contiguous()
-        o.view(-1).fill_(0)
-    spans = sorted((o.data_ptr(), o.data_ptr() + o.numel() * 4)
-                   for o in outs)
+    """K8's outputs and scratch share one allocation without overlap,
+    shaped and typed as the plain version's result."""
+    a_n, b_n, rounds = 37, 2, 3
+    outs, scratch = tmv._outputs(b_n, a_n, rounds, torch.device("cpu"))
+    plain = tmv.map_vote_pnp(*_pnp_operands(a_n, b_n=b_n),
+                             **dict(PNP_ARGS, rounds=rounds))
+    assert outs._fields == plain._fields
+    for o, w in zip(outs, plain):
+        assert o.shape == w.shape and o.dtype == w.dtype and o.is_contiguous()
+    assert outs.txy.shape == (b_n, rounds, 2)
+    assert scratch[0].shape == (b_n * a_n * 4,)
+    assert scratch[1].shape == (b_n * a_n * 8,)
+    tensors = list(outs) + list(scratch)
+    for t in tensors:
+        t.view(-1).zero_()
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors)
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
-    base = outs[0].data_ptr()
-    assert spans[-1][1] - base == (2 + 5 * a_n * 4) * 4
+    words = (16 + 1 + 1 + 2 * rounds) * b_n + 3 * a_n * b_n \
+        + -(-a_n * b_n // 4) + 12 * a_n * b_n
+    assert spans[-1][1] - outs.T.data_ptr() == words * 4
 
 
 def test_vote_round_checks_its_operands():
-    pred, z, posf, valid, base = (torch.from_numpy(v)
-                                  for v in _vote_inputs("random"))
-    intr = torch.tensor(INTR)
+    """``map_vote_pnp`` refuses operands of the wrong shape, empty sets and
+    no vote round, before it reaches a kernel."""
+    X, desc, base, pos, valid, det, T0, intr = _pnp_operands()
+    bad = [
+        dict(pos=pos[:0], valid=valid[:0], det_patches=det[:, :0]),
+        dict(X=X[:-1]),
+        dict(base=base[:, :-1]),
+        dict(base=base[:0]),
+        dict(intr=intr[:2]),
+        dict(det_patches=det[:8]),
+        dict(T_prior=T0[:3]),
+    ]
+    ops = dict(X=X, desc=desc, base=base, pos=pos, valid=valid,
+               det_patches=det, T_prior=T0, intr=intr)
+    for b in bad:
+        with pytest.raises(ValueError):
+            tmv.map_vote_pnp(**dict(ops, **b), **PNP_ARGS)
     with pytest.raises(ValueError):
-        tmv.vote_round(pred, z, posf[:0], valid[:0], base, intr, 24.0, 1.2)
-    with pytest.raises(ValueError):
-        tmv.vote_round(pred, z[:-1], posf, valid, base, intr, 24.0, 1.2)
-    with pytest.raises(ValueError):
-        tmv.vote_round(pred, z, posf, valid, base[:-1], intr, 24.0, 1.2)
-    with pytest.raises(ValueError):
-        tmv.vote_round(pred, z, posf, valid, base, intr[:2], 24.0, 1.2)
+        tmv.map_vote_pnp(**ops, **dict(PNP_ARGS, rounds=0))
+    out = tmv.map_vote_pnp(**ops, **PNP_ARGS)
+    assert out.T.shape == (2, 4, 4) and out.n.dtype == torch.int32
 
 
 # --- detection patches and sub-pixel refinement ----------------------------

@@ -8,7 +8,11 @@ defaults: ``enable_recovery=True``).
   odometry edges), ``hist_pose`` atol 1e-3, ``lm_valid`` equal.
 * ``_archive_pnp`` (recovery and revisit PnP) and ``_map_vote_pnp``
   against the live map, from one state carried across by ``convert``:
-  T atol 1e-4, ``n`` equal, err atol 1e-3.
+  T atol 1e-4, ``n`` equal, err atol 1e-3; from the same state, kernel
+  K8's plain version ``_map_vote_pnp_plain`` with both archive sets at
+  once (B = 2) against the JAX call per set, and with no usable entry, no
+  valid detection, three valid detections and a NaN map entry, at the same
+  tolerances.
 * ``relocalize`` at frame 24, from the JAX run's state carried across: the
   same tolerances; and on the port's own run, tests/test_pipeline.py:71's
   gates (``n >= lc_min_inliers``, err < 2.5, centre error < 0.1).
@@ -38,6 +42,7 @@ from vpp_tpu_torch.algorithms.fast import fast9
 from vpp_tpu_torch.algorithms.video_extruder import (
     VideoExtruderConfig as TVConfig)
 from vpp_tpu_torch.core.image import from_array as t_from_array
+from vpp_tpu_torch.slam import map_vote as tmv
 from vpp_tpu_torch.utils import synth as tsynth
 
 from test_torch_pose_graph import _loop_cfg, _out_and_back
@@ -162,6 +167,92 @@ def test_archive_and_map_vote_pnp_from_one_state(runs):
                             tf, tcfg, tT0, tintr)
     assert int(tmap[2]) >= 10
     _same_pnp(jmap, tmap)
+
+
+@pytest.fixture(scope="module")
+def pnp_state(runs):
+    """Keyframe 5's state (frame 20) carried from JAX, the frame's
+    detections and shifted patches (the port's, handed to both), the prior
+    pose, and the JAX ``_map_vote_pnp`` jitted once for these shapes."""
+    _, frames, _, _ = runs
+    js, ts = _carried(runs, 21)
+    jcfg, tcfg = _cfgs()
+    _, tf = _frame(frames, 20)
+    pos, _, valid = fast9(tf, tcfg.tracker.detector_th,
+                          k=tcfg.tracker.detect_k, blockwise=True,
+                          block_size=tcfg.tracker.keypoint_spacing)
+    det = tp._det_shift_patches(tf, pos, tcfg.desc_patch)
+    jintr = jnp.asarray(INTR, jnp.float32)
+    jfn = jax.jit(lambda X, D, base, p, v, d, T0: jp._map_vote_pnp(
+        X, D, base, p, v, None, jcfg, T0, jintr, det_patches=d))
+    col = (ts.n_keyframes - 1) % tcfg.ring
+
+    def jax_pnp(X, base, v):
+        return jfn(*(jnp.asarray(t.numpy()) for t in (
+            X, ts.arch_desc, base, pos, v, det, ts.kf_pose[col])))
+
+    return dict(ts=ts, cfg=tcfg, pos=pos, valid=valid, det=det,
+                T0=ts.kf_pose[col], jax_pnp=jax_pnp)
+
+
+def _plain_pnp(st, X, base, valid):
+    return tmv._map_vote_pnp_plain(
+        X, st["ts"].arch_desc, base, st["pos"], valid, st["det"], st["T0"],
+        torch.tensor(INTR), **tp._vote_args(st["cfg"]))
+
+
+def test_map_vote_pnp_plain_two_sets_match_jax(pnp_state):
+    """K8's plain version on the archive's two match sets at once (B = 2)
+    against the JAX ``_map_vote_pnp`` run once per set."""
+    st = pnp_state
+    ts, cfg = st["ts"], st["cfg"]
+    filled = ts.arch_frame >= 0
+    old = filled & (ts.arch_frame <= ts.tracker.frame_id - cfg.lc_min_gap)
+    out = _plain_pnp(st, ts.arch_X, torch.stack([filled, old]), st["valid"])
+    assert int(out.n[0]) >= 10 and int(out.n[1]) > 0
+    for i, base in enumerate((filled, old)):
+        _same_pnp(st["jax_pnp"](ts.arch_X, base, st["valid"]),
+                  (out.T[i], out.err[i], out.n[i]))
+        j1 = out.j1[i][out.inl[i]].long()
+        assert int(out.n[i]) == len(set(j1.tolist()))
+        assert bool((out.inl[i] <= base).all())
+    assert out.txy.shape == (2, 2, 2) and bool((out.txy[0] != 0).any())
+
+
+@pytest.mark.parametrize("case", ["empty_base", "no_valid", "three_valid",
+                                  "nan_row"])
+def test_map_vote_pnp_plain_edge_cases_match_jax(pnp_state, case):
+    """No usable entry, no valid detection, three valid detections (every
+    row short of candidates), a NaN map entry (its row picks the first
+    valid detections; its zero-weighted NaN poisons the normal equations,
+    as in the JAX body): the same (T, err, n) as JAX."""
+    st = pnp_state
+    ts = st["ts"]
+    X, base, valid = ts.arch_X.clone(), ts.arch_frame >= 0, st["valid"]
+    first = int(torch.nonzero(base)[0, 0])
+    if case == "empty_base":
+        base = torch.zeros_like(base)
+    elif case == "no_valid":
+        valid = torch.zeros_like(valid)
+    elif case == "three_valid":
+        keep = torch.nonzero(valid)[:3, 0]
+        valid = torch.zeros_like(valid)
+        valid[keep] = True
+    else:
+        X[first] = float("nan")
+    out = _plain_pnp(st, X, base[None], valid)
+    T, err, n = out.T[0], out.err[0], out.n[0]
+    _same_pnp(st["jax_pnp"](X, base, valid), (T, err, n))
+    if case in ("empty_base", "no_valid"):
+        assert torch.equal(T, st["T0"]) and float(err) == 0.0
+        assert int(n) == 0 and not bool(out.inl.any())
+        assert bool((out.txy == 0).all())
+    elif case == "three_valid":
+        assert 0 < int(n) <= 3
+        assert set(out.j1[0].tolist()) <= set(keep.tolist())
+    else:
+        assert bool(torch.isnan(T).all()) and bool(torch.isnan(err))
+        assert int(out.j1[0, first]) == int(torch.nonzero(valid)[0, 0])
 
 
 def test_relocalize_matches(runs):

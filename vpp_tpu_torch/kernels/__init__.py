@@ -21,8 +21,9 @@ show that it went through the kernels:
   and ``extract_patches_at_tl``
 * ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch
   per ``ba_solve_tracks`` call, every LM iteration included)
-* ``map_vote``   — K8, ``slam/map_vote.py:vote_round`` (one launch per
-  map-vote round: two per ``_map_vote_pnp`` call)
+* ``map_vote``   — K8, ``slam/map_vote.py:map_vote_pnp`` (one cluster
+  launch per call: every match set's vote rounds, pick, gate and both PnP
+  solves; one a recovery keyframe, one a ``relocalize``)
 """
 
 from __future__ import annotations

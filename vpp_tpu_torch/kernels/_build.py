@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) by its own
-``nvcc -c``, all started together, and the objects are linked into one
-shared library with a plain C interface. The library goes into
-``build/vpp_tpu_torch/`` at the root of the checkout, under a name keyed by
-the sources' contents, and is built at first use: nothing is compiled when
+``nvcc -c``, all started together (the headers of ``csrc/`` are included
+from there), and the objects are linked into one shared library with a
+plain C interface. The library goes into ``build/vpp_tpu_torch/`` at the
+root of the checkout, under a name keyed by the contents of the sources
+and headers, and is built at first use: nothing is compiled when
 the package is imported, and a machine without nvcc raises instead of
 loading anything else.
 
@@ -28,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpp_tpu_torch"
 SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu", "block_topk.cu",
            "pyramid_decim.cu", "patches.cu", "ba_tracks.cu", "map_vote.cu")
+HEADERS = ("pose_math.cuh",)   # included by ba_tracks.cu and map_vote.cu
 TOOLKIT_ROOT = "/usr/local/cuda"       # the CUDA toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,7 +50,7 @@ _SIGNATURES = {
     "vpp_pyramid": [_P, _I, ctypes.POINTER(_L)] + [_I] * 4 + [_P, _P],
     "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 4 + [_P, _P],
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 4 + [_P] * 10,
-    "vpp_map_vote": [_P] * 6 + [_I, _I, _F, _F, _F] + [_P] * 7,
+    "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -69,7 +71,7 @@ def find_nvcc() -> Optional[str]:
 
 def _sources_key() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -12,7 +12,9 @@ The LM loop ``_lm_tracks`` with ``_tracks_assemble``,
 ``_tracks_cost`` here is the plain PyTorch version of kernel K6.
 ``ba_solve_tracks`` on CUDA tensors in the ring layout runs K6 instead
 (``slam/ba_cuda.py``, ``kernels/csrc/ba_tracks.cu``): the whole loop, the
-pose solve included, in one launch.
+pose solve included, in one launch. ``pnp_gn``, the single-pose
+Gauss-Newton PnP of the keyframe path and of kernel K8's plain version
+(``slam/map_vote.py``), is here too.
 
 Precision. Residuals and Jacobians are float32, as in the JAX package, but
 each landmark's 3x3 block algebra (Hll, its damped inverse, U, W and the
@@ -153,6 +155,34 @@ def pinhole(xc: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     u = intr[0] * xc[..., 0] / z + intr[2]
     v = intr[1] * xc[..., 1] / z + intr[3]
     return torch.stack([v, u], dim=-1)
+
+
+def pnp_gn(T0: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
+           valid: torch.Tensor, intr: torch.Tensor, *, iters: int = 6,
+           huber: float = 4.0, lam: float = 1e-4
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-pose Gauss-Newton PnP from masked 2D-3D matches: returns
+    (pose (4, 4), mean |residual| over valid matches). With < 4 valid
+    matches the damped system keeps the pose near its prior; a Cholesky
+    that fails gives NaN, as in the JAX package."""
+    nvalid = valid.sum().clamp(min=1)
+    eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
+    T = T0
+    for _ in range(iters):
+        pred, J, _ = proj_jacobians(T, X, intr)
+        r = pred - uv
+        nrm = torch.linalg.norm(r, dim=-1)
+        w = torch.where(nrm <= huber, torch.ones_like(nrm),
+                        huber / nrm.clamp(min=1e-12))
+        w = torch.where(valid, w, torch.zeros_like(w))
+        Jw = J * w[:, None, None]
+        H = torch.einsum("nri,nrj->ij", Jw, J) + lam * eye6
+        b = -torch.einsum("nri,nr->i", Jw, r)
+        T = se3_exp(chol_solve(H, b)) @ T
+    r = project(T, X, intr) - uv
+    nrm = torch.linalg.norm(r, dim=-1)
+    err = torch.where(valid, nrm, torch.zeros_like(nrm)).sum() / nvalid
+    return T, err
 
 
 class BATracks(NamedTuple):

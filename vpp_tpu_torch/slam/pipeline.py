@@ -15,8 +15,8 @@ pass per keyframe matches the frame against that archive
 entries at least ``lc_min_gap`` frames old measure a revisit, which
 becomes a loop-closure edge, and a pose-graph smoother
 (``slam/pose_graph.py``) pulls the keyframe history onto the closures.
-``relocalize`` runs the same map vote (``_map_vote_pnp``, whose vote round
-is kernel K8) against the live map.
+``relocalize`` runs the same map vote (``_map_vote_pnp``, kernel K8 on the
+card) against the live map.
 
 PyTorch runs eagerly, so ``slam_step``'s keyframe branch is a host ``if``
 on the frame count, and ``SlamState.n_keyframes`` is a Python int like the
@@ -54,11 +54,11 @@ from ..algorithms.video_extruder import (VideoExtruderConfig,
 from ..core.image import Image2d, _as_tensor
 from ..core.interp import extract_patches, extract_patches_bilinear
 from ..core.keypoints import drop_scatter
-from .ba import (BATracks, ba_solve_tracks, chol_solve, pinhole, project,
-                 proj_jacobians, track_residuals)
-from .map_vote import vote_round, vote_step
+from .ba import (BATracks, ba_solve_tracks, pnp_gn, project,
+                 track_residuals)
+from .map_vote import map_vote_pnp
 from .pose_graph import PoseGraph, pose_graph_residuals, pose_graph_solve
-from .se3 import se3_apply, se3_exp, se3_inverse
+from .se3 import se3_inverse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,34 +182,6 @@ def slam_init(cfg: SlamConfig, bootstrap_poses=None,
         lc_ptr=torch.zeros((), dtype=i32, device=dev))
 
 
-def pnp_gn(T0: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
-           valid: torch.Tensor, intr: torch.Tensor, *, iters: int = 6,
-           huber: float = 4.0, lam: float = 1e-4
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-pose Gauss-Newton PnP from masked 2D-3D matches: returns
-    (pose (4, 4), mean |residual| over valid matches). With < 4 valid
-    matches the damped system keeps the pose near its prior; a Cholesky
-    that fails gives NaN, as in the JAX package."""
-    nvalid = valid.sum().clamp(min=1)
-    eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
-    T = T0
-    for _ in range(iters):
-        pred, J, _ = proj_jacobians(T, X, intr)
-        r = pred - uv
-        nrm = torch.linalg.norm(r, dim=-1)
-        w = torch.where(nrm <= huber, torch.ones_like(nrm),
-                        huber / nrm.clamp(min=1e-12))
-        w = torch.where(valid, w, torch.zeros_like(w))
-        Jw = J * w[:, None, None]
-        H = torch.einsum("nri,nrj->ij", Jw, J) + lam * eye6
-        b = -torch.einsum("nri,nr->i", Jw, r)
-        T = se3_exp(chol_solve(H, b)) @ T
-    r = project(T, X, intr) - uv
-    nrm = torch.linalg.norm(r, dim=-1)
-    err = torch.where(valid, nrm, torch.zeros_like(nrm)).sum() / nvalid
-    return T, err
-
-
 def _projection_matrix(T: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) P = K [R|t] in (x=col, y=row) convention."""
     z = torch.zeros_like(intr[0])
@@ -269,6 +241,13 @@ def _det_shift_patches(frame: Image2d, pos: torch.Tensor,
         -1, patch * patch) for dr in range(3) for dc in range(3)])
 
 
+def _vote_args(cfg: SlamConfig, rounds: int = 2) -> dict:
+    """``map_vote_pnp``'s scalars from the configuration."""
+    return dict(r_wide=3.0 * cfg.lc_search_radius,
+                bmax=float(cfg.lc_vote_range), gate=cfg.lc_appearance_gate,
+                rounds=rounds, pnp_iters=cfg.pnp_iters, huber=cfg.ba_huber)
+
+
 def _map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
                   pos: torch.Tensor, valid: torch.Tensor, frame: Image2d,
                   cfg: SlamConfig, T_prior: torch.Tensor, intr: torch.Tensor,
@@ -277,51 +256,28 @@ def _map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
     """Drift-robust PnP of a frame's FAST detections against a landmark
     map (``X`` (A, 3), ``desc`` (A, P²), ``base`` (A,) usable entries): the
     matching routine behind tracking recovery, loop-closure measurement and
-    ``relocalize``. ``rounds`` translation-consensus vote rounds (K8, each
+    ``relocalize``. ``rounds`` translation-consensus vote rounds (each
     shifting the pose by its histogram peak), then each entry's candidate
     nearest that peak, gated by the min-over-±1-px-shift SAD against the
-    entry's descriptor, feeds two Huber PnP solves on the same pair set.
-    Returns (T, err, n): the pose, the mean PnP reprojection error, and the
-    number of distinct detections among the inlier pairs (0-d tensors)."""
-    posf = pos.to(torch.float32)
-    energy = desc.abs().sum(1).clamp(min=1.0)
-    bmax = float(cfg.lc_vote_range)
-    T = T_prior
-    for _ in range(rounds):
-        xc = se3_apply(T, X)
-        txy, js, _, cand_uv, dd = vote_round(
-            pinhole(xc, intr), xc[:, 2], posf, valid, base, intr,
-            3.0 * cfg.lc_search_radius, bmax)
-        T = T.clone()
-        T[:2, 3] += txy
-    cb = torch.argmin(dd, dim=1, keepdim=True)
-    db = dd.gather(1, cb)[:, 0]
-    uv1 = cand_uv.gather(1, cb[:, :, None].expand(-1, 1, 2))[:, 0]
-    j1 = js.gather(1, cb)[:, 0].long()
-    inl = base & (db <= (2.0 * vote_step(bmax)) ** 2)
-    # the appearance gate on the chosen pairs, at twice the claim-time
-    # threshold (see the JAX module)
+    entry's descriptor, feeds two Huber PnP solves on the same pair set:
+    one K8 launch on the card (``map_vote.map_vote_pnp``). Returns (T, err,
+    n): the pose, the mean PnP reprojection error, and the number of
+    distinct detections among the inlier pairs (0-d tensors)."""
     if det_patches is None:
         det_patches = _det_shift_patches(frame, pos, cfg.desc_patch)
-    best = (det_patches[:, j1] - desc).abs().sum(-1).amin(0)
-    inl = inl & (best < 2.0 * cfg.lc_appearance_gate * energy)
-    T1, _ = pnp_gn(T, X, uv1, inl, intr, iters=cfg.pnp_iters,
-                   huber=cfg.ba_huber)
-    T1, err = pnp_gn(T1, X, uv1, inl, intr, iters=cfg.pnp_iters,
-                     huber=cfg.ba_huber / 2)
-    seen = drop_scatter(torch.zeros((posf.shape[0],), dtype=torch.bool,
-                                    device=X.device), j1,
-                        torch.ones_like(inl), inl)
-    return T1, err, seen.sum()
+    out = map_vote_pnp(X, desc, base[None], pos, valid, det_patches, T_prior,
+                       intr, **_vote_args(cfg, rounds))
+    return out.T[0], out.err[0], out.n[0]
 
 
 def _archive_pnp(state: SlamState, frame2: Image2d, cfg: SlamConfig,
                  T_prior: torch.Tensor, intr: torch.Tensor,
                  min_frame_gap: int):
-    """PnP of the frame against the landmark archive through
-    ``_map_vote_pnp``: ((T_rec, err_rec, n_rec), (T_lc, err_lc, n_lc)),
-    against every filled entry (tracking recovery) and against the entries
-    at least ``min_frame_gap`` frames old (the revisit that measures a loop
+    """PnP of the frame against the landmark archive, as two match sets of
+    one ``map_vote_pnp`` call (one K8 launch on the card):
+    ((T_rec, err_rec, n_rec), (T_lc, err_lc, n_lc)), against every filled
+    entry (tracking recovery) and against the entries at least
+    ``min_frame_gap`` frames old (the revisit that measures a loop
     closure). One blockwise FAST pass (K2, K3) and one patch extraction
     (K5) serve both."""
     pos, _, valid = fast9(frame2, cfg.tracker.detector_th,
@@ -331,11 +287,11 @@ def _archive_pnp(state: SlamState, frame2: Image2d, cfg: SlamConfig,
     old_enough = filled & (state.arch_frame
                            <= state.tracker.frame_id - min_frame_gap)
     det_patches = _det_shift_patches(frame2, pos, cfg.desc_patch)
-    rec = _map_vote_pnp(state.arch_X, state.arch_desc, filled, pos, valid,
-                        frame2, cfg, T_prior, intr, det_patches=det_patches)
-    lc = _map_vote_pnp(state.arch_X, state.arch_desc, old_enough, pos, valid,
-                       frame2, cfg, T_prior, intr, det_patches=det_patches)
-    return rec, lc
+    out = map_vote_pnp(state.arch_X, state.arch_desc,
+                       torch.stack([filled, old_enough]), pos, valid,
+                       det_patches, T_prior, intr, **_vote_args(cfg))
+    return ((out.T[0], out.err[0], out.n[0]),
+            (out.T[1], out.err[1], out.n[1]))
 
 
 def _smoother_branch(lc_good: torch.Tensor,
@@ -666,8 +622,8 @@ def relocalize(state: SlamState, frame: Image2d, cfg: SlamConfig,
                detect_th: int = 10
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The camera pose of ``frame`` from the live map alone: FAST
-    detections at ``detect_th`` (K2, K3), then ``_map_vote_pnp`` (two K8
-    rounds) from the last keyframe's pose. Returns (pose (4, 4), mean
+    detections at ``detect_th`` (K2, K3), then ``_map_vote_pnp`` (one K8
+    launch) from the last keyframe's pose. Returns (pose (4, 4), mean
     reprojection error of the matches, number of distinct inlier
     detections); accept on ``n >= cfg.lc_min_inliers`` (with no eligible
     match the pose is the prior and the error 0)."""
