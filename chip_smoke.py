@@ -118,7 +118,25 @@ Phases, in order; any failure exits nonzero and prints no result:
    (the frame-16 keyframe within 0.45, ATE < 0.8), and ``relocalize`` at
    frame 24 (one K8 launch, >= ``lc_min_inliers`` inliers, error < 2.5 px,
    centre within 0.1);
-9. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. SLAM streams: ``slam_run_streams`` at phase 6's configuration on 4
+   clips (seeds 1-4; seed 1 is phase 6's) of 240 frames on the card, the
+   launch counts reset just before: the launches of one stream (phase 6's
+   counts); per stream 60 keyframes, > 200 landmarks, the tracker
+   bit-equal to ``slam_run`` on its clip on the card, the history within
+   0.05 and ATE within 0.02 of ``slam_run``'s, ATE < 0.10 on seed 1's
+   clip; device operations a frame at S = 1 and 4 (CUDA-graph nodes of 8
+   frames); aggregate frames/s at S = 1, 2, 4, 8 on 60 frames (median of
+   3 rounds) beside the card's name and power limit; one streams keyframe
+   under ``set_sync_debug_mode("error")``; K1-K6 at S = 3 (K3 also 8 and
+   16) in one launch (K1 two a level), bit-equal to S separate launches
+   and to their batched plain versions (K1 at both tile shapes, K1 and K4
+   on integer-valued buffers and K4 within 1e-6 relative on the clip's,
+   K6 within phase 3's tolerances); K6's co-resident clusters
+   (``cudaOccupancyMaxActiveClusters``) and its device time at S = 1, 2,
+   4, 8, 16, and each batched kernel's device time at S = 4;
+10. one ``{"kernels": [...]}`` line (each batched kernel with its
+   ``launches_streams`` and ``device_ms_streams4``), then ``{"ok": true,
+   "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
 float32 outside the tensor cores, applied to every scalar operation; for
@@ -152,6 +170,7 @@ SLAM_FRAMES = 240
 SLAM_WARMUP = 24
 SLAM_CPU_FRAMES = 40
 SLAM_CHECK_KF = 30
+STREAMS = 4
 SLAM_INTR = (640.0, 640.0, 320.0, 240.0)
 
 
@@ -286,15 +305,15 @@ def slam_config():
                                     detector_period=1, detector_th=10))
 
 
-def slam_clip(frames: int):
-    """``frames`` frames of the SLAM clip (2000-point cloud, lateral dolly,
-    seed 1) as a numpy array, and the ground-truth poses."""
+def slam_clip(frames: int, seed: int = 1):
+    """``frames`` frames of the SLAM clip (2000-point cloud, lateral dolly;
+    seed 1 unless asked) as a numpy array, and the ground-truth poses."""
     from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
                                            render_frames)
-    cloud = make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
+    cloud = make_cloud(2000, seed=seed, extent=(16.0, 5.0, 3.5),
                        center=(3.2, 0.0, 5.0))
     gt_poses = camera_path(frames, step=(0.02, 0.0, 0.0))
-    return render_frames(cloud, gt_poses, SLAM_INTR, (H, W), seed=1,
+    return render_frames(cloud, gt_poses, SLAM_INTR, (H, W), seed=seed,
                          sigma=(1.2, 2.2)), gt_poses
 
 
@@ -635,6 +654,392 @@ def scenario_recovery(torch, np, SP):
           f"{float(err):.4f} px, centre off by {cerr:.4f}")
     check(int(n) >= cfg.lc_min_inliers and float(err) < 2.5 and cerr < 0.1,
           "relocalize missed its gates")
+
+
+def stream_problem(BA, p, s: int):
+    """Problem ``s`` of a ``BATracks`` of streams (the intrinsics are
+    shared)."""
+    return BA.BATracks(*(t if i == 5 else t[s] for i, t in enumerate(p)))
+
+
+def phase_streams(torch, np, mods, slam_cfg, slam_dev, gt_poses, sst,
+                  slam_counts, results, smi):
+    """Phase 9: ``slam_run_streams`` at the matched 640x480 configuration,
+    S = 4 clips (seeds 1-4) of 240 frames on the card; each batched kernel
+    against S separate calls and its batched plain version. Returns the
+    numbers for the result lines."""
+    F, FL, PY, IP, BA, BC, SP, KN = (mods[k] for k in (
+        "F", "FL", "PY", "IP", "BA", "BC", "SP", "KN"))
+    dev = slam_dev.device
+    cfg = slam_cfg
+    b = max(3, cfg.tracker.winsize)
+    t0 = time.perf_counter()
+    clips = [slam_dev] + [torch.from_numpy(slam_clip(SLAM_FRAMES, seed)[0])
+                          .to(dev) for seed in range(2, STREAMS + 1)]
+    clips = torch.stack(clips)                      # (4, 240, H, W)
+    boots = torch.from_numpy(gt_poses[[0, cfg.keyframe_period]]).to(
+        dev).expand(STREAMS, 2, 4, 4).contiguous()
+    print(f"phase 9: rendered {STREAMS - 1} more clips in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: 4 streams x 240 frames, counts reset just before
+    problems = []
+    solve = SP.ba_solve_tracks
+
+    def capture(prob, **kw):
+        problems.append(prob)
+        return solve(prob, **kw)
+
+    SP.ba_solve_tracks = capture          # the warm-up keeps its problems
+    try:
+        SP.slam_run_streams(clips[:, :SLAM_WARMUP], cfg, boots,
+                            device="cuda")
+    finally:
+        SP.ba_solve_tracks = solve
+    torch.cuda.synchronize()
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    st4 = SP.slam_run_streams(clips, cfg, boots, device="cuda")
+    torch.cuda.synchronize()
+    dt4 = time.perf_counter() - t0
+    counts4 = KN.launch_counts()
+    fps4 = STREAMS * SLAM_FRAMES / dt4
+    print(f"phase 9: slam_run_streams {STREAMS} x {SLAM_FRAMES} frames "
+          f"{W}x{H}: {fps4:.2f} frames/s in all, launches {counts4} (one "
+          f"stream's, phase 6: {slam_counts})")
+    path = ("flow_level", "fast9", "block_topk", "pyramid_decim", "patches",
+            "ba_tracks")
+    for key in path:
+        check(counts4[key] > 0, f"the streams path did not launch {key}")
+        check(counts4[key] == slam_counts[key],
+              f"{STREAMS} streams launched {key} {counts4[key]} times, one "
+              f"stream {slam_counts[key]}")
+    check(counts4["flow_level"] == 6 * SLAM_FRAMES
+          and counts4["fast9"] == 2 * SLAM_FRAMES
+          and counts4["block_topk"] == SLAM_FRAMES
+          and counts4["pyramid_decim"] == SLAM_FRAMES + 1
+          and counts4["patches"] == counts4["ba_tracks"] == SLAM_FRAMES // 4,
+          f"streams launch counts {counts4}")
+    check(st4.n_keyframes == SLAM_FRAMES // cfg.keyframe_period,
+          f"{st4.n_keyframes} keyframes, expected 60")
+
+    # per stream: the results, and the stream against slam_run on its clip
+    # on the card. The ATE bound 0.10 is the matched clip's (seed 1, PERF.md
+    # section 2); every stream's ATE is held to slam_run's on the same clip
+    # within 0.02 (phase 6's card-against-CPU margin): the engine's own ATE
+    # on the other clouds is slam_run's, not the streams' (seeds 3 and 4
+    # read above 0.10 with slam_run too, PERF.md section 7)
+    per_stream = []
+
+    def ate_of(hist, fids):
+        return float(SP.ate_rmse(hist.cpu(), torch.from_numpy(
+            gt_poses[fids.cpu().numpy()])))
+
+    for i in range(STREAMS):
+        one = sst if i == 0 else SP.slam_run(
+            clips[i], cfg, bootstrap_poses=boots[i], device="cuda")
+        n = st4.n_keyframes
+        ate = ate_of(st4.hist_pose[i, :n], st4.hist_frame[i, :n])
+        ate1 = ate_of(one.hist_pose[:n], one.hist_frame[:n])
+        lms = int(st4.lm_valid[i].sum())
+        same = (torch.equal(one.tracker.keypoints.alive,
+                            st4.tracker.keypoints.alive[i])
+                and torch.equal(one.tracker.keypoints.position,
+                                st4.tracker.keypoints.position[i]))
+        pose_err = float((one.hist_pose[:n] - st4.hist_pose[i, :n]).abs()
+                         .max())
+        per_stream.append(dict(seed=i + 1, keyframes=n, landmarks=lms,
+                               ate=ate, slam_run_ate=ate1,
+                               tracker_bit_equal=same,
+                               hist_pose_err_vs_slam_run=pose_err))
+        print(f"phase 9: stream {i} (seed {i + 1}): {n} keyframes, {lms} "
+              f"landmarks, ATE {ate:.4f} (slam_run on the clip {ate1:.4f}); "
+              f"tracker bit-equal to slam_run: {same}, hist_pose within "
+              f"{pose_err:.3g}")
+        check(lms > 200, f"stream {i}: only {lms} landmarks")
+        check(abs(ate - ate1) <= 0.02, f"stream {i}: ATE {ate} against "
+              f"slam_run's {ate1}")
+        check(i != 0 or ate < 0.10, f"stream {i}: ATE {ate} >= 0.10")
+        check(same, f"stream {i}: the tracker differs from slam_run")
+        check(pose_err <= 0.05, f"stream {i}: hist_pose differs from "
+              f"slam_run by {pose_err}")
+
+    # device operations a frame at S = 4 and S = 1 (8 frames each)
+    def ops_per_frame(n):
+        def run():
+            SP.slam_run_streams(clips[:n, :8], cfg, boots[:n], device="cuda")
+        try:
+            ops = graph_ops(torch, run)
+            by = "cuda_graph"
+        except RuntimeError:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                run()
+                torch.cuda.synchronize()
+            ops = {"kernel": sum(
+                e.count for e in prof.key_averages()
+                if e.device_type != torch.autograd.DeviceType.CPU)}
+            by = "profiler"
+        return sum(ops.values()) / 8, ops, by
+    ops1, ops4 = ops_per_frame(1), ops_per_frame(STREAMS)
+    print(f"phase 9: device operations a frame (8 frames, 2 keyframes): "
+          f"S = 1 {ops1[0]:.2f} {ops1[1]}, S = {STREAMS} {ops4[0]:.2f} "
+          f"{ops4[1]} ({ops4[2]})")
+
+    # aggregate frames/s at S = 1, 2, 4, 8 on 60 frames each: the median
+    # of 3 rounds, the four S in turn in every round (the host's wall
+    # drifts between and within calls)
+    t_frames, rounds = 60, 3
+    many = torch.cat([clips[:, :t_frames], clips[:, :t_frames]])
+    many_boot = torch.cat([boots, boots])
+    walls = {n: [] for n in (1, 2, 4, 8)}
+    for n in walls:
+        SP.slam_run_streams(many[:n, :8], cfg, many_boot[:n], device="cuda")
+    for _ in range(rounds):
+        for n in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            SP.slam_run_streams(many[:n], cfg, many_boot[:n], device="cuda")
+            torch.cuda.synchronize()
+            walls[n].append(time.perf_counter() - t0)
+    agg = {n: n * t_frames / sorted(w)[rounds // 2] for n, w in walls.items()}
+    print(f"phase 9: aggregate frames/s on {t_frames} frames, median of "
+          f"{rounds} ({smi}): "
+          + ", ".join(f"S = {n} {v:.2f} ({v / agg[1]:.2f}x; rounds "
+                      + "/".join(f"{n * t_frames / x:.1f}" for x in walls[n])
+                      + ")" for n, v in agg.items()))
+
+    # one streams keyframe at S = 4 with no host synchronisation
+    lv = PY.pyramid_streams(clips[:, -1], cfg.tracker.nscales, border=b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kst = SP._keyframe_step(st4, lv[0], b, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(kst.n_keyframes == st4.n_keyframes + 1, "the streams keyframe")
+    print(f"phase 9: one keyframe of {STREAMS} streams made no host "
+          "synchronisation")
+
+    # each batched kernel against S separate calls and its batched plain
+    # version, at S = 3 (K3 also at 8 and 16)
+    def one_launch(key, fn):
+        KN.reset_launch_counts()
+        out = fn()
+        check(KN.launch_counts()[key] == 1,
+              f"{key} on streams is not one launch")
+        return out
+
+    def bits(a, b_):
+        if isinstance(a, (tuple, list)):
+            return all(bits(x, y) for x, y in zip(a, b_))
+        if a.dtype == torch.float32:
+            return same_bits(torch, a, b_)
+        return a.shape == b_.shape and torch.equal(a, b_)
+
+    S3 = 3
+    shapes = PY.level_shapes((H, W), cfg.tracker.nscales)
+    mid = min(100, clips.shape[1] - 3)     # frame 100 of the 240
+    fr3 = clips[:S3, mid]
+    # K4
+    lv3 = one_launch("pyramid_decim", lambda: PY.pyramid_streams(
+        fr3, cfg.tracker.nscales, border=b))
+    for i in range(S3):
+        single = PY._k4(fr3[i], shapes, b, first=0)
+        check(all(bits(lv3[l][i], single[l].data) for l in range(3)),
+              f"K4 on streams differs from stream {i}'s own launch")
+    fr3r = torch.round(fr3)
+    k4r = PY.pyramid_streams(fr3r, cfg.tracker.nscales, border=b)
+    check(bits(k4r, PY._plain_levels(fr3r, shapes, b)),
+          "K4 on streams differs from its batched plain version on "
+          "integer-valued frames")
+    k4_rel = max(float(((x - y).abs() / y.abs().clamp(min=1)).max())
+                 for x, y in zip(lv3, PY._plain_levels(fr3, shapes, b)))
+    check(k4_rel <= 1e-6, f"K4 on streams off its plain version by {k4_rel}")
+    # K1 on every level: fr3 against the frames two later
+    lv3b = PY.pyramid_streams(clips[:S3, mid + 2], cfg.tracker.nscales,
+                              border=b)
+    radii = FL._level_radii(cfg.tracker.nscales, 5, 1)
+    bounds = FL._level_bounds(cfg.tracker.nscales, radii)
+    grid = PY.level_shapes((H // cfg.tracker.patchsize,
+                            W // cfg.tracker.patchsize), cfg.tracker.nscales)
+    rng = np.random.RandomState(9)
+    k1_args = []
+    for lvl in range(cfg.tracker.nscales):
+        top = lvl == cfg.tracker.nscales - 1
+        gh, gw = grid[lvl]
+        g = FL.LevelGeometry(b=b, h=shapes[lvl][0], w=shapes[lvl][1],
+                             ws=cfg.tracker.winsize,
+                             patch=cfg.tracker.patchsize, gh=gh, gw=gw,
+                             R=radii[lvl],
+                             pred_bound=0 if top else 2 * bounds[lvl + 1])
+        pb = max(g.pred_bound, 1)
+        pred = torch.from_numpy(rng.randint(-pb, pb + 1, (S3, gh, gw, 2))
+                                .astype(np.int32)).to(dev)
+        if top:
+            pred.zero_()
+        k1_args.append((g, pred, lvl))
+        KN.reset_launch_counts()
+        got = FL.flow_level(lv3[lvl], lv3b[lvl], pred, g,
+                            cfg.tracker.propagation)
+        check(KN.launch_counts()["flow_level"] == 2,
+              "K1 on streams is not two launches a level")
+        for i in range(S3):
+            one = FL.flow_level(lv3[lvl][i], lv3b[lvl][i], pred[i], g,
+                                cfg.tracker.propagation)
+            check(bits((got[0][i], got[1][i]), one),
+                  f"K1 level {lvl} on streams differs from stream {i}'s own "
+                  "launches")
+        a1r, a2r = torch.round(lv3[lvl]), torch.round(lv3b[lvl])
+        kr = FL.flow_level(a1r, a2r, pred, g, cfg.tracker.propagation)
+        fpl, dpl, vpl = FL._match_plain(a1r, a2r, pred, g)
+        for _ in range(cfg.tracker.propagation):
+            fpl, dpl = FL._propagate_plain(fpl, dpl, pred, vpl, g.R)
+        check(bits(kr, (fpl, dpl)), f"K1 level {lvl} on streams differs "
+              "from its batched plain version on integer-valued levels")
+        # both tile shapes: the plan at S = 3 against each tile's own plan
+        for shape in FL._VOLUME_SHAPES:
+            plan = FL._k1_plan(g, cfg.tracker.propagation,
+                               FL._sm_count(dev), (shape,), S3)
+            a1, a2, pr, _ = FL._level_operands(lv3[lvl], lv3b[lvl], pred, g,
+                                               cfg.tracker.propagation)
+            vol, part = FL._launch_volume(a1, a2, pr, g, plan)
+            out = FL._launch_select(vol, pr, g.R, cfg.tracker.propagation,
+                                    plan.b_tile, part,
+                                    domain=(g.h, g.w, g.patch))
+            check(bits(out, got), f"K1 level {lvl} differs at tile "
+                  f"{shape[0]}")
+    # K2: the score image with masks, and the cull
+    th = cfg.tracker.detector_th
+    masks = torch.from_numpy((rng.rand(S3, H, W) > 0.3).astype(np.uint8)).to(
+        dev)
+    img3 = one_launch("fast9", lambda: F.score_image(lv3[0], b, th, masks))
+    for i in range(S3):
+        check(bits(img3[i], F.score_image(lv3[0][i], b, th, masks[i])),
+              f"K2's score image on streams differs from stream {i}'s")
+    check(bits(img3, F._score_image_plain(lv3[0], b, th, masks)),
+          "K2's score image on streams differs from its batched plain one")
+    pos3 = torch.from_numpy((rng.rand(S3, cfg.tracker.capacity, 2)
+                             * [H, W]).astype(np.float32)).to(dev)
+    cull3 = one_launch("fast9", lambda: F.cull_scores(lv3[0], b, pos3, th))
+    for i in range(S3):
+        check(bits(cull3[i], F.cull_scores(lv3[0][i], b, pos3[i], th)),
+              f"K2's cull on streams differs from stream {i}'s")
+    check(bits(cull3, F._cull_plain(lv3[0], b, pos3, th)),
+          "K2's cull on streams differs from its batched plain version")
+    # K3 at S = 3, 8, 16: score images of 16 frames of the four clips
+    frames16 = torch.stack([clips[i % STREAMS, (40 + 11 * i) % clips.shape[1]]
+                            for i in range(16)])
+    lv16 = PY.pyramid_streams(frames16, 1, border=b)[0]
+    img16 = F.score_image(lv16, b, th)
+    kdet, bs = cfg.tracker.detect_k, cfg.tracker.keypoint_spacing
+    for n in (S3, 8, 16):
+        got = one_launch("block_topk",
+                         lambda: F.block_topk(img16[:n], 1, bs, kdet))
+        for i in range(n):
+            check(bits(tuple(t[i] for t in got),
+                       F.block_topk(img16[i], 1, bs, kdet)),
+                  f"K3 at S = {n} differs from stream {i}'s own launch")
+        check(bits(got, F._block_topk_plain(img16[:n, 1:-1, 1:-1], bs,
+                                            kdet)),
+              f"K3 at S = {n} differs from its batched plain version")
+    # K5
+    ctr3 = torch.from_numpy(rng.randint(-4, W + 24, (
+        S3, cfg.tracker.capacity, 2)).astype(np.int32)).to(dev)
+    pat3 = one_launch("patches", lambda: IP.extract_patches(
+        lv3[0], ctr3, cfg.desc_patch))
+    for i in range(S3):
+        check(bits(pat3[i], IP.extract_patches(lv3[0][i], ctr3[i],
+                                               cfg.desc_patch)),
+              f"K5 on streams differs from stream {i}'s own launch")
+    check(bits(pat3, IP.extract_patches_plain(lv3[0], ctr3, cfg.desc_patch)),
+          "K5 on streams differs from its batched plain version")
+    # K6: the warm-up's last keyframe window of the first three streams
+    prob4 = problems[-1]
+    prob3 = BA.BATracks(*(t if i == 5 else t[:S3]
+                          for i, t in enumerate(prob4)))
+    iters, huber, lam0 = cfg.ba_iters, cfg.ba_huber, cfg.ba_lam0
+    out3 = one_launch("ba_tracks", lambda: BC.lm_tracks(
+        prob3, iters, huber, lam0, cfg.ba_linalg))
+    for i in range(S3):
+        one = BC.lm_tracks(stream_problem(BA, prob3, i), iters, huber, lam0,
+                           cfg.ba_linalg)
+        check(all(same_bits(torch, x[i], y) for x, y in zip(
+            out3[:3] + tuple(out3[3]), one[:3] + tuple(one[3]))),
+              f"K6 on streams differs from problem {i}'s own launch")
+    sp3, cp3 = BA._lm_tracks(prob3, iters, huber, lam0, True, cfg.ba_linalg,
+                             kernel=False)
+    sk3 = prob3._replace(poses=out3[0], landmarks=out3[1])
+    k6_pose = float((out3[0] - sp3.poses).abs().max())
+    k6_reproj = float((BA.track_residuals(sk3, True) - BA.track_residuals(
+        sk3._replace(landmarks=sp3.landmarks), True)).abs().max())
+    k6_cost = float(((out3[2] - cp3).abs() / cp3.abs().amax(-1,
+                                                            keepdim=True))
+                    .max())
+    check(k6_pose <= 1e-4 and k6_reproj <= 1e-3 and k6_cost <= 1e-4,
+          f"K6 on streams off its batched plain version: poses {k6_pose}, "
+          f"reprojections {k6_reproj} px, costs {k6_cost}")
+    print(f"phase 9: K1-K6 at S = {S3} (K3 also at 8 and 16) bit-equal to "
+          f"S separate launches and to their batched plain versions (K4 "
+          f"and K1 on integer-valued frames; K4 within {k4_rel:.3g} on the "
+          f"clip's; K6 within poses {k6_pose:.3g}, reprojections "
+          f"{k6_reproj:.3g} px, costs {k6_cost:.3g})")
+
+    # K6's co-resident clusters, and its device time as S grows
+    m_kf = prob4.poses.shape[1]
+    clusters = BC.max_active_clusters(m_kf)
+    k6_s = {}
+    for n in (1, 2, 4, 8, 16):
+        pn = BA.BATracks(*(t if i == 5 else torch.cat(
+            [t] * (-(-n // STREAMS)))[:n] for i, t in enumerate(prob4)))
+        k6_s[n] = device_ms(torch, lambda: BC.lm_tracks(
+            pn, iters, huber, lam0, cfg.ba_linalg))[0]
+    print(f"phase 9: K6 holds {clusters} clusters of 16 CTAs at once (M "
+          f"{m_kf}); device ms a launch by S: "
+          + ", ".join(f"{n}: {v:.4f}" for n, v in k6_s.items()))
+    # the other kernels' device time at S = 4 (K3 also at S = 1)
+    img4 = F.score_image(lv16[:STREAMS], b, th)
+    pos4 = torch.cat([pos3, pos3[:1]])
+    ctr4 = torch.cat([ctr3, ctr3[:1]])
+    lv4 = PY.pyramid_streams(clips[:, mid], cfg.tracker.nscales, border=b)
+    lv4b = PY.pyramid_streams(clips[:, mid + 2], cfg.tracker.nscales,
+                              border=b)
+    prob_s4 = prob4
+
+    def k1_frame():
+        for g, pred, lvl in k1_args:
+            FL.flow_level(lv4[lvl], lv4b[lvl], torch.cat([pred, pred[:1]]),
+                          g, cfg.tracker.propagation)
+
+    s4 = {"flow_level": k1_frame,
+          "pyramid_decim": lambda: PY.pyramid_streams(
+              clips[:, mid], cfg.tracker.nscales, border=b),
+          "fast9": lambda: F.score_image(lv4[0], b, th, torch.cat(
+              [masks, masks[:1]])),
+          "fast9_cull": lambda: F.cull_scores(lv4[0], b, pos4, th),
+          "block_topk": lambda: F.block_topk(img4, 1, bs, kdet),
+          "block_topk_s1": lambda: F.block_topk(img4[0], 1, bs, kdet),
+          "patches": lambda: IP.extract_patches(lv4[0], ctr4,
+                                                cfg.desc_patch),
+          "ba_tracks": lambda: BC.lm_tracks(prob_s4, iters, huber, lam0,
+                                            cfg.ba_linalg)}
+    dev_s4 = {k: device_ms(torch, fn)[0] for k, fn in s4.items()}
+    print(f"phase 9: device ms at S = {STREAMS}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in dev_s4.items()))
+    for key in path:
+        r = results[key]
+        r["launches_streams"] = counts4[key]
+        r["device_ms_streams4"] = dev_s4[key]
+    results["fast9"]["device_ms_streams4_cull"] = dev_s4["fast9_cull"]
+    results["block_topk"]["device_ms_streams1"] = dev_s4["block_topk_s1"]
+    results["ba_tracks"]["device_ms_by_streams"] = k6_s
+    results["ba_tracks"]["max_active_clusters"] = clusters
+    return dict(streams=STREAMS, streams_fps=fps4, streams_launches=counts4,
+                per_stream=per_stream, aggregate_fps=agg,
+                device_ops_per_frame={"1": ops1[0], str(STREAMS): ops4[0],
+                                      "by": ops4[2]})
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1308,7 +1713,7 @@ def main() -> int:
           f"{k2['ms_per_mode']['score_image']:.4f} ms as called, "
           f"{k2['device_ms_per_mode']['score_image']:.4f} on the device "
           f"(bound {k2['bound_ms_per_mode']['score_image']:.5f})")
-    prob = problems[-1]
+    prob = stream_problem(BA, problems[-1], 0)   # the keyframe's S = 1
     n_lm, m_kf = prob.obs_valid.shape
     iters, lam0 = slam_cfg.ba_iters, slam_cfg.ba_lam0
     huber, linalg = slam_cfg.ba_huber, slam_cfg.ba_linalg
@@ -1820,7 +2225,15 @@ def main() -> int:
     print(f"phase 8: recovery scenarios passed in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # -- 9. results -----------------------------------------------------------
+    # -- 9. SLAM streams (slam_run_streams) ----------------------------------
+    t0 = time.perf_counter()
+    streams = phase_streams(
+        torch, np, dict(F=F, FL=FL, PY=PY, IP=IP, BA=BA, BC=BC, SP=SP,
+                        KN=sys.modules["vpp_tpu_torch.kernels"]),
+        slam_cfg, slam_dev, gt_poses, sst, slam_counts, results, smi)
+    print(f"phase 9: streams passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -1849,7 +2262,7 @@ def main() -> int:
                       "full_slam_lc_ptr": full_lc,
                       "full_slam_launches": full_counts,
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
-                      "card": smi}))
+                      "streams": streams, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

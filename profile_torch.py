@@ -9,8 +9,11 @@ with the bench config, the Hough tracker on the two-line clip, and
 ``slam_run`` at the matched configuration of ``benchmarks/bench_slam.py``
 (geometry vga_640x480, recovery off; 8 keyframes) on the first frames of
 the clip ``chip_smoke.py`` renders, and the same run with recovery on (the
-full engine: archive PnP with kernel K8, loop closure, smoother). For
-each: a warm-up, then 7 timed runs under ``torch.cuda.synchronize``
+full engine: archive PnP with kernel K8, loop closure, smoother), and
+``slam_run_streams`` at the matched configuration on S = 4 such clips
+(seeds 1-4) at once (``slam_streams``: its per-frame numbers are per step
+of all four streams, ``ms_per_stream_frame`` the wall a frame of one
+stream). For each: a warm-up, then 7 timed runs under ``torch.cuda.synchronize``
 without the profiler, then one run under the profiler. It reports the
 wall ms/frame (median of the 7, with min and max), the device's busy time
 (the sum of device-side event time: one stream, so kernels do not
@@ -39,12 +42,14 @@ from vpp_tpu_torch.algorithms.video_extruder import (VideoExtruderConfig,
                                                      video_extruder_run)
 from vpp_tpu_torch.core.image import from_array
 from vpp_tpu_torch.slam.ba import project
-from vpp_tpu_torch.slam.pipeline import SlamConfig, pnp_gn, slam_run
+from vpp_tpu_torch.slam.pipeline import (SlamConfig, pnp_gn, slam_run,
+                                         slam_run_streams)
 from vpp_tpu_torch.slam.se3 import se3_exp
 from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
 from vpp_tpu_torch.utils.synth import camera_path, make_cloud, render_frames
 
 FRAMES = 32
+STREAMS = 4
 REPEATS = 7
 TOP = 12
 
@@ -176,10 +181,16 @@ def main() -> None:
                                     winsize=9, keypoint_spacing=10,
                                     detector_period=1, detector_th=10))
     poses = camera_path(FRAMES, step=(0.02, 0.0, 0.0))
-    sclip = torch.from_numpy(render_frames(
-        make_cloud(2000, seed=1, extent=(16.0, 5.0, 3.5),
-                   center=(3.2, 0.0, 5.0)), poses, intr, (480, 640), seed=1,
-        sigma=(1.2, 2.2))).to(dev)
+
+    def render(seed):
+        return torch.from_numpy(render_frames(
+            make_cloud(2000, seed=seed, extent=(16.0, 5.0, 3.5),
+                       center=(3.2, 0.0, 5.0)), poses, intr, (480, 640),
+            seed=seed, sigma=(1.2, 2.2)))
+
+    sclip = render(1).to(dev)
+    clips = torch.stack([render(s) for s in range(1, STREAMS + 1)]).to(dev)
+    boots = torch.from_numpy(poses[[0, 4]]).expand(STREAMS, 2, 4, 4)
     slam = _profile(lambda: slam_run(sclip, scfg,
                                      bootstrap_poses=poses[[0, 4]],
                                      device=dev))
@@ -188,10 +199,16 @@ def main() -> None:
                                           bootstrap_poses=poses[[0, 4]],
                                           device=dev))
 
+    streams = _profile(lambda: slam_run_streams(clips, scfg, boots,
+                                                device=dev))
+    streams["streams"] = STREAMS
+    streams["ms_per_stream_frame"] = streams["ms_per_frame"] / STREAMS
+
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "frames": FRAMES, "tracker": tracker,
                       "hough": _profile(hough_run), "slam": slam,
-                      "slam_full": slam_full, "pnp_gn": _pnp_call(dev)}))
+                      "slam_full": slam_full, "slam_streams": streams,
+                      "pnp_gn": _pnp_call(dev)}))
 
 
 if __name__ == "__main__":

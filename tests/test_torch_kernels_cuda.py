@@ -945,3 +945,173 @@ def test_loop_closure_keyframe_on_card_matches_cpu(card_loop_keyframe,
     raw = sp._do_keyframe(convert.slam_state_from_numpy(m, device="cpu"),
                           cframe, cfg).hist_pose
     assert float((want.hist_pose - raw).abs().max()) > 0.05
+
+
+# -- streams: each kernel on S streams in one launch ------------------------
+
+STREAM_KERNELS = ["k1", "k2_image", "k2_cull", "k3", "k4", "k5", "k6"]
+
+
+def _bits(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_bits(x, y) for x, y in zip(a, b))
+    if a.dtype == torch.float32:
+        return _same_bits(a, b)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _stream_frames(device, n, h=120, w=160, integer=False):
+    frames = np.stack([make_clip(w, h, 3, seed=i)[2] for i in range(n)])
+    if integer:
+        frames = np.round(frames)
+    return torch.from_numpy(frames.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("kernel", STREAM_KERNELS)
+def test_stream_kernels_one_launch_bit_equal(cuda, kernel):
+    """Each of K1-K6 on S = 3 streams (K3 also 8 and 16) in one launch
+    (K1: two a level), bit-equal to S separate launches and to its batched
+    plain version (K1 and K4 on integer-valued frames). K6 against the
+    plain LM loop on these synthetic windows: poses within 1e-4 and costs
+    within 1e-4 as in phase 3, landmark reprojections within 1e-2 px: on
+    these windows the plain loop's own pose solves (batched and one by
+    one on the card, and the CPU's) move a landmark's reprojections by
+    more than phase 3's 1e-3 px from each other."""
+    from vpp_tpu_torch.algorithms import pyramid as pyr
+    from vpp_tpu_torch.core import interp
+    from vpp_tpu_torch.slam import ba, ba_cuda
+    s3, b = 3, 9
+    rng = np.random.RandomState(4)
+    fr = _stream_frames(cuda, s3, integer=kernel in ("k1", "k4"))
+    shapes = pyr.level_shapes((120, 160), 3)
+
+    def one_launch(key, fn, n=1):
+        reset_launch_counts()
+        out = fn()
+        assert launch_counts()[key] == n, key
+        return out
+
+    lv = pyr.pyramid_streams(fr, 3, border=b)
+    if kernel == "k4":
+        got = one_launch("pyramid_decim",
+                         lambda: pyr.pyramid_streams(fr, 3, border=b))
+        for i in range(s3):
+            single = pyr._k4(fr[i], shapes, b, first=0)
+            assert _bits([g[i] for g in got], [x.data for x in single])
+        assert _bits(got, pyr._plain_levels(fr, shapes, b))
+    elif kernel == "k1":
+        lv2 = pyr.pyramid_streams(torch.roll(fr, (1, 2), (-2, -1)), 3,
+                                  border=b)
+        for lvl, R, pb in ((2, 5, 0), (1, 1, 10), (0, 1, 6)):
+            h, w = shapes[lvl]
+            g = flow.LevelGeometry(b=b, h=h, w=w, ws=9, patch=5,
+                                   gh=max(h // 5, 1), gw=max(w // 5, 1), R=R,
+                                   pred_bound=pb)
+            pred = torch.from_numpy((rng.randint(-(pb // 2), pb // 2 + 1, (
+                s3, g.gh, g.gw, 2)) * 2).astype(np.int32)).to(cuda)
+            a1, a2 = torch.round(lv[lvl]), torch.round(lv2[lvl])
+            got = one_launch("flow_level",
+                             lambda: flow.flow_level(a1, a2, pred, g, 2), 2)
+            for i in range(s3):
+                assert _bits([x[i] for x in got],
+                             flow.flow_level(a1[i], a2[i], pred[i], g, 2))
+            f, d, v = flow._match_plain(a1, a2, pred, g)
+            for _ in range(2):
+                f, d = flow._propagate_plain(f, d, pred, v, g.R)
+            assert _bits(got, (f, d))
+            for shape in flow._VOLUME_SHAPES:      # both tiles, same bits
+                plan = flow._k1_plan(g, 2, flow._sm_count(a1.device),
+                                     (shape,), s3)
+                vol, part = flow._launch_volume(a1, a2, pred, g, plan)
+                assert _bits(flow._launch_select(
+                    vol, pred, g.R, 2, plan.b_tile, part,
+                    domain=(g.h, g.w, g.patch)), got)
+    elif kernel == "k2_image":
+        mask = torch.from_numpy((rng.rand(s3, 120, 160) > 0.3).astype(
+            np.uint8)).to(cuda)
+        got = one_launch("fast9",
+                         lambda: fast.score_image(lv[0], b, 10, mask))
+        for i in range(s3):
+            assert _bits(got[i], fast.score_image(lv[0][i], b, 10, mask[i]))
+        assert _bits(got, fast._score_image_plain(lv[0], b, 10, mask))
+    elif kernel == "k2_cull":
+        pos = torch.from_numpy((rng.rand(s3, 500, 2) * [130, 170] - 5)
+                               .astype(np.float32)).to(cuda)
+        got = one_launch("fast9", lambda: fast.cull_scores(lv[0], b, pos, 10))
+        for i in range(s3):
+            assert _bits(got[i], fast.cull_scores(lv[0][i], b, pos[i], 10))
+        assert _bits(got, fast._cull_plain(lv[0], b, pos, 10))
+    elif kernel == "k3":
+        fr16 = _stream_frames(cuda, 16)
+        img = fast.score_image(pyr.pyramid_streams(fr16, 1, border=b)[0], b,
+                               8)
+        for n in (s3, 8, 16):
+            got = one_launch("block_topk",
+                             lambda: fast.block_topk(img[:n], 1, 8, 128))
+            for i in range(n):
+                assert _bits([x[i] for x in got],
+                             fast.block_topk(img[i], 1, 8, 128))
+            assert _bits(got, fast._block_topk_plain(img[:n, 1:-1, 1:-1], 8,
+                                                     128))
+    elif kernel == "k5":
+        ctr = torch.from_numpy(rng.randint(-4, 180, (s3, 300, 2)).astype(
+            np.int32)).to(cuda)
+        got = one_launch("patches",
+                         lambda: interp.extract_patches(lv[0], ctr, 7))
+        for i in range(s3):
+            assert _bits(got[i], interp.extract_patches(lv[0][i], ctr[i], 7))
+        assert _bits(got, interp.extract_patches_plain(lv[0], ctr, 7))
+    else:
+        probs = [_ring_problem(cuda, 512, 6, 10 + i) for i in range(s3)]
+        p = ba.BATracks(*(probs[0][i] if i == 5 else torch.stack(
+            [q[i] for q in probs]) for i in range(7)))
+        got = one_launch("ba_tracks", lambda: ba_cuda.lm_tracks(
+            p, 3, 4.0, 1e-4, "chol"))
+        flat = got[:3] + tuple(got[3])
+        for i, q in enumerate(probs):
+            one = ba_cuda.lm_tracks(q, 3, 4.0, 1e-4, "chol")
+            assert all(_same_bits(x[i], y) for x, y in zip(
+                flat, one[:3] + tuple(one[3])))
+        sp, cp = ba._lm_tracks(p, 3, 4.0, 1e-4, True, "chol", kernel=False)
+        assert float((got[0] - sp.poses).abs().max()) <= 1e-4
+        sk = p._replace(poses=got[0], landmarks=got[1])
+        assert float((ba.track_residuals(sk, True) - ba.track_residuals(
+            sk._replace(landmarks=sp.landmarks), True)).abs().max()) <= 1e-2
+        assert float(((got[2] - cp).abs() / cp.abs().amax(
+            -1, keepdim=True)).max()) <= 1e-4
+        assert ba_cuda.max_active_clusters(6) >= 1
+
+
+def test_slam_run_streams_on_card(cuda):
+    """Two 120x160 clips through ``slam_run_streams`` on the card: the
+    launches of one stream, and each stream's tracker bit-equal to
+    ``slam_run`` on its clip on the card, the history within 0.05."""
+    from vpp_tpu_torch.slam import pipeline as sp
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    intr = (160.0, 160.0, 80.0, 60.0)
+    poses = camera_path(16, step=(0.06, 0.0, 0.0))
+    frames = np.stack([render_frames(make_cloud(
+        220, seed=s, extent=(6.0, 4.0, 3.0), center=(0.8, 0.0, 5.0)), poses,
+        intr, (120, 160), seed=s) for s in range(2)])
+    cfg = sp.SlamConfig(
+        intrinsics=intr, keyframe_period=4, ring=6, ba_iters=3,
+        min_parallax=2.0, max_reproj=2.0, history=16, enable_recovery=False,
+        tracker=VideoExtruderConfig(capacity=256, detect_k=128, nscales=3,
+                                    winsize=9, keypoint_spacing=8,
+                                    detector_period=1, detector_th=8))
+    boot = np.stack([poses[[0, 4]]] * 2)
+    reset_launch_counts()
+    st = sp.slam_run_streams(frames, cfg, boot, device="cuda")
+    streams = launch_counts()
+    for s in range(2):
+        reset_launch_counts()
+        one = sp.slam_run(frames[s], cfg, bootstrap_poses=boot[s],
+                          device="cuda")
+        assert launch_counts() == streams
+        assert torch.equal(one.tracker.keypoints.alive,
+                           st.tracker.keypoints.alive[s])
+        assert torch.equal(one.tracker.keypoints.position,
+                           st.tracker.keypoints.position[s])
+        assert one.n_keyframes == st.n_keyframes == 4
+        assert float((one.hist_pose - st.hist_pose[s]).abs().max()) <= 0.05

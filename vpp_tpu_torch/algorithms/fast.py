@@ -17,6 +17,11 @@ rounded positions, the tracker's cull; ``fast9_cull_scores_plain``). The
 blockwise selection is kernel K3 (``kernels/csrc/block_topk.cu``),
 ``_blockwise_keypoints``, with its plain version
 ``_blockwise_keypoints_plain``.
+
+The tracker's stages also run on S frames at once: ``cull_scores``,
+``score_image`` and ``block_topk`` take the raw bordered buffers (S, H+2b,
+W+2b) with the border as an int (or one (H+2b, W+2b) frame), positions
+(S, K, 2) and masks (S, H, W), and make one launch for every stream.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.image import Image2d, from_array, pad2d
+from ..core.image import Image2d, from_array, pad_hw
 from ..kernels import LAUNCHES, require_cuda, stream_handle
 
 CIRCLE = [(-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3),
@@ -33,20 +38,24 @@ CIRCLE = [(-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3),
           (-1, -3), (-2, -2)]
 
 
-def _circle_diffs(img: Image2d) -> torch.Tensor:
-    """(16, H, W) int32 diffs circle_point - center."""
-    v = img.interior.to(torch.int32)
-    return torch.stack([img.shifted(dr, dc).to(torch.int32) - v
-                        for dr, dc in CIRCLE], dim=0)
+def _circle_diffs(data: torch.Tensor, b: int, h: int,
+                  w: int) -> torch.Tensor:
+    """(16, ..., H, W) int32 diffs circle_point - center of the (..., H +
+    2b, W + 2b) bordered buffer(s)."""
+    def view(dr, dc):
+        return data[..., b + dr:b + dr + h, b + dc:b + dc + w].to(torch.int32)
+    v = view(0, 0)
+    return torch.stack([view(dr, dc) - v for dr, dc in CIRCLE], dim=0)
 
 
 def _has_9_contiguous(flags: torch.Tensor) -> torch.Tensor:
-    """flags: (16, H, W) bool → (H, W) bool: any 9 circularly-contiguous
+    """flags: (16, ...) bool → (...) bool: any 9 circularly-contiguous
     set. The doubled-ring trick in int64, whose bits 16..31 equal those of
     the 32-bit original (left shifts only move low bits up)."""
     weights = torch.tensor([1 << k for k in range(16)], dtype=torch.int64,
                            device=flags.device)
-    code = (flags.to(torch.int64) * weights[:, None, None]).sum(0)
+    weights = weights.view((16,) + (1,) * (flags.dim() - 1))
+    code = (flags.to(torch.int64) * weights).sum(0)
     c = code | (code << 16)
     r2 = c & (c << 1)
     r4 = r2 & (r2 << 2)
@@ -55,11 +64,12 @@ def _has_9_contiguous(flags: torch.Tensor) -> torch.Tensor:
     return (r9 & 0xFFFF0000) != 0
 
 
-def fast9_plain(img: Image2d, th: int, detect: bool = True
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of K2: (H, W) int32 score and, with
-    ``detect``, the (H, W) uint8 keypoint flag."""
-    d = _circle_diffs(img)
+def _fast9_raw(data: torch.Tensor, b: int, th: int, detect: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain K2 on (..., H + 2b, W + 2b) buffer(s): the (..., H, W) int32
+    score and, with ``detect``, the uint8 keypoint flag."""
+    h, w = data.shape[-2] - 2 * b, data.shape[-1] - 2 * b
+    d = _circle_diffs(data, b, h, w)
     zero = torch.zeros_like(d)
     sum_sup = torch.where(d > th, d, zero).sum(0, dtype=torch.int32)
     sum_inf = torch.where(d < -th, -d, zero).sum(0, dtype=torch.int32)
@@ -70,12 +80,28 @@ def fast9_plain(img: Image2d, th: int, detect: bool = True
     return score, kp.to(torch.uint8)
 
 
-def _k2_frame(img: Image2d, name: str) -> torch.Tensor:
-    """K2's operand: the bordered frame as contiguous float32 on the card
-    (integer pixel types up to 24 bits convert exactly)."""
-    data = img.data
-    if data.dim() != 2:
-        raise ValueError(f"{name}: expected a 2-D image, got {data.shape}")
+def fast9_plain(img: Image2d, th: int, detect: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of K2: (H, W) int32 score and, with
+    ``detect``, the (H, W) uint8 keypoint flag."""
+    return _fast9_raw(img.data, img.border, th, detect)
+
+
+def _streams(data: torch.Tensor, *more: torch.Tensor):
+    """(one frame given, operands with a leading stream dimension): a 2-D
+    frame and its operands gain S = 1."""
+    if data.dim() == 2:
+        return True, (data[None],) + tuple(
+            None if t is None else t[None] for t in more)
+    if data.dim() != 3:
+        raise ValueError(f"expected (H, W) or (S, H, W) buffers, got "
+                         f"{tuple(data.shape)}")
+    return False, (data,) + more
+
+
+def _k2_frame(data: torch.Tensor, name: str) -> torch.Tensor:
+    """K2's operand: the bordered frame(s) as contiguous float32 on the
+    card (integer pixel types up to 24 bits convert exactly)."""
     if data.dtype != torch.float32:
         data = data.to(torch.float32)
     data = data.contiguous()
@@ -83,8 +109,8 @@ def _k2_frame(img: Image2d, name: str) -> torch.Tensor:
     return data
 
 
-def _need_border_3(img: Image2d) -> None:
-    if img.border < 3:
+def _need_border_3(border: int) -> None:
+    if border < 3:
         raise ValueError("FAST needs a border of at least 3px")
 
 
@@ -92,10 +118,13 @@ def fast9_cuda(img: Image2d, th: int, detect: bool = True
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K2's full map: score (and flag) in one launch on a CUDA image; the
     plain version for a CPU image. Needs border >= 3."""
-    _need_border_3(img)
+    _need_border_3(img.border)
     if img.data.device.type == "cpu":
         return fast9_plain(img, th, detect)
-    data = _k2_frame(img, "fast9")
+    if img.data.dim() != 2:
+        raise ValueError(f"fast9: expected a 2-D image, got "
+                         f"{img.data.shape}")
+    data = _k2_frame(img.data, "fast9")
     from ..kernels import _build
     h, w = img.shape
     score = torch.empty((h, w), dtype=torch.int32, device=data.device)
@@ -124,7 +153,7 @@ def fast9_score_at(img: Image2d, positions: torch.Tensor,
                    th: int) -> torch.Tensor:
     """(K,) FAST score sampled at integer ``positions`` (row, col, interior
     coords); flat indices are clipped to the buffer."""
-    _need_border_3(img)
+    _need_border_3(img.border)
     b = img.border
     wb = img.data.shape[1]
     p = positions.to(torch.int64) + b
@@ -141,32 +170,45 @@ def fast9_score_at(img: Image2d, positions: torch.Tensor,
     return torch.maximum(s_sup, s_inf)
 
 
+def _cull_plain(data: torch.Tensor, border: int, positions: torch.Tensor,
+                th: int) -> torch.Tensor:
+    """Plain K2 cull on (S, H+2b, W+2b) buffers and (S, K, 2) positions:
+    the full map and a gather per stream."""
+    h, w = data.shape[-2] - 2 * border, data.shape[-1] - 2 * border
+    score, _ = _fast9_raw(data, border, th, detect=False)
+    p = torch.round(positions.to(torch.float32)).to(torch.int32)
+    flat = (p[..., 0].clamp(0, h - 1) * w + p[..., 1].clamp(0, w - 1)).long()
+    return score.flatten(-2).gather(-1, flat)
+
+
 def fast9_cull_scores_plain(img: Image2d, positions: torch.Tensor,
                             th: int) -> torch.Tensor:
     """Plain version of K2's cull: the JAX tracker's expression
     ``fast9_score(img, th)[clip(round(positions))]`` written out, the full
     map and a gather."""
-    h, w = img.shape
-    score, _ = fast9_plain(img, th, detect=False)
-    p = torch.round(positions.to(torch.float32)).to(torch.int32)
-    return score[p[:, 0].clamp(0, h - 1).long(),
-                 p[:, 1].clamp(0, w - 1).long()]
+    return _cull_plain(img.data, img.border, positions, th)
 
 
-def fast9_cull_scores(img: Image2d, positions: torch.Tensor,
-                      th: int) -> torch.Tensor:
-    """K2's cull: the (K,) int32 FAST score at (K, 2) float ``positions``
-    (row, col, interior coords) rounded half to even and clamped into the
-    domain, in one launch on a CUDA image (one thread a slot, 17 samples);
-    the plain version for a CPU image. Equal to the full map read at those
-    pixels for every position within the int32 range. Needs border >= 3."""
-    _need_border_3(img)
-    if img.data.device.type == "cpu":
-        return fast9_cull_scores_plain(img, positions, th)
-    if positions.dim() != 2 or positions.shape[1] != 2:
-        raise ValueError(f"fast9_cull_scores: positions must be (K, 2), got "
-                         f"{tuple(positions.shape)}")
-    data = _k2_frame(img, "fast9_cull_scores")
+def cull_scores(data: torch.Tensor, border: int, positions: torch.Tensor,
+                th: int) -> torch.Tensor:
+    """K2's cull on raw buffers: the int32 FAST score at float
+    ``positions`` (row, col, interior coords) rounded half to even and
+    clamped into the domain; (S, H+2b, W+2b) buffers with (S, K, 2)
+    positions give (S, K) in one launch for every stream (one thread a
+    slot, 17 samples), one (H+2b, W+2b) frame with (K, 2) positions (K,).
+    The plain version for CPU buffers. Equal to the full map read at those
+    pixels for every position within the int32 range."""
+    _need_border_3(border)
+    one, (data, positions) = _streams(data, positions)
+    if data.device.type == "cpu":
+        out = _cull_plain(data, border, positions, th)
+        return out[0] if one else out
+    n_streams = data.shape[0]
+    if (positions.dim() != 3 or positions.shape[0] != n_streams
+            or positions.shape[2] != 2):
+        raise ValueError(f"fast9_cull_scores: positions must be (K, 2) a "
+                         f"stream, got {tuple(positions.shape)}")
+    data = _k2_frame(data, "fast9_cull_scores")
     pos = positions
     if pos.dtype != torch.float32:
         pos = pos.to(torch.float32)
@@ -174,66 +216,99 @@ def fast9_cull_scores(img: Image2d, positions: torch.Tensor,
     require_cuda("fast9_cull_scores", data, pos,
                  dtypes=(torch.float32, torch.float32))
     from ..kernels import _build
-    h, w = img.shape
-    k = pos.shape[0]
-    out = torch.empty((k,), dtype=torch.int32, device=data.device)
-    if k == 0:
-        return out
-    code = _build.load().vpp_fast9_cull(
-        data.data_ptr(), data.shape[1], img.border, h, w, int(th),
-        pos.data_ptr(), k, out.data_ptr(), stream_handle(data))
-    LAUNCHES["fast9"] += 1
-    _build.check(code, "fast9_cull")
-    return out
+    h, w = data.shape[1] - 2 * border, data.shape[2] - 2 * border
+    k = pos.shape[1]
+    out = torch.empty((n_streams, k), dtype=torch.int32, device=data.device)
+    if k > 0:
+        code = _build.load().vpp_fast9_cull(
+            data.data_ptr(), data.shape[2], border, h, w, int(th),
+            pos.data_ptr(), k, n_streams, out.data_ptr(), stream_handle(data))
+        LAUNCHES["fast9"] += 1
+        _build.check(code, "fast9_cull")
+    return out[0] if one else out
 
 
-def fast9_score_image_plain(img: Image2d, th: int,
-                            mask: Optional[torch.Tensor] = None) -> Image2d:
-    """Plain version of K2's score image: the full map and flag, the mask,
-    score // 16 clipped to uint8, and the zero border, as the JAX package
-    composes them."""
-    score, flag = fast9_plain(img, th, detect=True)
+def fast9_cull_scores(img: Image2d, positions: torch.Tensor,
+                      th: int) -> torch.Tensor:
+    """K2's cull of one image (``cull_scores``): the (K,) int32 FAST score
+    at (K, 2) float ``positions``. Needs border >= 3."""
+    if img.data.dim() != 2:
+        raise ValueError(f"fast9_cull_scores: expected a 2-D image, got "
+                         f"{tuple(img.data.shape)}")
+    return cull_scores(img.data, img.border, positions, th)
+
+
+def _score_image_plain(data: torch.Tensor, border: int, th: int,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain K2 score image of (..., H+2b, W+2b) buffer(s): the full map
+    and flag, the mask, score // 16 clipped to uint8, and the zero border
+    of 1, as the JAX package composes them."""
+    score, flag = _fast9_raw(data, border, th, detect=True)
     kp = flag != 0
     if mask is not None:
         kp = kp & (torch.as_tensor(mask, device=kp.device) != 0)
     s = torch.where(kp, torch.div(score, 16, rounding_mode="floor"),
                     torch.zeros_like(score))
-    return from_array(s.clamp(0, 255).to(torch.uint8), border=1)
+    return pad_hw(s.clamp(0, 255).to(torch.uint8), 1, 1, 1, 1, "constant")
 
 
-def fast9_score_image(img: Image2d, th: int,
-                      mask: Optional[torch.Tensor] = None) -> Image2d:
-    """uint8 score/16 image (border 1), non-zero only at detected
-    keypoints; an optional (H, W) ``mask`` zeroes masked-out pixels. On a
-    CUDA image, one K2 launch writes the whole bordered image (a uint8 or
-    bool mask is read as bytes); the plain version on a CPU image."""
-    _need_border_3(img)
-    if img.data.device.type == "cpu":
-        return fast9_score_image_plain(img, th, mask)
-    data = _k2_frame(img, "fast9_score_image")
-    h, w = img.shape
-    dev = data.device
+def fast9_score_image_plain(img: Image2d, th: int,
+                            mask: Optional[torch.Tensor] = None) -> Image2d:
+    """Plain version of K2's score image (``_score_image_plain``)."""
+    return Image2d(data=_score_image_plain(img.data, img.border, th, mask),
+                   border=1)
+
+
+def score_image(data: torch.Tensor, border: int, th: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's score image on raw buffers: uint8 score/16 with a zero border
+    of 1, non-zero only at detected keypoints, an optional ``mask`` (0:
+    masked out) applied. (S, H+2b, W+2b) buffers with (S, H, W) masks give
+    (S, H+2, W+2) in one launch for every stream (a uint8 or bool mask is
+    read as bytes); one frame gives (H+2, W+2). The plain version for CPU
+    buffers."""
+    _need_border_3(border)
+    if data.device.type == "cpu":
+        return _score_image_plain(data, border, th, mask)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=data.device)
+    one, (data, mask) = _streams(data, mask)
+    data = _k2_frame(data, "fast9_score_image")
+    n_streams = data.shape[0]
+    h, w = data.shape[1] - 2 * border, data.shape[2] - 2 * border
     operands, dtypes = [data], [torch.float32]
     if mask is not None:
-        mask = torch.as_tensor(mask, device=dev)
         if mask.dtype not in (torch.uint8, torch.bool):
             mask = mask != 0
         mask = mask.contiguous()
-        if tuple(mask.shape) != (h, w):
-            raise ValueError(f"fast9_score_image: mask must be {(h, w)}, got "
-                             f"{tuple(mask.shape)}")
+        if tuple(mask.shape) != (n_streams, h, w):
+            raise ValueError(f"fast9_score_image: mask must be {(h, w)} a "
+                             f"stream, got {tuple(mask.shape)}")
         operands.append(mask)
         dtypes.append(mask.dtype)
     require_cuda("fast9_score_image", *operands, dtypes=dtypes)
     from ..kernels import _build
-    out = torch.empty((h + 2, w + 2), dtype=torch.uint8, device=dev)
+    out = torch.empty((n_streams, h + 2, w + 2), dtype=torch.uint8,
+                      device=data.device)
     code = _build.load().vpp_fast9_image(
-        data.data_ptr(), data.shape[1], img.border, h, w, int(th),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        stream_handle(data))
+        data.data_ptr(), data.shape[2], border, h, w, int(th),
+        mask.data_ptr() if mask is not None else None, n_streams,
+        out.data_ptr(), stream_handle(data))
     LAUNCHES["fast9"] += 1
     _build.check(code, "fast9_image")
-    return Image2d(data=out, border=1)
+    return out[0] if one else out
+
+
+def fast9_score_image(img: Image2d, th: int,
+                      mask: Optional[torch.Tensor] = None) -> Image2d:
+    """uint8 score/16 image (border 1) of one image, non-zero only at
+    detected keypoints; an optional (H, W) ``mask`` zeroes masked-out
+    pixels (``score_image``: one K2 launch on a CUDA image)."""
+    if img.data.dim() != 2:
+        raise ValueError(f"fast9_score_image: expected a 2-D image, got "
+                         f"{tuple(img.data.shape)}")
+    return Image2d(data=score_image(img.data, img.border, th, mask),
+                   border=1)
 
 
 def local_maxima_filter(scores: Image2d) -> Image2d:
@@ -251,15 +326,16 @@ def local_maxima_filter(scores: Image2d) -> Image2d:
                       border=scores.border)
 
 
-def _block_argmax(scores: Image2d, bs: int):
-    """Per-block first-max (row-major within the block) over the interior
-    padded with -1: returns (idx, vmax, nbr, nbc)."""
-    a = scores.interior.to(torch.int32)
-    h, w = a.shape
+def _block_argmax(a: torch.Tensor, bs: int):
+    """Per-block first-max (row-major within the block) over (..., h, w)
+    interior(s) padded with -1: returns (idx, vmax, nbr, nbc)."""
+    a = a.to(torch.int32)
+    h, w = a.shape[-2], a.shape[-1]
     nbr, nbc = -(-h // bs), -(-w // bs)
-    padded = pad2d(a, 0, nbr * bs - h, 0, nbc * bs - w, "constant", -1)
-    flat = padded.reshape(nbr, bs, nbc, bs).permute(0, 2, 1, 3).reshape(
-        nbr, nbc, bs * bs)
+    padded = pad_hw(a, 0, nbr * bs - h, 0, nbc * bs - w, "constant", -1)
+    lead = a.shape[:-2]
+    flat = padded.reshape(lead + (nbr, bs, nbc, bs)).transpose(-3, -2)
+    flat = flat.reshape(lead + (nbr, nbc, bs * bs))
     # torch.argmax returns the first maximal index, as jnp.argmax does
     return flat.argmax(dim=-1), flat.amax(dim=-1), nbr, nbc
 
@@ -269,7 +345,7 @@ def blockwise_maxima_filter(scores: Image2d, block_size: int) -> Image2d:
     ties break to the first (row-major) position."""
     h, w = scores.shape
     bs = block_size
-    idx, vmax, nbr, nbc = _block_argmax(scores, bs)
+    idx, vmax, nbr, nbc = _block_argmax(scores.interior, bs)
     keep = torch.zeros((nbr, nbc, bs * bs), dtype=torch.int32,
                        device=idx.device)
     keep.scatter_(2, idx[..., None], vmax.clamp(min=0)[..., None])
@@ -300,60 +376,75 @@ def select_keypoints(scores: Image2d, k: int
     return pos, score, valid
 
 
-def _blockwise_keypoints_plain(scores: Image2d, block_size: int, k: int
-                               ) -> Tuple[torch.Tensor, torch.Tensor,
-                                          torch.Tensor]:
-    """Plain version of K3: per-block argmax, then the top k of the block
-    winners. Every key is distinct: ``score*nb + (nb-1-i)`` where the score
-    is positive (equal scores extract block-row-major, as in JAX) and
-    ``-1-i`` elsewhere (the invalid entries in ascending block order, as
-    ``lax.top_k`` orders its tied -1 keys), so every output is determined."""
-    bs = block_size
-    idx, vmax, nbr, nbc = _block_argmax(scores, bs)
+def _block_topk_plain(a: torch.Tensor, bs: int, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K3 on (..., h, w) score interior(s): per-block
+    argmax, then the top k of the block winners. Every key is distinct:
+    ``score*nb + (nb-1-i)`` where the score is positive (equal scores
+    extract block-row-major, as in JAX) and ``-1-i`` elsewhere (the invalid
+    entries in ascending block order, as ``lax.top_k`` orders its tied -1
+    keys), so every output is determined."""
+    idx, vmax, nbr, nbc = _block_argmax(a, bs)
     dev = idx.device
+    lead = idx.shape[:-2]
     pos_r = torch.arange(nbr, device=dev)[:, None] * bs + idx // bs
     pos_c = torch.arange(nbc, device=dev)[None, :] * bs + idx % bs
-    cand_score = vmax.clamp(min=0).reshape(-1)
-    cand_pos = torch.stack([pos_r, pos_c], dim=-1).reshape(-1, 2)
-    nb = cand_score.shape[0]
+    cand_score = vmax.clamp(min=0).flatten(-2)
+    cand_pos = torch.stack([pos_r, pos_c], dim=-1).flatten(-3, -2)
+    nb = cand_score.shape[-1]
     ar = torch.arange(nb, dtype=torch.int32, device=dev)
     key = torch.where(cand_score > 0, cand_score * nb + (nb - 1 - ar),
                       -1 - ar)
     kk = min(k, nb)
-    topv, topi = torch.topk(key, kk, sorted=True)
+    topv, topi = torch.topk(key, kk, dim=-1, sorted=True)
     valid = topv >= 0
-    pos = cand_pos[topi].to(torch.int32)
-    score = torch.where(valid, cand_score[topi], torch.zeros_like(topv))
+    pos = cand_pos.gather(-2, topi[..., None].expand(
+        topi.shape + (2,))).to(torch.int32)
+    score = torch.where(valid, cand_score.gather(-1, topi),
+                        torch.zeros_like(topv))
     if kk < k:
         pad = k - kk
-        pos = torch.cat([pos, torch.zeros((pad, 2), dtype=torch.int32,
-                                          device=dev)])
-        score = torch.cat([score, torch.zeros((pad,), dtype=score.dtype,
-                                              device=dev)])
-        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
-                                              device=dev)])
+        pos = torch.cat([pos, torch.zeros(lead + (pad, 2), dtype=torch.int32,
+                                          device=dev)], dim=-2)
+        score = torch.cat([score, torch.zeros(lead + (pad,),
+                                              dtype=score.dtype,
+                                              device=dev)], dim=-1)
+        valid = torch.cat([valid, torch.zeros(lead + (pad,),
+                                              dtype=torch.bool,
+                                              device=dev)], dim=-1)
     return pos, score, valid
+
+
+def _blockwise_keypoints_plain(scores: Image2d, block_size: int, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of K3 (``_block_topk_plain``) on one score image."""
+    return _block_topk_plain(scores.interior, block_size, k)
 
 
 # the JAX key score*nb + (nb-1-i) of a score up to 255 fits int32
 BLOCK_TOPK_MAX_BLOCKS = 2 ** 31 // 256
 
 
-def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 (``kernels/csrc/block_topk.cu``): per-block argmax + top-K over
-    the block winners on a CUDA score image, one cooperative launch (a
-    stable counting sort over the 256 scores); the plain version on a CPU
-    one. Returns (pos (k, 2) int32, score (k,) int32, valid (k,) bool),
-    bit-equal to the plain version. Scores must lie in 0..255 (the uint8
-    score image; an int32 image with a larger block maximum makes the
-    kernel trap, a CUDA error at the next synchronisation)."""
-    data = scores.data
+def block_topk(data: torch.Tensor, border: int, block_size: int, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 (``kernels/csrc/block_topk.cu``) on raw score buffers: per-block
+    argmax + top-K over the block winners. (S, h+2b, w+2b) buffers give
+    (pos (S, k, 2) int32, score (S, k) int32, valid (S, k) bool) in one
+    cooperative launch for every stream (a stable counting sort over the
+    256 scores), bit-equal to the plain version; one buffer gives (k, 2),
+    (k,), (k,). The plain version for CPU buffers. Scores must lie in
+    0..255 (the uint8 score image; an int32 image with a larger block
+    maximum makes the kernel trap, a CUDA error at the next
+    synchronisation)."""
+    b, bs = border, block_size
     if data.device.type == "cpu":
-        return _blockwise_keypoints_plain(scores, block_size, k)
-    h, w = scores.shape
-    bs = block_size
-    if data.dim() != 2 or bs < 1 or k < 1 or h < 1 or w < 1:
+        return _block_topk_plain(data[..., b:data.shape[-2] - b,
+                                      b:data.shape[-1] - b], bs, k)
+    one, (data,) = _streams(data)
+    n_streams = data.shape[0]
+    h, w = data.shape[1] - 2 * b, data.shape[2] - 2 * b
+    if bs < 1 or k < 1 or h < 1 or w < 1:
         raise ValueError(f"block_topk: needs a 2-D score image, block size "
                          f">= 1 and k >= 1 (got {tuple(data.shape)}, {bs}, "
                          f"{k})")
@@ -368,20 +459,34 @@ def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
     from ..kernels import _build
     lib = _build.load()
     dev = data.device
-    # the winners' scores and indices, and a (CTAs, 256) histogram table
-    # for at most one CTA per 64 blocks
-    scratch = torch.empty((2 * nb + 256 * -(-nb // 64),), dtype=torch.int32,
+    # a stream's winners' scores and indices, and its (CTAs, 256) histogram
+    # table for at most one CTA per 64 blocks
+    per_stream = 2 * nb + 256 * -(-nb // 64)
+    scratch = torch.empty((n_streams * per_stream,), dtype=torch.int32,
                           device=dev)
-    pos = torch.empty((k, 2), dtype=torch.int32, device=dev)
-    score = torch.empty((k,), dtype=torch.int32, device=dev)
-    valid = torch.empty((k,), dtype=torch.bool, device=dev)
+    pos = torch.empty((n_streams, k, 2), dtype=torch.int32, device=dev)
+    score = torch.empty((n_streams, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((n_streams, k), dtype=torch.bool, device=dev)
     code = lib.vpp_block_topk(
-        data.data_ptr(), data.element_size(), data.shape[1], scores.border,
-        h, w, bs, k, scratch.data_ptr(), scratch.numel(), pos.data_ptr(),
-        score.data_ptr(), valid.data_ptr(), stream_handle(data))
+        data.data_ptr(), data.element_size(), data.shape[2], b, h, w, bs, k,
+        n_streams, data.shape[1] * data.shape[2], scratch.data_ptr(),
+        per_stream, pos.data_ptr(), score.data_ptr(), valid.data_ptr(),
+        stream_handle(data))
     LAUNCHES["block_topk"] += 1
     _build.check(code, "block_topk")
+    if one:
+        return pos[0], score[0], valid[0]
     return pos, score, valid
+
+
+def _blockwise_keypoints(scores: Image2d, block_size: int, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on one score image (``block_topk``): (pos (k, 2) int32, score
+    (k,) int32, valid (k,) bool)."""
+    if scores.data.dim() != 2:
+        raise ValueError(f"block_topk: needs a 2-D score image, got "
+                         f"{tuple(scores.data.shape)}")
+    return block_topk(scores.data, scores.border, block_size, k)
 
 
 def fast9(img: Image2d, th: int, *, k: int = 512,

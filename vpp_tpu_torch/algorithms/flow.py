@@ -16,6 +16,11 @@ rejection and every propagation pass. ``flow_level``, ``flow_match`` and
 ``flow_propagate`` launch it for CUDA tensors and run their plain
 versions for CPU ones.
 
+Streams: every level function also takes S levels at once, buffers
+(S, hb, wb) with predictions (S, gh, gw, 2), in the same two launches
+(the stream in the grid), and the plain versions carry the same leading
+S. ``semi_dense_streams`` is the tracker's flow for S streams.
+
 The epipolar-constrained branch (``epipolar_flow`` / ``epipolar_filter``
 with a fundamental matrix) is not ported yet and raises.
 """
@@ -29,20 +34,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.image import Image2d, pad2d
+from ..core.image import Image2d, pad_hw
 from ..kernels import LAUNCHES, require_cuda, stream_handle
 from .pyramid import Pyramid, level_shapes, pyramid
 
 _INF = 1e30
 
 _C8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
-
-
-@dataclasses.dataclass
-class _Level:
-    flow: torch.Tensor   # (gh, gw, 2) int32 — displacement per cell
-    dist: torch.Tensor   # (gh, gw) float32
-    mark: torch.Tensor   # (gh, gw) bool — cell holds >= 1 live keypoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,24 +93,26 @@ def _table(R: int, which: str, device: torch.device) -> torch.Tensor:
 
 
 # -- plain PyTorch version of K1 ------------------------------------------
+# On S levels: buffers (S, hb, wb), per-cell values (S, gh, gw[, 2]), the
+# volume (S, D², gh, gw).
 
 def _cells_to_pixels(cell_vals: torch.Tensor, b: int, h: int, w: int,
                      patch: int, hb: int, wb: int) -> torch.Tensor:
-    """Broadcast a (gh, gw) per-cell value to the (hb, wb) pixel buffer
+    """Broadcast (S, gh, gw) per-cell values to (S, hb, wb) pixel buffers
     (patch-block repeat, crop to the domain, edge padding)."""
-    px = cell_vals.repeat_interleave(patch, 0).repeat_interleave(patch, 1)
-    px = px[:h, :w]
-    ph, pw = px.shape
-    return pad2d(px, b, hb - b - ph, b, wb - b - pw, "edge")
+    px = cell_vals.repeat_interleave(patch, -2).repeat_interleave(patch, -1)
+    px = px[..., :h, :w]
+    ph, pw = px.shape[-2], px.shape[-1]
+    return pad_hw(px, b, hb - b - ph, b, wb - b - pw, "edge")
 
 
 def _warp_by_cell_flow(a2: torch.Tensor, pred: torch.Tensor, b: int, h: int,
                        w: int, patch: int, max_shift: int) -> torch.Tensor:
-    """Backward-warp the buffer by per-cell integer flow: per axis a select
+    """Backward-warp the buffers by per-cell integer flow: per axis a select
     over rolled copies (even shifts in ±max_shift, wrapping like jnp.roll);
     the column pass reads the row-warped buffer."""
     s = pred.clamp(-max_shift, max_shift)
-    hb, wb = a2.shape
+    hb, wb = a2.shape[-2], a2.shape[-1]
     out = a2
     for axis in (0, 1):
         digit = _cells_to_pixels(s[..., axis], b, h, w, patch, hb, wb)
@@ -120,32 +120,33 @@ def _warp_by_cell_flow(a2: torch.Tensor, pred: torch.Tensor, b: int, h: int,
         for k in range(-max_shift, max_shift + 1, 2):
             if k == 0:
                 continue
-            sel = torch.where(digit == k, torch.roll(out, -k, dims=axis), sel)
+            sel = torch.where(digit == k, torch.roll(out, -k, dims=axis - 2),
+                              sel)
         out = sel
     return out
 
 
 def _cost_volume(a1: torch.Tensor, a2w: torch.Tensor, g: LevelGeometry,
                  offsets: list) -> torch.Tensor:
-    """(D², gh, gw) SAD volume of bf16 |diffs| summed in float32; buffers
-    are edge-padded where a displaced window would leave them."""
+    """(S, D², gh, gw) SAD volumes of bf16 |diffs| summed in float32;
+    buffers are edge-padded where a displaced window would leave them."""
     off = g.ws // 2 - g.patch // 2
     r0 = g.b - off
     lr = (g.gh - 1) * g.patch + g.ws
     lc = (g.gw - 1) * g.patch + g.ws
-    hb, wb = a1.shape
+    hb, wb = a1.shape[-2], a1.shape[-1]
     pt = pl = max(0, g.R - r0)
     pbot = max(0, r0 + lr + g.R - hb)
     pright = max(0, r0 + lc + g.R - wb)
     if pt or pbot or pl or pright:
-        a1 = pad2d(a1, pt, pbot, pl, pright, "edge")
-        a2w = pad2d(a2w, pt, pbot, pl, pright, "edge")
+        a1 = pad_hw(a1, pt, pbot, pl, pright, "edge")
+        a2w = pad_hw(a2w, pt, pbot, pl, pright, "edge")
     r0r, c0c = r0 + pt, r0 + pl
-    base = a1[r0r:r0r + lr, c0c:c0c + lc]
+    base = a1[..., r0r:r0r + lr, c0c:c0c + lc]
     diff = torch.stack([
-        (base - a2w[r0r + dr:r0r + dr + lr, c0c + dc:c0c + dc + lc]).abs()
-        for dr, dc in offsets]).to(torch.float32)
-    win = diff.unfold(1, g.ws, g.patch).unfold(2, g.ws, g.patch)
+        (base - a2w[..., r0r + dr:r0r + dr + lr, c0c + dc:c0c + dc + lc]).abs()
+        for dr, dc in offsets], dim=-3).to(torch.float32)
+    win = diff.unfold(-2, g.ws, g.patch).unfold(-2, g.ws, g.patch)
     return win.sum(dim=(-2, -1))
 
 
@@ -165,48 +166,64 @@ def _reject_out_of_domain(flow: torch.Tensor, dist: torch.Tensor,
     return flow, dist
 
 
-def flow_match_plain(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
-                     g: LevelGeometry
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K1 up to the propagation: warp, cost volume,
-    ordered argmin, in-domain rejection. Returns (flow, dist, volume)."""
+def _lift(*ts: Optional[torch.Tensor]):
+    """(one level given, the operands with a leading S): one level's
+    (hb, wb) buffers, (gh, gw[, 2]) cell values and (D², gh, gw) volume
+    gain S = 1; the first operand decides (2-D: one level)."""
+    one = ts[0].dim() == 2
+    if one:
+        ts = tuple(None if t is None else t[None] for t in ts)
+    return one, ts
+
+
+def _unlift(one: bool, *ts: torch.Tensor):
+    return tuple(t[0] for t in ts) if one else ts
+
+
+def _match_plain(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
+                 g: LevelGeometry):
     _, offsets = _displacement_table(g.R)
     a1 = a1.to(torch.bfloat16)
     a2 = a2.to(torch.bfloat16)
     a2w = a2 if g.pred_bound == 0 else _warp_by_cell_flow(
         a2, pred, g.b, g.h, g.w, g.patch, g.pred_bound)
     vol = _cost_volume(a1, a2w, g, offsets)
-    best = torch.argmin(vol, dim=0)                # first minimum
-    dist = torch.gather(vol, 0, best[None]).squeeze(0)
+    best = torch.argmin(vol, dim=-3)               # first minimum
+    dist = torch.gather(vol, -3, best[..., None, :, :]).squeeze(-3)
     delta = _table(g.R, "disp", vol.device)[best]
     flow, dist = _reject_out_of_domain(pred + delta, dist, pred, g)
     return flow.to(torch.int32), dist, vol
 
 
+def flow_match_plain(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
+                     g: LevelGeometry
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K1 up to the propagation: warp, cost volume,
+    ordered argmin, in-domain rejection. Returns (flow, dist, volume), with
+    a leading S where the buffers are (S, hb, wb)."""
+    one, (a1, a2, pred) = _lift(a1, a2, pred)
+    return _unlift(one, *_match_plain(a1, a2, pred, g))
+
+
 def _volume_lookup(vol: torch.Tensor, q: torch.Tensor,
                    R: int) -> torch.Tensor:
-    """Cost at per-cell displacement q ((gh, gw, 2), relative to the
+    """Cost at per-cell displacement q ((S, gh, gw, 2), relative to the
     volume's centre); out-of-window q → +inf."""
     dd = 2 * R + 1
     inside = ((q[..., 0] >= -R) & (q[..., 0] <= R) &
               (q[..., 1] >= -R) & (q[..., 1] <= R))
     qflat = ((q[..., 0].clamp(-R, R) + R) * dd + (q[..., 1].clamp(-R, R) + R))
     k = _table(R, "flat_to_k", vol.device)[qflat.long()]
-    val = torch.gather(vol, 0, k[None].long()).squeeze(0)
+    val = torch.gather(vol, -3, k[..., None, :, :].long()).squeeze(-3)
     return torch.where(inside, val, torch.full_like(val, _INF))
 
 
-def flow_propagate_plain(flow: torch.Tensor, dist: torch.Tensor,
-                         pred: torch.Tensor, vol: torch.Tensor,
-                         R: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of one Jacobi propagation pass of K1: each cell scores
-    its 8 neighbours' flows (``_C8`` order, strict <) against its volume
-    and adopts the best one that differs by more than 2 px."""
-    gh, gw = dist.shape
+def _propagate_plain(flow, dist, pred, vol, R):
+    gh, gw = dist.shape[-2], dist.shape[-1]
     dev = flow.device
     best_nf, best_nd = flow, dist
     for dr, dc in _C8:
-        nf = torch.roll(flow, (-dr, -dc), dims=(0, 1))
+        nf = torch.roll(flow, (-dr, -dc), dims=(-3, -2))
         rr = torch.arange(gh, device=dev)[:, None] + dr
         cc = torch.arange(gw, device=dev)[None, :] + dc
         inside = (rr >= 0) & (rr < gh) & (cc >= 0) & (cc < gw)
@@ -216,6 +233,16 @@ def flow_propagate_plain(flow: torch.Tensor, dist: torch.Tensor,
         best_nf = torch.where(ok[..., None], nf, best_nf)
         best_nd = torch.where(ok, cand_d, best_nd)
     return best_nf, best_nd
+
+
+def flow_propagate_plain(flow: torch.Tensor, dist: torch.Tensor,
+                         pred: torch.Tensor, vol: torch.Tensor,
+                         R: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of one Jacobi propagation pass of K1: each cell scores
+    its 8 neighbours' flows (``_C8`` order, strict <) against its volume
+    and adopts the best one that differs by more than 2 px."""
+    one, (dist, flow, pred, vol) = _lift(dist, flow, pred, vol)
+    return _unlift(one, *_propagate_plain(flow, dist, pred, vol, R))
 
 
 # -- K1 wrappers ------------------------------------------------------------
@@ -272,13 +299,15 @@ def _select_smem(tile: int, iters: int, R: int) -> int:
 
 
 def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
-                threads: int) -> Optional[K1Plan]:
+                threads: int, streams: int = 1) -> Optional[K1Plan]:
     """The plan at one tile shape, its chunk in the fewest even batches
     (of at most 8 displacements) that fit in a block's shared memory; None
-    if a batch of one does not fit."""
+    if a batch of one does not fit. ``streams`` levels share the card, so
+    the tiles that fill it are counted over all of them."""
     d2 = (2 * g.R + 1) ** 2
     tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
-    chunk = _cdiv(d2, min(d2, _cdiv(sms, max(1, tiles[0] * tiles[1]))))
+    chunk = _cdiv(d2, min(d2, _cdiv(sms, max(1, streams * tiles[0]
+                                              * tiles[1]))))
     for nbatch in range(_cdiv(chunk, _BATCH), chunk + 1):
         batch = _cdiv(chunk, nbatch)
         a_smem = _volume_smem(g, tile, threads, chunk, batch)
@@ -295,19 +324,23 @@ def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
 
 @functools.lru_cache(maxsize=None)
 def _k1_plan(g: LevelGeometry, prop_iters: int, sms: int,
-             shapes: Tuple[Tuple[int, int], ...] = _VOLUME_SHAPES) -> K1Plan:
-    """Tile plan of one level on a card with ``sms`` SMs. Launch A takes
-    the first of ``shapes`` (largest tile first) whose tiles alone fill the
+             shapes: Tuple[Tuple[int, int], ...] = _VOLUME_SHAPES,
+             streams: int = 1) -> K1Plan:
+    """Tile plan of one level (of ``streams`` levels launched together) on
+    a card with ``sms`` SMs. Launch A takes the first of ``shapes``
+    (largest tile first) whose tiles alone, over every stream, fill the
     SMs, else the last that fits: where tiles are too few, smaller ones
     split the displacement table into fewer chunks, and every chunk loads
-    its tile again (``k1_tiles.py`` times the shapes). Raises if no shape
-    fits in shared memory at a batch of one displacement."""
+    its tile again (``k1_tiles.py`` times the shapes). No plan changes a
+    bit: every window sums in one order, and the argmin combines the
+    chunks' minima as (cost, k). Raises if no shape fits in shared memory
+    at a batch of one displacement."""
     plan = None
     for tile, threads in shapes:
-        fit = _fit_volume(g, prop_iters, sms, tile, threads)
+        fit = _fit_volume(g, prop_iters, sms, tile, threads, streams)
         if fit is not None:
             plan = fit
-            if fit.a_grid[0] * fit.a_grid[1] >= sms:
+            if streams * fit.a_grid[0] * fit.a_grid[1] >= sms:
                 break
     if plan is None:
         raise ValueError(f"flow_level: {g.ws} px windows on {g.patch} px "
@@ -333,24 +366,26 @@ def _sm_count(device: torch.device) -> int:
 
 def _launch_volume(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                    g: LevelGeometry, plan: K1Plan):
-    """Launch A: the (D², gh, gw) cost volume, and each chunk's first
-    minimum per cell as (cost, k) of shape (chunks, gh, gw)."""
+    """Launch A on one level (hb, wb) or S levels (S, hb, wb): the (D²,
+    gh, gw) cost volume, and each chunk's first minimum per cell as (cost,
+    k) of shape (chunks, gh, gw), each with the levels' leading S."""
     from ..kernels import _build
     lib = _build.load()
     dev = a1.device
+    lead, (hb, wb) = a1.shape[:-2], a1.shape[-2:]
     d2 = (2 * g.R + 1) ** 2
     disp = _table(g.R, "disp", dev)
-    vol = torch.empty((d2, g.gh, g.gw), dtype=torch.float32, device=dev)
-    part = (torch.empty((plan.a_grid[2], g.gh, g.gw), dtype=torch.float32,
-                        device=dev),
-            torch.empty((plan.a_grid[2], g.gh, g.gw), dtype=torch.int32,
-                        device=dev))
-    hb, wb = a1.shape
+    vol = torch.empty(lead + (d2, g.gh, g.gw), dtype=torch.float32,
+                      device=dev)
+    part = (torch.empty(lead + (plan.a_grid[2], g.gh, g.gw),
+                        dtype=torch.float32, device=dev),
+            torch.empty(lead + (plan.a_grid[2], g.gh, g.gw),
+                        dtype=torch.int32, device=dev))
     code = lib.vpp_flow_volume(
         a1.data_ptr(), a2.data_ptr(), pred.data_ptr(), disp.data_ptr(), d2,
         hb, wb, g.b, g.h, g.w, g.ws, g.patch, g.gh, g.gw, g.R, g.pred_bound,
         plan.a_tile, plan.a_threads, plan.chunk, plan.batch, plan.a_smem,
-        vol.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        lead.numel(), vol.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
         stream_handle(a1))
     LAUNCHES["flow_level"] += 1
     _build.check(code, "flow level, volume launch")
@@ -363,25 +398,27 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
                    dist_in: Optional[torch.Tensor] = None,
                    domain: Tuple[int, int, int] = (0, 0, 1)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B on ``tile`` x ``tile`` cell tiles: ``iters`` passes from
+    """Launch B on one level or S levels (the volume's leading S),
+    ``tile`` x ``tile`` cell tiles: ``iters`` passes from
     ``flow_in``/``dist_in``, or from the argmin over launch A's chunk
-    minima ``part`` and the rejection against ``domain`` = (h, w, patch)."""
+    minima ``part`` and the rejection against ``domain`` = (h, w,
+    patch)."""
     from ..kernels import _build
     lib = _build.load()
     dev = vol.device
-    d2, gh, gw = vol.shape
-    flow = torch.empty((gh, gw, 2), dtype=torch.int32, device=dev)
-    dist = torch.empty((gh, gw), dtype=torch.float32, device=dev)
+    lead, (d2, gh, gw) = vol.shape[:-3], vol.shape[-3:]
+    flow = torch.empty(lead + (gh, gw, 2), dtype=torch.int32, device=dev)
+    dist = torch.empty(lead + (gh, gw), dtype=torch.float32, device=dev)
     code = lib.vpp_flow_select(
         vol.data_ptr(), None if part is None else part[0].data_ptr(),
         None if part is None else part[1].data_ptr(),
-        0 if part is None else part[0].shape[0], pred.data_ptr(),
+        0 if part is None else part[0].shape[-3], pred.data_ptr(),
         _table(R, "disp", dev).data_ptr(),
         _table(R, "flat_to_k", dev).data_ptr(),
         None if flow_in is None else flow_in.data_ptr(),
         None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
-        *domain, tile, iters, _select_smem(tile, iters, R), flow.data_ptr(),
-        dist.data_ptr(), stream_handle(vol))
+        *domain, tile, iters, _select_smem(tile, iters, R), lead.numel(),
+        flow.data_ptr(), dist.data_ptr(), stream_handle(vol))
     LAUNCHES["flow_level"] += 1
     _build.check(code, "flow level, select launch")
     return flow, dist
@@ -389,19 +426,21 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
 
 def _level_operands(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                     g: LevelGeometry, prop_iters: int):
-    """Checked CUDA operands and the plan of one level."""
+    """Checked CUDA operands of one level (hb, wb) or of S levels (S, hb,
+    wb), and their plan."""
     a1 = a1.to(torch.float32).contiguous()
     a2 = a2.to(torch.float32).contiguous()
     pred = pred.to(torch.int32).contiguous()
     require_cuda("flow_level", a1, a2, pred,
                  dtypes=(torch.float32, torch.float32, torch.int32))
-    if (a1.dim() != 2 or a1.shape != a2.shape
-            or tuple(pred.shape) != (g.gh, g.gw, 2)):
+    if (a1.dim() not in (2, 3) or a1.shape != a2.shape
+            or tuple(pred.shape) != a1.shape[:-2] + (g.gh, g.gw, 2)):
         raise ValueError(f"flow_level: shapes {a1.shape}, {a2.shape}, "
                          f"{pred.shape} do not fit {g}")
     if prop_iters < 0:
         raise ValueError("flow_level: prop_iters must be >= 0")
-    plan = _k1_plan(g, prop_iters, _sm_count(a1.device))
+    plan = _k1_plan(g, prop_iters, _sm_count(a1.device), _VOLUME_SHAPES,
+                    a1.shape[:-2].numel())
     _check_plan("flow_level", (2 * g.R + 1) ** 2, plan.a_smem, plan.b_smem)
     return a1, a2, pred, plan
 
@@ -411,8 +450,9 @@ def flow_match(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 without propagation on CUDA tensors (the plain version on CPU
     ones): the volume launch, then the select launch with no pass.
-    a1, a2: (hb, wb) float32 level buffers; pred: (gh, gw, 2) int32.
-    Returns (flow (gh, gw, 2) int32, dist (gh, gw) f32, vol (D², gh, gw))."""
+    a1, a2: (hb, wb) float32 level buffers; pred: (gh, gw, 2) int32; or
+    S of each with a leading S. Returns (flow (gh, gw, 2) int32, dist
+    (gh, gw) f32, vol (D², gh, gw)), with the same leading S."""
     if a1.device.type == "cpu":
         return flow_match_plain(a1, a2, pred, g)
     a1, a2, pred, plan = _level_operands(a1, a2, pred, g, 0)
@@ -427,7 +467,7 @@ def flow_propagate(flow: torch.Tensor, dist: torch.Tensor,
                    iters: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """``iters`` K1 Jacobi passes in one launch on CUDA tensors (the plain
     version, pass by pass, on CPU ones); reads ``flow``/``dist`` and writes
-    fresh buffers."""
+    fresh buffers. Takes one level or S of them (a leading S)."""
     if flow.device.type == "cpu":
         for _ in range(iters):
             flow, dist = flow_propagate_plain(flow, dist, pred, vol, R)
@@ -435,10 +475,10 @@ def flow_propagate(flow: torch.Tensor, dist: torch.Tensor,
     require_cuda("flow_propagate", flow, dist, pred, vol,
                  dtypes=(torch.int32, torch.float32, torch.int32,
                          torch.float32))
-    gh, gw = dist.shape
+    lead, (gh, gw) = dist.shape[:-2], dist.shape[-2:]
     d2 = (2 * R + 1) ** 2
-    if (tuple(flow.shape) != (gh, gw, 2) or pred.shape != flow.shape
-            or tuple(vol.shape) != (d2, gh, gw)):
+    if (tuple(flow.shape) != lead + (gh, gw, 2) or pred.shape != flow.shape
+            or tuple(vol.shape) != lead + (d2, gh, gw) or len(lead) > 1):
         raise ValueError("flow_propagate: inconsistent shapes")
     if iters < 0:
         raise ValueError("flow_propagate: iters must be >= 0")
@@ -452,11 +492,15 @@ def flow_level(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One level (``_flow_level_xla``): match, then ``prop_iters`` Jacobi
     passes; on CUDA tensors two launches of K1 (the volume, then argmin,
-    rejection and every pass). Returns (flow (gh, gw, 2) int32, dist
-    (gh, gw) f32)."""
+    rejection and every pass), for one level or for S of them (a leading
+    S on every operand). Returns (flow (gh, gw, 2) int32, dist (gh, gw)
+    f32), with the same leading S."""
     if a1.device.type == "cpu":
-        flow, dist, vol = flow_match_plain(a1, a2, pred, g)
-        return flow_propagate(flow, dist, pred, vol, g.R, prop_iters)
+        one, (a1, a2, pred) = _lift(a1, a2, pred)
+        flow, dist, vol = _match_plain(a1, a2, pred, g)
+        for _ in range(prop_iters):
+            flow, dist = _propagate_plain(flow, dist, pred, vol, g.R)
+        return _unlift(one, flow, dist)
     a1, a2, pred, plan = _level_operands(a1, a2, pred, g, prop_iters)
     vol, part = _launch_volume(a1, a2, pred, g, plan)
     return _launch_select(vol, pred, g.R, prop_iters, plan.b_tile, part,
@@ -493,21 +537,46 @@ def semi_dense_optical_flow(
 
     Returns (match_positions (K, 2) float32, distance (K,) float32,
     matched (K,) bool); options and defaults are the JAX package's.
-    ``pyr1``/``pyr2`` reuse prebuilt pyramids."""
+    ``pyr1``/``pyr2`` reuse prebuilt pyramids. One stream of
+    ``semi_dense_streams``."""
     if fundamental_matrix is not None and (epipolar_flow
                                            or epipolar_filter is not None):
         raise NotImplementedError(
             "vpp_tpu_torch: the epipolar flow branch is not ported yet")
-    h0, w0 = i1.shape
     border = max(3, winsize)
     if pyr1 is None:
         pyr1 = pyramid(i1, nscales, border=border)
     if pyr2 is None:
         pyr2 = pyramid(i2, nscales, border=border)
+    out = semi_dense_streams(
+        positions[None], valid[None],
+        tuple(lvl.data[None] for lvl in pyr1.levels),
+        tuple(lvl.data[None] for lvl in pyr2.levels), pyr1[0].border,
+        winsize=winsize, nscales=nscales, min_scale=min_scale,
+        propagation=propagation, patchsize=patchsize,
+        search_niters=search_niters, refine_radius=refine_radius)
+    return tuple(t[0] for t in out)
+
+
+def semi_dense_streams(
+        positions: torch.Tensor, valid: torch.Tensor,
+        levels1: Tuple[torch.Tensor, ...], levels2: Tuple[torch.Tensor, ...],
+        border: int, *, winsize: int = 7, nscales: int = 4,
+        min_scale: int = 0, propagation: int = 2, patchsize: int = 5,
+        search_niters: int = 5, refine_radius: Optional[int] = 1,
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``semi_dense_optical_flow`` of S streams at once: (S, K, 2)
+    positions and (S, K) valid, each pyramid level one (S, hb, wb) buffer
+    with ``border`` (``pyramid_streams``); two K1 launches a level for every
+    stream. Returns (S, K, 2), (S, K), (S, K)."""
+    n_streams = positions.shape[0]
+    shapes = [(lvl.shape[-2] - 2 * border, lvl.shape[-1] - 2 * border)
+              for lvl in levels1]
+    h0, w0 = shapes[0]
     grid_shapes = level_shapes((max(h0 // patchsize, 1),
                                 max(w0 // patchsize, 1)), nscales)
-    levels: List[Optional[_Level]] = [None] * nscales
-    b = pyr1[0].border
+    flows: List[Optional[torch.Tensor]] = [None] * nscales
+    b = border
     R_top = max(1, search_niters)
     radii = _level_radii(nscales, R_top,
                          R_top if refine_radius is None
@@ -516,52 +585,50 @@ def semi_dense_optical_flow(
     dev = positions.device
 
     for s in range(nscales - 1, min_scale - 1, -1):
-        a1 = pyr1[s].data.to(torch.float32)
-        a2 = pyr2[s].data.to(torch.float32)
-        h, w = pyr1[s].shape
+        a1 = levels1[s].to(torch.float32)
+        a2 = levels2[s].to(torch.float32)
+        h, w = shapes[s]
         gh, gw = grid_shapes[s]
 
-        # occupancy mark: only the readout level's is consumed
-        if s == min_scale:
-            pos_s = torch.floor(positions / float(2 ** s)).to(torch.int32)
-            cr = (pos_s[:, 0].clamp(0, h - 1) // patchsize).clamp(0, gh - 1)
-            cc = (pos_s[:, 1].clamp(0, w - 1) // patchsize).clamp(0, gw - 1)
-            cell_flat = torch.where(valid, cr * gw + cc,
-                                    torch.full_like(cr, gh * gw))
-            occ = torch.zeros((gh * gw + 1,), dtype=torch.bool, device=dev)
-            # slot gh*gw takes the dropped entries; index_fill_ keeps the
-            # fill value off the host (an indexed assignment would copy it)
-            occ.index_fill_(0, cell_flat.long(), True)
-            mark = occ[:gh * gw].view(gh, gw)
-        else:
-            mark = torch.zeros((gh, gw), dtype=torch.bool, device=dev)
-
         # multiscale prediction: upsampled coarse flow x2
-        if s < nscales - 1 and levels[s + 1] is not None:
+        if s < nscales - 1 and flows[s + 1] is not None:
             cgh, cgw = grid_shapes[s + 1]
             ir = (torch.arange(gh, device=dev) // 2).clamp(0, cgh - 1)
             ic = (torch.arange(gw, device=dev) // 2).clamp(0, cgw - 1)
-            pred = 2 * levels[s + 1].flow[ir[:, None], ic[None, :]]
+            pred = 2 * flows[s + 1][:, ir[:, None], ic[None, :]]
         else:
-            pred = torch.zeros((gh, gw, 2), dtype=torch.int32, device=dev)
+            pred = torch.zeros((n_streams, gh, gw, 2), dtype=torch.int32,
+                               device=dev)
 
         g = LevelGeometry(b=b, h=h, w=w, ws=winsize, patch=patchsize,
                           gh=gh, gw=gw, R=radii[s],
                           pred_bound=0 if s == nscales - 1
                           else 2 * bounds[s + 1])
-        flow, dist = flow_level(a1, a2, pred, g, propagation)
-        levels[s] = _Level(flow=flow, dist=dist, mark=mark)
+        flows[s], dist = flow_level(a1, a2, pred, g, propagation)
+
+    # occupancy mark of the readout level: a cell holds >= 1 live keypoint
+    h, w = shapes[min_scale]
+    gh, gw = grid_shapes[min_scale]
+    pos_s = torch.floor(positions / float(2 ** min_scale)).to(torch.int32)
+    cr = (pos_s[..., 0].clamp(0, h - 1) // patchsize).clamp(0, gh - 1)
+    cc = (pos_s[..., 1].clamp(0, w - 1) // patchsize).clamp(0, gw - 1)
+    cell_flat = torch.where(valid, cr * gw + cc, torch.full_like(cr, gh * gw))
+    occ = torch.zeros((n_streams, gh * gw + 1), dtype=torch.bool, device=dev)
+    # slot gh*gw takes the dropped entries; a scalar scatter keeps the fill
+    # value off the host (an indexed assignment would copy it)
+    occ.scatter_(1, cell_flat.long(), True)
+    mark = occ[:, :gh * gw]
 
     # final per-keypoint readout
-    lvl = levels[min_scale]
-    gh, gw = grid_shapes[min_scale]
     cell_div = patchsize * (2 ** min_scale)
     c = torch.floor(positions / cell_div).to(torch.int32)
-    c0 = c[:, 0].clamp(0, gh - 1).long()
-    c1 = c[:, 1].clamp(0, gw - 1).long()
-    matched = valid & lvl.mark[c0, c1]
-    f = (lvl.flow[c0, c1] * (2 ** min_scale)).to(torch.float32)
-    return positions + f, lvl.dist[c0, c1], matched
+    cell = (c[..., 0].clamp(0, gh - 1) * gw
+            + c[..., 1].clamp(0, gw - 1)).long()
+    matched = valid & mark.gather(1, cell)
+    flow = flows[min_scale].flatten(1, 2).gather(
+        1, cell[..., None].expand(cell.shape + (2,)))
+    f = (flow * (2 ** min_scale)).to(torch.float32)
+    return positions + f, dist.flatten(1).gather(1, cell), matched
 
 
 def dense_optical_flow(i1: Image2d, i2: Image2d, *, winsize: int = 7,

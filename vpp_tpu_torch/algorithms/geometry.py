@@ -20,19 +20,20 @@ def triangulate_ls(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor,
     fail the same gates downstream).
 
     P1/P2: (N, 3, 4) or (3, 4); x1/x2: (N, 2) pixel (x=col, y=row).
-    Returns (N, 3)."""
+    Returns (N, 3). Leading dimensions are batch dimensions: x (S, N, 2)
+    with P broadcastable to (S, N, 3, 4)."""
     from ..slam.ba import _inv3
-    n = x1.shape[0]
-    P1 = P1.expand(n, 3, 4)
-    P2 = P2.expand(n, 3, 4)
+    lead = x1.shape[:-1]
+    P1 = P1.expand(lead + (3, 4))
+    P2 = P2.expand(lead + (3, 4))
     rows = torch.stack([
-        x1[:, 0, None] * P1[:, 2] - P1[:, 0],
-        x1[:, 1, None] * P1[:, 2] - P1[:, 1],
-        x2[:, 0, None] * P2[:, 2] - P2[:, 0],
-        x2[:, 1, None] * P2[:, 2] - P2[:, 1]], dim=1)      # (N, 4, 4)
-    A = rows[:, :, :3]
-    b = -rows[:, :, 3]
+        x1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
+        x1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
+        x2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
+        x2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :]], dim=-2)
+    A = rows[..., :3]
+    b = -rows[..., 3]
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
-    AtA = torch.einsum("nei,nej->nij", A, A) + 1e-9 * eye
-    Atb = torch.einsum("nei,ne->ni", A, b)
-    return torch.einsum("nij,nj->ni", _inv3(AtA), Atb)
+    AtA = torch.einsum("...ei,...ej->...ij", A, A) + 1e-9 * eye
+    Atb = torch.einsum("...ei,...e->...i", A, b)
+    return torch.einsum("...ij,...j->...i", _inv3(AtA), Atb)

@@ -16,6 +16,11 @@ strided interior), level 0's bordered copy included, into one buffer.
 Its plain version (``pyramid_plain``) is the JAX formulation, a pad and,
 per level, two banded float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``)
 and a pad, in full float32: TF32 is off in this package.
+
+``pyramid_streams`` builds the pyramids of S frames ((S, H, W), any stream
+and row stride) at once, as (S, h + 2b, w + 2b) level buffers: one K4
+launch for every stream on the card, the plain chain with a leading S on
+the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from ..core.border import fill_border_mirror
-from ..core.image import Image2d, from_array, pad2d
+from ..core.image import Image2d, from_array, pad2d, pad_hw
 from ..kernels import LAUNCHES, stream_handle
 
 _BINOMIAL = (1.0, 4.0, 6.0, 4.0, 1.0)
@@ -163,12 +168,27 @@ def _decim_tensor(n: int, on: int, device: torch.device) -> torch.Tensor:
 
 def _binomial_decimate(interior: torch.Tensor, oh: int,
                        ow: int) -> torch.Tensor:
-    """Fused filter+decimate for float levels: ``A @ x @ Bᵀ`` in float32."""
-    h, w = interior.shape
+    """Fused filter+decimate for float levels: ``A @ x @ Bᵀ`` in float32,
+    over the two trailing axes of an (..., H, W) level."""
+    h, w = interior.shape[-2], interior.shape[-1]
     a = _decim_tensor(h, oh, interior.device)
     bm = _decim_tensor(w, ow, interior.device)
     t = a @ interior.to(torch.float32)
     return (t @ bm.T).to(interior.dtype)
+
+
+def _plain_levels(interior: torch.Tensor,
+                  shapes: Tuple[Tuple[int, int], ...],
+                  border: int) -> Tuple[torch.Tensor, ...]:
+    """The plain chain on an (..., H, W) interior: every level's bordered
+    buffer, each padded ``border`` symmetric."""
+    b = border
+    levels = [pad_hw(interior, b, b, b, b, "symmetric")]
+    cur = interior
+    for oh, ow in shapes[1:]:
+        cur = _binomial_decimate(cur, oh, ow)
+        levels.append(pad_hw(cur, b, b, b, b, "symmetric"))
+    return tuple(levels)
 
 
 def pyramid_plain(interior: torch.Tensor,
@@ -176,15 +196,8 @@ def pyramid_plain(interior: torch.Tensor,
                   border: int) -> Tuple[Image2d, ...]:
     """Plain version of K4: the float pyramid of ``interior`` at ``shapes``
     (level 0 first), each level padded ``border`` symmetric."""
-    b = border
-    levels = [Image2d(data=pad2d(interior, b, b, b, b, "symmetric"),
-                      border=b)]
-    cur = interior
-    for oh, ow in shapes[1:]:
-        cur = _binomial_decimate(cur, oh, ow)
-        levels.append(Image2d(data=pad2d(cur, b, b, b, b, "symmetric"),
-                              border=b))
-    return tuple(levels)
+    return tuple(Image2d(data=lvl, border=border)
+                 for lvl in _plain_levels(interior, shapes, border))
 
 
 # (shapes, border, first) -> (ctypes rows of (h, w, offset), [(offset,
@@ -207,13 +220,15 @@ def _k4_layout(shapes, border: int, first: int):
     return _K4_LAYOUT[key]
 
 
-def _k4(interior: torch.Tensor, shapes: Tuple[Tuple[int, int], ...],
-        border: int, first: int, fuse: bool = True) -> Tuple[Image2d, ...]:
-    """One K4 launch on a float32 CUDA interior (any row stride): levels
-    ``first`` .. ``len(shapes) - 1`` of its pyramid, each bordered and a
-    contiguous view of one buffer. ``first`` 1 leaves level 0 unwritten.
-    ``fuse`` False computes level 2 after a grid barrier instead of from
-    the frame (the same bits; ``call_times.py`` times the two)."""
+def _k4_streams(interior: torch.Tensor,
+                shapes: Tuple[Tuple[int, int], ...], border: int, first: int,
+                fuse: bool = True) -> Tuple[torch.Tensor, ...]:
+    """One K4 launch for S float32 CUDA interiors (S, H, W), any stream and
+    row stride: levels ``first`` .. ``len(shapes) - 1`` of every stream's
+    pyramid, level l as an (S, h_l + 2b, w_l + 2b) view of one buffer.
+    ``first`` 1 leaves level 0 unwritten. ``fuse`` False computes level 2
+    after a grid barrier instead of from the frame (the same bits;
+    ``call_times.py`` times the two)."""
     for (h, w), (oh, ow) in zip(shapes, shapes[1:]):
         if min(h, w) < 2 or min(oh, ow) < 1:
             raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
@@ -221,25 +236,41 @@ def _k4(interior: torch.Tensor, shapes: Tuple[Tuple[int, int], ...],
         if 2 * oh > 2 * h - 1 or 2 * ow > 2 * w - 1:   # taps reach 2i + 2
             raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
                              f"decimation of ({h}, {w})")
-    if interior.dtype != torch.float32 or interior.device.type != "cuda":
-        raise ValueError(f"pyramid_decim: needs a float32 CUDA frame, got "
-                         f"{interior.dtype} on {interior.device}")
-    if interior.stride(1) != 1:
+    if (interior.dim() != 3 or interior.dtype != torch.float32
+            or interior.device.type != "cuda"):
+        raise ValueError(f"pyramid_decim: needs float32 CUDA frames (S, H, "
+                         f"W), got {tuple(interior.shape)} {interior.dtype} "
+                         f"on {interior.device}")
+    if interior.stride(2) != 1:
         interior = interior.contiguous()
+    n_streams = interior.shape[0]
     rows, spans, total = _k4_layout(tuple(shapes), border, first)
     from ..kernels import _build
     lib = _build.load()
-    out = torch.empty((total,), dtype=torch.float32, device=interior.device)
-    code = lib.vpp_pyramid(interior.data_ptr(), interior.stride(0), rows,
-                           len(shapes), first, border, int(fuse),
-                           out.data_ptr(),
-                           stream_handle(interior))
+    out = torch.empty((n_streams, total), dtype=torch.float32,
+                      device=interior.device)
+    code = lib.vpp_pyramid(interior.data_ptr(), interior.stride(1),
+                           interior.stride(0), rows, len(shapes), first,
+                           border, int(fuse), n_streams, out.data_ptr(),
+                           total, stream_handle(interior))
     LAUNCHES["pyramid_decim"] += 1
     _build.check(code, "pyramid_decim")
     return tuple(
-        Image2d(data=out[off:off + size].view(h + 2 * border,
-                                              w + 2 * border), border=border)
+        out[:, off:off + size].view(n_streams, h + 2 * border,
+                                    w + 2 * border)
         for (off, size), (h, w) in zip(spans, shapes[first:]))
+
+
+def _k4(interior: torch.Tensor, shapes: Tuple[Tuple[int, int], ...],
+        border: int, first: int, fuse: bool = True) -> Tuple[Image2d, ...]:
+    """``_k4_streams`` on one float32 CUDA interior (any row stride), each
+    level a bordered image."""
+    if interior.dim() != 2:
+        raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
+                         f"2x2, got {tuple(interior.shape)}")
+    return tuple(Image2d(data=lvl[0], border=border)
+                 for lvl in _k4_streams(interior[None], shapes, border, first,
+                                        fuse))
 
 
 def decimate_level(level: Image2d, oh: int, ow: int, border: int
@@ -252,9 +283,6 @@ def decimate_level(level: Image2d, oh: int, ow: int, border: int
         return Image2d(data=pad2d(_binomial_decimate(level.interior, oh, ow),
                                   border, border, border, border,
                                   "symmetric"), border=border)
-    if level.data.dim() != 2:
-        raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
-                         f"2x2, got {tuple(level.data.shape)}")
     (out,) = _k4(level.interior.to(torch.float32), (level.shape, (oh, ow)),
                  border, first=1)
     return Image2d(data=out.data.to(level.dtype), border=border)
@@ -291,3 +319,25 @@ def pyramid(img: Image2d, nlevels: int, factor: float = 2.0,
             nxt = subsample(lp, shapes[i], factor, out_border=b)
         levels.append(fill_border_mirror(nxt))
     return Pyramid(levels=tuple(levels), factor=factor)
+
+
+def pyramid_streams(frames: torch.Tensor, nlevels: int,
+                    border: int = 3) -> Tuple[torch.Tensor, ...]:
+    """The pyramids of S frames (S, H, W) at once: level l as one (S, h_l +
+    2b, w_l + 2b) buffer with ``b = max(border, 3)``, each stream's slice
+    what ``pyramid(Image2d(data=frames[s], border=0), nlevels,
+    border=border)`` gives. Float32 frames on the card take one K4 launch
+    for every stream; float frames on the CPU the plain chain with a
+    leading S; other types ``pyramid`` stream by stream."""
+    shapes = level_shapes(tuple(frames.shape[-2:]), nlevels)
+    b = max(border, 3)
+    if frames.dtype == torch.float32 and frames.device.type == "cuda":
+        return _k4_streams(frames, shapes, b, first=0)
+    if _is_float(frames.dtype) and frames.device.type == "cpu":
+        return _plain_levels(frames, shapes, b)
+    pyrs = [pyramid(Image2d(data=f, border=0), nlevels, border=border)
+            for f in frames]
+    if len(pyrs) == 1:
+        return tuple(lvl.data[None] for lvl in pyrs[0].levels)
+    return tuple(torch.stack([p[lvl].data for p in pyrs])
+                 for lvl in range(nlevels))

@@ -10,13 +10,18 @@ read from their field annotations); the ``*_from_numpy``/``*_to_numpy``
 functions name it per type. Host ints (``frame_id``, ``n_keyframes``)
 come out as ``np.int32`` and go in from 0-d arrays or ints. Checkpoints
 (``slam/checkpoint.py``) store the same mappings.
+
+Streams: a JAX state of S streams (``slam_run_streams``, a vmapped state)
+carries its host ints as (S,) arrays; they go in as the port's one host
+int, and the conversion raises if the streams disagree. ``state_to_numpy(
+state, streams=S)`` writes them back as (S,) arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,18 +46,20 @@ def _names(cls):
     return list(cls._fields)
 
 
-def state_to_numpy(obj) -> Dict[str, Any]:
+def state_to_numpy(obj, streams: Optional[int] = None) -> Dict[str, Any]:
     """Every field of a port state as numpy: tensors copied to the host,
-    host ints as ``np.int32``, nested states as nested mappings."""
+    host ints as ``np.int32`` (as (S,) arrays for a state of ``streams``
+    streams, the JAX layout), nested states as nested mappings."""
     out = {}
     for name in _names(type(obj)):
         v = getattr(obj, name)
         if isinstance(v, torch.Tensor):
             out[name] = v.detach().cpu().numpy()
         elif isinstance(v, int):
-            out[name] = np.int32(v)
+            out[name] = (np.int32(v) if streams is None
+                         else np.full((streams,), v, np.int32))
         elif _is_state(type(v)):
-            out[name] = state_to_numpy(v)
+            out[name] = state_to_numpy(v, streams)
         else:
             raise TypeError(f"state_to_numpy: field {name} is a "
                             f"{type(v).__name__}")
@@ -72,7 +79,12 @@ def state_from_numpy(cls, m: Mapping[str, Any], device="cuda", *,
         ref = None if like is None else getattr(like, name)
         at = f"{where}.{name}"
         if t is int:
-            out[name] = int(np.asarray(v))
+            a = np.asarray(v)
+            if a.ndim and (a != a.flat[0]).any():
+                raise ValueError(f"{at}: the streams disagree "
+                                 f"({a.tolist()}); a host int is shared by "
+                                 "every stream")
+            out[name] = int(a.flat[0]) if a.ndim else int(a)
         elif _is_state(t):
             out[name] = state_from_numpy(t, v, dev, like=ref, where=at)
         else:

@@ -155,6 +155,21 @@ def pad2d(arr: torch.Tensor, top: int, bottom: int, left: int, right: int,
     return arr.index_select(0, ri).index_select(1, ci)
 
 
+def pad_hw(arr: torch.Tensor, top: int, bottom: int, left: int, right: int,
+           mode: str, value=0) -> torch.Tensor:
+    """``pad2d`` on the two trailing axes of an (..., H, W) array: the
+    pads of stacked (S, H, W) buffers, one stream a leading index."""
+    h, w = arr.shape[-2], arr.shape[-1]
+    if mode == "constant":
+        out = torch.full(arr.shape[:-2] + (h + top + bottom, w + left + right),
+                         value, dtype=arr.dtype, device=arr.device)
+        out[..., top:top + h, left:left + w] = arr
+        return out
+    ri = pad_index(h, top, bottom, mode, arr.device)
+    ci = pad_index(w, left, right, mode, arr.device)
+    return arr.index_select(-2, ri).index_select(-1, ci)
+
+
 _MODES = {"zero": "constant", "mirror": "symmetric", "closest": "edge"}
 
 

@@ -8,6 +8,10 @@ Where the JAX package scatters with ``mode="drop"`` (out-of-range indices
 silently ignored), torch would raise; the port scatters into one extra
 trailing slot instead and slices it off, which keeps the op free of host
 synchronisation on the card.
+
+Every operation also takes leading stream dimensions (fields (S, K, ...)):
+each stream's slots are its own, and no scatter or compaction crosses a
+stream (``core/streams.py``).
 """
 
 from __future__ import annotations
@@ -28,15 +32,15 @@ class Keypoints:
 
     @property
     def capacity(self) -> int:
-        return self.position.shape[0]
+        return self.position.shape[-2]
 
     @property
     def alive(self) -> torch.Tensor:
         return self.age > 0
 
     def size(self) -> torch.Tensor:
-        """Number of live keypoints (a 0-d tensor)."""
-        return self.alive.sum(dtype=torch.int32)
+        """Number of live keypoints (a 0-d tensor; (S,) for streams)."""
+        return self.alive.sum(-1, dtype=torch.int32)
 
 
 def keypoints_empty(capacity: int, device=None) -> Keypoints:
@@ -49,16 +53,19 @@ def keypoints_empty(capacity: int, device=None) -> Keypoints:
 
 
 def drop_scatter(out: torch.Tensor, index: torch.Tensor,
-                 src: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """``out.at[where(keep, index, n)].set(src, mode="drop")`` along dim 0:
-    entries with ``keep`` false are dropped. The scatter goes into a
-    buffer with one spare slot that absorbs them."""
-    n = out.shape[0]
-    buf = torch.cat([out, out[:1]], dim=0)
+                 src: torch.Tensor, keep: torch.Tensor,
+                 dim: int = 0) -> torch.Tensor:
+    """``out.at[where(keep, index, n)].set(src, mode="drop")`` along
+    ``dim``: entries with ``keep`` false are dropped. The scatter goes into
+    a buffer with one spare slot that absorbs them. ``index`` and ``keep``
+    broadcast to ``src``'s dimensions up to ``dim``; with ``dim`` 1 each
+    leading index (a stream) scatters into its own row."""
+    n = out.shape[dim]
+    buf = torch.cat([out, out.narrow(dim, 0, 1)], dim=dim)
     idx = torch.where(keep, index, torch.full_like(index, n)).long()
-    idx = idx.view((-1,) + (1,) * (src.dim() - 1)).expand_as(src)
-    buf.scatter_(0, idx, src.to(buf.dtype))
-    return buf[:n]
+    idx = idx.view(idx.shape + (1,) * (src.dim() - idx.dim())).expand_as(src)
+    buf.scatter_(dim, idx, src.to(buf.dtype))
+    return buf.narrow(dim, 0, n)
 
 
 def kp_move_all(kps: Keypoints, new_pos: torch.Tensor,
@@ -67,8 +74,8 @@ def kp_move_all(kps: Keypoints, new_pos: torch.Tensor,
     die."""
     alive = kps.alive
     ok = ok & alive
-    pos = torch.where(ok[:, None], new_pos.to(torch.float32), kps.position)
-    vel = torch.where(ok[:, None], pos - kps.position, kps.velocity)
+    pos = torch.where(ok[..., None], new_pos.to(torch.float32), kps.position)
+    vel = torch.where(ok[..., None], pos - kps.position, kps.velocity)
     age = torch.where(ok, kps.age + 1,
                       torch.where(alive, torch.zeros_like(kps.age), kps.age))
     return Keypoints(position=pos, velocity=vel, age=age)
@@ -79,16 +86,23 @@ def kp_kill_where(kps: Keypoints, dead_mask: torch.Tensor) -> Keypoints:
         kps, age=torch.where(dead_mask, torch.zeros_like(kps.age), kps.age))
 
 
+def _take_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per stream: (..., K, C) rows at (..., M) slots."""
+    return x.gather(-2, idx[..., None].expand(idx.shape + x.shape[-1:]))
+
+
 def kp_compact(kps: Keypoints) -> Tuple[Keypoints, torch.Tensor]:
-    """Stable alive-first compaction. Returns (compacted, matches) with
-    ``matches[old_slot] = new_slot`` or -1 if dead."""
-    k = kps.capacity
+    """Stable alive-first compaction, per stream. Returns (compacted,
+    matches) with ``matches[old_slot] = new_slot`` or -1 if dead."""
+    k = kps.age.shape[-1]
     alive = kps.alive
-    order = torch.argsort((~alive).to(torch.int32), stable=True)
-    compacted = Keypoints(position=kps.position[order],
-                          velocity=kps.velocity[order], age=kps.age[order])
-    inv = torch.empty((k,), dtype=torch.int32, device=alive.device)
-    inv[order] = torch.arange(k, dtype=torch.int32, device=alive.device)
+    order = torch.argsort((~alive).to(torch.int32), dim=-1, stable=True)
+    compacted = Keypoints(position=_take_slots(kps.position, order),
+                          velocity=_take_slots(kps.velocity, order),
+                          age=kps.age.gather(-1, order))
+    ar = torch.arange(k, dtype=torch.int32, device=alive.device)
+    inv = torch.empty_like(kps.age).scatter_(-1, order,
+                                             ar.expand_as(kps.age))
     matches = torch.where(alive, inv, torch.full_like(inv, -1))
     return compacted, matches
 
@@ -98,28 +112,31 @@ def sync_attributes(attr: torch.Tensor, matches: torch.Tensor,
     """Permute a per-keypoint array through a ``kp_compact`` mapping; new
     (unmapped) slots get ``fill_value``."""
     out = torch.full_like(attr, fill_value)
-    return drop_scatter(out, matches, attr, matches >= 0)
+    return drop_scatter(out, matches, attr, matches >= 0,
+                        dim=matches.dim() - 1)
 
 
 def kp_add(kps: Keypoints, new_pos: torch.Tensor,
            new_valid: torch.Tensor) -> Keypoints:
     """Spawn up to N new keypoints into dead slots, in slot order; new
     keypoints start with age 1 and excess candidates are dropped."""
-    n = new_pos.shape[0]
+    n = new_pos.shape[-2]
     dev = kps.age.device
     dead = ~kps.alive
-    dead_rank = torch.cumsum(dead.to(torch.int32), 0, dtype=torch.int32) - 1
-    cand_rank = torch.cumsum(new_valid.to(torch.int32), 0,
+    dead_rank = torch.cumsum(dead.to(torch.int32), -1, dtype=torch.int32) - 1
+    cand_rank = torch.cumsum(new_valid.to(torch.int32), -1,
                              dtype=torch.int32) - 1
-    n_valid = new_valid.sum(dtype=torch.int32)
+    n_valid = new_valid.sum(-1, keepdim=True, dtype=torch.int32)
     cand_by_rank = drop_scatter(
-        torch.zeros((n,), dtype=torch.int32, device=dev), cand_rank,
-        torch.arange(n, dtype=torch.int32, device=dev), new_valid)
+        torch.zeros_like(cand_rank), cand_rank,
+        torch.arange(n, dtype=torch.int32, device=dev).expand_as(cand_rank),
+        new_valid, dim=cand_rank.dim() - 1)
     take = dead & (dead_rank < n_valid)
-    src = cand_by_rank[dead_rank.clamp(0, n - 1).long()]
-    pos = torch.where(take[:, None], new_pos.to(torch.float32)[src.long()],
+    src = cand_by_rank.gather(-1, dead_rank.clamp(0, n - 1).long())
+    pos = torch.where(take[..., None],
+                      _take_slots(new_pos.to(torch.float32), src.long()),
                       kps.position)
-    vel = torch.where(take[:, None], torch.zeros_like(kps.velocity),
+    vel = torch.where(take[..., None], torch.zeros_like(kps.velocity),
                       kps.velocity)
     age = torch.where(take, torch.ones_like(kps.age), kps.age)
     return Keypoints(position=pos, velocity=vel, age=age)

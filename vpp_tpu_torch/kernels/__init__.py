@@ -6,17 +6,17 @@ count in ``LAUNCHES`` where it launches, and nowhere else, so a run can
 show that it went through the kernels:
 
 * ``fast9``      — K2, every launch of ``algorithms/fast.py``'s three
-  entries: ``fast9_cuda`` (full map), ``fast9_score_image`` and
-  ``fast9_cull_scores``
+  entries: ``fast9_cuda`` (full map), ``score_image`` (behind
+  ``fast9_score_image``) and ``cull_scores`` (behind ``fast9_cull_scores``)
 * ``flow_level`` — K1, ``algorithms/flow.py:flow_level`` (two per level:
   the volume launch, and the argmin/rejection/propagation launch)
 * ``hough_acc``  — K7, ``algorithms/hough_cuda.py:hough_acc`` (one
   cooperative launch per call)
-* ``block_topk`` — K3, ``algorithms/fast.py:_blockwise_keypoints`` (one
-  cooperative launch per call)
-* ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_k4`` (one launch per
-  float32 pyramid on the card, every level included; one per level
-  through ``decimate_level``)
+* ``block_topk`` — K3, ``algorithms/fast.py:block_topk`` (behind
+  ``_blockwise_keypoints``; one cooperative launch per call)
+* ``pyramid_decim`` — K4, ``algorithms/pyramid.py:_k4_streams`` (one launch
+  per float32 pyramid on the card, every level included, or per S of them
+  through ``pyramid_streams``; one per level through ``decimate_level``)
 * ``patches``    — K5, ``core/interp.py:extract_patches`` (from centres)
   and ``extract_patches_at_tl``
 * ``ba_tracks``  — K6, ``slam/ba_cuda.py:lm_tracks`` (one cluster launch
@@ -24,6 +24,9 @@ show that it went through the kernels:
 * ``map_vote``   — K8, ``slam/map_vote.py:map_vote_pnp`` (one cluster
   launch per call: every match set's vote rounds, pick, gate and both PnP
   solves; one a recovery keyframe, one a ``relocalize``)
+
+K1-K6 also take S streams in one launch (the stream in the grid): a run
+of ``slam_run_streams`` counts the launches of one stream.
 """
 
 from __future__ import annotations

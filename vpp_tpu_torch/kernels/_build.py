@@ -41,15 +41,17 @@ _L = ctypes.c_longlong
 # C signatures: name -> argtypes (every function returns a cudaError_t).
 _SIGNATURES = {
     "vpp_fast9": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "vpp_fast9_image": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "vpp_fast9_cull": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
-    "vpp_flow_volume": [_P] * 4 + [_I] * 17 + [_P] * 4,
-    "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 10 + [_P] * 3,
+    "vpp_fast9_image": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "vpp_fast9_cull": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
+    "vpp_flow_volume": [_P] * 4 + [_I] * 18 + [_P] * 4,
+    "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 11 + [_P] * 3,
     "vpp_hough_acc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "vpp_block_topk": [_P] + [_I] * 7 + [_P, _L] + [_P] * 4,
-    "vpp_pyramid": [_P, _I, ctypes.POINTER(_L)] + [_I] * 4 + [_P, _P],
-    "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 4 + [_P, _P],
-    "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 4 + [_P] * 10,
+    "vpp_block_topk": [_P] + [_I] * 8 + [_L, _P, _L] + [_P] * 4,
+    "vpp_pyramid": [_P, _I, _L, ctypes.POINTER(_L)] + [_I] * 5
+    + [_P, _L, _P],
+    "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 5 + [_P, _P],
+    "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 10,
+    "vpp_ba_max_active_clusters": [_I, _P],
     "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
 }
 

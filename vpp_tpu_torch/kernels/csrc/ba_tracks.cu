@@ -56,6 +56,12 @@
 // at latency: each CTA walks its tiles one after another with few warps,
 // rank 0's pose factorisation takes a block barrier a column, and every
 // iteration passes five cluster barriers.
+//
+// Streams: one launch solves S problems of one shape, a cluster each
+// (grid kCluster x S, blockIdx.y the problem), each with its own inputs,
+// outputs, costs, trace and scratch; the intrinsics, lam0 and huber are
+// shared. The clusters are of a non-portable size: the card holds only a
+// few at once (vpp_ba_max_active_clusters), and the rest queue.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -590,6 +596,23 @@ ba_lm_kernel(const float* __restrict__ poses_in,
              double* __restrict__ hinv, double* __restrict__ bl,
              double* __restrict__ U, unsigned char* __restrict__ seen,
              float* __restrict__ cand_lms) {
+  {  // problem blockIdx.y: its inputs, outputs, trace and scratch
+    const size_t q = blockIdx.y, nm = (size_t)n * m;
+    poses_in += q * 16 * m;
+    lms_in += q * 3 * n;
+    obs_uv += q * 2 * nm;
+    obs_valid += q * nm;
+    fixed += q * m;
+    poses_out += q * 16 * m;
+    lms_out += q * 3 * n;
+    costs += q * iters;
+    trace += q * ((size_t)n_entries(m) + (size_t)iters * (6 * m + 4));
+    hinv += q * 9 * n;
+    bl += q * 3 * n;
+    U += q * 18 * nm;
+    seen += q * n;
+    cand_lms += q * 3 * n;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
@@ -727,31 +750,17 @@ ba_lm_kernel(const float* __restrict__ poses_in,
   cluster.sync();   // no CTA leaves while another may still read its memory
 }
 
-}  // namespace
+size_t smem_of(int m) {
+  return region_bytes(m) + (size_t)n_entries(m) * 8;
+}
 
-// The whole LM solve in one cluster launch of kCluster CTAs. poses (m, 4,
-// 4), lms (n, 3), obs_uv (n, m, 2), intr (4) float32; obs_valid (n, m),
-// fixed (m) bytes. Out: poses_out (m, 4, 4), lms_out (n, 3), costs (iters)
-// float32; trace (P + iters * (6m + 4)) float32 with P = 36 m^2 + 6 m + 1.
-// Scratch: hinv (n, 3, 3), bl (n, 3), U (n, m, 6, 3) float64, seen (n)
-// bytes, cand_lms (n, 3) float32.
-extern "C" int vpp_ba_lm(const float* poses, const float* lms,
-                         const float* obs_uv, const unsigned char* obs_valid,
-                         const float* intr, const unsigned char* fixed,
-                         float lam0, float huber, int n, int m, int iters,
-                         int use_lu, float* poses_out,
-                         float* lms_out, float* costs, float* trace,
-                         double* hinv, double* bl, double* U,
-                         unsigned char* seen, float* cand_lms, void* stream) {
-  if (m < 1 || m > kMaxPoses || n < 0 || iters < 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = region_bytes(m) + (size_t)n_entries(m) * 8;
-  // once, for the largest window, so that no later call (one inside a
-  // CUDA graph capture among them) sets an attribute
+// Once, for the largest window, so that no later call (one inside a CUDA
+// graph capture among them) sets an attribute.
+cudaError_t set_attributes() {
   static cudaError_t attr_err = [] {
     size_t most = 0;
     for (int mm = 1; mm <= kMaxPoses; ++mm) {
-      const size_t b = region_bytes(mm) + (size_t)n_entries(mm) * 8;
+      const size_t b = smem_of(mm);
       most = b > most ? b : most;
     }
     cudaError_t err = cudaFuncSetAttribute(
@@ -760,24 +769,64 @@ extern "C" int vpp_ba_lm(const float* poses, const float* lms,
     return cudaFuncSetAttribute(
         ba_lm_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
-  if (attr_err != cudaSuccess) return (int)attr_err;
-  cudaError_t e;
+  return attr_err;
+}
+
+cudaLaunchConfig_t launch_config(int m, int n_streams, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.gridDim = dim3(kCluster, n_streams, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
+  cfg.dynamicSmemBytes = smem_of(m);
+  cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// The whole LM solve of S problems in one launch of S clusters of kCluster
+// CTAs. Problem s's poses (m, 4, 4), lms (n, 3), obs_uv (n, m, 2) float32,
+// obs_valid (n, m) and fixed (m) bytes at s times those sizes; intr (4)
+// float32, shared. Out, per problem: poses_out (m, 4, 4), lms_out (n, 3),
+// costs (iters) float32; trace (P + iters * (6m + 4)) float32 with P = 36
+// m^2 + 6 m + 1. Scratch, per problem: hinv (n, 3, 3), bl (n, 3), U (n, m,
+// 6, 3) float64, seen (n) bytes, cand_lms (n, 3) float32.
+extern "C" int vpp_ba_lm(const float* poses, const float* lms,
+                         const float* obs_uv, const unsigned char* obs_valid,
+                         const float* intr, const unsigned char* fixed,
+                         float lam0, float huber, int n, int m, int iters,
+                         int use_lu, int n_streams, float* poses_out,
+                         float* lms_out, float* costs, float* trace,
+                         double* hinv, double* bl, double* U,
+                         unsigned char* seen, float* cand_lms, void* stream) {
+  if (m < 1 || m > kMaxPoses || n < 0 || iters < 0 || n_streams < 1 ||
+      n_streams > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_attributes();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(m, n_streams, (cudaStream_t)stream, attr);
   e = cudaLaunchKernelEx(&cfg, ba_lm_kernel, poses, lms, obs_uv, obs_valid,
                          intr, fixed, lam0, huber, n, m, iters, use_lu,
                          poses_out, lms_out, costs, trace, hinv, bl, U, seen,
                          cand_lms);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of K6 at windows of m poses the card holds at once.
+extern "C" int vpp_ba_max_active_clusters(int m, int* out) {
+  if (m < 1 || m > kMaxPoses) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_attributes();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(m, 1, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, ba_lm_kernel, &cfg);
 }

@@ -36,6 +36,13 @@
 // error at the next synchronisation, never a wrong order. The JAX key
 // itself needs nb <= 2^31 / 256; the wrapper checks it.
 //
+// Streams: one launch takes the score images of S frames, blockIdx.y the
+// stream, each with its own G CTAs, winners, table and outputs; the one
+// grid barrier is shared. The whole grid must be co-resident, so G is
+// sized per stream: at most one CTA per SM and per stream, and G * S no
+// more than the card holds at once (a cooperative launch of more is
+// refused).
+//
 // Bound on the H100: device-memory bytes (the score image read once: 0.3 MB
 // at 640x480 as uint8, ~0.1 us). The launch sits at the latency of its
 // argmax loads and of the grid barrier.
@@ -58,14 +65,22 @@ static_assert(kThreads == 2 * kBins, "phase 2 takes two threads a score");
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-block_topk_kernel(const T* __restrict__ data, int stride, int border, int h,
-                  int w, int bs, int nbc, int nb, int k,
-                  int* __restrict__ cand_score, int* __restrict__ cand_idx,
-                  int* __restrict__ table, int* __restrict__ pos_out,
+block_topk_kernel(const T* __restrict__ data, long long data_streams,
+                  int stride, int border, int h, int w, int bs, int nbc,
+                  int nb, int k, int* __restrict__ scratch,
+                  long long scratch_streams, int* __restrict__ pos_out,
                   int* __restrict__ score_out,
                   unsigned char* __restrict__ valid_out) {
   cg::grid_group grid = cg::this_grid();
   const int g = blockIdx.x, G = gridDim.x;
+  // stream blockIdx.y: its image, winners, histogram table and outputs
+  data += blockIdx.y * data_streams;
+  int* const cand_score = scratch + blockIdx.y * scratch_streams;
+  int* const cand_idx = cand_score + nb;
+  int* const table = cand_score + 2 * nb;
+  pos_out += (size_t)blockIdx.y * 2 * k;
+  score_out += (size_t)blockIdx.y * k;
+  valid_out += (size_t)blockIdx.y * k;
   __shared__ int hist[kBins];          // this CTA's, then every CTA's, count
   __shared__ int base[kBins];          // where score s places next
   __shared__ int wcnt[kWarps][kBins];  // a chunk's count per warp and score
@@ -248,13 +263,15 @@ block_topk_kernel(const T* __restrict__ data, int stride, int border, int h,
 }
 
 template <typename T>
-cudaError_t launch(const T* data, int stride, int border, int h, int w,
-                   int bs, int nbc, int nb, int k, int* scratch,
-                   long long scratch_ints, int* pos_out, int* score_out,
-                   unsigned char* valid_out, cudaStream_t stream) {
-  // G: one CTA per pass of its warps, at most one per SM, and no more than
-  // can be resident at once (a cooperative launch needs them all). The SM
-  // count and the occupancy are asked once per device (0: not yet asked).
+cudaError_t launch(const T* data, long long data_streams, int stride,
+                   int border, int h, int w, int bs, int nbc, int nb, int k,
+                   int n_streams, int* scratch, long long scratch_ints,
+                   int* pos_out, int* score_out, unsigned char* valid_out,
+                   cudaStream_t stream) {
+  // G a stream: one CTA per pass of its warps, at most one per SM, and no
+  // more than the card holds at once for all S streams (a cooperative
+  // launch needs them all resident). The SM count and the occupancy are
+  // asked once per device (0: not yet asked).
   static int sms_of[kMaxDevices], per_sm_of[kMaxDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -270,16 +287,16 @@ cudaError_t launch(const T* data, int stride, int border, int h, int w,
     per_sm_of[dev] = per_sm;
     sms_of[dev] = sms;
   }
-  const int sms = sms_of[dev], per_sm = per_sm_of[dev];
+  const int sms = sms_of[dev];
+  const int share = sms * per_sm_of[dev] / n_streams;
+  if (share < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int want = (nb + kBlocksPerCta - 1) / kBlocksPerCta;
-  const int G = want < sms ? want : sms;
-  if (per_sm < 1 || 2LL * nb + (long long)kBins * G > scratch_ints)
+  int G = want < sms ? want : sms;
+  G = G < share ? G : share;
+  if (2LL * nb + (long long)kBins * G > scratch_ints)
     return cudaErrorInvalidValue;
-  int* cand_score = scratch;
-  int* cand_idx = scratch + nb;
-  int* table = scratch + 2 * nb;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(G, 1, 1);
+  cfg.gridDim = dim3(G, n_streams, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -288,36 +305,40 @@ cudaError_t launch(const T* data, int stride, int border, int h, int w,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, block_topk_kernel<T>, data, stride, border, h,
-                         w, bs, nbc, nb, k, cand_score, cand_idx, table,
-                         pos_out, score_out, valid_out);
+  e = cudaLaunchKernelEx(&cfg, block_topk_kernel<T>, data, data_streams,
+                         stride, border, h, w, bs, nbc, nb, k, scratch,
+                         scratch_ints, pos_out, score_out, valid_out);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// data: uint8 (elem_bytes 1) or int32 (4) bordered score image, row stride
-// `stride` elements, interior h x w at offset `border`. Scratch: int32, at
-// least 2 nb + 256 min(SMs, ceil(nb / 64)) entries (`scratch_ints`), with
-// nb = ceil(h/bs) * ceil(w/bs). Out: pos (k, 2) int32, score (k) int32,
-// valid (k) bytes.
+// data: S uint8 (elem_bytes 1) or int32 (4) bordered score images, row
+// stride `stride` elements, interior h x w at offset `border`, stream s at
+// data + s * data_streams elements. Scratch: int32, `scratch_ints` a
+// stream (stream s at scratch + s * scratch_ints), at least 2 nb + 256
+// min(SMs, ceil(nb / 64)), with nb = ceil(h/bs) * ceil(w/bs). Out: pos
+// (S, k, 2) int32, score (S, k) int32, valid (S, k) bytes.
 extern "C" int vpp_block_topk(const void* data, int elem_bytes, int stride,
                               int border, int h, int w, int bs, int k,
+                              int n_streams, long long data_streams,
                               int* scratch, long long scratch_ints,
                               int* pos_out, int* score_out,
                               unsigned char* valid_out, void* stream) {
-  if (bs < 1 || k < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  if (bs < 1 || k < 1 || h < 1 || w < 1 || n_streams < 1 ||
+      n_streams > 65535)
+    return (int)cudaErrorInvalidValue;
   const int nbr = (h + bs - 1) / bs, nbc = (w + bs - 1) / bs;
   const int nb = nbr * nbc;
   cudaStream_t st = (cudaStream_t)stream;
   if (elem_bytes == 1)
-    return (int)launch((const unsigned char*)data, stride, border, h, w, bs,
-                       nbc, nb, k, scratch, scratch_ints, pos_out, score_out,
-                       valid_out, st);
+    return (int)launch((const unsigned char*)data, data_streams, stride,
+                       border, h, w, bs, nbc, nb, k, n_streams, scratch,
+                       scratch_ints, pos_out, score_out, valid_out, st);
   if (elem_bytes == 4)
-    return (int)launch((const int*)data, stride, border, h, w, bs, nbc, nb, k,
-                       scratch, scratch_ints, pos_out, score_out, valid_out,
-                       st);
+    return (int)launch((const int*)data, data_streams, stride, border, h, w,
+                       bs, nbc, nb, k, n_streams, scratch, scratch_ints,
+                       pos_out, score_out, valid_out, st);
   return (int)cudaErrorInvalidValue;
 }

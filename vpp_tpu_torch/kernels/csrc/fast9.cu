@@ -42,6 +42,9 @@
 // Both polarities' ring codes are built in one pass over the circle, and
 // the 9-contiguous test is the same four shift-AND rounds on a uint32 (bit
 // 31 is written, so the type is unsigned).
+// Streams: the score image and the cull take S frames in one launch, the
+// stream in blockIdx.z (tiles) or blockIdx.y (slots); each stream reads
+// its own frame, mask and positions and writes its own output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,6 +150,10 @@ fast9_tile_kernel(const float* __restrict__ img, int wb, int b, int h, int w,
   __shared__ int tile[kHaloH * kStride];
   constexpr int o = kImage ? 1 : 0;      // output offset of frame pixel 0
   const int oh = h + 2 * o, ow = w + 2 * o;
+  // stream blockIdx.z: its frame, mask and image (the full map takes one)
+  img += (size_t)blockIdx.z * (h + 2 * b) * wb;
+  if (mask != nullptr) mask += (size_t)blockIdx.z * h * w;
+  if (image != nullptr) image += (size_t)blockIdx.z * oh * ow;
   const int oy0 = blockIdx.y * kTileH, ox0 = blockIdx.x * kTileW;
   // stage frame rows oy0-o-3 .. +kHaloH and columns likewise, as buffer
   // rows/columns (+b); outside the buffer only border outputs read them
@@ -219,6 +226,10 @@ __global__ void fast9_cull_kernel(const float* __restrict__ img, int wb,
                                   int* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
+  // stream blockIdx.y: its frame, positions and scores
+  img += (size_t)blockIdx.y * (h + 2 * b) * wb;
+  pos += (size_t)blockIdx.y * 2 * k;
+  out += (size_t)blockIdx.y * k;
   // round half to even; a position beyond the int32 range saturates
   int r = __float2int_rn(pos[2 * i]), c = __float2int_rn(pos[2 * i + 1]);
   r = r < 0 ? 0 : (r > h - 1 ? h - 1 : r);
@@ -232,10 +243,10 @@ __global__ void fast9_cull_kernel(const float* __restrict__ img, int wb,
 template <bool kImage>
 int launch_tile(const float* img, int wb, int b, int h, int w, int th,
                 int* score, uint8_t* flag, const uint8_t* mask,
-                uint8_t* image, cudaStream_t st) {
+                uint8_t* image, int n_streams, cudaStream_t st) {
   const int o = kImage ? 1 : 0;
   dim3 grid((w + 2 * o + kTileW - 1) / kTileW,
-            (h + 2 * o + kTileH - 1) / kTileH);
+            (h + 2 * o + kTileH - 1) / kTileH, n_streams);
   fast9_tile_kernel<kImage><<<grid, kThreads, 0, st>>>(
       img, wb, b, h, w, th, score, flag, mask, image);
   return (int)cudaGetLastError();
@@ -248,8 +259,8 @@ extern "C" const char* vpp_cuda_error_string(int code) {
 }
 
 // In every entry, img is the (h + 2b) x wb float32 bordered frame,
-// row-major, with b >= 3; each returns cudaGetLastError() after its one
-// launch.
+// row-major, with b >= 3 (S of them back to back where n_streams is
+// given); each returns cudaGetLastError() after its one launch.
 
 // The full map: score h x w int32; flag h x w uint8 or null.
 extern "C" int vpp_fast9(const float* img, int wb, int b, int h, int w,
@@ -257,29 +268,32 @@ extern "C" int vpp_fast9(const float* img, int wb, int b, int h, int w,
                          void* stream) {
   if (h <= 0 || w <= 0) return 0;
   return launch_tile<false>(img, wb, b, h, w, th, score, flag, nullptr,
-                            nullptr, (cudaStream_t)stream);
+                            nullptr, 1, (cudaStream_t)stream);
 }
 
-// The score image: out (h + 2) x (w + 2) uint8, border included; mask h x w
-// bytes (uint8 or bool) or null.
+// The score image of S frames: out S x (h + 2) x (w + 2) uint8, border
+// included; mask S x h x w bytes (uint8 or bool) or null.
 extern "C" int vpp_fast9_image(const float* img, int wb, int b, int h, int w,
                                int th, const unsigned char* mask,
-                               unsigned char* out, void* stream) {
+                               int n_streams, unsigned char* out,
+                               void* stream) {
   if (h <= 0 || w <= 0) return 0;
+  if (n_streams < 1 || n_streams > 65535) return (int)cudaErrorInvalidValue;
   return launch_tile<true>(img, wb, b, h, w, th, nullptr, nullptr, mask, out,
-                           (cudaStream_t)stream);
+                           n_streams, (cudaStream_t)stream);
 }
 
-// The cull: pos (k, 2) float32 (row, col) in frame coordinates; out (k)
-// int32, the score at each rounded, clamped position.
+// The cull of S frames: pos S x k x 2 float32 (row, col) in frame
+// coordinates; out S x k int32, the score at each rounded, clamped position.
 extern "C" int vpp_fast9_cull(const float* img, int wb, int b, int h, int w,
-                              int th, const float* pos, int k, int* out,
-                              void* stream) {
+                              int th, const float* pos, int k, int n_streams,
+                              int* out, void* stream) {
   if (k <= 0) return 0;
-  if (h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  if (h <= 0 || w <= 0 || n_streams < 1 || n_streams > 65535)
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
-  fast9_cull_kernel<<<(k + threads - 1) / threads, threads, 0,
-                      (cudaStream_t)stream>>>(img, wb, b, h, w, th, pos, k,
-                                              out);
+  fast9_cull_kernel<<<dim3((k + threads - 1) / threads, n_streams), threads,
+                      0, (cudaStream_t)stream>>>(img, wb, b, h, w, th, pos, k,
+                                                 out);
   return (int)cudaGetLastError();
 }

@@ -49,6 +49,13 @@
 // few blocks on an SM, so it sits at its blocks' latency (measured times:
 // PERF.md, from chip_smoke.py and k1_tiles.py).
 //
+// Streams: both launches take S levels of one geometry at once, launch A
+// with the stream and the chunk in blockIdx.z (z = stream * chunks +
+// chunk), launch B with the stream in blockIdx.z; each stream reads and
+// writes its own buffers. A window sums in one order whatever the tile,
+// chunk or stream count, so S levels in one launch give the bits of S
+// launches.
+//
 // Shared memory: flow.py:_k1_plan sizes each launch's dynamic shared
 // memory for the layout that the kernel's head carves; a block that is
 // given less stops the launch with a trap rather than overrun it.
@@ -179,9 +186,18 @@ __global__ void __launch_bounds__(Threads)
 flow_volume_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
                    const int* __restrict__ pred, const int* __restrict__ disp,
                    int d2, LevelGeom g, int ws, int r0, int R, int kc, int kb,
-                   float* __restrict__ vol, float* __restrict__ part_cost,
-                   int* __restrict__ part_k) {
+                   int nchunk, float* __restrict__ vol,
+                   float* __restrict__ part_cost, int* __restrict__ part_k) {
   constexpr int kSlots = Threads / (Tile * Tile);
+  // stream blockIdx.z / nchunk: its buffers, prediction, volume and minima
+  const int stream = blockIdx.z / nchunk, chunk = blockIdx.z % nchunk;
+  const size_t ncell_s = (size_t)g.gh * g.gw;
+  a1 += (size_t)stream * g.hb * g.wb;
+  a2 += (size_t)stream * g.hb * g.wb;
+  pred += (size_t)stream * 2 * ncell_s;
+  vol += (size_t)stream * d2 * ncell_s;
+  part_cost += (size_t)stream * nchunk * ncell_s;
+  part_k += (size_t)stream * nchunk * ncell_s;
   extern __shared__ __align__(16) unsigned char smem[];
   const int span = (Tile - 1) * g.patch + ws, hs = span + 2 * R;
   const int npx = span * span, ncol = Tile * span;
@@ -198,7 +214,7 @@ flow_volume_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   const int tid = threadIdx.x;
   const int gy0 = blockIdx.y * Tile, gx0 = blockIdx.x * Tile;
   const int y0 = r0 + gy0 * g.patch, x0 = r0 + gx0 * g.patch;
-  const int k_begin = blockIdx.z * kc, k_end = min(d2, k_begin + kc);
+  const int k_begin = chunk * kc, k_end = min(d2, k_begin + kc);
   const int ncell = g.gh * g.gw;
 
   for (int q = tid; q < k_end - k_begin; q += Threads)
@@ -285,8 +301,8 @@ flow_volume_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
         best_k = k;
       }
     }
-    part_cost[(size_t)blockIdx.z * ncell + gy * g.gw + gx] = best;
-    part_k[(size_t)blockIdx.z * ncell + gy * g.gw + gx] = best_k;
+    part_cost[(size_t)chunk * ncell + gy * g.gw + gx] = best;
+    part_k[(size_t)chunk * ncell + gy * g.gw + gx] = best_k;
   }
 }
 
@@ -306,6 +322,18 @@ flow_select_kernel(const float* __restrict__ vol,
                    int h, int w, int patch, int tile, int iters,
                    int* __restrict__ flow_out, float* __restrict__ dist_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  {  // stream blockIdx.z: its volume, minima, prediction, flows and dists
+    const size_t nc = (size_t)gh * gw, st = blockIdx.z;
+    const size_t d2 = (size_t)(2 * R + 1) * (2 * R + 1);
+    vol += st * d2 * nc;
+    if (part_cost != nullptr) part_cost += st * nchunk * nc;
+    if (part_k != nullptr) part_k += st * nchunk * nc;
+    pred += st * 2 * nc;
+    if (flow_in != nullptr) flow_in += st * 2 * nc;
+    if (dist_in != nullptr) dist_in += st * nc;
+    flow_out += st * 2 * nc;
+    dist_out += st * nc;
+  }
   const int side = tile + 2 * iters, nr = side * side;
   const int dd = 2 * R + 1;
   int2* s_flow = reinterpret_cast<int2*>(smem);
@@ -435,25 +463,28 @@ template <int Tile, int Threads>
 cudaError_t launch_volume(const float* a1, const float* a2, const int* pred,
                           const int* disp, int d2, const LevelGeom& g, int ws,
                           int r0, int R, int kc, int kb, int smem_bytes,
-                          float* vol, float* part_cost, int* part_k,
-                          cudaStream_t stream) {
+                          int n_streams, float* vol, float* part_cost,
+                          int* part_k, cudaStream_t stream) {
   static int granted[kMaxDevices];
   auto kernel = flow_volume_kernel<Tile, Threads>;
   cudaError_t e = allow_smem(kernel, smem_bytes, granted);
   if (e != cudaSuccess) return e;
+  const int nchunk = (d2 + kc - 1) / kc;
   dim3 grid((g.gw + Tile - 1) / Tile, (g.gh + Tile - 1) / Tile,
-            (d2 + kc - 1) / kc);
+            nchunk * n_streams);
   kernel<<<grid, Threads, smem_bytes, stream>>>(
-      a1, a2, pred, disp, d2, g, ws, r0, R, kc, kb, vol, part_cost, part_k);
+      a1, a2, pred, disp, d2, g, ws, r0, R, kc, kb, nchunk, vol, part_cost,
+      part_k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch A. a1, a2: hb x wb float32 level buffers with border b around an
-// h x w domain; pred: gh x gw x 2 int32; disp: d2 x 2 int32 displacement
-// table; vol: d2 x gh x gw float32; part_cost, part_k: nchunk x gh x gw
-// float32 / int32, nchunk = ceil(d2 / kc). Tiles of `tile` cells a side
+// Launch A on S levels (every operand but disp with a leading S). a1, a2:
+// hb x wb float32 level buffers with border b around an h x w domain;
+// pred: gh x gw x 2 int32; disp: d2 x 2 int32 displacement table; vol:
+// d2 x gh x gw float32; part_cost, part_k: nchunk x gh x gw float32 /
+// int32, nchunk = ceil(d2 / kc). Tiles of `tile` cells a side
 // with `threads` threads a block (8 and 256, or 4 and 128), kc
 // displacements per block, kb per shared-memory batch, smem_bytes of
 // dynamic shared memory (flow.py:_k1_plan).
@@ -462,13 +493,15 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
                                int hb, int wb, int b, int h, int w, int ws,
                                int patch, int gh, int gw, int R,
                                int pred_bound, int tile, int threads, int kc,
-                               int kb, int smem_bytes, float* vol,
-                               float* part_cost, int* part_k, void* stream) {
+                               int kb, int smem_bytes, int n_streams,
+                               float* vol, float* part_cost, int* part_k,
+                               void* stream) {
   if (gh <= 0 || gw <= 0) return 0;
   if (d2 != (2 * R + 1) * (2 * R + 1) || d2 > kMaxD2 || kc <= 0 || kb <= 0 ||
       kb > kc || kb > kBatch || patch <= 0 || ws <= 0 || h >= (1 << 16) ||
       w >= (1 << 16) || (long long)hb * wb >= (1LL << 31) || smem_bytes <= 0 ||
-      smem_bytes > kSmemMax)
+      smem_bytes > kSmemMax || n_streams < 1 ||
+      (long long)n_streams * ((d2 + kc - 1) / kc) > 65535)
     return (int)cudaErrorInvalidValue;
   LevelGeom g;
   g.hb = hb;
@@ -487,17 +520,18 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
   const cudaStream_t st = (cudaStream_t)stream;
   if (tile == 8 && threads == 256)
     return (int)launch_volume<8, 256>(a1, a2, pred, disp, d2, g, ws, r0, R,
-                                      kc, kb, smem_bytes, vol, part_cost,
-                                      part_k, st);
+                                      kc, kb, smem_bytes, n_streams, vol,
+                                      part_cost, part_k, st);
   if (tile == 4 && threads == 128)
     return (int)launch_volume<4, 128>(a1, a2, pred, disp, d2, g, ws, r0, R,
-                                      kc, kb, smem_bytes, vol, part_cost,
-                                      part_k, st);
+                                      kc, kb, smem_bytes, n_streams, vol,
+                                      part_cost, part_k, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch B. vol: d2 x gh x gw float32 and part_cost, part_k: nchunk x gh x
-// gw (launch A's); pred, flow_in, flow_out: gh x gw x 2 int32; dist_in,
+// Launch B on S levels (every operand but disp and flat_to_k with a
+// leading S). vol: d2 x gh x gw float32 and part_cost, part_k: nchunk x gh
+// x gw (launch A's); pred, flow_in, flow_out: gh x gw x 2 int32; dist_in,
 // dist_out: gh x gw float32; flat_to_k: (2R+1)^2 int32, row-major
 // displacement id -> volume index. flow_in == dist_in == NULL starts from
 // the argmin and the rejection (h, w, patch: the level domain and cell
@@ -510,17 +544,19 @@ extern "C" int vpp_flow_select(const float* vol, const float* part_cost,
                                const int* flow_in, const float* dist_in,
                                int d2, int R, int gh, int gw, int h, int w,
                                int patch, int tile, int iters, int smem_bytes,
-                               int* flow_out, float* dist_out, void* stream) {
+                               int n_streams, int* flow_out, float* dist_out,
+                               void* stream) {
   if (gh <= 0 || gw <= 0) return 0;
   const bool given = flow_in != nullptr;
   if (d2 != (2 * R + 1) * (2 * R + 1) || d2 > kMaxD2 || tile <= 0 ||
       iters < 0 || given != (dist_in != nullptr) ||
       (!given && (part_cost == nullptr || part_k == nullptr || nchunk < 1)) ||
-      smem_bytes <= 0 || smem_bytes > kSmemMax)
+      smem_bytes <= 0 || smem_bytes > kSmemMax || n_streams < 1 ||
+      n_streams > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(flow_select_kernel, smem_bytes, g_select_smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((gw + tile - 1) / tile, (gh + tile - 1) / tile);
+  dim3 grid((gw + tile - 1) / tile, (gh + tile - 1) / tile, n_streams);
   flow_select_kernel<<<grid, kSelectThreads, smem_bytes,
                        (cudaStream_t)stream>>>(
       vol, part_cost, part_k, nchunk, pred, disp, flat_to_k, flow_in, dist_in,

@@ -25,6 +25,8 @@
 // 2^31 elements or more) and elements move as raw 1, 2, 4 or 8-byte words,
 // so every dtype is bit-exact, 2-D data being the case C = 1. Spans start at
 // any column, so no wider aligned move is taken.
+// Streams: S buffers and (S, N, 2) centres in one launch; warp p takes patch
+// p of the S x N, from buffer p / N.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -36,10 +38,11 @@ constexpr int kWarps = 8;
 template <typename T, typename I>
 __global__ void __launch_bounds__(kWarps * 32)
 patches_kernel(const T* __restrict__ data, int h, int w, int ch,
-               const I* __restrict__ ctr, int off, int n, int size,
-               T* __restrict__ out) {
+               const I* __restrict__ ctr, int off, int n, int n_streams,
+               int size, T* __restrict__ out) {
   const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= n) return;
+  if (p >= n * n_streams) return;
+  data += (p / n) * h * w * ch;               // the patch's stream
   const int lane = threadIdx.x & 31;
   // every lane reads the same two words: one broadcast transaction
   I r0 = ctr[2 * p] - (I)off, c0 = ctr[2 * p + 1] - (I)off;
@@ -65,41 +68,44 @@ patches_kernel(const T* __restrict__ data, int h, int w, int ch,
 
 template <typename T, typename I>
 int launch(const void* data, int h, int w, int ch, const void* ctr, int off,
-           int n, int size, void* out, cudaStream_t st) {
-  const int blocks = (n + kWarps - 1) / kWarps;
+           int n, int ns, int size, void* out, cudaStream_t st) {
+  const int blocks = (n * ns + kWarps - 1) / kWarps;
   patches_kernel<T, I><<<blocks, kWarps * 32, 0, st>>>(
-      (const T*)data, h, w, ch, (const I*)ctr, off, n, size, (T*)out);
+      (const T*)data, h, w, ch, (const I*)ctr, off, n, ns, size, (T*)out);
   return (int)cudaGetLastError();
 }
 
 template <typename I>
 int dispatch(const void* data, int h, int w, int ch, int esize,
-             const void* ctr, int off, int n, int size, void* out,
+             const void* ctr, int off, int n, int ns, int size, void* out,
              cudaStream_t st) {
   switch (esize) {
-    case 1: return launch<uint8_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
-    case 2: return launch<uint16_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
-    case 4: return launch<uint32_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
-    case 8: return launch<uint64_t, I>(data, h, w, ch, ctr, off, n, size, out, st);
+    case 1: return launch<uint8_t, I>(data, h, w, ch, ctr, off, n, ns, size, out, st);
+    case 2: return launch<uint16_t, I>(data, h, w, ch, ctr, off, n, ns, size, out, st);
+    case 4: return launch<uint32_t, I>(data, h, w, ch, ctr, off, n, ns, size, out, st);
+    case 8: return launch<uint64_t, I>(data, h, w, ch, ctr, off, n, ns, size, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// data: contiguous (h, w, ch) elements of esize bytes, fewer than 2^31 of
-// them; ctr: contiguous (n, 2) int32 (ibytes 4) or int64 (ibytes 8) centres
-// or top-lefts; each top-left is ctr - off, clamped into the buffer.
-// out: (n, size, size, ch) elements.
+// data: contiguous (ns, h, w, ch) elements of esize bytes, fewer than 2^31
+// of them; ctr: contiguous (ns, n, 2) int32 (ibytes 4) or int64 (ibytes 8)
+// centres or top-lefts, stream s's into buffer s; each top-left is ctr -
+// off, clamped into the buffer. out: (ns, n, size, size, ch) elements.
 extern "C" int vpp_patches(const void* data, int h, int w, int ch, int esize,
                            const void* ctr, int ibytes, int off, int n,
-                           int size, void* out, void* stream) {
+                           int ns, int size, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  if (size < 1 || size > h || size > w) return (int)cudaErrorInvalidValue;
+  if (size < 1 || size > h || size > w || ns < 1)
+    return (int)cudaErrorInvalidValue;
   if (ibytes == 4)
-    return dispatch<int32_t>(data, h, w, ch, esize, ctr, off, n, size, out, st);
+    return dispatch<int32_t>(data, h, w, ch, esize, ctr, off, n, ns, size, out,
+                             st);
   if (ibytes == 8)
-    return dispatch<int64_t>(data, h, w, ch, esize, ctr, off, n, size, out, st);
+    return dispatch<int64_t>(data, h, w, ch, esize, ctr, off, n, ns, size, out,
+                             st);
   return (int)cudaErrorInvalidValue;
 }

@@ -47,6 +47,10 @@
 // occupancy asked once per device. With `fuse` 0 level 2 takes that route
 // too (a barrier after level 1): the design the fused tiles replaced, kept
 // so that `call_times.py` can time the two side by side.
+//
+// Streams: one launch builds the pyramids of S frames, blockIdx.y the
+// stream; every stream's CTAs walk its own items, and a grid barrier waits
+// for all of them (a stream's output is a function of its frame alone).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -321,9 +325,12 @@ __device__ void fused_tile(const float* src, int sstride, int h0, int w0,
 }
 
 __global__ void __launch_bounds__(kThreads)
-pyramid_kernel(const float* __restrict__ src, int sstride, Levels lv,
-               float* out) {
+pyramid_kernel(const float* __restrict__ src, int sstride,
+               long long src_streams, Levels lv, float* out,
+               long long out_streams) {
   __shared__ float smem[kSmemFloats];
+  src += blockIdx.y * src_streams;
+  out += blockIdx.y * out_streams;
   const int b = lv.border;
   // one phase: level 1's tiles, level 2's fused tiles, level 0's copy in
   // row chunks
@@ -383,8 +390,10 @@ pyramid_kernel(const float* __restrict__ src, int sstride, Levels lv,
 
 }  // namespace
 
-// src: the float32 frame (or level) interior, h0 x w0 with row stride
-// `sstride` elements (a raw frame, or the interior view of a bordered one).
+// src: S float32 frame (or level) interiors, h0 x w0 with row stride
+// `sstride` elements (a raw frame, or the interior view of a bordered one),
+// stream s at src + s * src_streams; stream s's levels at out + s *
+// out_streams.
 // levels: n rows of (h, w, offset) on the host, level 0 first; offset is
 // where level l's (h + 2 border) x (w + 2 border) buffer starts in `out`
 // (floats; levels >= first). Writes levels first .. n-1; first is 0 or 1.
@@ -392,10 +401,13 @@ pyramid_kernel(const float* __restrict__ src, int sstride, Levels lv,
 // - 1), and with `fuse` 1 level 2 must halve level 1 (2 h_2 <= h_1 + 2), as
 // pyramid()'s levels do; `fuse` 0 computes level 2 after a grid barrier.
 extern "C" int vpp_pyramid(const float* src, int sstride,
-                           const long long* levels, int n, int first,
-                           int border, int fuse, float* out, void* stream) {
+                           long long src_streams, const long long* levels,
+                           int n, int first, int border, int fuse,
+                           int n_streams, float* out, long long out_streams,
+                           void* stream) {
   if (n < 1 || n > kMaxLevels || first < 0 || first > 1 || first >= n ||
-      border < 0 || fuse < 0 || fuse > 1)
+      border < 0 || fuse < 0 || fuse > 1 || n_streams < 1 ||
+      n_streams > 65535)
     return (int)cudaErrorInvalidValue;
   Levels lv = {};
   lv.n = n;
@@ -455,14 +467,15 @@ extern "C" int vpp_pyramid(const float* src, int sstride,
       per_sm_of[dev] = per_sm;
       sms_of[dev] = sms;
     }
-    const int resident = sms_of[dev] * per_sm_of[dev];
-    if (resident < 1) return (int)cudaErrorInvalidValue;
+    // every stream's CTAs at once: a stream gets its share of the card
+    const int resident = sms_of[dev] * per_sm_of[dev] / n_streams;
+    if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     G = work < resident ? work : resident;
     cfg.numAttrs = 1;
   }
-  cfg.gridDim = dim3(G, 1, 1);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, pyramid_kernel, src, sstride, lv,
-                                     out);
+  cfg.gridDim = dim3(G, n_streams, 1);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, pyramid_kernel, src, sstride,
+                                     src_streams, lv, out, out_streams);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

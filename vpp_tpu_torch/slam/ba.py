@@ -36,6 +36,12 @@ that is not positive definite, a singular solve) uses the ``_ex`` variants
 here and sets NaN where ``info != 0``, so an LM step that fails is
 rejected as in the JAX package, and nothing syncs the host.
 
+Streams: ``pnp_gn`` and the tracks layout take leading stream dimensions
+(S problems of one shape: poses (S, M, 4, 4), landmarks (S, N, 3), the
+observations (S, N, K, ...), ``fixed_poses`` (S, M), shared intrinsics);
+every sum, solve, LM decision and damping stays per stream, and K6 solves
+S ring-layout problems in one launch.
+
 Not ported yet: the flat ``ba_solve``, ``tracks_from_flat``, the generic
 (non-ring) layout on the card, and the landmark-sharded path (``mesh``).
 """
@@ -164,30 +170,37 @@ def pnp_gn(T0: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
     """Single-pose Gauss-Newton PnP from masked 2D-3D matches: returns
     (pose (4, 4), mean |residual| over valid matches). With < 4 valid
     matches the damped system keeps the pose near its prior; a Cholesky
-    that fails gives NaN, as in the JAX package."""
-    nvalid = valid.sum().clamp(min=1)
+    that fails gives NaN, as in the JAX package. Leading stream dimensions
+    (T0 (S, 4, 4), X (S, N, 3), uv (S, N, 2), valid (S, N)) solve S poses
+    at once."""
+    nvalid = valid.sum(-1).clamp(min=1)
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
+
+    def per_match(T):                      # a stream's pose to its matches
+        return T if T.dim() == 2 else T[..., None, :, :]
+
     T = T0
     for _ in range(iters):
-        pred, J, _ = proj_jacobians(T, X, intr)
+        pred, J, _ = proj_jacobians(per_match(T), X, intr)
         r = pred - uv
         nrm = torch.linalg.norm(r, dim=-1)
         w = torch.where(nrm <= huber, torch.ones_like(nrm),
                         huber / nrm.clamp(min=1e-12))
         w = torch.where(valid, w, torch.zeros_like(w))
-        Jw = J * w[:, None, None]
-        H = torch.einsum("nri,nrj->ij", Jw, J) + lam * eye6
-        b = -torch.einsum("nri,nr->i", Jw, r)
+        Jw = J * w[..., None, None]
+        H = torch.einsum("...nri,...nrj->...ij", Jw, J) + lam * eye6
+        b = -torch.einsum("...nri,...nr->...i", Jw, r)
         T = se3_exp(chol_solve(H, b)) @ T
-    r = project(T, X, intr) - uv
+    r = project(per_match(T), X, intr) - uv
     nrm = torch.linalg.norm(r, dim=-1)
-    err = torch.where(valid, nrm, torch.zeros_like(nrm)).sum() / nvalid
+    err = torch.where(valid, nrm, torch.zeros_like(nrm)).sum(-1) / nvalid
     return T, err
 
 
 class BATracks(NamedTuple):
     """Landmark-major BA problem: slot j of row l is the j-th observation
-    of landmark l (masked by obs_valid)."""
+    of landmark l (masked by obs_valid). S problems of one shape carry a
+    leading S on every field but ``intrinsics``."""
     poses: torch.Tensor        # (M, 4, 4) camera-from-world
     landmarks: torch.Tensor    # (N, 3)
     obs_pose: torch.Tensor     # (N, K) int32, pose index per observation
@@ -198,10 +211,14 @@ class BATracks(NamedTuple):
 
 
 def _obs_poses(p: BATracks, ring_layout: bool = False) -> torch.Tensor:
-    """(N, K, 4, 4) pose per observation; in the ring layout
+    """(..., N, K, 4, 4) pose per observation; in the ring layout
     (``obs_pose[n, j] == j``) a broadcast."""
     if ring_layout:
-        return p.poses[None].expand(p.obs_uv.shape[:2] + (4, 4))
+        return p.poses[..., None, :, :, :].expand(
+            p.obs_uv.shape[:-1] + (4, 4))
+    if p.poses.dim() == 4:
+        si = torch.arange(p.poses.shape[0], device=p.poses.device)
+        return p.poses[si[:, None, None], p.obs_pose.long()]
     return p.poses[p.obs_pose.long()]
 
 
@@ -211,39 +228,41 @@ def _huber(nrm: torch.Tensor, huber: float) -> torch.Tensor:
 
 
 def track_residuals(p: BATracks, ring_layout: bool = False) -> torch.Tensor:
-    """(N, K, 2) reprojection residuals, masked slots -> 0."""
+    """(..., N, K, 2) reprojection residuals, masked slots -> 0."""
     T = _obs_poses(p, ring_layout)
-    r = project(T, p.landmarks[:, None, :], p.intrinsics) - p.obs_uv
+    r = project(T, p.landmarks[..., :, None, :], p.intrinsics) - p.obs_uv
     return torch.where(p.obs_valid[..., None], r, torch.zeros_like(r))
 
 
 def _track_jacobians(p: BATracks, ring_layout: bool = False):
-    """r (N,K,2), Jp (N,K,2,6) wrt the pose twist, Jl (N,K,2,3)."""
+    """r (...,N,K,2), Jp (...,N,K,2,6) wrt the pose twist, Jl
+    (...,N,K,2,3)."""
     T = _obs_poses(p, ring_layout)
-    X = p.landmarks[:, None, :].expand(p.obs_uv.shape[:2] + (3,))
+    X = p.landmarks[..., :, None, :].expand(p.obs_uv.shape[:-1] + (3,))
     pred, Jp, Jl = proj_jacobians(T, X, p.intrinsics)
     return pred - p.obs_uv, Jp, Jl
 
 
 def _tracks_cost(p: BATracks, huber: float,
                  ring_layout: bool = False) -> torch.Tensor:
-    """Plain version of K6's cost: the Huber-weighted squared residuals."""
+    """Plain version of K6's cost: the Huber-weighted squared residuals,
+    one a stream."""
     r = track_residuals(p, ring_layout)
     w = _huber(torch.linalg.norm(r, dim=-1), huber)
     c = w * (r * r).sum(-1)
     return torch.where(p.obs_valid, c, torch.zeros_like(c)).sum(
-        dtype=torch.float64).float()
+        dim=(-2, -1), dtype=torch.float64).float()
 
 
 def rhs_term_scale(p: BATracks, huber: float,
                    ring_layout: bool = False) -> float:
     """The scale that the rounding of rhs = bp - sum W bl is relative to:
-    the largest entry of sum |Jp_w^T| |r| (a host float). The two sums
-    cancel to far below their terms, so a tolerance on rhs is set against
-    its terms, not its value."""
+    the largest entry of sum |Jp_w^T| |r| (a host float, over every
+    stream). The two sums cancel to far below their terms, so a tolerance
+    on rhs is set against its terms, not its value."""
     r, Jp, _ = _track_jacobians(p, ring_layout)
     w = _huber(torch.linalg.norm(r, dim=-1), huber) * p.obs_valid
-    return float(torch.einsum("nkri,nkr->ki",
+    return float(torch.einsum("...nkri,...nkr->...ki",
                               (Jp * w[..., None, None]).abs(),
                               r.abs()).max())
 
@@ -252,39 +271,46 @@ def _tracks_assemble(p: BATracks, lam, huber: float,
                      ring_layout: bool = False, linalg: str = "lu"):
     """Plain version of K6's assembly. Returns (S (M,6,M,6), rhs (M,6),
     cost) in float32 and the landmark-local (Hll_inv (N,3,3), bl (N,3),
-    U (N,K,6,3) in float64, pose_idx or None, seen (N,)). Pose damping is
-    added in ``_tracks_solve_poses``; landmark damping here."""
-    m = p.poses.shape[0]
+    U (N,K,6,3) in float64, pose_idx or None, seen (N,)), each with the
+    problem's leading stream dimensions (``lam`` one a stream). Pose
+    damping is added in ``_tracks_solve_poses``; landmark damping here."""
+    m = p.poses.shape[-3]
     r, Jp, Jl = _track_jacobians(p, ring_layout)
     w = _huber(torch.linalg.norm(r, dim=-1), huber)
     w = torch.where(p.obs_valid, w, torch.zeros_like(w))       # (N, K)
-    cost = (w * (r * r).sum(-1)).sum(dtype=torch.float64)
+    cost = (w * (r * r).sum(-1)).sum(dim=(-2, -1), dtype=torch.float64)
     # the landmark blocks and their Schur terms in float64 (module doc)
     r, Jp, Jl, w = r.double(), Jp.double(), Jl.double(), w.double()
     Jp_w = Jp * w[..., None, None]
     Jl_w = Jl * w[..., None, None]
 
-    Hll = torch.einsum("nkri,nkrj->nij", Jl_w, Jl)
-    bl = -torch.einsum("nkri,nkr->ni", Jl_w, r)
-    U = torch.einsum("nkri,nkrj->nkij", Jp_w, Jl)               # (N,K,6,3)
+    Hll = torch.einsum("...nkri,...nkrj->...nij", Jl_w, Jl)
+    bl = -torch.einsum("...nkri,...nkr->...ni", Jl_w, r)
+    U = torch.einsum("...nkri,...nkrj->...nkij", Jp_w, Jl)     # (N,K,6,3)
 
-    seen = w.sum(1) > 0
+    seen = w.sum(-1) > 0
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
-    Hll_d = torch.where(seen[:, None, None],
-                        Hll + (lam + 1e-6) * eye3, eye3.expand_as(Hll))
-    bl = torch.where(seen[:, None], bl, torch.zeros_like(bl))
+    damp = (lam + 1e-6)[..., None, None, None] if torch.is_tensor(lam) \
+        else lam + 1e-6
+    Hll_d = torch.where(seen[..., None, None],
+                        Hll + damp * eye3, eye3.expand_as(Hll))
+    bl = torch.where(seen[..., None], bl, torch.zeros_like(bl))
     Hll_inv = _inv_lu(Hll_d) if linalg == "lu" else _inv3(Hll_d)
-    W = torch.einsum("nkij,njc->nkic", U, Hll_inv)               # (N,K,6,3)
+    W = torch.einsum("...nkij,...njc->...nkic", U, Hll_inv)     # (N,K,6,3)
 
     ar = torch.arange(m, device=Hll.device)
     if ring_layout:
         pose_idx = None
-        Hpp = torch.einsum("nkri,nkrj->kij", Jp_w, Jp)
-        bp = -torch.einsum("nkri,nkr->ki", Jp_w, r)
-        S = -torch.einsum("nkij,nlmj->klim", W, U)               # (M,M,6,6)
-        S[ar, ar] += Hpp
-        rhs = bp - torch.einsum("nkij,nj->ki", W, bl)
+        Hpp = torch.einsum("...nkri,...nkrj->...kij", Jp_w, Jp)
+        bp = -torch.einsum("...nkri,...nkr->...ki", Jp_w, r)
+        S = -torch.einsum("...nkij,...nlmj->...klim", W, U)     # (M,M,6,6)
+        S[..., ar, ar, :, :] += Hpp
+        rhs = bp - torch.einsum("...nkij,...nj->...ki", W, bl)
     else:
+        if p.landmarks.dim() != 2:
+            raise NotImplementedError(
+                "ba_solve_tracks: the generic (non-ring) layout takes one "
+                "problem, not streams")
         pose_idx = torch.where(p.obs_valid, p.obs_pose,
                                torch.zeros_like(p.obs_pose)).long()
         Hpp = torch.zeros((m, 6, 6), dtype=Jp.dtype, device=Jp.device)
@@ -303,28 +329,32 @@ def _tracks_assemble(p: BATracks, lam, huber: float,
         Wbl.index_add_(0, pose_idx.reshape(-1), torch.einsum(
             "nkij,nj->nki", W, bl).reshape(-1, 6))
         rhs = bp - Wbl
-    S = S.permute(0, 2, 1, 3).float().contiguous()                # (M,6,M,6)
+    S = S.transpose(-3, -2).float().contiguous()                 # (M,6,M,6)
     return ((S, rhs.float(), cost.float()),
             (Hll_inv, bl, U, pose_idx, seen))
 
 
 def _tracks_solve_poses(S, rhs, fixed_poses, lam, linalg: str = "lu"):
-    """The damped, gauge-fixed, Jacobi-scaled (6M, 6M) pose solve."""
-    m = rhs.shape[0]
-    S = S.reshape(m * 6, m * 6)
+    """The damped, gauge-fixed, Jacobi-scaled (6M, 6M) pose solve, one a
+    stream."""
+    m = rhs.shape[-2]
+    lead = rhs.shape[:-2]
+    S = S.reshape(lead + (m * 6, m * 6))
     eye = torch.eye(m * 6, dtype=S.dtype, device=S.device)
-    S = S + lam * eye
-    fixed = fixed_poses[:, None].expand(m, 6).reshape(-1)
-    S = torch.where(fixed[:, None] | fixed[None, :], eye, S)
-    rhs = torch.where(fixed, torch.zeros_like(rhs.reshape(-1)),
-                      rhs.reshape(-1))
-    d = torch.rsqrt(torch.diagonal(S).clamp(min=1e-12))
-    Sp = S * d[:, None] * d[None, :]
+    damp = lam[..., None, None] if torch.is_tensor(lam) else lam
+    S = S + damp * eye
+    fixed = fixed_poses[..., :, None].expand(lead + (m, 6)).reshape(
+        lead + (m * 6,))
+    S = torch.where(fixed[..., :, None] | fixed[..., None, :], eye, S)
+    rhs = rhs.reshape(lead + (m * 6,))
+    rhs = torch.where(fixed, torch.zeros_like(rhs), rhs)
+    d = torch.rsqrt(torch.diagonal(S, dim1=-2, dim2=-1).clamp(min=1e-12))
+    Sp = S * d[..., :, None] * d[..., None, :]
     if linalg == "chol":
         dp = d * chol_solve(Sp, d * rhs)
     else:
         dp = d * lu_solve(Sp, d * rhs)
-    return dp.reshape(m, 6)
+    return dp.reshape(lead + (m, 6))
 
 
 def _tracks_backsub(local, dp):
@@ -333,18 +363,18 @@ def _tracks_backsub(local, dp):
     Hll_inv, bl, U, pose_idx, seen = local
     dp = dp.to(U.dtype)
     if pose_idx is None:
-        Udp = torch.einsum("nkij,ki->nj", U, dp)
+        Udp = torch.einsum("...nkij,...ki->...nj", U, dp)
     else:
         Udp = torch.einsum("nkij,nki->nj", U, dp[pose_idx])
-    dl = torch.einsum("nij,nj->ni", Hll_inv, bl - Udp).float()
-    return torch.where(seen[:, None], dl, torch.zeros_like(dl))
+    dl = torch.einsum("...nij,...nj->...ni", Hll_inv, bl - Udp).float()
+    return torch.where(seen[..., None], dl, torch.zeros_like(dl))
 
 
 def apply_pose_step(poses: torch.Tensor, dp: torch.Tensor,
                     fixed: torch.Tensor) -> torch.Tensor:
     """``se3_exp(dp_k) @ T_k`` for every free pose."""
     cand = se3_exp(dp) @ poses
-    return torch.where(fixed[:, None, None], poses, cand)
+    return torch.where(fixed[..., None, None], poses, cand)
 
 
 def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
@@ -352,11 +382,13 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
                     ring_layout: bool = False, linalg: str = "lu"
                     ) -> Tuple[BATracks, torch.Tensor]:
     """Levenberg-Marquardt over a landmark-major problem; returns (refined
-    problem, (iters,) accepted costs).
+    problem, (iters,) accepted costs). S problems (a leading S on every
+    field but ``intrinsics``) are solved side by side, each with its own
+    damping and decisions; the costs are then (S, iters).
 
     ``ring_layout=True`` promises ``obs_pose[n, j] == j`` (K == M). On CUDA
-    tensors it runs kernel K6: every iteration in one launch, M at most
-    ``ba_cuda.MAX_POSES``. ``linalg`` is "lu" (pivoted
+    tensors it runs kernel K6: every iteration of every problem in one
+    launch, M at most ``ba_cuda.MAX_POSES``. ``linalg`` is "lu" (pivoted
     landmark inverses and pose solve) or "chol" (closed-form scaled
     Cholesky inverses and a Cholesky pose solve). Raises
     ``NotImplementedError`` for ``mesh`` and for the generic layout on a
@@ -367,7 +399,7 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
             "ported yet")
     if linalg not in ("lu", "chol"):
         raise ValueError(f"ba_solve_tracks: unknown linalg {linalg!r}")
-    if ring_layout and p.obs_pose.shape[1] != p.poses.shape[0]:
+    if ring_layout and p.obs_pose.shape[-1] != p.poses.shape[-3]:
         raise ValueError("ring_layout requires K == M (obs column j "
                          "observed by pose j)")
     on_card = p.landmarks.device.type == "cuda"
@@ -383,11 +415,12 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
     """The LM loop of ``ba_solve_tracks``: with ``kernel`` (ring layout,
     CUDA tensors) the whole loop is K6's one launch, else the plain version
-    below (on any device). No iteration returns ``p`` itself and empty
-    costs, as the JAX package's ``lax.scan(length=0)`` does, and launches
-    nothing."""
+    below (on any device), every stream's decisions and damping its own.
+    No iteration returns ``p`` itself and empty costs, as the JAX
+    package's ``lax.scan(length=0)`` does, and launches nothing."""
+    lead = p.landmarks.shape[:-2]
     if iters == 0:
-        return p, torch.empty((0,), dtype=torch.float32,
+        return p, torch.empty(lead + (0,), dtype=torch.float32,
                               device=p.landmarks.device)
     if kernel:
         from . import ba_cuda
@@ -395,7 +428,7 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                                                  linalg)
         return p._replace(poses=poses, landmarks=lms), costs
     poses0, lms0 = p.poses, p.landmarks
-    lam = torch.full((), lam0, dtype=torch.float32, device=lms0.device)
+    lam = torch.full(lead, lam0, dtype=torch.float32, device=lms0.device)
     costs = []
     for _ in range(iters):
         prob = p._replace(poses=poses0, landmarks=lms0)
@@ -408,9 +441,11 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                                            landmarks=cand_lms),
                                 huber, ring_layout)
         accept = new_cost < cost
-        poses0 = torch.where(accept, cand_poses, poses0)
-        lms0 = torch.where(accept, cand_lms, lms0)
+        poses0 = torch.where(accept[..., None, None, None], cand_poses,
+                             poses0)
+        lms0 = torch.where(accept[..., None, None], cand_lms, lms0)
         lam = torch.where(accept, (lam * 0.3).clamp(min=1e-8),
                           (lam * 4.0).clamp(max=1e4))
         costs.append(torch.where(accept, new_cost, cost))
-    return p._replace(poses=poses0, landmarks=lms0), torch.stack(costs)
+    return (p._replace(poses=poses0, landmarks=lms0),
+            torch.stack(costs, dim=-1))
