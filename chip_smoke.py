@@ -134,14 +134,39 @@ Phases, in order; any failure exits nonzero and prints no result:
    K6 within phase 3's tolerances); K6's co-resident clusters
    (``cudaOccupancyMaxActiveClusters``) and its device time at S = 1, 2,
    4, 8, 16, and each batched kernel's device time at S = 4;
-10. one ``{"kernels": [...]}`` line (each batched kernel with its
-   ``launches_streams`` and ``device_ms_streams4``), then ``{"ok": true,
+10. bundle adjustment at the JAX package's production scale:
+   ``ba_solve_tracks`` on the generic layout at N 10240 x M 128 x K 4, 5
+   iterations, lam0 1e-4 (tests/test_slam_scale.py:13-40,78-97's recipe,
+   made on the card from a numpy seed through the port's ``se3_exp`` and
+   ``project``), the launch counts reset just before: K9's 26 launches a
+   call and nothing else; for both ``linalg``, K9 held stage by stage to
+   its plain version on the card (``k9_check``: the first iteration's S,
+   cost and rhs within 1e-4, the first pose step equal to the plain solve
+   of the kernel's own system, the first candidate within 1e-4, two calls
+   bit-identical, the loop's last cost within 1e-4 of the first above the
+   plain loop's) and to the JAX scale test's gates (``costs[-1] <
+   costs[0]·1e-4``, median landmark error < 1e-2); the same on masked
+   slots (with test_slam_scale.py:128's gate), a repeated pose in a row,
+   unseen landmarks, one slot a landmark, every step rejected and a
+   failed pose factorisation; a ring problem down K9 within
+   test_slam_scale.py:131's tolerances of K6; ``iters=0`` with no launch;
+   device ms a call and an iteration (CUDA-graph replays), the library
+   pose solve's device ms apart, as-called and plain ms, device operations
+   against the plain route, and the same calls at M 16 x N 1024 x K 4 and
+   on the SLAM window's shape beside K6; the flat ``ba_solve`` on the card
+   against the CPU (tests/test_slam.py:51) and timed at full width; the
+   geometry on the card against the CPU (tests/test_geometry_matcher.py's
+   inputs);
+11. one ``{"kernels": [...]}`` line (each batched kernel with its
+   ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
+   ``ba_solve_tracks`` call of phase 10), then ``{"ok": true,
    "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
 float32 outside the tensor cores, applied to every scalar operation; for
 K6, 34 TFLOP/s for its scalar float64 landmark algebra and 67 TFLOP/s for
-its Schur products on the float64 tensor cores). K1's
+its Schur products on the float64 tensor cores; K9's the same, per
+iteration, with its pose factorisation). K1's
 bound counts its least work: both level buffers read once, flow and dist
 written once, and the separable window sums (one |diff| per region pixel
 and displacement, ws - 1 additions per column sum and per window). The
@@ -1042,6 +1067,520 @@ def phase_streams(torch, np, mods, slam_cfg, slam_dev, gt_poses, sst,
                                       "by": ops4[2]})
 
 
+GEN_N, GEN_M, GEN_K = 10240, 128, 4        # tests/test_slam_scale.py:78
+GEN_ITERS, GEN_LAM0, GEN_HUBER = 5, 1e-4, 4.0
+GEN_INTR = (300.0, 300.0, 160.0, 120.0)
+
+
+def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
+                    noise=0.0):
+    """tests/test_slam_scale.py:13-40's recipe, made on the card from a
+    numpy seed through the port's ``se3_exp`` and ``project``: m poses
+    stepping 0.1 in x, each landmark seen by k consecutive poses,
+    ``noise`` px of noise, the landmarks perturbed by 0.03 (the scale
+    test's noisy start), poses 0 and 1 fixed. Cases: ``masked`` (slot 1
+    of every row thrown 500 px and masked, test_slam_scale.py:122),
+    ``repeated`` (slot 1 of every 3rd row names slot 0's pose),
+    ``unseen`` (landmarks 10-13 with no valid slot). Returns (problem, the
+    true landmarks)."""
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    rng = np.random.RandomState(seed)
+    xi = np.zeros((m, 6), np.float32)
+    xi[1:, 3] = -0.1
+    xi[1:, :3] = rng.randn(m - 1, 3) * 0.01
+    steps = se3_exp(torch.from_numpy(xi).to(dev))
+    poses = [torch.eye(4, device=dev)]
+    for i in range(1, m):
+        poses.append(steps[i] @ poses[-1])
+    poses = torch.stack(poses)
+    start = rng.randint(0, m - k + 1, size=n)
+    X = rng.rand(n, 3) * [2.0, 1.5, 1.0] + [-1.0, -0.75, 3.0]
+    X[:, 0] += 0.1 * start
+    X = torch.from_numpy(X.astype(np.float32)).to(dev)
+    op = torch.from_numpy((start[:, None] + np.arange(k)[None]).astype(
+        np.int32)).to(dev)
+    intr = torch.tensor(GEN_INTR, device=dev)
+    uv = BA.project(poses[op.long()], X[:, None], intr) + torch.from_numpy(
+        (rng.randn(n, k, 2) * noise).astype(np.float32)).to(dev)
+    valid = torch.ones((n, k), dtype=torch.bool, device=dev)
+    if case == "masked":
+        uv[:, 1] += 500.0
+        valid[:, 1] = False
+    elif case == "repeated":
+        op[::3, 1] = op[::3, 0]
+    elif case == "unseen":
+        valid[10:14] = False
+    # with one slot a landmark the poses learn nothing from the landmarks
+    # (S is lam I, dp rhs / lam: rounding noise), so K = 1 fixes every pose
+    # and its step moves the landmarks alone
+    fixed = torch.full((m,), k == 1, dtype=torch.bool, device=dev)
+    fixed[:2] = True
+    Xn = X + torch.from_numpy((rng.randn(n, 3) * 0.03).astype(
+        np.float32)).to(dev)
+    return BA.BATracks(poses=poses, landmarks=Xn, obs_pose=op, obs_uv=uv,
+                       obs_valid=valid, intrinsics=intr,
+                       fixed_poses=fixed), X
+
+
+def predicted(BA, p, poses, lms):
+    """Predicted minus measured uv at every valid slot of ``p`` under
+    (poses, lms), 0 elsewhere."""
+    return BA.track_residuals(p._replace(poses=poses, landmarks=lms))
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
+    """K9 on ``p`` against its plain version on the card, stage by stage on
+    the same inputs, then over the whole LM loop:
+    - one index launch and five an iteration, the same bits twice;
+    - the first iteration's S and rhs (on the free poses' rows and
+      columns, which the pose solve reads) and cost within 1e-4 of the
+      plain assembly, and its first pose step the plain solve of its own
+      system (equal; NaN where it failed);
+    - that step's candidate (one K9 iteration) against the plain pose
+      step, back-substitution and cost from the same dp: its cost within
+      1e-4 of the larger of the iterate's and the candidate's, the same
+      decision (unless the two costs tie within 1e-4), and
+      where accepted poses within 1e-4 (times the step's size where it
+      passes 1: float32 sines of a large angle) and predicted measurements
+      within 1e-3 px (times the poses' extent over 10 units where it
+      passes 10);
+    - the LM loop: the accepted costs as recorded; the last cost no more
+      than 1e-4 of the first above the plain loop's, or 3x as far as the
+      plain loop lands from itself on the CPU; where the plain loop's
+      poses land within 1e-5 of themselves on the CPU (the problem
+      determines them that far), poses within 1e-4 of it. Elsewhere the
+      float32 pose solve of an ill-conditioned S (a weak gauge along a
+      long chain, landmarks seen once) leaves the poses undetermined at
+      that level: the distance is reported beside the plain loop's own
+      CPU-to-card one.
+    Returns (numbers, (poses, landmarks, costs, trace))."""
+    KN.reset_launch_counts()
+    out = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg)
+    check(KN.launch_counts()["ba_generic"] == 1 + 5 * iters,
+          f"K9 ({what}) is not 1 + 5 launches an iteration")
+    again = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg)
+    check(all(same_bits(torch, a, b) for a, b in zip(
+        out[:3] + tuple(out[3]), again[:3] + tuple(again[3]))),
+          f"K9 ({what}) is not bit-identical across two calls")
+    poses, lms, costs, tr = out
+    lam = torch.full((), lam0, device=p.poses.device)
+    (Sp, rp, cp), local = BA._tracks_assemble(p, lam, GEN_HUBER, False,
+                                              linalg)
+    # S and rhs on the free poses' rows and columns, the ones the pose
+    # solve reads (the gauge puts identity rows on the fixed ones)
+    free = (~p.fixed_poses)[:, None].expand(-1, 6).reshape(-1)
+    D = free.numel()
+    s_rel = (rel_err(tr.S.reshape(D, D)[free][:, free],
+                     Sp.reshape(D, D)[free][:, free]) if bool(free.any())
+             else 0.0)
+    c_rel = rel_err(tr.cost, cp)
+    r_rel = float((tr.rhs.reshape(-1) - rp.reshape(-1))[free].abs().max(
+        ) if bool(free.any()) else 0.0) / BA.rhs_term_scale(
+        p, GEN_HUBER, False)
+    check(s_rel <= 1e-4 and c_rel <= 1e-4 and r_rel <= 1e-4,
+          f"K9 ({what}) assembly off the plain one: S {s_rel}, rhs {r_rel} "
+          f"of its terms, cost {c_rel}")
+    dp0 = tr.dp[0]
+    want = BA._tracks_solve_poses(tr.S, tr.rhs, p.fixed_poses, lam, linalg)
+    check(torch.equal(torch.isnan(want), torch.isnan(dp0))
+          and torch.equal(torch.nan_to_num(want), torch.nan_to_num(dp0)),
+          f"K9 ({what}): its first pose step is not the plain solve of its "
+          "own system")
+    # the first candidate, from the same dp
+    cand_p = BA.apply_pose_step(p.poses, dp0, p.fixed_poses)
+    cand_l = p.landmarks + BA._tracks_backsub(local, dp0)
+    new_p = BA._tracks_cost(p._replace(poses=cand_p, landmarks=cand_l),
+                            GEN_HUBER)
+    one = BG.lm_generic(p, 1, GEN_HUBER, lam0, linalg)
+    acc_k = bool(one[3].accept[0] != 0)
+    # relative to the larger of the two costs, as the loop's costs are
+    # compared: a candidate at the noise floor differs by float32 rounding
+    step_cost = float((one[3].cost_after[0] - new_p).abs()) / max(
+        abs(float(cp)), abs(float(new_p)))
+    tie = abs(float(new_p) - float(cp)) <= 1e-4 * abs(float(cp))
+    step_pose = step_pred = 0.0
+    if acc_k:
+        step_pose = float((one[0] - cand_p).abs().max())
+        step_pred = float((predicted(BA, p, one[0], one[1]) - predicted(
+            BA, p, cand_p, cand_l)).abs().max())
+    # float32 tolerances that grow with the step (sines of a large angle)
+    # and with the scene's extent (a pose's last bit, far from the origin,
+    # moves a prediction by ~4e-4 px at 51 units)
+    step_tol = 1e-4 * max(1.0, float(torch.nan_to_num(dp0).abs().max()))
+    pred_tol = 1e-3 * max(1.0, float(p.poses[:, :3, 3].abs().max()) / 10)
+    check((not bool(torch.isfinite(new_p)) or step_cost <= 1e-4)
+          and (tie or acc_k == bool(new_p < cp))
+          and step_pose <= step_tol and step_pred <= pred_tol,
+          f"K9 ({what}) first candidate off the plain step from its dp: "
+          f"cost {step_cost}, accepted {acc_k} (plain {bool(new_p < cp)}), "
+          f"poses {step_pose}, predicted measurements {step_pred} px")
+    # the whole loop
+    check(torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
+                                         tr.cost_before)),
+          f"K9 ({what}): costs are not the accepted ones")
+    sp, cpl = BA._lm_tracks(p, iters, GEN_HUBER, lam0, False, linalg,
+                            kernel=False)
+    sc, ccpu = BA._lm_tracks(BA.BATracks(*(t.cpu() for t in p)), iters,
+                             GEN_HUBER, lam0, False, linalg, kernel=False)
+    spread = float((sp.poses.cpu() - sc.poses).abs().max())
+    cost_spread = abs(float(ccpu[-1]) - float(cpl[-1])) / float(
+        cpl.abs().max())
+    pose_err = float((poses - sp.poses).abs().max())
+    pred_err = float((predicted(BA, p, poses, lms) - predicted(
+        BA, p, sp.poses, sp.landmarks)).abs().max())
+    last = float(costs[-1] - cpl[-1]) / float(cpl.abs().max())
+    check(last <= max(1e-4, 3 * cost_spread)
+          and (spread > 1e-5 or pose_err <= 1e-4),
+          f"K9 ({what}) LM loop off the plain one: last cost {last} of the "
+          f"first above it, poses {pose_err} (the plain loop's own "
+          f"CPU-to-card distance {spread})")
+    return dict(S_rel_err=s_rel, rhs_err_of_terms=r_rel, cost_rel_err=c_rel,
+                step_cost_rel_err=step_cost, step_pose_err=step_pose,
+                step_predicted_err_px=step_pred, lm_pose_err=pose_err,
+                lm_predicted_err_px=pred_err, lm_last_cost_above=last,
+                plain_cpu_card_pose_dist=spread,
+                plain_cpu_card_last_cost_dist=cost_spread,
+                accept=[float(a) for a in tr.accept.cpu()]), out
+
+
+def k9_bound(torch, p, iters):
+    """The least time of a K9 call on the H100 (ms, and what bounds it):
+    each input read once and each output written once, against, per
+    iteration, float32 Jacobians (~60 operations a slot), the scalar
+    float64 landmark algebra (~486 a slot), the Schur pairs -W_k U_l^T of
+    one landmark with k <= l (S is symmetric; 216 operations a pair, on
+    the float64 tensor cores) and the (6M)^3 / 3 of the pose
+    factorisation."""
+    n, k = p.obs_valid.shape
+    m = p.poses.shape[0]
+    cnt = p.obs_valid.sum(1).double()
+    ops = iters * float(
+        60 * cnt.sum() + (6 * m) ** 3 / 3
+        + 486 * cnt.sum() * SCALAR_OPS_PER_S / FP64_OPS_PER_S
+        + 216 * (cnt * (cnt + 1) / 2).sum()
+        * SCALAR_OPS_PER_S / FP64_MMA_OPS_PER_S)
+    nbytes = (2 * m * 64 + 2 * n * 12 + n * k * (4 + 8 + 1) + 16 + m
+              + iters * 4)
+    return bound_ms(nbytes, ops), nbytes, ops
+
+
+def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
+    """Phase 10: bundle adjustment at the JAX package's production scale
+    (N 10240, M 128, K 4) through ``ba_solve_tracks`` on the generic
+    layout, K9 held to its plain version and to the JAX scale test's
+    gates; the small cases; the flat ``ba_solve`` and the geometry on the
+    card against the CPU. Returns the numbers for the result lines."""
+    from vpp_tpu_torch.algorithms import geometry as GEO
+    t0 = time.perf_counter()
+    p, X = generic_problem(torch, np, BA, dev, GEN_N, GEN_M, GEN_K, 2)
+    out = {}
+    full = {}
+    for linalg in ("lu", "chol"):
+        nums, (poses, lms, costs, tr) = k9_check(
+            torch, BA, BG, KN, p, GEN_ITERS, GEN_LAM0, linalg,
+            f"N {GEN_N}, M {GEN_M}, K {GEN_K}, {linalg}")
+        c = costs.cpu().numpy()
+        med = float((lms - X).abs().median())
+        check(c[-1] < c[0] * 1e-4 and med < 1e-2,
+              f"K9 ({linalg}) misses the JAX scale test's gates: costs "
+              f"{c.tolist()}, median landmark error {med}")
+        nums.update(costs=c.tolist(), median_landmark_err=med)
+        full[linalg] = nums
+    print(f"phase 10: K9 at N {GEN_N}, M {GEN_M}, K {GEN_K}, {GEN_ITERS} "
+          f"iterations: " + "; ".join(
+              f"{k}: S off by {v['S_rel_err']:.3g}, rhs "
+              f"{v['rhs_err_of_terms']:.3g} of its terms, cost "
+              f"{v['cost_rel_err']:.3g}; the first candidate's cost "
+              f"{v['step_cost_rel_err']:.3g}, poses {v['step_pose_err']:.3g}, "
+              f"predicted measurements {v['step_predicted_err_px']:.3g} px "
+              f"off the plain step; the LM loop's poses "
+              f"{v['lm_pose_err']:.3g} off the plain loop's (which is "
+              f"{v['plain_cpu_card_pose_dist']:.3g} off itself on the CPU), "
+              f"predicted measurements {v['lm_predicted_err_px']:.3g} px, "
+              f"last cost {v['lm_last_cost_above']:.3g} of the first above "
+              f"it; costs {v['costs']}, median "
+              f"landmark error {v['median_landmark_err']:.3g}"
+              for k, v in full.items()) + "; bit-identical twice")
+
+    # the main path: one ba_solve_tracks call, counts reset just before
+    KN.reset_launch_counts()
+    solved, costs = BA.ba_solve_tracks(p, iters=GEN_ITERS, lam0=GEN_LAM0)
+    torch.cuda.synchronize()
+    counts = KN.launch_counts()
+    check(counts["ba_generic"] == 1 + 5 * GEN_ITERS
+          and sum(counts.values()) == counts["ba_generic"],
+          f"ba_solve_tracks on the generic layout launched {counts}")
+    check(bool(torch.isfinite(solved.poses).all())
+          and bool(torch.isfinite(solved.landmarks).all())
+          and tuple(costs.shape) == (GEN_ITERS,),
+          "ba_solve_tracks' result is not finite or of the wrong shape")
+
+    # the small cases, each against the plain loop (both linalg)
+    small = {}
+    for case, (n, m, k, lam0, iters) in {
+            "masked": (64, 8, 3, 1e-3, 3), "repeated": (200, 8, 3, 1e-4, 5),
+            "unseen": (200, 8, 3, 1e-4, 5),
+            "one_slot": (200, 8, 1, 1e-4, 5)}.items():
+        pc, _ = generic_problem(torch, np, BA, dev, n, m, k, 5, case,
+                                noise=0.0 if case == "masked" else 0.3)
+        for linalg in ("lu", "chol"):
+            nums, (_, _, cs, _) = k9_check(torch, BA, BG, KN, pc, iters,
+                                           lam0, linalg, f"{case}, {linalg}")
+            small[f"{case}_{linalg}"] = nums["lm_pose_err"]
+        if case == "masked":       # test_slam_scale.py:128's gate
+            check(float(cs[-1]) < 1e-3, f"K9 masked slots: costs {cs}")
+    # every step rejected, and the pose factorisation failing
+    # (the observations of free pose 5 displaced 2000 px at lam0 1e-8:
+    # each candidate costs more, in a CPU run of the plain loop; no valid
+    # slot on pose 5 and no damping: S has a zero row and column)
+    pc, _ = generic_problem(torch, np, BA, dev, 1024, 16, 4, 9, noise=0.3)
+    rej = pc._replace(obs_uv=pc.obs_uv + 2000.0 * (pc.obs_pose == 5)[
+        ..., None])
+    fail = pc._replace(obs_valid=pc.obs_valid & (pc.obs_pose != 5))
+    for what, pr, lam0 in (("rejected", rej, 1e-8), ("failed", fail, 0.0)):
+        for linalg in ("lu", "chol"):
+            _, (po, lm, _, tr) = k9_check(torch, BA, BG, KN, pr, 3, lam0,
+                                          linalg, f"{what}, {linalg}")
+            check(not bool((tr.accept != 0).any())
+                  and same_bits(torch, po, pr.poses)
+                  and same_bits(torch, lm, pr.landmarks)
+                  and bool(torch.isnan(tr.dp).all()) == (what == "failed"),
+                  f"K9 ({what}, {linalg}) took a step")
+    # a ring problem down the generic route against K6, at
+    # tests/test_slam_scale.py:131's recipe and tolerances
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    rng = np.random.RandomState(4)
+    xi = np.zeros((6, 6), np.float32)
+    xi[1:, 3] = -0.2
+    st = se3_exp(torch.from_numpy(xi).to(dev))
+    rp = [torch.eye(4, device=dev)]
+    for i in range(1, 6):
+        rp.append(st[i] @ rp[-1])
+    rp = torch.stack(rp)
+    Xr = torch.from_numpy((rng.rand(64, 3) * 2 + [-1.0, -1.0, 3.0]).astype(
+        np.float32)).to(dev)
+    intr = torch.tensor(GEN_INTR, device=dev)
+    ring = BA.BATracks(
+        poses=rp, landmarks=Xr + torch.from_numpy((rng.randn(64, 3) * 0.02)
+                                                  .astype(np.float32)).to(dev),
+        obs_pose=torch.arange(6, dtype=torch.int32, device=dev)[None].expand(
+            64, 6).contiguous(), obs_uv=BA.project(rp[None], Xr[:, None],
+                                                   intr),
+        obs_valid=torch.from_numpy(rng.rand(64, 6) > 0.3).to(dev),
+        intrinsics=intr, fixed_poses=torch.tensor(
+            [True, True, False, False, False, False], device=dev))
+    ring_err = {}
+    for linalg in ("lu", "chol"):
+        s1, c1 = BA.ba_solve_tracks(ring, iters=4, lam0=1e-4, linalg=linalg)
+        s2, c2 = BA.ba_solve_tracks(ring, iters=4, lam0=1e-4,
+                                    ring_layout=True, linalg=linalg)
+        e = (float(((c1 - c2).abs() / c2.abs()).max()),
+             float((s1.poses - s2.poses).abs().max()),
+             float((s1.landmarks - s2.landmarks).abs().max()))
+        check(e[0] <= 1e-4 and e[1] <= 1e-5 and e[2] <= 1e-5,
+              f"K9 against K6 on the ring problem ({linalg}): costs, poses, "
+              f"landmarks off by {e}")
+        ring_err[linalg] = e
+    # no iteration: the problem back, empty costs, no launch
+    KN.reset_launch_counts()
+    s0, c0 = BA.ba_solve_tracks(p, iters=0)
+    check(KN.launch_counts()["ba_generic"] == 0 and tuple(c0.shape) == (0,)
+          and same_bits(torch, s0.poses, p.poses),
+          "K9's route at iters=0 does not return its problem unchanged")
+    print(f"phase 10: K9 on masked slots, a repeated pose, unseen "
+          f"landmarks, one slot a landmark (poses within {max(small.values()):.3g} of the plain "
+          f"loop), every step rejected, a failed pose factorisation; a "
+          f"ring problem within {ring_err} (costs, poses, landmarks) of K6; "
+          f"iters=0 with no launch")
+
+    # times, both linalg; the main path's linalg ("lu") in the kernels line
+    timing = {}
+    for linalg in ("lu", "chol"):
+        def k9_call(iters=GEN_ITERS, linalg=linalg):
+            return BA.ba_solve_tracks(p, iters=iters, lam0=GEN_LAM0,
+                                      linalg=linalg)
+
+        def plain_call(linalg=linalg):
+            return BA._lm_tracks(p, GEN_ITERS, GEN_HUBER, GEN_LAM0, False,
+                                 linalg, kernel=False)
+
+        t_call, by = device_ms(torch, k9_call, calls=5, replays=5)
+        t_one, _ = device_ms(torch, lambda: k9_call(1), calls=5, replays=5)
+        _, _, _, tr = BG.lm_generic(p, 1, GEN_HUBER, GEN_LAM0, linalg)
+        D = 6 * GEN_M
+        Sd = tr.S.reshape(D, D) + GEN_LAM0 * torch.eye(D, device=dev)
+        fx = p.fixed_poses[:, None].expand(GEN_M, 6).reshape(-1)
+        Sd = torch.where(fx[:, None] | fx[None, :], torch.eye(D, device=dev),
+                         Sd)
+        d = Sd.diagonal().clamp(min=1e-12).rsqrt()
+        Sps = (Sd * d[:, None] * d[None, :]).contiguous()
+        bs = (d * torch.where(fx, 0.0, tr.rhs.reshape(-1))).contiguous()
+        t_solve, _ = device_ms(torch, lambda: BG.pose_solve(Sps, bs, linalg),
+                               calls=5, replays=5)
+        timing[linalg] = dict(
+            device_ms=t_call, device_ms_by=by,
+            device_ms_per_iteration=(t_call - t_one) / (GEN_ITERS - 1),
+            device_ms_setup=t_one - (t_call - t_one) / (GEN_ITERS - 1),
+            pose_solve_device_ms=t_solve,
+            device_ms_without_pose_solve=t_call - GEN_ITERS * t_solve,
+            ms=cuda_ms(torch, k9_call, 10),
+            plain_ms=cuda_ms(torch, plain_call, 3, warmup=1),
+            graph_ops=graph_ops(torch, k9_call),
+            plain_graph_ops=graph_ops(torch, plain_call))
+    # test_slam_scale.py:107's M 16 x N 1024 x K 4, and the SLAM window's
+    # shape (K = M = 6, N 1024, 3 iterations: a ring problem) down the
+    # generic route beside K6
+    p16, _ = generic_problem(torch, np, BA, dev, 1024, 16, 4, 3, noise=0.3)
+    pw, _ = generic_problem(torch, np, BA, dev, 1024, 6, 6, 4, noise=0.3)
+    shapes = {}
+    for name, pr, iters, ring in (("m16_n1024_k4", p16, 5, False),
+                                  ("window_m6_n1024", pw, 3, False),
+                                  ("window_m6_n1024_k6", pw, 3, True)):
+        for linalg in ("lu", "chol"):
+            def call(pr=pr, iters=iters, ring=ring, linalg=linalg):
+                return BA.ba_solve_tracks(pr, iters=iters, lam0=GEN_LAM0,
+                                          ring_layout=ring, linalg=linalg)
+            t, by = device_ms(torch, call, calls=5, replays=5)
+            shapes[f"{name}_{linalg}"] = dict(
+                device_ms=t, device_ms_by=by, ms=cuda_ms(torch, call, 10))
+    print("phase 10: device / as-called ms a call (the last two on the "
+          "window's shape: K9, then K6 on the ring route): " + "; ".join(
+              f"{k} {v['device_ms']:.4f} / {v['ms']:.4f}"
+              for k, v in shapes.items()))
+    (bms, bby), bbytes, bops = k9_bound(torch, p, GEN_ITERS)
+    print(f"phase 10: per ba_solve_tracks call ({GEN_ITERS} iterations; "
+          f"{smi}): " + "; ".join(
+              f"{k}: {v['device_ms']:.4f} ms on the device "
+              f"({v['device_ms_by']}; an iteration "
+              f"{v['device_ms_per_iteration']:.4f}, the index "
+              f"{v['device_ms_setup']:.4f}; the library pose solve "
+              f"{v['pose_solve_device_ms']:.4f} a solve, K9 alone "
+              f"{v['device_ms_without_pose_solve']:.4f}), "
+              f"{v['ms']:.4f} as called, plain {v['plain_ms']:.3f}; device "
+              f"operations {v['graph_ops']} against the plain route's "
+              f"{v['plain_graph_ops']}" for k, v in timing.items())
+          + f"; bound {bms:.5f} ms ({bby})")
+
+    # the flat ba_solve on the card against the CPU (tests/test_slam.py:51)
+    rng = np.random.RandomState(0)
+    xis = np.zeros((4, 6), np.float32)
+    xis[:, 3] = -0.3 * np.arange(4)
+    xis[:, :3] = rng.randn(4, 3) * 0.02
+    fp = se3_exp(torch.from_numpy(xis))
+    fl = torch.from_numpy((rng.rand(60, 3) * [2.0, 1.5, 1.0]
+                           + [-1.0, -0.75, 3.0]).astype(np.float32))
+    op = torch.arange(4, dtype=torch.int32).repeat_interleave(60)
+    ol = torch.arange(60, dtype=torch.int32).repeat(4)
+    fi = torch.tensor(GEN_INTR)
+    rng = np.random.RandomState(1)
+    dpose = torch.from_numpy(np.concatenate(
+        [np.zeros((2, 6)), rng.randn(2, 6) * 0.02]).astype(np.float32))
+    flat = BA.BAProblem(
+        poses=se3_exp(dpose) @ fp, landmarks=fl + torch.from_numpy(
+            (rng.randn(60, 3) * 0.05).astype(np.float32)),
+        obs_pose=op, obs_lm=ol, obs_uv=BA.project(fp[op.long()],
+                                                  fl[ol.long()], fi),
+        obs_valid=torch.ones(240, dtype=torch.bool), intrinsics=fi,
+        fixed_poses=torch.tensor([True, True, False, False]))
+    fc, fcc = BA.ba_solve(flat, iters=12)
+    fg, fgc = BA.ba_solve(BA.BAProblem(*(t.to(dev) for t in flat)),
+                          iters=12)
+    flat_err = (float((fg.poses.cpu() - fc.poses).abs().max()),
+                float((fg.landmarks.cpu() - fc.landmarks).abs().max()),
+                float(((fgc.cpu() - fcc).abs() - 1e-4 * fcc.abs()).max()
+                      / fcc[0]))
+    check(flat_err[0] <= 1e-4 and flat_err[1] <= 1e-3
+          and flat_err[2] <= 1e-6 and float(fgc[-1]) < float(fgc[0]) * 1e-4,
+          f"the flat ba_solve on the card is off the CPU's: {flat_err}")
+    # and at full width, from the tracks problem, beside K9
+    n, k = p.obs_valid.shape
+    big = BA.BAProblem(
+        poses=p.poses, landmarks=p.landmarks, obs_pose=p.obs_pose.reshape(-1),
+        obs_lm=torch.arange(n, dtype=torch.int32, device=dev
+                            ).repeat_interleave(k),
+        obs_uv=p.obs_uv.reshape(-1, 2), obs_valid=p.obs_valid.reshape(-1),
+        intrinsics=p.intrinsics, fixed_poses=p.fixed_poses)
+    _, big_c = BA.ba_solve(big, iters=GEN_ITERS, lam0=GEN_LAM0)
+    flat_ms = cuda_ms(torch, lambda: BA.ba_solve(
+        big, iters=GEN_ITERS, lam0=GEN_LAM0), 2, warmup=1)
+    print(f"phase 10: flat ba_solve on the card within {flat_err} (poses, "
+          f"landmarks, costs over 1e-4 relative) of the CPU; at N {GEN_N}, "
+          f"M {GEN_M}: {flat_ms:.2f} ms a call as called, costs "
+          f"{big_c.cpu().tolist()}")
+
+    # the geometry on the card against the CPU
+    # (tests/test_geometry_matcher.py:18,29,44)
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    P1 = torch.from_numpy(K @ np.hstack([np.eye(3), np.zeros((3, 1))]))
+    P2 = torch.from_numpy(K @ np.hstack([np.eye(3), -np.array(
+        [[0.5], [0.2], [1.0]])]))
+    rng = np.random.RandomState(0)
+    Xg = rng.rand(32, 3) * [2, 2, 2] + [-1, -1, 4]
+    hom = np.hstack([Xg, np.ones((32, 1))])
+    x1 = hom @ P1.numpy().T
+    x1 = torch.from_numpy(x1[:, :2] / x1[:, 2:3])
+    x2 = hom @ P2.numpy().T
+    x2 = torch.from_numpy(x2[:, :2] / x2[:, 2:3])
+    g = {}
+    for where in ("cpu", "card"):
+        at = "cpu" if where == "cpu" else dev
+        a = [t.to(at) for t in (P1, P2, x1, x2)]
+        Xt = GEO.triangulate(*a)
+        F = GEO.fundamental_from_projections(a[0], a[1])
+        Fc = g["cpu"]["F"].to(at) if where == "card" else F
+        g[where] = dict(X=Xt, err=GEO.reprojection_error(a[0], Xt, a[2]),
+                        F=F, el=GEO.epipole_left(Fc),
+                        er=GEO.epipole_right(Fc),
+                        line=GEO.epipolar_line(Fc, a[2]))
+    geo_err = {}
+    for key, v in g["card"].items():
+        w = g["cpu"][key]
+        v = v.cpu()
+        if key == "F":
+            v = v if (v - w).abs().max() <= (v + w).abs().max() else -v
+        # relative to the largest magnitude; the round trip's reprojection
+        # errors (float32 noise, ~1e-4 px) in px
+        geo_err[key] = float((v - w).abs().max() / (1.0 if key == "err" else
+                                                    max(float(w.abs().max()),
+                                                        1e-30)))
+    check(max(geo_err.values()) <= 1e-3
+          and max(v for k, v in geo_err.items() if k != "err") <= 1e-4
+          and float((g["card"]["X"].cpu() - torch.from_numpy(Xg)).abs().max())
+          < 1e-2,
+          f"the geometry on the card is off the CPU's: {geo_err}")
+    print(f"phase 10: geometry on the card against the CPU, relative to "
+          f"the largest magnitude (F up to sign; reprojection errors in "
+          f"px): {geo_err}; {time.perf_counter() - t0:.1f} s in all")
+
+    lu = timing["lu"]
+    results["ba_generic"] = dict(
+        name="ba_generic", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/ba_generic.cu",
+        replaces="vpp_tpu/slam/ba.py:512",
+        per=f"ba_solve_tracks call, generic layout, N {GEN_N}, M {GEN_M}, "
+            f"K {GEN_K}, {GEN_ITERS} iterations, linalg lu (the pose solve "
+            "included)",
+        max_abs_err=max(v["step_pose_err"] for v in full.values()),
+        ms=lu["ms"], plain_ms=lu["plain_ms"], bound_ms=bms, bound_by=bby,
+        bound_bytes=bbytes, bound_operations=bops, library="none",
+        library_ms=None, device_ms=lu["device_ms"],
+        device_ms_by=lu["device_ms_by"],
+        device_ms_per_iteration=lu["device_ms_per_iteration"],
+        pose_solve_device_ms=lu["pose_solve_device_ms"],
+        device_ms_without_pose_solve=lu["device_ms_without_pose_solve"],
+        graph_ops=lu["graph_ops"], plain_graph_ops=lu["plain_graph_ops"],
+        chol=timing["chol"], full_width=full, ring_vs_k6=ring_err,
+        other_shapes=shapes,
+        launches_per_call=counts["ba_generic"])
+    return dict(counts=counts, flat_ms=flat_ms, flat_err=flat_err,
+                geometry_err=geo_err)
+
+
 def same_bits(torch, a, b) -> bool:
     """Bit-identical float32 tensors (NaN included)."""
     return a.shape == b.shape and torch.equal(
@@ -1079,6 +1618,7 @@ def main() -> int:
                                        reset_launch_counts)
     from vpp_tpu_torch.slam import ba as BA
     from vpp_tpu_torch.slam import ba_cuda as BC
+    from vpp_tpu_torch.slam import ba_generic_cuda as BG
     from vpp_tpu_torch.slam import map_vote as MV
     from vpp_tpu_torch.slam import pipeline as SP
     from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
@@ -2233,7 +2773,14 @@ def main() -> int:
         slam_cfg, slam_dev, gt_poses, sst, slam_counts, results, smi)
     print(f"phase 9: streams passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 10. results ----------------------------------------------------------
+    # -- 10. bundle adjustment at production scale (the generic layout) -----
+    t0 = time.perf_counter()
+    gen = phase_ba_generic(torch, np, BA, BG,
+                           sys.modules["vpp_tpu_torch.kernels"], dev, results,
+                           smi)
+    print(f"phase 10: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -2252,6 +2799,8 @@ def main() -> int:
         r["launches"] = launches[key]
         r["launches_per_frame"] = per_frame[key]
         kernels.append(r)
+    results["ba_generic"]["launches"] = gen["counts"]["ba_generic"]
+    kernels.append(results["ba_generic"])
     print(json.dumps({"tracker_fps": fps, "tracker_live": live,
                       "hough_ms_per_frame": hough_ms, "slam_fps": slam_fps,
                       "slam_ate": slam_ate, "slam_landmarks": slam_lms,
@@ -2262,7 +2811,8 @@ def main() -> int:
                       "full_slam_lc_ptr": full_lc,
                       "full_slam_launches": full_counts,
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
-                      "streams": streams, "card": smi}))
+                      "streams": streams, "ba_generic": gen,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,7 +15,11 @@ K4's whole pyramid one launch, bit-equal to the plain chain on
 integer-valued frames up to level 2 and within 1e-6 relative elsewhere;
 K8's map-vote PnP one launch for every match set, bit-equal to its plain
 version up to the PnP (shifts, j1, uv1, inl), T and err within 1e-4 and
-n equal after it; a loop
+n equal after it; K9 (the generic-layout BA) held stage by stage to its
+plain version as chip_smoke.py's ``k9_check`` holds it (the assembly within
+1e-4, the first pose step the plain solve of its own system, the first
+candidate within 1e-4), the same bits twice, and a ring problem down K9
+within 1e-5 of K6; a loop
 closure keyframe (the pose-graph smoother's full and refresh branches)
 within 1e-4 of the plain CPU path from one state.
 """
@@ -655,8 +659,21 @@ def test_ba_tracks_kernel_matches_plain(cuda, n, m, linalg):
     poses, lms, costs, _ = ba_cuda.lm_tracks(p, 3, 4.0, 1e-4, linalg)
     assert _same_bits(sk.poses, poses) and _same_bits(sk.landmarks, lms)
     assert _same_bits(ck, costs)
-    with pytest.raises(NotImplementedError):
-        ba.ba_solve_tracks(p, iters=1, ring_layout=False)
+    # the same problem down the generic route runs K9: costs within 1e-4,
+    # poses within 1e-5 of K6's, landmarks within 1e-3 px in their
+    # observations (this window's weakly seen landmarks move along their
+    # rays with the solver's last bits: K6 factors S itself, K9 in the
+    # library; test_ba_generic_kernel_ring_matches_k6 holds both at
+    # tests/test_slam_scale.py:131's recipe and tolerances)
+    reset_launch_counts()
+    sg, cg = ba.ba_solve_tracks(p, iters=3, huber=4.0, lam0=1e-4,
+                                ring_layout=False, linalg=linalg)
+    assert launch_counts()["ba_generic"] == 1 + 5 * 3
+    assert launch_counts()["ba_tracks"] == 0
+    assert _rel(cg, ck) <= 1e-4
+    assert float((sg.poses - sk.poses).abs().max()) <= 1e-5
+    assert float((ba.track_residuals(sg, True) - ba.track_residuals(
+        sg._replace(landmarks=sk.landmarks), True)).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize("linalg", ["chol", "lu"])
@@ -706,6 +723,272 @@ def test_ba_tracks_kernel_rejects_large_windows(cuda):
     p = _ring_problem(cuda, 64, 17, 0)
     with pytest.raises(ValueError):
         ba_cuda.lm_tracks(p, 1, 4.0, 1e-3, "chol")
+
+
+def _generic_problem(device, n, m, k, seed, case="plain", noise=0.3):
+    """tests/test_slam_scale.py:13-40's recipe on the port's own maps: m
+    poses stepping 0.1 in x, each landmark seen by k consecutive poses
+    (``case="shuffled"``: k random distinct poses in random order),
+    ``noise`` px of noise, the landmarks perturbed by 0.03, poses 0 and 1
+    fixed. Cases: ``masked`` (slot 1 of every row thrown 500 px and
+    masked), ``repeated`` (slot 1 of every 3rd row names slot 0's pose),
+    ``unseen`` (landmarks 10-13 with no valid slot), ``nan_masked`` (a NaN
+    measurement in a masked slot), ``out_of_range`` (one valid slot names
+    pose m, one pose -1)."""
+    from vpp_tpu_torch.slam.ba import BATracks, project
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    rng = np.random.RandomState(seed)
+    xi = np.zeros((m, 6), np.float32)
+    xi[1:, 3] = -0.1
+    xi[1:, :3] = rng.randn(m - 1, 3) * 0.01
+    steps = se3_exp(torch.from_numpy(xi))
+    poses = [torch.eye(4)]
+    for i in range(1, m):
+        poses.append(steps[i] @ poses[-1])
+    poses = torch.stack(poses)
+    if case == "shuffled":
+        op = np.stack([rng.permutation(m)[:k] for _ in range(n)])
+        start = op.min(1)
+    else:
+        start = rng.randint(0, m - k + 1, size=n)
+        op = start[:, None] + np.arange(k)[None]
+    X = rng.rand(n, 3) * [2.0, 1.5, 1.0] + [-1.0, -0.75, 3.0]
+    X[:, 0] += 0.1 * start
+    X = torch.from_numpy(X.astype(np.float32))
+    op = torch.from_numpy(op.astype(np.int32))
+    intr = torch.tensor([300.0, 300.0, 160.0, 120.0])
+    uv = project(poses[op.long()], X[:, None], intr) + torch.from_numpy(
+        (rng.randn(n, k, 2) * noise).astype(np.float32))
+    valid = torch.ones((n, k), dtype=torch.bool)
+    if case == "masked":
+        uv[:, 1] += 500.0
+        valid[:, 1] = False
+    elif case == "repeated":
+        op[::3, 1] = op[::3, 0]
+    elif case == "unseen":
+        valid[10:14] = False
+    elif case == "nan_masked":
+        uv[5, 1] = float("nan")
+        valid[5, 1] = False
+    elif case == "out_of_range":
+        op[3, 0] = m
+        op[9, k - 1] = -1
+    # with one slot a landmark the poses learn nothing from the landmarks
+    # (S is lam I, dp rhs / lam: rounding noise), so K = 1 fixes every pose
+    # and its step moves the landmarks alone
+    fixed = torch.ones(m, dtype=torch.bool) if k == 1 else torch.zeros(
+        m, dtype=torch.bool)
+    fixed[:2] = True
+    Xn = X + torch.from_numpy((rng.randn(n, 3) * 0.03).astype(np.float32))
+    p = BATracks(poses=poses, landmarks=Xn, obs_pose=op, obs_uv=uv,
+                 obs_valid=valid, intrinsics=intr, fixed_poses=fixed)
+    return BATracks(*(t.to(device) for t in p)), X.to(device)
+
+
+def _pred(p, poses, lms):
+    """Predicted minus measured uv at every valid slot (0 elsewhere)."""
+    from vpp_tpu_torch.slam import ba
+    return ba.track_residuals(p._replace(poses=poses, landmarks=lms))
+
+
+def _check_generic(p, iters, lam0, linalg, huber=4.0):
+    """K9 against its plain version on ``p``, on the card, stage by stage
+    on the same inputs (chip_smoke.py's ``k9_check``): one index launch and
+    five an iteration, the same bits twice; the first iteration's S and
+    rhs (on the free poses' rows and columns) and cost within 1e-4 of the
+    plain assembly and its first pose step the plain solve of its own
+    system; the first candidate (one iteration) within 1e-4 (cost, of the
+    larger of the iterate's and the candidate's; poses,
+    times the step's size where it passes 1) and 1e-3 px (predicted
+    measurements, times the poses' extent over 10 units where it passes
+    10) of the plain step from that dp, with
+    the same decision unless the costs tie within 1e-4; over the loop the
+    last cost at most 1e-4 of the first (or 3x the plain loop's own
+    CPU-to-card distance) above the plain loop's, and poses within 1e-4 of
+    it where the plain loop lands within 1e-5 of itself on the CPU.
+    Returns the kernel's result and trace."""
+    from vpp_tpu_torch.slam import ba, ba_generic_cuda
+    reset_launch_counts()
+    out = ba_generic_cuda.lm_generic(p, iters, huber, lam0, linalg)
+    assert launch_counts()["ba_generic"] == 1 + 5 * iters
+    again = ba_generic_cuda.lm_generic(p, iters, huber, lam0, linalg)
+    for a, b in zip(out[:3] + tuple(out[3]), again[:3] + tuple(again[3])):
+        assert _same_bits(a, b)
+    poses, lms, costs, tr = out
+    lam = torch.full((), lam0, device=p.poses.device)
+    (Sp, rhsp, costp), local = ba._tracks_assemble(p, lam, huber, False,
+                                                   linalg)
+    finite = bool(torch.isfinite(costp))
+    # S and rhs on the free poses' rows and columns (the pose solve's)
+    free = (~p.fixed_poses)[:, None].expand(-1, 6).reshape(-1)
+    D = free.numel()
+    if finite:
+        assert _rel(tr.cost, costp) <= 1e-4
+    if finite and bool(free.any()):
+        assert _rel(tr.S.reshape(D, D)[free][:, free],
+                    Sp.reshape(D, D)[free][:, free]) <= 1e-4
+        assert float((tr.rhs.reshape(-1) - rhsp.reshape(-1))[free].abs(
+            ).max()) <= 1e-4 * ba.rhs_term_scale(p, huber, False)
+    dp0 = tr.dp[0]
+    want = ba._tracks_solve_poses(tr.S, tr.rhs, p.fixed_poses, lam, linalg)
+    assert torch.equal(torch.isnan(want), torch.isnan(dp0))
+    assert torch.equal(torch.nan_to_num(want), torch.nan_to_num(dp0))
+    cand_p = ba.apply_pose_step(p.poses, dp0, p.fixed_poses)
+    cand_l = p.landmarks + ba._tracks_backsub(local, dp0)
+    new_p = ba._tracks_cost(p._replace(poses=cand_p, landmarks=cand_l),
+                            huber)
+    one = ba_generic_cuda.lm_generic(p, 1, huber, lam0, linalg)
+    acc = bool(one[3].accept[0] != 0)
+    if finite and bool(torch.isfinite(new_p)):
+        assert float((one[3].cost_after[0] - new_p).abs()) <= 1e-4 * max(
+            abs(float(costp)), abs(float(new_p)))
+    if abs(float(new_p) - float(costp)) > 1e-4 * abs(float(costp)):
+        assert acc == bool(new_p < costp)
+    if acc:
+        assert _dist(one[0], cand_p) <= 1e-4 * max(
+            1.0, float(torch.nan_to_num(dp0).abs().max()))
+        assert _dist(_pred(p, one[0], one[1]), _pred(p, cand_p, cand_l)) \
+            <= 1e-3 * max(1.0, float(p.poses[:, :3, 3].abs().max()) / 10)
+    sp, cp = ba._lm_tracks(p, iters, huber, lam0, False, linalg,
+                           kernel=False)
+    sc, cc = ba._lm_tracks(ba.BATracks(*(t.cpu() for t in p)), iters,
+                           huber, lam0, False, linalg, kernel=False)
+    if finite:
+        assert torch.equal(costs, torch.where(
+            tr.accept != 0, tr.cost_after, tr.cost_before))
+        assert float(costs[-1] - cp[-1]) <= max(
+            1e-4 * float(cp.abs().max()),
+            3 * abs(float(cc[-1]) - float(cp[-1])))
+    else:
+        assert torch.equal(torch.isnan(costs), torch.isnan(cp))
+    if _dist(sp.poses.cpu(), sc.poses) <= 1e-5:
+        assert _dist(poses, sp.poses) <= 1e-4
+    return out
+
+
+def _dist(a, b):
+    return float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("n,m,k,case", [
+    (10240, 128, 4, "plain"), (1024, 16, 4, "plain"), (512, 6, 6, "plain"),
+    (300, 12, 5, "shuffled"), (200, 8, 3, "masked"), (200, 8, 3, "repeated"),
+    (200, 8, 3, "unseen"), (200, 8, 3, "nan_masked"),
+    (200, 8, 3, "out_of_range"), (100, 4, 1, "plain"),
+    (4096, 512, 4, "plain"), (256, 40, 32, "plain")])
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ba_generic_kernel_matches_plain(cuda, n, m, k, case, linalg):
+    """K9 (5 iterations at lam0 1e-4, the JAX scale test's) against its
+    plain version, at the JAX package's production scale (N 10240, M 128,
+    K 4; there also that test's gates), at test_slam_scale.py:107's M 16 x
+    N 1024 x K 4, a window of K = M = 6, shuffled slots, K = 1 and the
+    masked, repeated-pose, unseen, NaN and out-of-range cases, and at
+    K9's limits of 512 poses and 32 slots a landmark.
+    ``ba_solve_tracks`` makes the same launches, with the same bits."""
+    from vpp_tpu_torch.slam import ba
+    full = (n, m, k) == (10240, 128, 4)      # the JAX recipe: no noise
+    p, X = _generic_problem(cuda, n, m, k, n + m + k, case,
+                            noise=0.0 if full else 0.3)
+    poses, lms, costs, tr = _check_generic(p, 5, 1e-4, linalg)
+    if full:
+        assert float(costs[-1]) < float(costs[0]) * 1e-4
+        assert float((lms - X).abs().median()) < 1e-2
+    if case == "nan_masked":
+        assert bool(torch.isnan(costs).all()) and not bool(tr.accept.any())
+    reset_launch_counts()
+    sk, ck = ba.ba_solve_tracks(p, iters=5, lam0=1e-4, linalg=linalg)
+    assert launch_counts()["ba_generic"] == 26
+    assert _same_bits(sk.poses, poses) and _same_bits(sk.landmarks, lms)
+    assert _same_bits(ck, costs)
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ba_generic_kernel_ring_matches_k6(cuda, linalg):
+    """tests/test_slam_scale.py:131's ring problem (M 6, N 64, a third of
+    the slots masked) down the generic route (K9) and the ring route (K6),
+    at that test's tolerances: costs rtol 1e-4, poses and landmarks atol
+    1e-5."""
+    from vpp_tpu_torch.slam import ba
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    rng = np.random.RandomState(4)
+    m, n = 6, 64
+    xi = np.zeros((m, 6), np.float32)
+    xi[1:, 3] = -0.2
+    steps = se3_exp(torch.from_numpy(xi))
+    poses = [torch.eye(4)]
+    for i in range(1, m):
+        poses.append(steps[i] @ poses[-1])
+    poses = torch.stack(poses)
+    X = torch.from_numpy((rng.rand(n, 3) * 2 + [-1.0, -1.0, 3.0]).astype(
+        np.float32))
+    op = torch.arange(m, dtype=torch.int32)[None].expand(n, m).contiguous()
+    intr = torch.tensor([300.0, 300.0, 160.0, 120.0])
+    uv = ba.project(poses[None], X[:, None], intr)
+    p = ba.BATracks(
+        poses=poses, landmarks=X + torch.from_numpy(
+            (rng.randn(n, 3) * 0.02).astype(np.float32)),
+        obs_pose=op, obs_uv=uv, obs_valid=torch.from_numpy(
+            rng.rand(n, m) > 0.3), intrinsics=intr,
+        fixed_poses=torch.tensor([True, True] + [False] * (m - 2)))
+    p = ba.BATracks(*(t.to(cuda) for t in p))
+    reset_launch_counts()
+    s1, c1 = ba.ba_solve_tracks(p, iters=4, lam0=1e-4, linalg=linalg)
+    s2, c2 = ba.ba_solve_tracks(p, iters=4, lam0=1e-4, ring_layout=True,
+                                linalg=linalg)
+    assert launch_counts()["ba_generic"] == 21
+    assert launch_counts()["ba_tracks"] == 1
+    assert float(((c1 - c2).abs() / c2.abs()).max()) <= 1e-4
+    assert float((s1.poses - s2.poses).abs().max()) <= 1e-5
+    assert float((s1.landmarks - s2.landmarks).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+@pytest.mark.parametrize("case", ["rejected", "failed"])
+def test_ba_generic_kernel_branches(cuda, case, linalg):
+    """Every step rejected (the observations of free pose 5 displaced
+    2000 px, lam0 1e-8: each candidate costs more, in a CPU run of the
+    plain loop) and the pose factorisation failing (no damping, no valid
+    slot on free pose 5: S has a zero row and column, dp is NaN): nothing
+    moves, as in the plain loop."""
+    p, _ = _generic_problem(cuda, 1024, 16, 4, 9)
+    if case == "rejected":
+        p = p._replace(obs_uv=p.obs_uv + 2000.0 * (p.obs_pose == 5)[
+            ..., None])
+        lam0 = 1e-8
+    else:
+        p, lam0 = p._replace(obs_valid=p.obs_valid & (p.obs_pose != 5)), 0.0
+    poses, lms, costs, tr = _check_generic(p, 3, lam0, linalg)
+    assert not bool((tr.accept != 0).any())
+    assert bool((tr.cost_before == tr.cost).all())
+    assert bool(torch.isnan(tr.dp).all()) == (case == "failed")
+    assert _same_bits(poses, p.poses) and _same_bits(lms, p.landmarks)
+
+
+def test_ba_generic_limits_and_zero_iterations(cuda):
+    """K9 refuses what it does not take (``ValueError``: M 513, K 33, no
+    landmark, streams); ``ba_solve_tracks(iters=0)`` launches nothing, and
+    the generic layout with a stream dimension raises
+    ``NotImplementedError`` before any launch."""
+    from vpp_tpu_torch.slam import ba, ba_generic_cuda
+    p, _ = _generic_problem(cuda, 64, 8, 3, 1)
+    reset_launch_counts()
+    sk, ck = ba.ba_solve_tracks(p, iters=0)
+    assert launch_counts()["ba_generic"] == 0 and tuple(ck.shape) == (0,)
+    assert _same_bits(sk.poses, p.poses)
+    for bad in (_generic_problem(cuda, 16, 513, 3, 2)[0],
+                _generic_problem(cuda, 64, 40, 33, 3)[0],
+                p._replace(landmarks=p.landmarks[:0],
+                           obs_pose=p.obs_pose[:0], obs_uv=p.obs_uv[:0],
+                           obs_valid=p.obs_valid[:0])):
+        with pytest.raises(ValueError):
+            ba_generic_cuda.lm_generic(bad, 1, 4.0, 1e-3, "lu")
+    streams = ba.BATracks(*(t if i == 5 else t[None].expand(
+        (2,) + t.shape).contiguous() for i, t in enumerate(p)))
+    with pytest.raises(NotImplementedError):
+        ba.ba_solve_tracks(streams, iters=1)
+    with pytest.raises(ValueError):
+        ba_generic_cuda.lm_generic(streams, 1, 4.0, 1e-3, "lu")
+    assert launch_counts()["ba_generic"] == 0
 
 
 def test_slam_on_card_matches_cpu(cuda):

@@ -30,6 +30,7 @@ from ._device import resolve_device
 from .algorithms.hough_tracker import HoughTrackerState
 from .algorithms.video_extruder import VideoExtruderState
 from .core.keypoints import Keypoints
+from .slam.ba import BAProblem, BATracks
 from .slam.pipeline import SlamState
 from .slam.pose_graph import PoseGraph
 
@@ -102,7 +103,8 @@ def state_from_numpy(cls, m: Mapping[str, Any], device="cuda", *,
 
 keypoints_to_numpy = video_extruder_state_to_numpy = state_to_numpy
 hough_tracker_state_to_numpy = slam_state_to_numpy = state_to_numpy
-pose_graph_to_numpy = state_to_numpy
+pose_graph_to_numpy = ba_problem_to_numpy = ba_tracks_to_numpy = \
+    state_to_numpy
 
 
 def keypoints_from_numpy(m: Mapping[str, Any], device="cuda") -> Keypoints:
@@ -125,3 +127,11 @@ def slam_state_from_numpy(m: Mapping[str, Any], device="cuda") -> SlamState:
 
 def pose_graph_from_numpy(m: Mapping[str, Any], device="cuda") -> PoseGraph:
     return state_from_numpy(PoseGraph, m, device)
+
+
+def ba_problem_from_numpy(m: Mapping[str, Any], device="cuda") -> BAProblem:
+    return state_from_numpy(BAProblem, m, device)
+
+
+def ba_tracks_from_numpy(m: Mapping[str, Any], device="cuda") -> BATracks:
+    return state_from_numpy(BATracks, m, device)

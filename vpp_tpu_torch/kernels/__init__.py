@@ -24,6 +24,9 @@ show that it went through the kernels:
 * ``map_vote``   — K8, ``slam/map_vote.py:map_vote_pnp`` (one cluster
   launch per call: every match set's vote rounds, pick, gate and both PnP
   solves; one a recovery keyframe, one a ``relocalize``)
+* ``ba_generic`` — K9, ``slam/ba_generic_cuda.py:lm_generic`` (behind
+  ``ba_solve_tracks`` on the generic layout: one index launch a call, then
+  four launches an LM iteration around the library's pose solve)
 
 K1-K6 also take S streams in one launch (the stream in the grid): a run
 of ``slam_run_streams`` counts the launches of one stream.
@@ -37,7 +40,8 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"fast9": 0, "flow_level": 0, "hough_acc": 0,
                             "block_topk": 0, "pyramid_decim": 0,
-                            "patches": 0, "ba_tracks": 0, "map_vote": 0}
+                            "patches": 0, "ba_tracks": 0, "map_vote": 0,
+                            "ba_generic": 0}
 
 
 def reset_launch_counts() -> None:

@@ -28,8 +28,10 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpp_tpu_torch"
 SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu", "block_topk.cu",
-           "pyramid_decim.cu", "patches.cu", "ba_tracks.cu", "map_vote.cu")
-HEADERS = ("pose_math.cuh",)   # included by ba_tracks.cu and map_vote.cu
+           "pyramid_decim.cu", "patches.cu", "ba_tracks.cu", "map_vote.cu",
+           "ba_generic.cu")
+# included by ba_tracks.cu, map_vote.cu and ba_generic.cu
+HEADERS = ("pose_math.cuh",)
 TOOLKIT_ROOT = "/usr/local/cuda"       # the CUDA toolkit's default install
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +55,14 @@ _SIGNATURES = {
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 10,
     "vpp_ba_max_active_clusters": [_I, _P],
     "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
+    "vpp_ba_generic_workspace": [_I, _I, _I, _P],
+    "vpp_ba_generic_index": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "vpp_ba_generic_landmarks": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 2
+    + [_P] * 3,
+    "vpp_ba_generic_blocks": [_P, _P, _I, _I, _I] + [_P] * 5,
+    "vpp_ba_generic_prep": [_P, _P, _P, _I] + [_P] * 5,
+    "vpp_ba_generic_step": [_P] * 10 + [_I] * 3 + [_F] + [_P] * 3,
+    "vpp_ba_generic_decide": [_I] * 4 + [_P] * 7,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,8 +1,10 @@
 // Pose math shared by the hand kernels that solve for camera poses: K6
-// (ba_tracks.cu, the window BA) and K8 (map_vote.cu, the map-vote PnP).
-// One copy, included by both: the Huber weight of a 2-D residual, a
-// float32 Cholesky solve by a whole block or by one warp, and
-// se3_exp(xi) @ T with slam/se3.py's small-angle branches.
+// (ba_tracks.cu, the window BA), K8 (map_vote.cu, the map-vote PnP) and
+// K9 (ba_generic.cu, the generic-layout BA). One copy, included by all
+// three: the Huber weight of a 2-D residual, a float32 Cholesky solve by a
+// whole block or by one warp, the float64 3x3 landmark inverses of
+// ba.py's linalg="chol" and "lu", and se3_exp(xi) @ T with slam/se3.py's
+// small-angle branches.
 
 #pragma once
 
@@ -99,6 +101,89 @@ __device__ bool chol_solve_block(float* P, int ld, float* b, float* rs,
   }
   if (kOneWarp) __syncwarp(); else __syncthreads();
   return true;
+}
+
+// _inv3: scaled closed-form Cholesky inverse of a damped SPD 3x3 matrix.
+__device__ inline void inv3_chol(const double* A, double* out) {
+  double s[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) s[i] = rsqrt(fmax(fabs(A[4 * i]), 1e-30));
+  double a[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) a[3 * i + j] = A[3 * i + j] * s[i] * s[j];
+  const double tiny = 1e-30;
+  const double l11 = sqrt(fmax(a[0], tiny));
+  const double il11 = 1.0 / l11;
+  const double l21 = a[3] * il11;
+  const double l31 = a[6] * il11;
+  const double l22 = sqrt(fmax(a[4] - l21 * l21, tiny));
+  const double il22 = 1.0 / l22;
+  const double l32 = (a[7] - l31 * l21) * il22;
+  const double l33 = sqrt(fmax(a[8] - l31 * l31 - l32 * l32, tiny));
+  const double il33 = 1.0 / l33;
+  const double m11 = il11;
+  const double m21 = -l21 * il11 * il22;
+  const double m31 = (l21 * l32 - l31 * l22) * il11 * il22 * il33;
+  const double m22 = il22;
+  const double m32 = -l32 * il22 * il33;
+  const double m33 = il33;
+  const double i11 = m11 * m11 + m21 * m21 + m31 * m31;
+  const double i12 = m21 * m22 + m31 * m32;
+  const double i13 = m31 * m33;
+  const double i22 = m22 * m22 + m32 * m32;
+  const double i23 = m32 * m33;
+  const double i33 = m33 * m33;
+  const double inv[9] = {i11, i12, i13, i12, i22, i23, i13, i23, i33};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[3 * i + j] = inv[3 * i + j] * s[i] * s[j];
+}
+
+// Pivoted Gauss-Jordan inverse of a 3x3 matrix; NaN where it is singular.
+__device__ inline void inv3_lu(const double* A, double* out) {
+  double a[3][6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      a[i][j] = A[3 * i + j];
+      a[i][3 + j] = i == j ? 1.0 : 0.0;
+    }
+  bool singular = false;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    int p = c;
+#pragma unroll
+    for (int r = c + 1; r < 3; ++r)
+      if (fabs(a[r][c]) > fabs(a[p][c])) p = r;
+    if (a[p][c] == 0.0) singular = true;
+    if (p != c) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const double t = a[c][j];
+        a[c][j] = a[p][j];
+        a[p][j] = t;
+      }
+    }
+    const double ip = 1.0 / a[c][c];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) a[c][j] *= ip;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      if (r == c) continue;
+      const double f = a[r][c];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) a[r][j] -= f * a[c][j];
+    }
+  }
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[3 * i + j] = singular ? nan : a[i][3 + j];
 }
 
 // se3_exp(xi) @ T in float32, with se3.py's small-angle branches.

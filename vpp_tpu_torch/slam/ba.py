@@ -1,5 +1,6 @@
-"""Bundle adjustment on the landmark-major (tracks) layout — port of the
-part of ``vpp_tpu.slam.ba`` that the SLAM keyframe path runs.
+"""Bundle adjustment — port of ``vpp_tpu.slam.ba``: the landmark-major
+(tracks) layout that the SLAM keyframe path runs, its generic layout at
+production scale, and the flat observation layout.
 
 Levenberg-Marquardt with the landmark Schur complement: per landmark the
 residuals, analytic Jacobians, Huber weights, a damped 3x3 inverse and the
@@ -9,10 +10,13 @@ that accepts or rejects the step on the device, without a host read.
 
 The LM loop ``_lm_tracks`` with ``_tracks_assemble``,
 ``_tracks_solve_poses``, ``apply_pose_step``, ``_tracks_backsub`` and
-``_tracks_cost`` here is the plain PyTorch version of kernel K6.
+``_tracks_cost`` here is the plain PyTorch version of kernels K6 and K9.
 ``ba_solve_tracks`` on CUDA tensors in the ring layout runs K6 instead
 (``slam/ba_cuda.py``, ``kernels/csrc/ba_tracks.cu``): the whole loop, the
-pose solve included, in one launch. ``pnp_gn``, the single-pose
+pose solve included, in one launch. On the generic layout it runs K9
+(``slam/ba_generic_cuda.py``, ``kernels/csrc/ba_generic.cu``): an index of
+the non-empty blocks of S once a call, then four launches an iteration
+around the library's dense pose solve. ``pnp_gn``, the single-pose
 Gauss-Newton PnP of the keyframe path and of kernel K8's plain version
 (``slam/map_vote.py``), is here too.
 
@@ -42,13 +46,30 @@ observations (S, N, K, ...), ``fixed_poses`` (S, M), shared intrinsics);
 every sum, solve, LM decision and damping stays per stream, and K6 solves
 S ring-layout problems in one launch.
 
-Not ported yet: the flat ``ba_solve``, ``tracks_from_flat``, the generic
-(non-ring) layout on the card, and the landmark-sharded path (``mesh``).
+The flat layout (``BAProblem``, ``ba_solve``, ``reprojection_residuals``)
+is plain PyTorch on every device, as the JAX package leaves it to XLA: the
+small-window solver and the cross-check oracle of the tracks layout. It
+follows the JAX ``_assemble``/``_schur_solve`` step by step (pivoted-LU
+landmark inverses, pose damping inside the Schur solve, no Jacobi
+scaling, a pivoted-LU pose solve) under the same precision rule: the
+assembly's blocks, the landmark inverses, the Schur sums and the
+back-substitution in float64 (the (N, M, 6, 3) coupling too, so it takes
+twice the JAX package's memory), S, rhs and the costs rounded to float32.
+Its Jacobians are the analytic ``proj_jacobians``, which the JAX package
+pins equal to its ``jacfwd`` oracle. ``tracks_from_flat`` converts a flat
+problem on its device, vectorised.
+
+Indices outside [0, M) (``obs_pose``) or [0, N) (``obs_lm``) follow the
+JAX package's rules, on both layouts and on the card: a negative index
+counts from the end; a gather then clamps into range, and a scatter-add
+drops what is still outside (``gather_index``, ``scatter_index``).
+
+Not ported yet: the landmark-sharded path (``mesh``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,6 +139,26 @@ def lu_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b with pivoted LU; NaN where A is singular."""
     x, info = torch.linalg.solve_ex(A, b)
     return _nan_where_failed(x, info)
+
+
+def _wrap_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    idx = idx.long()
+    return torch.where(idx < 0, idx + size, idx)
+
+
+def gather_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """JAX's gather rule for an index into ``size`` rows: a negative index
+    counts from the end, then the index is clamped into [0, size)."""
+    return _wrap_index(idx, size).clamp(0, size - 1)
+
+
+def scatter_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """JAX's scatter-add rule for an index into ``size`` rows: a negative
+    index counts from the end, and one still outside [0, size) is dropped.
+    Dropped indices come back as ``size``: the caller scatters into one
+    spare row and cuts it off."""
+    w = _wrap_index(idx, size)
+    return torch.where((w >= 0) & (w < size), w, torch.full_like(w, size))
 
 
 def proj_jacobians(T: torch.Tensor, X: torch.Tensor, intr: torch.Tensor
@@ -197,6 +238,164 @@ def pnp_gn(T0: torch.Tensor, X: torch.Tensor, uv: torch.Tensor,
     return T, err
 
 
+class BAProblem(NamedTuple):
+    """Flat BA problem: O observations, each of one pose and one
+    landmark (masked by obs_valid)."""
+    poses: torch.Tensor        # (M, 4, 4) camera-from-world
+    landmarks: torch.Tensor    # (N, 3) world points
+    obs_pose: torch.Tensor     # (O,) int32
+    obs_lm: torch.Tensor       # (O,) int32
+    obs_uv: torch.Tensor       # (O, 2) float32 (row, col)
+    obs_valid: torch.Tensor    # (O,) bool
+    intrinsics: torch.Tensor   # (4,) [fx, fy, cx, cy]
+    fixed_poses: torch.Tensor  # (M,) bool, gauge freeze
+
+
+def _flat_gather(p: BAProblem):
+    """Each observation's pose (O, 4, 4) and landmark (O, 3)."""
+    return (p.poses[gather_index(p.obs_pose, p.poses.shape[0])],
+            p.landmarks[gather_index(p.obs_lm, p.landmarks.shape[0])])
+
+
+def reprojection_residuals(p: BAProblem) -> torch.Tensor:
+    """(O, 2) residuals, masked slots -> 0."""
+    T, X = _flat_gather(p)
+    r = project(T, X, p.intrinsics) - p.obs_uv
+    return torch.where(p.obs_valid[:, None], r, torch.zeros_like(r))
+
+
+def _obs_jacobians(p: BAProblem):
+    """Per observation the residual r (O, 2), Jp (O, 2, 6) wrt the pose's
+    twist (retraction exp(δ)·T) and Jl (O, 2, 3) wrt the landmark: the
+    analytic ``proj_jacobians``, where the JAX package takes ``jacfwd``
+    through ``se3_exp`` (its tests pin the two equal)."""
+    T, X = _flat_gather(p)
+    pred, Jp, Jl = proj_jacobians(T, X, p.intrinsics)
+    return pred - p.obs_uv, Jp, Jl
+
+
+def _huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
+    """IRLS Huber weights per observation from the residual norm."""
+    return _huber(torch.linalg.norm(r, dim=-1), delta)
+
+
+def _assemble(p: BAProblem, r, Jp, Jl, w):
+    """The normal-equation blocks by scatter-adds, in float64: (Hpp (M,6,6),
+    Hll (N,3,3), Hpl (N,M,6,3), bp (M,6), bl (N,3), cost, nobs_lm (N,))."""
+    m, n = p.poses.shape[0], p.landmarks.shape[0]
+    wv = torch.where(p.obs_valid, w, torch.zeros_like(w))
+    cost = (wv * (r * r).sum(-1)).sum(dtype=torch.float64)
+    r, Jp, Jl, wv = r.double(), Jp.double(), Jl.double(), wv.double()
+    Jp_w = Jp * wv[:, None, None]
+    Jl_w = Jl * wv[:, None, None]
+    pi = scatter_index(p.obs_pose, m)
+    li = scatter_index(p.obs_lm, n)
+    f64, dev = torch.float64, Jp.device
+
+    def scatter(rows, idx, vals):
+        out = torch.zeros((rows + 1,) + vals.shape[1:], dtype=f64,
+                          device=dev)
+        return out.index_add_(0, idx, vals)[:rows]
+
+    Hpp = scatter(m, pi, torch.einsum("oki,okj->oij", Jp_w, Jp))
+    Hll = scatter(n, li, torch.einsum("oki,okj->oij", Jl_w, Jl))
+    pl = torch.where((pi < m) & (li < n), li * m + pi, n * m)
+    Hpl = scatter(n * m, pl, torch.einsum("oki,okj->oij", Jp_w, Jl)).view(
+        n, m, 6, 3)
+    bp = scatter(m, pi, -torch.einsum("oki,ok->oi", Jp_w, r))
+    bl = scatter(n, li, -torch.einsum("oki,ok->oi", Jl_w, r))
+    nobs_lm = scatter(n, li, wv)
+    return Hpp, Hll, Hpl, bp, bl, cost, nobs_lm
+
+
+def _schur_solve(p: BAProblem, Hpp, Hll, Hpl, bp, bl, nobs_lm, lam):
+    """Damped Schur-complement solve -> (δposes (M, 6), δlandmarks (N, 3)):
+    pose damping ``lam I`` inside S, the gauge's identity rows, no Jacobi
+    scaling, a pivoted-LU pose solve in float32."""
+    m = p.poses.shape[0]
+    f64, dev = torch.float64, Hll.device
+    eye3 = torch.eye(3, dtype=f64, device=dev)
+    eye6 = torch.eye(6, dtype=f64, device=dev)
+    Hll_d = Hll + (lam + 1e-6) * eye3
+    seen = nobs_lm > 0
+    Hll_d = torch.where(seen[:, None, None], Hll_d, eye3.expand_as(Hll))
+    bl = torch.where(seen[:, None], bl, torch.zeros_like(bl))
+    Hll_inv = _inv_lu(Hll_d)
+    HplWinv = torch.einsum("nmij,njk->nmik", Hpl, Hll_inv)    # (N,M,6,3)
+    S = -torch.einsum("nmik,npjk->mipj", HplWinv, Hpl)        # (M,6,M,6)
+    ar = torch.arange(m, device=dev)
+    S[ar, :, ar, :] += Hpp + lam * eye6
+    S = S.reshape(m * 6, m * 6).float()
+    rhs = (bp - torch.einsum("nmik,nk->mi", HplWinv, bl)).reshape(
+        m * 6).float()
+    fixed = p.fixed_poses[:, None].expand(m, 6).reshape(-1)
+    eye = torch.eye(m * 6, dtype=S.dtype, device=dev)
+    S = torch.where(fixed[:, None] | fixed[None, :], eye, S)
+    rhs = torch.where(fixed, torch.zeros_like(rhs), rhs)
+    dp = lu_solve(S, rhs).reshape(m, 6)
+    Hlp_dp = torch.einsum("nmij,mi->nj", Hpl, dp.double())
+    dl = torch.einsum("nij,nj->ni", Hll_inv, bl - Hlp_dp).float()
+    return dp, torch.where(seen[:, None], dl, torch.zeros_like(dl))
+
+
+def _apply_step(p: BAProblem, dp, dl) -> BAProblem:
+    return p._replace(poses=apply_pose_step(p.poses, dp, p.fixed_poses),
+                      landmarks=p.landmarks + dl)
+
+
+def _masked_cost(p: BAProblem, huber: float) -> torch.Tensor:
+    r = reprojection_residuals(p)
+    c = _huber_weight(r, huber) * (r * r).sum(-1)
+    return torch.where(p.obs_valid, c, torch.zeros_like(c)).sum(
+        dtype=torch.float64).float()
+
+
+def ba_solve(p: BAProblem, *, iters: int = 10, huber: float = 4.0,
+             lam0: float = 1e-3, mesh=None, axis: str = "obs"
+             ) -> Tuple[BAProblem, torch.Tensor]:
+    """Levenberg-Marquardt BA on the flat observation layout: the
+    small-window solver and the cross-check oracle of ``ba_solve_tracks``,
+    the production path. Plain PyTorch on every device.
+
+    The Schur assembly materialises an (N, M, 6, 3) coupling tensor; as in
+    the JAX package a problem whose float32 coupling would pass 4 GB raises
+    ``ValueError`` (this port holds it in float64, twice that). Returns
+    (refined problem, (iters,) accepted costs). ``mesh`` (the sharded
+    assembly) raises ``NotImplementedError``."""
+    n_lm, n_pose = p.landmarks.shape[0], p.poses.shape[0]
+    coupling_gb = n_lm * n_pose * 18 * 4 / 1e9
+    if coupling_gb > 4.0:
+        raise ValueError(
+            f"ba_solve's flat layout would allocate ~{coupling_gb:.1f} GB "
+            f"for the (N={n_lm}, M={n_pose}, 6, 3) coupling tensor; use "
+            "ba_solve_tracks (landmark-major, shardable) at this scale")
+    if mesh is not None:
+        raise NotImplementedError(
+            "ba_solve: the observation-sharded path (mesh) is not ported "
+            "yet")
+    dev = p.landmarks.device
+    if iters == 0:
+        return p, torch.empty((0,), dtype=torch.float32, device=dev)
+    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
+    costs = []
+    for _ in range(iters):
+        r, Jp, Jl = _obs_jacobians(p)
+        Hpp, Hll, Hpl, bp, bl, cost, nobs = _assemble(
+            p, r, Jp, Jl, _huber_weight(r, huber))
+        cost = cost.float()
+        dp, dl = _schur_solve(p, Hpp, Hll, Hpl, bp, bl, nobs, lam)
+        cand = _apply_step(p, dp, dl)
+        new_cost = _masked_cost(cand, huber)
+        accept = new_cost < cost
+        p = p._replace(
+            poses=torch.where(accept, cand.poses, p.poses),
+            landmarks=torch.where(accept, cand.landmarks, p.landmarks))
+        lam = torch.where(accept, (lam * 0.3).clamp(min=1e-8),
+                          (lam * 4.0).clamp(max=1e4))
+        costs.append(torch.where(accept, new_cost, cost))
+    return p, torch.stack(costs)
+
+
 class BATracks(NamedTuple):
     """Landmark-major BA problem: slot j of row l is the j-th observation
     of landmark l (masked by obs_valid). S problems of one shape carry a
@@ -210,16 +409,60 @@ class BATracks(NamedTuple):
     fixed_poses: torch.Tensor  # (M,) bool
 
 
+def tracks_from_flat(p: BAProblem, k_max: Optional[int] = None
+                     ) -> BATracks:
+    """The landmark-major problem of a flat one, on its device: slot j of
+    landmark l holds the j-th valid observation of l in flat order, rows
+    cut at ``k_max`` slots, which defaults to the longest track (at least
+    1). Landmark indices follow the JAX package's numpy walk: a negative
+    one counts from the end (with ``k_max`` given; ``np.bincount`` refuses
+    it otherwise, ``ValueError``), one outside [-N, N) raises
+    ``IndexError``. Reads the host once (the indices' range and the
+    longest track)."""
+    n = p.landmarks.shape[0]
+    dev = p.landmarks.device
+    sel = torch.nonzero(p.obs_valid).reshape(-1)           # flat order
+    lm = p.obs_lm[sel].long()
+    lo = int(lm.min()) if lm.numel() else 0
+    hi = int(lm.max()) if lm.numel() else 0
+    if lo < -n or hi >= n:
+        raise IndexError(f"tracks_from_flat: a valid obs_lm outside "
+                         f"[-{n}, {n})")
+    if lo < 0 and k_max is None:
+        raise ValueError("tracks_from_flat: negative obs_lm with k_max "
+                         "unset")
+    lm = torch.where(lm < 0, lm + n, lm)
+    order = torch.sort(lm, stable=True).indices
+    lm, src = lm[order], sel[order]
+    counts = torch.bincount(lm, minlength=n)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(lm.numel(), device=dev) - start[lm]
+    if k_max is None:
+        k_max = max(1, int(counts.max()) if n else 1)
+    keep = rank < k_max
+    rows, slots, src = lm[keep], rank[keep], src[keep]
+    obs_pose = torch.zeros((n, k_max), dtype=torch.int32, device=dev)
+    obs_uv = torch.zeros((n, k_max, 2), dtype=torch.float32, device=dev)
+    obs_valid = torch.zeros((n, k_max), dtype=torch.bool, device=dev)
+    obs_pose[rows, slots] = p.obs_pose[src].to(torch.int32)
+    obs_uv[rows, slots] = p.obs_uv[src].to(torch.float32)
+    obs_valid[rows, slots] = True
+    return BATracks(poses=p.poses, landmarks=p.landmarks, obs_pose=obs_pose,
+                    obs_uv=obs_uv, obs_valid=obs_valid,
+                    intrinsics=p.intrinsics, fixed_poses=p.fixed_poses)
+
+
 def _obs_poses(p: BATracks, ring_layout: bool = False) -> torch.Tensor:
     """(..., N, K, 4, 4) pose per observation; in the ring layout
     (``obs_pose[n, j] == j``) a broadcast."""
     if ring_layout:
         return p.poses[..., None, :, :, :].expand(
             p.obs_uv.shape[:-1] + (4, 4))
+    idx = gather_index(p.obs_pose, p.poses.shape[-3])
     if p.poses.dim() == 4:
         si = torch.arange(p.poses.shape[0], device=p.poses.device)
-        return p.poses[si[:, None, None], p.obs_pose.long()]
-    return p.poses[p.obs_pose.long()]
+        return p.poses[si[:, None, None], idx]
+    return p.poses[idx]
 
 
 def _huber(nrm: torch.Tensor, huber: float) -> torch.Tensor:
@@ -311,24 +554,31 @@ def _tracks_assemble(p: BATracks, lam, huber: float,
             raise NotImplementedError(
                 "ba_solve_tracks: the generic (non-ring) layout takes one "
                 "problem, not streams")
-        pose_idx = torch.where(p.obs_valid, p.obs_pose,
-                               torch.zeros_like(p.obs_pose)).long()
-        Hpp = torch.zeros((m, 6, 6), dtype=Jp.dtype, device=Jp.device)
-        Hpp.index_add_(0, pose_idx.reshape(-1), torch.einsum(
+        # invalid slots go to pose 0 with weight 0; a valid slot's pose
+        # follows JAX's rules: gathered clamped (dp in the back-substitution),
+        # scattered or dropped (row m, cut off below)
+        zero = torch.zeros_like(p.obs_pose, dtype=torch.long)
+        pose_idx = torch.where(p.obs_valid, gather_index(p.obs_pose, m), zero)
+        sidx = torch.where(p.obs_valid, scatter_index(p.obs_pose, m), zero)
+        si = sidx.reshape(-1)
+        Hpp = torch.zeros((m + 1, 6, 6), dtype=Jp.dtype, device=Jp.device)
+        Hpp.index_add_(0, si, torch.einsum(
             "nkri,nkrj->nkij", Jp_w, Jp).reshape(-1, 6, 6))
-        bp = torch.zeros((m, 6), dtype=Jp.dtype, device=Jp.device)
-        bp.index_add_(0, pose_idx.reshape(-1), -torch.einsum(
+        bp = torch.zeros((m + 1, 6), dtype=Jp.dtype, device=Jp.device)
+        bp.index_add_(0, si, -torch.einsum(
             "nkri,nkr->nki", Jp_w, r).reshape(-1, 6))
         pair = torch.einsum("nkij,nlmj->nklim", W, U)           # (N,K,K,6,6)
-        flat = (pose_idx[:, :, None] * m + pose_idx[:, None, :]).reshape(-1)
-        S = torch.zeros((m * m, 6, 6), dtype=Jp.dtype, device=Jp.device)
+        both = (sidx[:, :, None] < m) & (sidx[:, None, :] < m)
+        flat = torch.where(both, sidx[:, :, None] * m + sidx[:, None, :],
+                           m * m).reshape(-1)
+        S = torch.zeros((m * m + 1, 6, 6), dtype=Jp.dtype, device=Jp.device)
         S.index_add_(0, flat, -pair.reshape(-1, 6, 6))
-        S = S.view(m, m, 6, 6)
-        S[ar, ar] += Hpp
-        Wbl = torch.zeros((m, 6), dtype=Jp.dtype, device=Jp.device)
-        Wbl.index_add_(0, pose_idx.reshape(-1), torch.einsum(
+        S = S[:m * m].view(m, m, 6, 6)
+        S[ar, ar] += Hpp[:m]
+        Wbl = torch.zeros((m + 1, 6), dtype=Jp.dtype, device=Jp.device)
+        Wbl.index_add_(0, si, torch.einsum(
             "nkij,nj->nki", W, bl).reshape(-1, 6))
-        rhs = bp - Wbl
+        rhs = bp[:m] - Wbl[:m]
     S = S.transpose(-3, -2).float().contiguous()                 # (M,6,M,6)
     return ((S, rhs.float(), cost.float()),
             (Hll_inv, bl, U, pose_idx, seen))
@@ -388,11 +638,13 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
 
     ``ring_layout=True`` promises ``obs_pose[n, j] == j`` (K == M). On CUDA
     tensors it runs kernel K6: every iteration of every problem in one
-    launch, M at most ``ba_cuda.MAX_POSES``. ``linalg`` is "lu" (pivoted
-    landmark inverses and pose solve) or "chol" (closed-form scaled
-    Cholesky inverses and a Cholesky pose solve). Raises
-    ``NotImplementedError`` for ``mesh`` and for the generic layout on a
-    card."""
+    launch, M at most ``ba_cuda.MAX_POSES``. The generic layout takes one
+    problem; on CUDA tensors it runs kernel K9 within its limits
+    (``ba_generic_cuda``: M up to 512, K up to 32, at most 2^22 slots;
+    ``ValueError`` beyond them). ``linalg`` is "lu" (pivoted landmark
+    inverses and pose solve) or "chol" (closed-form scaled Cholesky
+    inverses and a Cholesky pose solve). Raises ``NotImplementedError``
+    for ``mesh`` and for the generic layout with a stream dimension."""
     if mesh is not None:
         raise NotImplementedError(
             "ba_solve_tracks: the landmark-sharded path (mesh) is not "
@@ -402,20 +654,20 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
     if ring_layout and p.obs_pose.shape[-1] != p.poses.shape[-3]:
         raise ValueError("ring_layout requires K == M (obs column j "
                          "observed by pose j)")
-    on_card = p.landmarks.device.type == "cuda"
-    if on_card and not ring_layout:
+    if not ring_layout and p.landmarks.dim() != 2:
         raise NotImplementedError(
-            "ba_solve_tracks: the generic (non-ring) layout is not ported "
-            "to the card yet")
+            "ba_solve_tracks: the generic (non-ring) layout takes one "
+            "problem, not streams")
     return _lm_tracks(p, iters, huber, lam0, ring_layout, linalg,
-                      kernel=on_card)
+                      kernel=p.landmarks.device.type == "cuda")
 
 
 def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
-    """The LM loop of ``ba_solve_tracks``: with ``kernel`` (ring layout,
-    CUDA tensors) the whole loop is K6's one launch, else the plain version
-    below (on any device), every stream's decisions and damping its own.
+    """The LM loop of ``ba_solve_tracks``: with ``kernel`` (CUDA tensors)
+    K6's one launch on the ring layout or K9's launches on the generic
+    one, else the plain version below (on any device), every stream's
+    decisions and damping its own.
     No iteration returns ``p`` itself and empty costs, as the JAX
     package's ``lax.scan(length=0)`` does, and launches nothing."""
     lead = p.landmarks.shape[:-2]
@@ -423,9 +675,11 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
         return p, torch.empty(lead + (0,), dtype=torch.float32,
                               device=p.landmarks.device)
     if kernel:
-        from . import ba_cuda
-        poses, lms, costs, _ = ba_cuda.lm_tracks(p, iters, huber, lam0,
-                                                 linalg)
+        if ring_layout:
+            from .ba_cuda import lm_tracks as fused
+        else:
+            from .ba_generic_cuda import lm_generic as fused
+        poses, lms, costs, _ = fused(p, iters, huber, lam0, linalg)
         return p._replace(poses=poses, landmarks=lms), costs
     poses0, lms0 = p.poses, p.landmarks
     lam = torch.full(lead, lam0, dtype=torch.float32, device=lms0.device)
