@@ -42,6 +42,7 @@ own process, and prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import importlib
 import inspect
 import json
 import os
@@ -236,7 +237,7 @@ def _device_ops(torch, CS, fn) -> int:
 def pyramid_and_hough(torch, CS, saved) -> dict:
     """K4 by both run-loop routes and K7, on the saved inputs."""
     from vpp_tpu_torch.algorithms import hough_cuda as HC
-    from vpp_tpu_torch.algorithms import pyramid as P
+    P = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
     from vpp_tpu_torch.algorithms.pyramid import pyramid
     from vpp_tpu_torch.core.image import Image2d, from_array
     from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts

@@ -138,25 +138,37 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``ba_solve_tracks`` on the generic layout at N 10240 x M 128 x K 4, 5
    iterations, lam0 1e-4 (tests/test_slam_scale.py:13-40,78-97's recipe,
    made on the card from a numpy seed through the port's ``se3_exp`` and
-   ``project``), the launch counts reset just before: K9's 26 launches a
-   call and nothing else; for both ``linalg``, K9 held stage by stage to
-   its plain version on the card (``k9_check``: the first iteration's S,
-   cost and rhs within 1e-4, the first pose step equal to the plain solve
-   of the kernel's own system, the first candidate within 1e-4, two calls
-   bit-identical, the loop's last cost within 1e-4 of the first above the
-   plain loop's) and to the JAX scale test's gates (``costs[-1] <
-   costs[0]·1e-4``, median landmark error < 1e-2); the same on masked
-   slots (with test_slam_scale.py:128's gate), a repeated pose in a row,
-   unseen landmarks, one slot a landmark, every step rejected and a
-   failed pose factorisation; a ring problem down K9 within
-   test_slam_scale.py:131's tolerances of K6; ``iters=0`` with no launch;
-   device ms a call and an iteration (CUDA-graph replays), the library
-   pose solve's device ms apart, as-called and plain ms, device operations
-   against the plain route, and the same calls at M 16 x N 1024 x K 4 and
-   on the SLAM window's shape beside K6; the flat ``ba_solve`` on the card
-   against the CPU (tests/test_slam.py:51) and timed at full width; the
-   geometry on the card against the CPU (tests/test_geometry_matcher.py's
-   inputs);
+   ``project``), the launch counts reset just before: one K9 launch a call
+   and nothing else; for both ``linalg``, K9 held stage by stage to its
+   plain version on the card (``k9_check``: S's block half-bandwidth; the
+   first iteration's S, cost and rhs within 1e-4; the first pose solve's
+   backward error on the system K9 solved below 1e-5 and no more than 4x
+   the library's solve of that system, NaN only where the plain solve has
+   one; the first candidate within 1e-4, two calls bit-identical, the
+   loop's last cost within 1e-4 of the first above the plain loop's) and
+   to the JAX scale test's gates (``costs[-1] < costs[0]·1e-4``, median
+   landmark error < 1e-2); the same on masked slots (with
+   test_slam_scale.py:128's gate), a repeated pose in a row, unseen
+   landmarks, one slot a landmark, a closure pair (band 15: the dense
+   factorisation) and the dense case at 512 poses (band 511; by iteration,
+   whether K9's Cholesky and the library's held on the same system, whose
+   float32 form is singular to working precision), masked slots
+   naming a far pose (the band stays 3), NaN blocks outside the band (dp
+   NaN, every step rejected), every step rejected and a failed pose
+   factorisation; a ring problem down K9 within test_slam_scale.py:131's
+   tolerances of K6; ``iters=0`` with no launch; ``slam_run`` with
+   ``SlamConfig(ring=20)`` on 40 frames through K9 against the plain CPU
+   path (phase 6's gates) and K9's device ms on its last window; device ms
+   a call (CUDA-graph replays) and by stage from K9's own clock (the
+   index, and per iteration the landmarks, blocks, pose solve (its system,
+   panels, trailing updates and back-substitution) and step), the
+   library's solve of the same pose system, as-called and plain ms, device
+   operations against the plain route, the wide band (a closure pair at M
+   128 and 512) beside the library's solve, and the same calls at M 16 x N
+   1024 x K 4 and on the SLAM window's shape beside K6; the flat
+   ``ba_solve`` on the card against the CPU (tests/test_slam.py:51) and
+   timed at full width; the geometry on the card against the CPU
+   (tests/test_geometry_matcher.py's inputs);
 11. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10), then ``{"ok": true,
@@ -166,7 +178,8 @@ Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
 float32 outside the tensor cores, applied to every scalar operation; for
 K6, 34 TFLOP/s for its scalar float64 landmark algebra and 67 TFLOP/s for
 its Schur products on the float64 tensor cores; K9's the same, per
-iteration, with its pose factorisation). K1's
+iteration, with its band pose factorisation, and beside it the count with
+a dense pose factorisation). K1's
 bound counts its least work: both level buffers read once, flow and dist
 written once, and the separable window sums (one |diff| per region pixel
 and displacement, ws - 1 additions per column sum and per window). The
@@ -178,6 +191,7 @@ sums; the kernels line carries only ``bound_ms``.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -991,8 +1005,9 @@ def phase_streams(torch, np, mods, slam_cfg, slam_dev, gt_poses, sst,
     for i in range(S3):
         one = BC.lm_tracks(stream_problem(BA, prob3, i), iters, huber, lam0,
                            cfg.ba_linalg)
-        check(all(same_bits(torch, x[i], y) for x, y in zip(
-            out3[:3] + tuple(out3[3]), one[:3] + tuple(one[3]))),
+        check(all(x is None and y is None or same_bits(torch, x[i], y)
+                  for x, y in zip(out3[:3] + tuple(out3[3]),
+                                  one[:3] + tuple(one[3]))),
               f"K6 on streams differs from problem {i}'s own launch")
     sp3, cp3 = BA._lm_tracks(prob3, iters, huber, lam0, True, cfg.ba_linalg,
                              kernel=False)
@@ -1081,8 +1096,13 @@ def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
     test's noisy start), poses 0 and 1 fixed. Cases: ``masked`` (slot 1
     of every row thrown 500 px and masked, test_slam_scale.py:122),
     ``repeated`` (slot 1 of every 3rd row names slot 0's pose),
-    ``unseen`` (landmarks 10-13 with no valid slot). Returns (problem, the
-    true landmarks)."""
+    ``unseen`` (landmarks 10-13 with no valid slot), ``closure`` (landmark
+    7 seen by poses 0 and m - 1: S's band spans the whole matrix),
+    ``masked_far`` (the last slot of every 5th row masked and naming pose
+    m - 1: the band stays the chain's), ``nonfinite`` (pose m - 1 NaN and
+    named by masked slots only, the last slot of every 7th row from pose 8
+    on, pose 0 free: S's blocks between pose 0 and those rows' poses,
+    outside the band, are NaN). Returns (problem, the true landmarks)."""
     from vpp_tpu_torch.slam.se3 import se3_exp
     rng = np.random.RandomState(seed)
     xi = np.zeros((m, 6), np.float32)
@@ -1099,6 +1119,11 @@ def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
     X = torch.from_numpy(X.astype(np.float32)).to(dev)
     op = torch.from_numpy((start[:, None] + np.arange(k)[None]).astype(
         np.int32)).to(dev)
+    if case == "closure":
+        # in front of both ends of the chain, ~23 degrees off their axes
+        op[7, 0], op[7, k - 1] = 0, m - 1
+        X[7] = torch.tensor([0.05 * (m - 1), 0.0, 3.0 + 0.12 * (m - 1)],
+                            device=dev)
     intr = torch.tensor(GEN_INTR, device=dev)
     uv = BA.project(poses[op.long()], X[:, None], intr) + torch.from_numpy(
         (rng.randn(n, k, 2) * noise).astype(np.float32)).to(dev)
@@ -1110,11 +1135,24 @@ def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
         op[::3, 1] = op[::3, 0]
     elif case == "unseen":
         valid[10:14] = False
+    elif case == "masked_far":
+        op[::5, k - 1] = m - 1
+        valid[::5, k - 1] = False
+    elif case == "nonfinite":
+        poses[m - 1] = float("nan")
+        valid &= op != m - 1
+        far = torch.from_numpy(start >= 8).to(dev) & (
+            torch.arange(n, device=dev) % 7 == 0)
+        op[far, k - 1] = m - 1
+        valid[far, k - 1] = False
     # with one slot a landmark the poses learn nothing from the landmarks
     # (S is lam I, dp rhs / lam: rounding noise), so K = 1 fixes every pose
     # and its step moves the landmarks alone
     fixed = torch.full((m,), k == 1, dtype=torch.bool, device=dev)
     fixed[:2] = True
+    if case == "nonfinite":
+        fixed[0] = False
+        fixed[2] = True
     Xn = X + torch.from_numpy((rng.randn(n, 3) * 0.03).astype(
         np.float32)).to(dev)
     return BA.BATracks(poses=poses, landmarks=Xn, obs_pose=op, obs_uv=uv,
@@ -1133,14 +1171,152 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
+def band_of(torch, BA, p) -> int:
+    """S's block half-bandwidth as K9 takes it: the widest span of the
+    poses that one landmark's valid slots scatter to (JAX's scatter rule:
+    negative from the end, dropped outside [0, M))."""
+    m = p.poses.shape[0]
+    idx = BA.scatter_index(p.obs_pose, m)
+    ok = p.obs_valid & (idx < m)
+    hi = torch.where(ok, idx, torch.full_like(idx, -1)).max(1).values
+    lo = torch.where(ok, idx, torch.full_like(idx, m)).min(1).values
+    return int(torch.where(hi >= 0, hi - lo, torch.zeros_like(hi)).max())
+
+
+def backward_error(A, x, b) -> float:
+    """||A x - b||inf / (||A||inf ||x||inf + ||b||inf) in float64; 0 where
+    the residual is exactly 0."""
+    A, x, b = A.double(), x.double(), b.double()
+    r = float((A @ x - b).abs().max())
+    if r == 0.0:
+        return 0.0
+    return r / (float(A.abs().sum(1).max()) * float(x.abs().max())
+                + float(b.abs().max()))
+
+
+def library_solve(torch, Sp, bs, linalg):
+    """The library's solve of a scaled pose system (the yardstick of K9's
+    pose-solve stage; the port never calls it): cuSOLVER's LU, or its
+    Cholesky and two triangular solves."""
+    if linalg == "chol":
+        L, _ = torch.linalg.cholesky_ex(Sp)
+        y = torch.linalg.solve_triangular(L, bs[:, None], upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    return torch.linalg.solve_ex(Sp, bs)[0]
+
+
+def k9_system(torch, p, tr, lam0):
+    """The first pose system K9 solved, from its trace: S + lam0 I, identity
+    rows and columns on the fixed poses, scaled by its Jacobi scales, in
+    float32 in the kernel's order; and its right-hand side."""
+    m = p.poses.shape[0]
+    D = 6 * m
+    fx = p.fixed_poses[:, None].expand(m, 6).reshape(-1)
+    eye = torch.eye(D, device=p.poses.device)
+    S = torch.where(fx[:, None] | fx[None, :], eye,
+                    tr.S.reshape(D, D) + lam0 * eye)
+    d = tr.scale
+    return (S * d[:, None] * d[None, :],
+            d * torch.where(fx, torch.zeros_like(d), tr.rhs.reshape(-1)))
+
+
+def plain_loop_f64_solve(torch, BA, p, iters, lam0, linalg):
+    """The plain LM loop with its pose solves in float64 (the same damped,
+    gauge-fixed, scaled system, dp rounded to float32): how far the loop's
+    poses move when only the solve's rounding changes."""
+    solve = BA._tracks_solve_poses
+
+    def f64(S, rhs, fixed, lam, linalg="lu"):
+        lam = lam.double() if torch.is_tensor(lam) else lam
+        return solve(S.double(), rhs.double(), fixed, lam, linalg).float()
+
+    BA._tracks_solve_poses = f64
+    try:
+        return BA._lm_tracks(p, iters, GEN_HUBER, lam0, False, linalg,
+                             kernel=False)
+    finally:
+        BA._tracks_solve_poses = solve
+
+
+def library_held(torch, Sp, linalg) -> bool:
+    """Whether the library's factorisation of a scaled pose system holds:
+    cuSOLVER's Cholesky (every pivot positive) or LU (no zero pivot)."""
+    if linalg == "chol":
+        return int(torch.linalg.cholesky_ex(Sp)[1]) == 0
+    return int(torch.linalg.lu_factor_ex(Sp)[2]) == 0
+
+
+def k9_solve_record(torch, p, tr, lam, linalg):
+    """K9's first pose solve on ``p`` (its trace ``tr``, damping ``lam``)
+    beside the library's on the same system: whether each factorisation
+    held, the backward error of each where it held, and the least
+    eigenvalue of the scaled system (float64, from its float32 entries)."""
+    Sk, bk = k9_system(torch, p, tr, lam)
+    held = bool(torch.isfinite(tr.dp[0]).all())
+    lib = library_held(torch, Sk, linalg)
+    return dict(
+        k9_held=held, library_held=lib,
+        k9_backward_err=backward_error(Sk, tr.x, bk) if held else None,
+        library_backward_err=backward_error(
+            Sk, library_solve(torch, Sk, bk, linalg), bk) if lib else None,
+        least_eigenvalue=float(torch.linalg.eigvalsh(Sk.double())[0]))
+
+
+def k9_hold_record(torch, BG, p, iters, lam0, linalg, draws=8):
+    """Where the scaled float32 pose system is singular to working
+    precision: per iteration of K9's loop on ``p`` (a one-iteration call
+    from the loop's iterate and damping, which repeats that iteration's
+    dp bit for bit), ``k9_solve_record``; then over ``draws`` copies of
+    ``p`` with every landmark coordinate moved one float32 ulp up or down
+    at random (numpy seed 0), how often K9's first factorisation held and
+    how often the library's held on the same system. Returns (rows,
+    (K9's holds, the library's holds))."""
+    import numpy as np
+    full = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg)
+    rows = []
+    for it in range(iters):
+        q = p
+        if it:
+            po, lm, _, _ = BG.lm_generic(p, it, GEN_HUBER, lam0, linalg)
+            q = p._replace(poses=po, landmarks=lm)
+        lam = float(full[3].lam[it])
+        tr = BG.lm_generic(q, 1, GEN_HUBER, lam, linalg, trace=True)[3]
+        row = k9_solve_record(torch, q, tr, lam, linalg)
+        check(same_bits(torch, tr.dp[0], full[3].dp[it]),
+              f"K9's iteration {it} from its iterate is not the loop's")
+        row.update(lam=lam, accepted=bool(full[3].accept[it] != 0))
+        rows.append(row)
+    rng = np.random.RandomState(0)
+    k9 = lib = 0
+    for _ in range(draws):
+        up = torch.from_numpy(rng.rand(*p.landmarks.shape) < 0.5).to(
+            p.landmarks.device)
+        lm = torch.where(up, torch.nextafter(p.landmarks, p.landmarks + 1),
+                         torch.nextafter(p.landmarks, p.landmarks - 1))
+        q = p._replace(landmarks=lm)
+        tr = BG.lm_generic(q, 1, GEN_HUBER, lam0, linalg, trace=True)[3]
+        k9 += bool(torch.isfinite(tr.dp[0]).all())
+        lib += library_held(torch, k9_system(torch, q, tr, lam0)[0], linalg)
+    return rows, (k9, lib)
+
+
 def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
     """K9 on ``p`` against its plain version on the card, stage by stage on
     the same inputs, then over the whole LM loop:
-    - one index launch and five an iteration, the same bits twice;
+    - one launch a call, the same bits twice;
+    - S's block half-bandwidth the widest span of a landmark's valid slots;
     - the first iteration's S and rhs (on the free poses' rows and
       columns, which the pose solve reads) and cost within 1e-4 of the
-      plain assembly, and its first pose step the plain solve of its own
-      system (equal; NaN where it failed);
+      plain assembly;
+    - its first pose step NaN everywhere or nowhere, NaN only where the
+      plain solve of its own system has a NaN; else d x, with a backward
+      error ||Sp x - bs|| / (||Sp|| ||x|| + ||bs||) on the system it
+      solved below 1e-5 and no more than 4x the library's solve of that
+      system where the library's factorisation holds (at M 128 the scaled
+      system's condition number is near 1e6, so two float32 solves' x
+      differ along its weak directions: the solve is held by what it
+      leaves of the equations, not by its x; a system positive definite
+      only up to float32 rounding can fail one Cholesky and not another);
     - that step's candidate (one K9 iteration) against the plain pose
       step, back-substitution and cost from the same dp: its cost within
       1e-4 of the larger of the iterate's and the candidate's, the same
@@ -1156,41 +1332,65 @@ def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
       determines them that far), poses within 1e-4 of it. Elsewhere the
       float32 pose solve of an ill-conditioned S (a weak gauge along a
       long chain, landmarks seen once) leaves the poses undetermined at
-      that level: the distance is reported beside the plain loop's own
-      CPU-to-card one.
+      that level: the distance is reported beside the plain loop's own,
+      and beside the plain loop's with its pose solves in float64.
     Returns (numbers, (poses, landmarks, costs, trace))."""
     KN.reset_launch_counts()
-    out = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg)
-    check(KN.launch_counts()["ba_generic"] == 1 + 5 * iters,
-          f"K9 ({what}) is not 1 + 5 launches an iteration")
-    again = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg)
+    out = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg, trace=True)
+    check(KN.launch_counts()["ba_generic"] == 1,
+          f"K9 ({what}) is not one launch a call")
+    again = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg, trace=True)
     check(all(same_bits(torch, a, b) for a, b in zip(
         out[:3] + tuple(out[3]), again[:3] + tuple(again[3]))),
           f"K9 ({what}) is not bit-identical across two calls")
     poses, lms, costs, tr = out
+    band = int(tr.band)
+    check(band == band_of(torch, BA, p),
+          f"K9 ({what}): block half-bandwidth {band}, the data's "
+          f"{band_of(torch, BA, p)}")
     lam = torch.full((), lam0, device=p.poses.device)
     (Sp, rp, cp), local = BA._tracks_assemble(p, lam, GEN_HUBER, False,
                                               linalg)
+    finite = bool(torch.isfinite(cp))
     # S and rhs on the free poses' rows and columns, the ones the pose
     # solve reads (the gauge puts identity rows on the fixed ones)
     free = (~p.fixed_poses)[:, None].expand(-1, 6).reshape(-1)
     D = free.numel()
-    s_rel = (rel_err(tr.S.reshape(D, D)[free][:, free],
-                     Sp.reshape(D, D)[free][:, free]) if bool(free.any())
-             else 0.0)
-    c_rel = rel_err(tr.cost, cp)
-    r_rel = float((tr.rhs.reshape(-1) - rp.reshape(-1))[free].abs().max(
-        ) if bool(free.any()) else 0.0) / BA.rhs_term_scale(
-        p, GEN_HUBER, False)
+    s_rel = c_rel = r_rel = 0.0
+    if finite:
+        s_rel = (rel_err(tr.S.reshape(D, D)[free][:, free],
+                         Sp.reshape(D, D)[free][:, free])
+                 if bool(free.any()) else 0.0)
+        c_rel = rel_err(tr.cost, cp)
+        r_rel = float((tr.rhs.reshape(-1) - rp.reshape(-1))[free].abs().max(
+            ) if bool(free.any()) else 0.0) / BA.rhs_term_scale(
+            p, GEN_HUBER, False)
     check(s_rel <= 1e-4 and c_rel <= 1e-4 and r_rel <= 1e-4,
           f"K9 ({what}) assembly off the plain one: S {s_rel}, rhs {r_rel} "
           f"of its terms, cost {c_rel}")
     dp0 = tr.dp[0]
     want = BA._tracks_solve_poses(tr.S, tr.rhs, p.fixed_poses, lam, linalg)
-    check(torch.equal(torch.isnan(want), torch.isnan(dp0))
-          and torch.equal(torch.nan_to_num(want), torch.nan_to_num(dp0)),
-          f"K9 ({what}): its first pose step is not the plain solve of its "
-          "own system")
+    be_k9 = be_lib = None
+    plain_failed = bool(torch.isnan(want).any())
+    if bool(torch.isnan(dp0).any()):
+        check(bool(torch.isnan(dp0).all()) and plain_failed,
+              f"K9 ({what}): its pose step is NaN (in part, or where the "
+              "plain solve of its system holds)")
+    else:
+        check(bool(torch.isfinite(dp0).all()) and same_bits(
+            torch, dp0.reshape(-1), tr.scale * tr.x),
+              f"K9 ({what}): its first pose step is not d x, or not finite")
+        Sk, bk = k9_system(torch, p, tr, lam0)
+        be_k9 = backward_error(Sk, tr.x, bk)
+        # where the library's factorisation fails on a system that is
+        # positive definite only up to float32 rounding and K9's holds,
+        # K9's x is held to the equations alone
+        if not plain_failed:
+            be_lib = backward_error(Sk, library_solve(torch, Sk, bk, linalg),
+                                    bk)
+        check((be_lib is None or be_k9 <= 4 * be_lib) and be_k9 < 1e-5,
+              f"K9 ({what}): the pose solve's backward error {be_k9} "
+              f"against the library's {be_lib}")
     # the first candidate, from the same dp
     cand_p = BA.apply_pose_step(p.poses, dp0, p.fixed_poses)
     cand_l = p.landmarks + BA._tracks_backsub(local, dp0)
@@ -1219,62 +1419,189 @@ def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
           f"K9 ({what}) first candidate off the plain step from its dp: "
           f"cost {step_cost}, accepted {acc_k} (plain {bool(new_p < cp)}), "
           f"poses {step_pose}, predicted measurements {step_pred} px")
-    # the whole loop
-    check(torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
-                                         tr.cost_before)),
-          f"K9 ({what}): costs are not the accepted ones")
+    # the whole loop (where the iterate's cost is NaN, every cost is NaN
+    # in both and nothing moves)
     sp, cpl = BA._lm_tracks(p, iters, GEN_HUBER, lam0, False, linalg,
                             kernel=False)
     sc, ccpu = BA._lm_tracks(BA.BATracks(*(t.cpu() for t in p)), iters,
                              GEN_HUBER, lam0, False, linalg, kernel=False)
-    spread = float((sp.poses.cpu() - sc.poses).abs().max())
-    cost_spread = abs(float(ccpu[-1]) - float(cpl[-1])) / float(
-        cpl.abs().max())
-    pose_err = float((poses - sp.poses).abs().max())
-    pred_err = float((predicted(BA, p, poses, lms) - predicted(
-        BA, p, sp.poses, sp.landmarks)).abs().max())
-    last = float(costs[-1] - cpl[-1]) / float(cpl.abs().max())
-    check(last <= max(1e-4, 3 * cost_spread)
-          and (spread > 1e-5 or pose_err <= 1e-4),
-          f"K9 ({what}) LM loop off the plain one: last cost {last} of the "
-          f"first above it, poses {pose_err} (the plain loop's own "
-          f"CPU-to-card distance {spread})")
+    spread = f64_dist = cost_spread = pose_err = pred_err = last = float(
+        "nan")
+    if finite:
+        check(torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
+                                             tr.cost_before)),
+              f"K9 ({what}): costs are not the accepted ones")
+        s64, _ = plain_loop_f64_solve(torch, BA, p, iters, lam0, linalg)
+        spread = float((sp.poses.cpu() - sc.poses).abs().max())
+        f64_dist = float((sp.poses - s64.poses).abs().max())
+        cost_spread = abs(float(ccpu[-1]) - float(cpl[-1])) / float(
+            cpl.abs().max())
+        pose_err = float((poses - sp.poses).abs().max())
+        pred_err = float((predicted(BA, p, poses, lms) - predicted(
+            BA, p, sp.poses, sp.landmarks)).abs().max())
+        last = float(costs[-1] - cpl[-1]) / float(cpl.abs().max())
+        check(last <= max(1e-4, 3 * cost_spread)
+              and (spread > 1e-5 or pose_err <= 1e-4),
+              f"K9 ({what}) LM loop off the plain one: last cost {last} of "
+              f"the first above it, poses {pose_err} (the plain loop's own "
+              f"CPU-to-card distance {spread}, its distance with float64 "
+              f"pose solves {f64_dist})")
+    else:
+        check(torch.equal(torch.isnan(costs), torch.isnan(cpl))
+              and not bool(tr.accept.any()) and same_bits(torch, poses, p.poses)
+              and same_bits(torch, lms, p.landmarks),
+              f"K9 ({what}): a NaN cost moved the problem")
     return dict(S_rel_err=s_rel, rhs_err_of_terms=r_rel, cost_rel_err=c_rel,
+                band=band, solve_backward_err=be_k9,
+                library_solve_backward_err=be_lib,
                 step_cost_rel_err=step_cost, step_pose_err=step_pose,
                 step_predicted_err_px=step_pred, lm_pose_err=pose_err,
                 lm_predicted_err_px=pred_err, lm_last_cost_above=last,
-                plain_cpu_card_pose_dist=spread,
+                plain_cpu_card_pose_dist=spread, plain_f64_pose_dist=f64_dist,
                 plain_cpu_card_last_cost_dist=cost_spread,
                 accept=[float(a) for a in tr.accept.cpu()]), out
 
 
-def k9_bound(torch, p, iters):
+def band_ops(n: int, beta: int, linalg: str) -> float:
+    """Operations of one band factorisation and its two triangular solves
+    on the (n, n) pose system of block half-bandwidth beta (scalar
+    half-bandwidth kl = 6 beta + 5): for LU with partial pivoting, per
+    column the multipliers and the rank-1 update of U's widened band (kl +
+    ku columns); for Cholesky, per column the lower band's update; each
+    solve two operations an entry of its factor."""
+    kl = min(6 * beta + 5, n - 1)
+    ops = 0.0
+    for j in range(n):
+        km = min(kl, n - 1 - j)
+        if linalg == "lu":
+            ju = min(2 * kl, n - 1 - j)
+            ops += km + 2.0 * km * ju + 2 * (km + ju)
+        else:
+            ops += km + km * (km + 1) + 4 * km
+    return ops
+
+
+def k9_bound(torch, p, iters, beta, linalg):
     """The least time of a K9 call on the H100 (ms, and what bounds it):
     each input read once and each output written once, against, per
     iteration, float32 Jacobians (~60 operations a slot), the scalar
     float64 landmark algebra (~486 a slot), the Schur pairs -W_k U_l^T of
     one landmark with k <= l (S is symmetric; 216 operations a pair, on
-    the float64 tensor cores) and the (6M)^3 / 3 of the pose
-    factorisation."""
+    the float64 tensor cores) and the pose solve: the band factorisation
+    of this problem's block half-bandwidth (``band_ops``). Returns (ms,
+    by), bytes, operations, and the operations and ms with a dense
+    (6M)^3 / 3 factorisation instead."""
     n, k = p.obs_valid.shape
     m = p.poses.shape[0]
     cnt = p.obs_valid.sum(1).double()
-    ops = iters * float(
-        60 * cnt.sum() + (6 * m) ** 3 / 3
-        + 486 * cnt.sum() * SCALAR_OPS_PER_S / FP64_OPS_PER_S
-        + 216 * (cnt * (cnt + 1) / 2).sum()
-        * SCALAR_OPS_PER_S / FP64_MMA_OPS_PER_S)
+    rest = float(60 * cnt.sum()
+                 + 486 * cnt.sum() * SCALAR_OPS_PER_S / FP64_OPS_PER_S
+                 + 216 * (cnt * (cnt + 1) / 2).sum()
+                 * SCALAR_OPS_PER_S / FP64_MMA_OPS_PER_S)
+    ops = iters * (rest + band_ops(6 * m, beta, linalg))
+    dense_ops = iters * (rest + (6 * m) ** 3 / 3)
     nbytes = (2 * m * 64 + 2 * n * 12 + n * k * (4 + 8 + 1) + 16 + m
               + iters * 4)
-    return bound_ms(nbytes, ops), nbytes, ops
+    return (bound_ms(nbytes, ops), nbytes, ops, dense_ops,
+            bound_ms(nbytes, dense_ops)[0])
+
+
+def k9_stages(torch, BG, p, iters, lam0, linalg, calls=5):
+    """K9's device time by stage from its own clock (its stamps),
+    the median over ``calls`` calls: the index, and per iteration the
+    landmark, block, pose-solve and step stages (ms), the stamps' whole
+    span, and the pose solve split into its system, panels, trailing
+    updates and back-substitution by the shares of CTA 0's SM cycles."""
+    rows = []
+    stamps = torch.empty(8 * iters + 3, dtype=torch.int64,
+                         device=p.poses.device)
+    for _ in range(calls):
+        BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg, stamps=stamps)
+        st = stamps.cpu().double()
+        ns, cyc = st[:4 * iters + 3], st[4 * iters + 3:].view(iters, 4)
+        d = (ns[1:] - ns[:-1]) / 1e6
+        per = d[1:1 + 4 * iters].view(iters, 4)
+        split = per[:, 2:3] * cyc / cyc.sum(1, keepdim=True).clamp(min=1)
+        rows.append([float(d[0]), *per.median(0).values.tolist(),
+                     float(ns[-1] - ns[0]) / 1e6,
+                     *split.median(0).values.tolist()])
+    med = torch.tensor(rows).median(0).values.tolist()
+    return dict(zip(("index", "landmarks", "blocks", "solve", "step",
+                     "span", "solve_system", "solve_panels",
+                     "solve_trailing", "solve_backsub"), med))
+
+
+def phase_ring20(torch, np, BA, KN, dev):
+    """``SlamConfig(ring=20)`` (more poses than K6 takes) through
+    ``slam_run`` on the first 40 frames of phase 6's clip on the card,
+    against the plain CPU path at phase 6's gates (the same keyframes,
+    landmark counts within 5%, ATE within 0.02): every window BA one K9
+    launch and no K6 launch; K9's device ms on the run's last window.
+    Returns its numbers."""
+    from vpp_tpu_torch.slam import pipeline as SP
+    cfg = dataclasses.replace(slam_config(), ring=20)
+    frames, gt = slam_clip(SLAM_CPU_FRAMES)
+    boot = gt[[0, cfg.keyframe_period]]
+    problems = []
+    solve = SP.ba_solve_tracks
+
+    def capture(prob, **kw):
+        problems.append((prob, kw))
+        return solve(prob, **kw)
+
+    SP.ba_solve_tracks = capture
+    try:
+        KN.reset_launch_counts()
+        g = SP.slam_run(torch.from_numpy(frames).to(dev), cfg,
+                        bootstrap_poses=boot, device="cuda")
+        torch.cuda.synchronize()
+        counts = KN.launch_counts()
+    finally:
+        SP.ba_solve_tracks = solve
+    c = SP.slam_run(frames, cfg, bootstrap_poses=boot, device="cpu")
+
+    def ate_of(st):
+        e, f = SP.keyframe_trajectory(st)
+        return float(SP.ate_rmse(e.cpu(), torch.from_numpy(
+            gt[f.cpu().numpy()])))
+
+    g_lm, c_lm = int(g.lm_valid.sum()), int(c.lm_valid.sum())
+    g_ate, c_ate = ate_of(g), ate_of(c)
+    check(len(problems) > 0 and counts["ba_generic"] == len(problems)
+          and counts["ba_tracks"] == 0,
+          f"slam_run with ring 20 made {len(problems)} window BAs and "
+          f"launched {counts}")
+    check(g.n_keyframes == c.n_keyframes
+          and abs(g_lm - c_lm) <= 0.05 * max(c_lm, 1)
+          and abs(g_ate - c_ate) <= 0.02,
+          f"slam_run with ring 20 on the card is off the CPU's: keyframes "
+          f"{g.n_keyframes}/{c.n_keyframes}, landmarks {g_lm}/{c_lm}, ATE "
+          f"{g_ate}/{c_ate}")
+    last, kw = problems[-1]
+    t, by = device_ms(torch, lambda: BA.ba_solve_tracks(last, **kw),
+                      calls=5, replays=5)
+    ms = cuda_ms(torch, lambda: BA.ba_solve_tracks(last, **kw), 10)
+    n, k = last.obs_valid.shape[-2:]
+    print(f"phase 10: slam_run with ring 20 on {SLAM_CPU_FRAMES} frames: "
+          f"card {g.n_keyframes} keyframes, {g_lm} landmarks, ATE "
+          f"{g_ate:.4f}; plain CPU {c.n_keyframes}, {c_lm}, {c_ate:.4f}; "
+          f"{len(problems)} window BAs, each one K9 launch ({counts}); K9 "
+          f"on the last window (N {n}, M {k}, {kw['iters']} iterations, "
+          f"{kw['linalg']}): {t:.4f} ms on the device ({by}), {ms:.4f} as "
+          f"called")
+    return dict(keyframes=g.n_keyframes, landmarks=g_lm, ate=g_ate,
+                cpu_landmarks=c_lm, cpu_ate=c_ate, window_bas=len(problems),
+                launches=counts, window_device_ms=t, window_ms=ms)
 
 
 def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
     """Phase 10: bundle adjustment at the JAX package's production scale
     (N 10240, M 128, K 4) through ``ba_solve_tracks`` on the generic
     layout, K9 held to its plain version and to the JAX scale test's
-    gates; the small cases; the flat ``ba_solve`` and the geometry on the
-    card against the CPU. Returns the numbers for the result lines."""
+    gates; the small, wide-band, dense and non-finite cases; a SLAM run
+    with a ring of 20 through K9; the flat ``ba_solve`` and the geometry
+    on the card against the CPU. Returns the numbers for the result
+    lines."""
     from vpp_tpu_torch.algorithms import geometry as GEO
     t0 = time.perf_counter()
     p, X = generic_problem(torch, np, BA, dev, GEN_N, GEN_M, GEN_K, 2)
@@ -1295,12 +1622,18 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
           f"iterations: " + "; ".join(
               f"{k}: S off by {v['S_rel_err']:.3g}, rhs "
               f"{v['rhs_err_of_terms']:.3g} of its terms, cost "
-              f"{v['cost_rel_err']:.3g}; the first candidate's cost "
+              f"{v['cost_rel_err']:.3g}; band {v['band']}, the pose "
+              f"solve's backward error {v['solve_backward_err']:.3g} "
+              f"(the library's on the same system "
+              f"{v['library_solve_backward_err']:.3g}); the first "
+              f"candidate's cost "
               f"{v['step_cost_rel_err']:.3g}, poses {v['step_pose_err']:.3g}, "
               f"predicted measurements {v['step_predicted_err_px']:.3g} px "
               f"off the plain step; the LM loop's poses "
               f"{v['lm_pose_err']:.3g} off the plain loop's (which is "
-              f"{v['plain_cpu_card_pose_dist']:.3g} off itself on the CPU), "
+              f"{v['plain_cpu_card_pose_dist']:.3g} off itself on the CPU "
+              f"and {v['plain_f64_pose_dist']:.3g} off its run with float64 "
+              f"pose solves), "
               f"predicted measurements {v['lm_predicted_err_px']:.3g} px, "
               f"last cost {v['lm_last_cost_above']:.3g} of the first above "
               f"it; costs {v['costs']}, median "
@@ -1312,7 +1645,7 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
     solved, costs = BA.ba_solve_tracks(p, iters=GEN_ITERS, lam0=GEN_LAM0)
     torch.cuda.synchronize()
     counts = KN.launch_counts()
-    check(counts["ba_generic"] == 1 + 5 * GEN_ITERS
+    check(counts["ba_generic"] == 1
           and sum(counts.values()) == counts["ba_generic"],
           f"ba_solve_tracks on the generic layout launched {counts}")
     check(bool(torch.isfinite(solved.poses).all())
@@ -1321,19 +1654,48 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
           "ba_solve_tracks' result is not finite or of the wrong shape")
 
     # the small cases, each against the plain loop (both linalg)
-    small = {}
+    # (closure: the band the whole matrix, the dense factorisation, at 16
+    # and at 512 poses; masked_far: masked slots naming a far pose, the
+    # band stays the chain's; nonfinite: S's blocks outside the band NaN)
+    small, bands, berrs = {}, {}, {}
     for case, (n, m, k, lam0, iters) in {
             "masked": (64, 8, 3, 1e-3, 3), "repeated": (200, 8, 3, 1e-4, 5),
             "unseen": (200, 8, 3, 1e-4, 5),
-            "one_slot": (200, 8, 1, 1e-4, 5)}.items():
-        pc, _ = generic_problem(torch, np, BA, dev, n, m, k, 5, case,
+            "one_slot": (200, 8, 1, 1e-4, 5),
+            "closure": (1024, 16, 4, 1e-4, 5),
+            "masked_far": (1024, 16, 4, 1e-4, 5),
+            "nonfinite": (1024, 16, 4, 1e-4, 3),
+            "closure_512": (4096, 512, 4, 1e-4, 5)}.items():
+        pc, _ = generic_problem(torch, np, BA, dev, n, m, k, 5,
+                                case.replace("_512", ""),
                                 noise=0.0 if case == "masked" else 0.3)
         for linalg in ("lu", "chol"):
-            nums, (_, _, cs, _) = k9_check(torch, BA, BG, KN, pc, iters,
-                                           lam0, linalg, f"{case}, {linalg}")
-            small[f"{case}_{linalg}"] = nums["lm_pose_err"]
+            nums, (po, lm, cs, tr) = k9_check(torch, BA, BG, KN, pc, iters,
+                                              lam0, linalg,
+                                              f"{case}, {linalg}")
+            small[f"{case}_{linalg}"] = (nums["lm_pose_err"],
+                                         nums["plain_cpu_card_pose_dist"],
+                                         nums["plain_f64_pose_dist"])
+            bands[case] = nums["band"]
+            berrs[f"{case}_{linalg}"] = (nums["solve_backward_err"],
+                                         nums["library_solve_backward_err"])
+            if case == "nonfinite":
+                b = nums["band"]
+                check(not bool(torch.isfinite(tr.S.reshape(
+                    m, 6, m, 6)[b + 1:, :, 0]).all())
+                      and bool(torch.isnan(tr.dp).all())
+                      and not bool(tr.accept.any()),
+                      f"K9 ({linalg}): a NaN block outside the band did not "
+                      "give a NaN, rejected step")
         if case == "masked":       # test_slam_scale.py:128's gate
             check(float(cs[-1]) < 1e-3, f"K9 masked slots: costs {cs}")
+        if case == "closure_512":
+            # the scaled float32 system here is singular to working
+            # precision: whose Cholesky holds is decided by rounding
+            hold, draws = k9_hold_record(torch, BG, pc, iters, lam0, "chol")
+    check(bands["closure"] == 15 and bands["closure_512"] == 511
+          and bands["masked_far"] == 3,
+          f"K9's bands on the closure and masked cases: {bands}")
     # every step rejected, and the pose factorisation failing
     # (the observations of free pose 5 displaced 2000 px at lam0 1e-8:
     # each candidate costs more, in a CPU run of the plain loop; no valid
@@ -1393,16 +1755,47 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
           and same_bits(torch, s0.poses, p.poses),
           "K9's route at iters=0 does not return its problem unchanged")
     print(f"phase 10: K9 on masked slots, a repeated pose, unseen "
-          f"landmarks, one slot a landmark (poses within {max(small.values()):.3g} of the plain "
-          f"loop), every step rejected, a failed pose factorisation; a "
-          f"ring problem within {ring_err} (costs, poses, landmarks) of K6; "
-          f"iters=0 with no launch")
+          f"landmarks, one slot a landmark, a closure pair (band 15, the "
+          f"dense factorisation), the same at 512 poses (band 511), masked "
+          f"slots naming a far pose (band {bands['masked_far']}), NaN blocks "
+          f"outside the band (dp NaN, rejected), every step rejected, a "
+          f"failed pose factorisation. The LM loop's poses off the plain "
+          f"loop's (the plain loop's own CPU-to-card distance, held to 1e-4 "
+          f"where it is within 1e-5; the plain loop's distance with float64 "
+          f"pose solves): "
+          + ", ".join(f"{k} {a:.3g} ({b:.3g}; {c:.3g})"
+                      for k, (a, b, c) in small.items() if a == a)
+          + ". The first pose solve's backward error against the library's "
+          "on the same system: "
+          + ", ".join(f"{k} {a:.3g}/"
+                      + ("failed" if b is None else f"{b:.3g}")
+                      for k, (a, b) in berrs.items() if a is not None)
+          + f". A ring problem within {ring_err} (costs, poses, landmarks) "
+          f"of K6; iters=0 with no launch")
+    print("phase 10: the closure pair at 512 poses, Cholesky, lam0 1e-4, "
+          "by iteration of K9's loop: lam, whether K9's factorisation and "
+          "the library's of the same system held (their backward errors), "
+          "the scaled system's least eigenvalue (float64) and the decision: "
+          + "; ".join(
+              f"{i}: lam {r['lam']:.3g}, K9 {r['k9_held']} "
+              f"({r['k9_backward_err']}), library {r['library_held']} "
+              f"({r['library_backward_err']}), least eigenvalue "
+              f"{r['least_eigenvalue']:.3g}, "
+              f"{'accepted' if r['accepted'] else 'rejected'}"
+              for i, r in enumerate(hold))
+          + "; over 8 copies with the landmarks moved one ulp at random, "
+          f"K9's first factorisation held {draws[0]} times, the library's "
+          f"of the same systems {draws[1]}")
+    ring20 = phase_ring20(torch, np, BA, KN, dev)
 
-    # times, both linalg; the main path's linalg ("lu") in the kernels line
+    # times, both linalg; the main path's linalg ("lu") in the kernels line:
+    # the call (CUDA-graph replays), its stages (K9's own clock), the
+    # library's solve of the pose system K9 solved (the pose-solve stage's
+    # yardstick), as called, the plain loop
     timing = {}
     for linalg in ("lu", "chol"):
-        def k9_call(iters=GEN_ITERS, linalg=linalg):
-            return BA.ba_solve_tracks(p, iters=iters, lam0=GEN_LAM0,
+        def k9_call(linalg=linalg):
+            return BA.ba_solve_tracks(p, iters=GEN_ITERS, lam0=GEN_LAM0,
                                       linalg=linalg)
 
         def plain_call(linalg=linalg):
@@ -1410,28 +1803,51 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
                                  linalg, kernel=False)
 
         t_call, by = device_ms(torch, k9_call, calls=5, replays=5)
-        t_one, _ = device_ms(torch, lambda: k9_call(1), calls=5, replays=5)
-        _, _, _, tr = BG.lm_generic(p, 1, GEN_HUBER, GEN_LAM0, linalg)
-        D = 6 * GEN_M
-        Sd = tr.S.reshape(D, D) + GEN_LAM0 * torch.eye(D, device=dev)
-        fx = p.fixed_poses[:, None].expand(GEN_M, 6).reshape(-1)
-        Sd = torch.where(fx[:, None] | fx[None, :], torch.eye(D, device=dev),
-                         Sd)
-        d = Sd.diagonal().clamp(min=1e-12).rsqrt()
-        Sps = (Sd * d[:, None] * d[None, :]).contiguous()
-        bs = (d * torch.where(fx, 0.0, tr.rhs.reshape(-1))).contiguous()
-        t_solve, _ = device_ms(torch, lambda: BG.pose_solve(Sps, bs, linalg),
-                               calls=5, replays=5)
+        tr = BG.lm_generic(p, 1, GEN_HUBER, GEN_LAM0, linalg, trace=True)[3]
+        Sk, bk = k9_system(torch, p, tr, GEN_LAM0)
         timing[linalg] = dict(
             device_ms=t_call, device_ms_by=by,
-            device_ms_per_iteration=(t_call - t_one) / (GEN_ITERS - 1),
-            device_ms_setup=t_one - (t_call - t_one) / (GEN_ITERS - 1),
-            pose_solve_device_ms=t_solve,
-            device_ms_without_pose_solve=t_call - GEN_ITERS * t_solve,
+            stages_ms=k9_stages(torch, BG, p, GEN_ITERS, GEN_LAM0, linalg),
+            library_solve_device_ms=device_ms(
+                torch, lambda: library_solve(torch, Sk, bk, linalg),
+                calls=5, replays=5)[0],
+            library_solve_ms=cuda_ms(
+                torch, lambda: library_solve(torch, Sk, bk, linalg), 10),
             ms=cuda_ms(torch, k9_call, 10),
             plain_ms=cuda_ms(torch, plain_call, 3, warmup=1),
             graph_ops=graph_ops(torch, k9_call),
             plain_graph_ops=graph_ops(torch, plain_call))
+    # the wide band: the production recipe with a closure pair (band 127,
+    # the dense 768x768 factorisation in K9), and the dense case at 512
+    # poses (band 511, 3072x3072), each beside the library's solve of the
+    # same system
+    wide = {}
+    for name, (n, m, iters, calls) in {"closure_m128": (GEN_N, GEN_M, 2, 2),
+                                       "closure_m512": (4096, 512, 1, 1)
+                                       }.items():
+        pwd, _ = generic_problem(torch, np, BA, dev, n, m, GEN_K, 2,
+                                 "closure")
+        for linalg in ("lu", "chol"):
+            tr = BG.lm_generic(pwd, 1, GEN_HUBER, GEN_LAM0, linalg,
+                               trace=True)[3]
+            check(int(tr.band) == m - 1, f"K9 {name}: band {int(tr.band)}")
+            Sk, bk = k9_system(torch, pwd, tr, GEN_LAM0)
+            wide[f"{name}_{linalg}"] = dict(
+                device_ms=device_ms(torch, lambda: BA.ba_solve_tracks(
+                    pwd, iters=iters, lam0=GEN_LAM0, linalg=linalg),
+                    calls=calls, replays=1)[0], iterations=iters,
+                solve_ms=k9_stages(torch, BG, pwd, iters, GEN_LAM0, linalg,
+                                   calls=1)["solve"],
+                library_solve_device_ms=device_ms(
+                    torch, lambda: library_solve(torch, Sk, bk, linalg),
+                    calls=2, replays=2)[0])
+    print("phase 10: the wide band (band M - 1: K9's dense factorisation), "
+          "K9's pose-solve stage against the library's solve of the same "
+          "system, device ms: " + "; ".join(
+              f"{k} {v['solve_ms']:.4f} against "
+              f"{v['library_solve_device_ms']:.4f} (the call "
+              f"{v['device_ms']:.4f}, {v['iterations']} iterations)"
+              for k, v in wide.items()))
     # test_slam_scale.py:107's M 16 x N 1024 x K 4, and the SLAM window's
     # shape (K = M = 6, N 1024, 3 iterations: a ring problem) down the
     # generic route beside K6
@@ -1452,19 +1868,32 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
           "window's shape: K9, then K6 on the ring route): " + "; ".join(
               f"{k} {v['device_ms']:.4f} / {v['ms']:.4f}"
               for k, v in shapes.items()))
-    (bms, bby), bbytes, bops = k9_bound(torch, p, GEN_ITERS)
-    print(f"phase 10: per ba_solve_tracks call ({GEN_ITERS} iterations; "
-          f"{smi}): " + "; ".join(
+    band = full["lu"]["band"]
+    bounds = {linalg: k9_bound(torch, p, GEN_ITERS, band, linalg)
+              for linalg in ("lu", "chol")}
+    (bms, bby), bbytes, bops, dops, dms = bounds["lu"]
+    print(f"phase 10: per ba_solve_tracks call ({GEN_ITERS} iterations, "
+          f"band {band}; {smi}): " + "; ".join(
               f"{k}: {v['device_ms']:.4f} ms on the device "
-              f"({v['device_ms_by']}; an iteration "
-              f"{v['device_ms_per_iteration']:.4f}, the index "
-              f"{v['device_ms_setup']:.4f}; the library pose solve "
-              f"{v['pose_solve_device_ms']:.4f} a solve, K9 alone "
-              f"{v['device_ms_without_pose_solve']:.4f}), "
-              f"{v['ms']:.4f} as called, plain {v['plain_ms']:.3f}; device "
-              f"operations {v['graph_ops']} against the plain route's "
-              f"{v['plain_graph_ops']}" for k, v in timing.items())
-          + f"; bound {bms:.5f} ms ({bby})")
+              f"({v['device_ms_by']}), by stage (K9's clock, median) the "
+              f"index {v['stages_ms']['index']:.4f}, an iteration's "
+              f"landmarks {v['stages_ms']['landmarks']:.4f}, blocks "
+              f"{v['stages_ms']['blocks']:.4f}, pose solve "
+              f"{v['stages_ms']['solve']:.4f} (its system "
+              f"{v['stages_ms']['solve_system']:.4f}, panels "
+              f"{v['stages_ms']['solve_panels']:.4f}, trailing updates "
+              f"{v['stages_ms']['solve_trailing']:.4f}, back-substitution "
+              f"{v['stages_ms']['solve_backsub']:.4f}; the library's solve of the "
+              f"same system {v['library_solve_device_ms']:.4f} on the "
+              f"device, {v['library_solve_ms']:.4f} as called), step "
+              f"{v['stages_ms']['step']:.4f}; {v['ms']:.4f} as called "
+              f"({v['ms'] / v['device_ms']:.3f}x the device), plain "
+              f"{v['plain_ms']:.3f}; device operations {v['graph_ops']} "
+              f"against the plain route's {v['plain_graph_ops']}; bound "
+              f"{bounds[k][0][0]:.5f} ms ({bounds[k][0][1]}, "
+              f"{bounds[k][2]:.4g} operations; with the dense "
+              f"factorisation's {bounds[k][3]:.4g}: {bounds[k][4]:.5f} ms)"
+              for k, v in timing.items()))
 
     # the flat ba_solve on the card against the CPU (tests/test_slam.py:51)
     rng = np.random.RandomState(0)
@@ -1567,15 +1996,20 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
             "included)",
         max_abs_err=max(v["step_pose_err"] for v in full.values()),
         ms=lu["ms"], plain_ms=lu["plain_ms"], bound_ms=bms, bound_by=bby,
-        bound_bytes=bbytes, bound_operations=bops, library="none",
-        library_ms=None, device_ms=lu["device_ms"],
-        device_ms_by=lu["device_ms_by"],
-        device_ms_per_iteration=lu["device_ms_per_iteration"],
-        pose_solve_device_ms=lu["pose_solve_device_ms"],
-        device_ms_without_pose_solve=lu["device_ms_without_pose_solve"],
+        bound_bytes=bbytes, bound_operations=bops,
+        library="the pose-solve stage alone: torch.linalg.solve_ex of the "
+                "(6M, 6M) system K9 solved, one solve",
+        library_ms=lu["library_solve_ms"],
+        library_device_ms=lu["library_solve_device_ms"],
+        device_ms=lu["device_ms"], device_ms_by=lu["device_ms_by"],
+        stages_ms=lu["stages_ms"], band=band,
+        bound_operations_dense_factorisation=dops,
+        bound_ms_dense_factorisation=dms,
         graph_ops=lu["graph_ops"], plain_graph_ops=lu["plain_graph_ops"],
         chol=timing["chol"], full_width=full, ring_vs_k6=ring_err,
-        other_shapes=shapes,
+        other_shapes=shapes, wide_band=wide, ring20=ring20,
+        solve_backward_errors=berrs, closure_512_chol_holds=hold,
+        closure_512_chol_draws=draws, lm_pose_errs=small,
         launches_per_call=counts["ba_generic"])
     return dict(counts=counts, flat_ms=flat_ms, flat_err=flat_err,
                 geometry_err=geo_err)
@@ -1607,7 +2041,7 @@ def main() -> int:
     from vpp_tpu_torch.algorithms.hough_tracker import (
         HoughTrackerConfig, hough_tracker_init, hough_tracker_update)
     from vpp_tpu_torch import convert
-    from vpp_tpu_torch.algorithms import pyramid as PY
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
     from vpp_tpu_torch.algorithms.pyramid import level_shapes, pyramid
     from vpp_tpu_torch.algorithms import video_extruder as VE
     from vpp_tpu_torch.algorithms.video_extruder import (

@@ -30,7 +30,7 @@ from vpp_tpu.algorithms.video_extruder import (
 from vpp_tpu.core.image import from_array as j_from_array
 from vpp_tpu.core.keypoints import Keypoints as JKeypoints
 from vpp_tpu_torch import convert
-from vpp_tpu_torch.algorithms import fast, flow, pyramid
+from vpp_tpu_torch.algorithms import fast, flow
 from vpp_tpu_torch.algorithms.video_extruder import (
     VideoExtruderConfig as TVConfig)
 from vpp_tpu_torch.core import interp
@@ -39,6 +39,7 @@ from vpp_tpu_torch.utils import synth as tsynth
 
 jp = importlib.import_module("vpp_tpu.slam.pipeline")
 tp = importlib.import_module("vpp_tpu_torch.slam.pipeline")
+pyramid = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
 
 torch.set_num_threads(1)
 

@@ -17,5 +17,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from ._device import resolve_device  # noqa: E402
+from . import core  # noqa: E402
 
-__all__ = ["resolve_device"]
+__all__ = ["core", "resolve_device"]
+
+# The heavier subpackages are imported on attribute access, as in
+# ``vpp_tpu``, so that a bare ``import vpp_tpu_torch`` stays light.
+_SUBPACKAGES = ("algorithms", "slam", "kernels", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'vpp_tpu_torch' has no attribute {name!r}")

@@ -25,8 +25,9 @@ show that it went through the kernels:
   launch per call: every match set's vote rounds, pick, gate and both PnP
   solves; one a recovery keyframe, one a ``relocalize``)
 * ``ba_generic`` — K9, ``slam/ba_generic_cuda.py:lm_generic`` (behind
-  ``ba_solve_tracks`` on the generic layout: one index launch a call, then
-  four launches an LM iteration around the library's pose solve)
+  ``ba_solve_tracks`` on the generic layout, and on a ring of more poses
+  than K6 takes: one cooperative launch a call, every LM iteration and
+  its band pose solve included)
 
 K1-K6 also take S streams in one launch (the stream in the grid): a run
 of ``slam_run_streams`` counts the launches of one stream.

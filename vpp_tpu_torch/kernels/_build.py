@@ -55,14 +55,8 @@ _SIGNATURES = {
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 10,
     "vpp_ba_max_active_clusters": [_I, _P],
     "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
-    "vpp_ba_generic_workspace": [_I, _I, _I, _P],
-    "vpp_ba_generic_index": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
-    "vpp_ba_generic_landmarks": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 2
-    + [_P] * 3,
-    "vpp_ba_generic_blocks": [_P, _P, _I, _I, _I] + [_P] * 5,
-    "vpp_ba_generic_prep": [_P, _P, _P, _I] + [_P] * 5,
-    "vpp_ba_generic_step": [_P] * 10 + [_I] * 3 + [_F] + [_P] * 3,
-    "vpp_ba_generic_decide": [_I] * 4 + [_P] * 7,
+    "vpp_ba_generic_workspace": [_I, _I, _I, _I, _P],
+    "vpp_ba_generic_lm": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P] * 9,
 }
 
 _lib: Optional[ctypes.CDLL] = None

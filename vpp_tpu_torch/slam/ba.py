@@ -13,12 +13,13 @@ The LM loop ``_lm_tracks`` with ``_tracks_assemble``,
 ``_tracks_cost`` here is the plain PyTorch version of kernels K6 and K9.
 ``ba_solve_tracks`` on CUDA tensors in the ring layout runs K6 instead
 (``slam/ba_cuda.py``, ``kernels/csrc/ba_tracks.cu``): the whole loop, the
-pose solve included, in one launch. On the generic layout it runs K9
-(``slam/ba_generic_cuda.py``, ``kernels/csrc/ba_generic.cu``): an index of
-the non-empty blocks of S once a call, then four launches an iteration
-around the library's dense pose solve. ``pnp_gn``, the single-pose
-Gauss-Newton PnP of the keyframe path and of kernel K8's plain version
-(``slam/map_vote.py``), is here too.
+pose solve included, in one launch. On the generic layout, and for one
+ring problem of more poses than K6 takes, it runs K9
+(``slam/ba_generic_cuda.py``, ``kernels/csrc/ba_generic.cu``): the whole
+loop in one cooperative launch, an index of the non-empty blocks of S and
+a band factorisation of the pose system its own. ``pnp_gn``, the
+single-pose Gauss-Newton PnP of the keyframe path and of kernel K8's plain
+version (``slam/map_vote.py``), is here too.
 
 Precision. Residuals and Jacobians are float32, as in the JAX package, but
 each landmark's 3x3 block algebra (Hll, its damped inverse, U, W and the
@@ -638,10 +639,12 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
 
     ``ring_layout=True`` promises ``obs_pose[n, j] == j`` (K == M). On CUDA
     tensors it runs kernel K6: every iteration of every problem in one
-    launch, M at most ``ba_cuda.MAX_POSES``. The generic layout takes one
-    problem; on CUDA tensors it runs kernel K9 within its limits
-    (``ba_generic_cuda``: M up to 512, K up to 32, at most 2^22 slots;
-    ``ValueError`` beyond them). ``linalg`` is "lu" (pivoted landmark
+    launch, M at most ``ba_cuda.MAX_POSES``; one ring problem of more
+    poses runs kernel K9 with ``obs_pose = arange(M)`` (``ValueError``
+    with a stream dimension). The generic layout takes one problem; on
+    CUDA tensors it runs kernel K9 within its limits (``ba_generic_cuda``:
+    M up to 512, K up to 32, at most 2^22 slots; ``ValueError`` beyond
+    them). ``linalg`` is "lu" (pivoted landmark
     inverses and pose solve) or "chol" (closed-form scaled Cholesky
     inverses and a Cholesky pose solve). Raises ``NotImplementedError``
     for ``mesh`` and for the generic layout with a stream dimension."""
@@ -665,9 +668,10 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
 def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
     """The LM loop of ``ba_solve_tracks``: with ``kernel`` (CUDA tensors)
-    K6's one launch on the ring layout or K9's launches on the generic
-    one, else the plain version below (on any device), every stream's
-    decisions and damping its own.
+    K6's one launch on the ring layout (K9's for one ring problem of more
+    poses than K6 takes) or K9's one launch on the generic one, else the
+    plain version below (on any device), every stream's decisions and
+    damping its own.
     No iteration returns ``p`` itself and empty costs, as the JAX
     package's ``lax.scan(length=0)`` does, and launches nothing."""
     lead = p.landmarks.shape[:-2]
@@ -675,11 +679,30 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
         return p, torch.empty(lead + (0,), dtype=torch.float32,
                               device=p.landmarks.device)
     if kernel:
-        if ring_layout:
-            from .ba_cuda import lm_tracks as fused
+        from . import ba_cuda
+        from .ba_generic_cuda import lm_generic
+        fused = ba_cuda.lm_tracks if ring_layout else lm_generic
+        m = p.poses.shape[-3]
+        if ring_layout and m > ba_cuda.MAX_POSES:
+            # K6 holds at most MAX_POSES poses; K9 takes one ring problem
+            # (a stream dimension of 1 too, as slam_run makes it) up to its
+            # slot limit, as the generic layout with obs_pose[n, j] = j
+            if p.landmarks.dim() != 2 and lead != (1,):
+                raise ValueError(
+                    f"ba_solve_tracks: a ring of {m} poses on {lead[0]} "
+                    f"streams; K6 takes at most {ba_cuda.MAX_POSES} poses "
+                    "and K9 one problem")
+            one = p if p.landmarks.dim() == 2 else BATracks(
+                *(t if i == 5 else t[0] for i, t in enumerate(p)))
+            poses, lms, costs, _ = lm_generic(one._replace(
+                obs_pose=torch.arange(
+                    m, dtype=torch.int32, device=p.landmarks.device).expand(
+                        one.obs_valid.shape).contiguous()),
+                iters, huber, lam0, linalg)
+            if p.landmarks.dim() != 2:
+                poses, lms, costs = poses[None], lms[None], costs[None]
         else:
-            from .ba_generic_cuda import lm_generic as fused
-        poses, lms, costs, _ = fused(p, iters, huber, lam0, linalg)
+            poses, lms, costs, _ = fused(p, iters, huber, lam0, linalg)
         return p._replace(poses=poses, landmarks=lms), costs
     poses0, lms0 = p.poses, p.landmarks
     lam = torch.full(lead, lam0, dtype=torch.float32, device=lms0.device)

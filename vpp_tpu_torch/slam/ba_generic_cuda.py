@@ -1,22 +1,22 @@
-"""Kernel K9 (``kernels/csrc/ba_generic.cu``): the Levenberg-Marquardt
+"""Kernel K9 (``kernels/csrc/ba_generic.cu``): a whole Levenberg-Marquardt
 solve of ``ba_solve_tracks`` on the generic tracks layout, where
-``obs_pose[n, k]`` names any pose.
+``obs_pose[n, k]`` names any pose, in one cooperative launch.
 
 ``ba.ba_solve_tracks`` calls ``lm_generic`` on CUDA tensors with
-``ring_layout=False``; its plain version is ``ba._lm_tracks(kernel=False)``
-(with ``_tracks_assemble``'s generic branch, ``_tracks_solve_poses``,
-``apply_pose_step``, ``_tracks_backsub`` and ``_tracks_cost``). A call makes
-one index launch (the slots sorted by pose, the list of non-empty 6x6
-blocks of S), then per iteration four K9 launches and the library's dense
-pose solve between them: the landmark blocks; S, rhs and the cost, a warp
-a non-empty block; the damped, gauge-fixed, Jacobi-scaled system; the
-library's LU (``torch.linalg.solve_ex``) or Cholesky (``cholesky_ex`` and
-two triangular solves), the one library call of the route, as in the plain
-version; then the pose step, back-substitution and candidate cost; and the
-accept test with the damping update. Every sum runs in a fixed order, so
-two calls on the same inputs give the same bits; no iteration reads the
-host. The landmark blocks are float64, as in the plain version (see
-``slam/ba.py`` on precision).
+``ring_layout=False`` (and for one ring problem of more poses than K6
+takes); its plain version is ``ba._lm_tracks(kernel=False)`` (with
+``_tracks_assemble``'s generic branch, ``_tracks_solve_poses``,
+``apply_pose_step``, ``_tracks_backsub`` and ``_tracks_cost``). The launch
+builds an index once (the slots sorted by pose, the list of non-empty 6x6
+blocks of S and S's block half-bandwidth), then runs every iteration
+between grid barriers: the landmark blocks; S, rhs and the cost, a warp a
+non-empty block; the damped, gauge-fixed, Jacobi-scaled pose solve as the
+kernel's own band LU with partial pivoting (``linalg="lu"``) or band
+Cholesky (``"chol"``), no library call at any width; the pose step,
+back-substitution and candidate cost; and the accept test with the damping
+update. Every sum runs in a fixed order, so two calls on the same inputs
+give the same bits; nothing reads the host. The landmark blocks are
+float64, as in the plain version (see ``slam/ba.py`` on precision).
 
 Limits, checked here (``ValueError`` beyond them): one problem (no stream
 dimension), 1 to ``MAX_POSES`` poses, 1 to ``MAX_SLOTS`` slots a landmark,
@@ -26,16 +26,36 @@ at least one landmark and at most ``MAX_OBSERVATIONS`` slots in all.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..kernels import LAUNCHES, require_cuda, stream_handle
 from .ba import BATracks
-from .ba_cuda import LMTrace
 
 MAX_POSES = 512
 MAX_SLOTS = 32
 MAX_OBSERVATIONS = 1 << 22
+
+
+class GenericTrace(NamedTuple):
+    """What K9 records besides its result: K6's ``LMTrace`` fields (the
+    first iteration's reduced system before damping, only where traced,
+    and per iteration the pose step, the damping used, the costs of the
+    iterate and of the candidate, and the decision), plus the first
+    iteration's Jacobi scales and the solution of its scaled system (dp =
+    scale x) and S's block half-bandwidth."""
+    S: Optional[torch.Tensor]  # (M, 6, M, 6) float32, or None
+    rhs: torch.Tensor        # (M, 6)
+    cost: torch.Tensor       # ()
+    dp: torch.Tensor         # (iters, M, 6); NaN where the solve failed
+    lam: torch.Tensor        # (iters,)
+    cost_before: torch.Tensor  # (iters,)
+    cost_after: torch.Tensor   # (iters,) the candidate's cost
+    accept: torch.Tensor     # (iters,) 1.0 where accepted, else 0.0
+    scale: torch.Tensor      # (6M,) the first iteration's d
+    x: torch.Tensor          # (6M,) the first iteration's x
+    band: torch.Tensor       # () beta, as a float
 
 
 def _operands(p: BATracks):
@@ -69,25 +89,19 @@ def _operands(p: BATracks):
     return ops, n, k, m
 
 
-def pose_solve(Sp: torch.Tensor, bs: torch.Tensor, linalg: str):
-    """The library's solve of the scaled system: (x, info), info 0 where it
-    solved (``lu``: a zero pivot; ``chol``: not positive definite)."""
-    if linalg == "chol":
-        L, info = torch.linalg.cholesky_ex(Sp)
-        y = torch.linalg.solve_triangular(L, bs[:, None], upper=False)
-        x = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
-        return x.contiguous(), info
-    x, info = torch.linalg.solve_ex(Sp, bs)
-    return x, info
-
-
 def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
-               linalg: str):
-    """K9: ``iters`` LM iterations of one generic-layout problem. Returns
-    (poses (M,4,4), landmarks (N,3), costs (iters,), ``LMTrace``: the
-    first iteration's S, rhs and cost, copied out, and per iteration dp,
-    lam, the costs and the decision). ``iters`` is at least 1:
-    ``ba_solve_tracks(iters=0)`` returns before it."""
+               linalg: str, trace: bool = False,
+               stamps: Optional[torch.Tensor] = None):
+    """K9: ``iters`` LM iterations of one generic-layout problem in one
+    launch. Returns (poses (M,4,4), landmarks (N,3), costs (iters,),
+    ``GenericTrace``), the trace's ``S`` written only with ``trace``. Where
+    given, ``stamps`` (int64, 8 iters + 3, on the problem's device)
+    receives the device clock (ns) at the start, after the index, after
+    each iteration's landmark, block, solve and step stages and at the end
+    (4 iters + 3), then per iteration the SM cycles of the pose solve's
+    system, panel factorisations, trailing updates and back-substitution
+    (4 iters). ``iters`` is at least 1: ``ba_solve_tracks(iters=0)``
+    returns before it."""
     from ..kernels import _build
     if iters < 1:
         raise ValueError(f"K9: takes at least one iteration, got {iters}")
@@ -97,58 +111,37 @@ def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
     dev = lms.device
     lib = _build.load()
     nbytes = ctypes.c_longlong(0)
-    _build.check(lib.vpp_ba_generic_workspace(n, k, m, ctypes.byref(nbytes)),
+    _build.check(lib.vpp_ba_generic_workspace(n, k, m, iters,
+                                              ctypes.byref(nbytes)),
                  "ba_generic workspace")
     D = 6 * m
     f32 = torch.float32
     ws = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-    S = torch.zeros((D, D), dtype=f32, device=dev)
-    Sp = torch.empty((D, D), dtype=f32, device=dev)
-    vec = torch.empty((3, D), dtype=f32, device=dev)      # rhs, bs, d
-    rhs, bs, dsc = vec[0], vec[1], vec[2]
-    state = torch.empty(2, dtype=f32, device=dev)         # lam, cost
     poses_out = torch.empty((m, 4, 4), dtype=f32, device=dev)
     lms_out = torch.empty((n, 3), dtype=f32, device=dev)
     costs = torch.empty(iters, dtype=f32, device=dev)
     per = torch.empty((iters, D + 4), dtype=f32, device=dev)
-    sh = stream_handle(lms)
-    use_lu = 1 if linalg == "lu" else 0
-    huber, lam0 = float(huber), float(lam0)
-
-    def launch(name, code):
-        LAUNCHES["ba_generic"] += 1
-        _build.check(code, f"ba_generic {name}")
-
-    launch("index", lib.vpp_ba_generic_index(
-        opose.data_ptr(), valid.data_ptr(), n, k, m, lam0, ws.data_ptr(),
-        state.data_ptr(), sh))
-    for it in range(iters):
-        launch("landmarks", lib.vpp_ba_generic_landmarks(
-            poses.data_ptr(), poses_out.data_ptr(), lms.data_ptr(),
-            lms_out.data_ptr(), opose.data_ptr(), uv.data_ptr(),
-            valid.data_ptr(), intr.data_ptr(), n, k, m, huber, use_lu, it,
-            state.data_ptr(), ws.data_ptr(), sh))
-        launch("blocks", lib.vpp_ba_generic_blocks(
-            opose.data_ptr(), valid.data_ptr(), n, k, m, ws.data_ptr(),
-            S.data_ptr(), rhs.data_ptr(), state.data_ptr(), sh))
-        if it == 0:
-            first = (S.clone(), rhs.clone(), state[1].clone())
-        launch("prep", lib.vpp_ba_generic_prep(
-            S.data_ptr(), rhs.data_ptr(), fixed.data_ptr(), m,
-            state.data_ptr(), Sp.data_ptr(), bs.data_ptr(), dsc.data_ptr(),
-            sh))
-        x, info = pose_solve(Sp, bs, linalg)
-        launch("step", lib.vpp_ba_generic_step(
-            x.data_ptr(), info.data_ptr(), dsc.data_ptr(), fixed.data_ptr(),
-            poses_out.data_ptr(), lms_out.data_ptr(), opose.data_ptr(),
-            uv.data_ptr(), valid.data_ptr(), intr.data_ptr(), n, k, m, huber,
-            ws.data_ptr(), per[it].data_ptr(), sh))
-        launch("decide", lib.vpp_ba_generic_decide(
-            n, k, m, it, ws.data_ptr(), state.data_ptr(),
-            poses_out.data_ptr(), lms_out.data_ptr(), costs.data_ptr(),
-            per[it].data_ptr(), sh))
-    tr = LMTrace(S=first[0].view(m, 6, m, 6), rhs=first[1].view(m, 6),
-                 cost=first[2], dp=per[:, :D].view(iters, m, 6),
-                 lam=per[:, D], cost_before=per[:, D + 1],
-                 cost_after=per[:, D + 2], accept=per[:, D + 3])
+    extra = torch.empty(3 * D + 2, dtype=f32, device=dev)  # rhs x d cost beta
+    S = torch.zeros((D, D), dtype=f32, device=dev) if trace else None
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.numel() != 8 * iters + 3
+            or stamps.device != dev or not stamps.is_contiguous()):
+        raise ValueError(f"K9: stamps takes a contiguous int64 tensor of "
+                         f"{8 * iters + 3} on {dev}")
+    code = lib.vpp_ba_generic_lm(
+        poses.data_ptr(), lms.data_ptr(), opose.data_ptr(), uv.data_ptr(),
+        valid.data_ptr(), intr.data_ptr(), fixed.data_ptr(), n, k, m, iters,
+        1 if linalg == "lu" else 0, float(huber), float(lam0),
+        poses_out.data_ptr(), lms_out.data_ptr(), costs.data_ptr(),
+        per.data_ptr(), S.data_ptr() if trace else None, extra.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), ws.data_ptr(),
+        stream_handle(lms))
+    LAUNCHES["ba_generic"] += 1
+    _build.check(code, "ba_generic")
+    tr = GenericTrace(S=S.view(m, 6, m, 6) if trace else None,
+                      rhs=extra[:D].view(m, 6), cost=extra[3 * D],
+                      dp=per[:, :D].view(iters, m, 6), lam=per[:, D],
+                      cost_before=per[:, D + 1], cost_after=per[:, D + 2],
+                      accept=per[:, D + 3], scale=extra[2 * D:3 * D],
+                      x=extra[D:2 * D], band=extra[3 * D + 1])
     return poses_out, lms_out, costs, tr
