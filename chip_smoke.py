@@ -169,9 +169,38 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``ba_solve`` on the card against the CPU (tests/test_slam.py:51) and
    timed at full width; the geometry on the card against the CPU
    (tests/test_geometry_matcher.py's inputs);
-11. one ``{"kernels": [...]}`` line (each batched kernel with its
+11. the Hough line path at full width, on the card against the plain CPU
+   path: (a) ``hough_tracker_update`` with ``with_kalman_filter=True`` on
+   phase 5's clip: ms/frame, one K7 launch a frame and nothing else, one
+   step under ``set_sync_debug_mode("error")``, device operations a step
+   with the filter on and off and of the UKF bank alone (CUDA-graph
+   nodes); the CPU steps on the card's accumulator (K7's fixed-point sums
+   flip the clip's near-tied peaks against the float32 scatter; the CPU's
+   own peaks are held where their gap exceeds twice the accumulators'
+   difference): ages and matches equal every frame, each step from the
+   card's state within 1e-2 in theta, rho and ukf_x, the free runs' drift
+   printed (the reference's filter is chaotic); (b) one-shot detection at
+   1920x1080 (``hough_lines`` m 10; ``hough_adaptive_threshold`` then
+   ``hough_peaks_clustered`` k 16; ``hough_sparse_revote`` along the found
+   lines; ``hough_accumulator_mxu``), one K7 launch a call, each timed on
+   the device and as called, the peaks bit-equal to the CPU's on the card's
+   accumulator and equal to the CPU's own where the gap exceeds the
+   tolerance, the revote bit-equal to K7 with its mask and within 1e-4 *
+   max of the CPU, the mxu accumulator bit-equal to ``hough_accumulator``,
+   K7 alone beside its bound at 1080p; (c) the painter on (a)'s final state
+   (``paint_hough_video``, ``draw_line_tracks``: the same bits twice, the
+   same painted pixels as the CPU within 1%, colours within one level;
+   ``track_support_points`` k 64 on >= 99% of live slots); (d)
+   ``semi_dense_optical_flow`` with ``epipolar_flow=True`` and with
+   ``epipolar_filter=2.0`` at 640x480 (bench clip, 4096 keypoints, 3
+   scales, F of a forward motion): ``matched`` agreeing on >= 99% of
+   keypoints, distance within 1e-4 relative on >= 99% of those matched on
+   both (K1's near ties), the filter route two K1 launches a level, the
+   branch's host reads counted;
+12. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
-   ``ba_solve_tracks`` call of phase 10), then ``{"ok": true,
+   ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
+   ``bound_ms_1080p`` from phase 11), then ``{"ok": true,
    "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
@@ -196,6 +225,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
@@ -211,6 +241,8 @@ SLAM_CPU_FRAMES = 40
 SLAM_CHECK_KF = 30
 STREAMS = 4
 SLAM_INTR = (640.0, 640.0, 320.0, 240.0)
+HOUGH_BIG = (1920, 1080)     # phase 11's one-shot detection frame
+EPI_KEYPOINTS = 4096
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -328,6 +360,17 @@ def bilinear_votes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
     idx = torch.cat([t0 * rho_bins + r0, t0 * rho_bins + r1,
                      t1 * rho_bins + r0, t1 * rho_bins + r1])
     return idx, torch.cat([a0 * (1 - fr), a0 * fr, a1 * (1 - fr), a1 * fr])
+
+
+def k7_bound_bytes(torch, th_n, rho_n, w, t_theta: int, rho_bins: int):
+    """The bytes K7 must move: w in full, th and rho only in the 32-byte
+    sectors that hold a voting pixel, the float32 accumulator out. Returns
+    (bytes, sectors of th and rho)."""
+    voters = torch.nonzero(w != 0).reshape(-1)
+    sectors = sum(
+        int(torch.unique((t.data_ptr() % 32 // 4 + voters) // 8).numel())
+        for t in (th_n, rho_n))
+    return w.numel() * 4 + sectors * 32 + t_theta * rho_bins * 4, sectors
 
 
 def slam_config():
@@ -2015,6 +2058,483 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
                 geometry_err=geo_err)
 
 
+def device_ops(torch, fn):
+    """``graph_ops`` of one call of ``fn``, or, where CUDA-graph capture is
+    refused, the profiler's count of the call's device kernels. Returns
+    (ops by kind, method)."""
+    try:
+        return graph_ops(torch, fn), "cuda_graph"
+    except RuntimeError as exc:
+        print(f"chip_smoke: graph capture refused ({exc}); counting the "
+              "profiler's device kernels")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU)
+    return {"kernel": n}, "profiler"
+
+
+def on_cpu(state):
+    """A copy of a dataclass state with its tensors on the CPU."""
+    return dataclasses.replace(state, **{
+        k: v.cpu() for k, v in vars(state).items() if hasattr(v, "cpu")})
+
+
+def greedy_gaps(torch, acc, m: int, ext: int, exr: int):
+    """For ``hough_peaks``' m greedy steps on ``acc`` (CPU): each step's
+    gap between the chosen cell and the largest other cell left, the
+    margin by which another accumulator could change that choice."""
+    t_theta, rho_bins = acc.shape
+    tt = torch.arange(t_theta)[:, None]
+    rr = torch.arange(rho_bins)[None, :]
+    a = acc.clone().double()
+    gaps = []
+    for _ in range(m):
+        top2 = torch.topk(a.reshape(-1), 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        flat = int(torch.argmax(a))
+        pt, pr = flat // rho_bins, flat % rho_bins
+        dt = (tt - pt).abs()
+        dt = torch.minimum(dt, t_theta - dt)
+        a = torch.where((dt <= ext) & ((rr - pr).abs() <= exr),
+                        torch.full_like(a, -1e30), a)
+    return gaps
+
+
+def leading_agree(gaps, tol: float, same) -> int:
+    """How many leading picks must agree (each earlier pick's gap above
+    ``tol``), checked against ``same`` (per pick, bool)."""
+    n = 0
+    for g, s in zip(gaps, same):
+        if g <= tol:
+            break
+        check(s, f"a pick with gap {g:.4g} > {tol:.4g} differs")
+        n += 1
+    return n
+
+
+def phase_hough_lines(torch, np, dev, results, smi):
+    """Phase 11: the Hough line path at full width, card against the plain
+    CPU path. (a) the Kalman tracker on phase 5's clip; (b) one-shot
+    detection at 1920x1080; (c) the painter on (a)'s final state; (d) the
+    epipolar flow branch at 640x480. Returns the numbers it prints."""
+    from vpp_tpu_torch.algorithms import flow as FL
+    from vpp_tpu_torch.algorithms import hough as HG
+    from vpp_tpu_torch.algorithms import hough_cuda as HC
+    from vpp_tpu_torch.algorithms import hough_tracker as HT
+    from vpp_tpu_torch.algorithms import ukf as UK
+    from vpp_tpu_torch.algorithms.geometry import fundamental_from_projections
+    from vpp_tpu_torch.algorithms.hough_tracker import (
+        HoughTrackerConfig, hough_tracker_init, hough_tracker_update)
+    from vpp_tpu_torch.algorithms.pyramid import level_shapes, pyramid
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.draw import hough_paint as HP
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
+    out = {"card": smi}
+
+    # -- 11a. the Kalman tracker ----------------------------------------------
+    kcfg = HoughTrackerConfig(m_first_lines=8, acc_threshold=10.0,
+                              with_kalman_filter=True)
+    pcfg = HoughTrackerConfig(m_first_lines=8, acc_threshold=10.0)
+    lines = synthetic_line_clip(W, H, HOUGH_FRAMES)
+    lines_dev = torch.from_numpy(lines).to(dev)
+    imgs = [from_array(f, border=3, border_mode="mirror") for f in lines_dev]
+    cimgs = [from_array(f, border=3, border_mode="mirror") for f in lines]
+    sk = hough_tracker_init(kcfg, device=dev)
+    sc = hough_tracker_init(kcfg, device="cpu")
+    step_dev, drift, drift_rest, picks = 0.0, 0.0, 0.0, []
+    for t, (fk, fc) in enumerate(zip(imgs, cimgs)):
+        prev = on_cpu(sk)
+        sk, pk = hough_tracker_update(sk, fk, kcfg)
+        # the CPU steps on the card's accumulator: K7's fixed-point sums and
+        # the plain float32 scatter differ in their last bits, which flips
+        # near-tied peaks of this clip's rotating line; the peaks of the
+        # CPU's own accumulator are held apart, where their gap exceeds that
+        acc_k = HG.hough_accumulator(fk, t_theta=kcfg.t_theta).cpu()
+        acc_c = HG.hough_accumulator(fc, t_theta=kcfg.t_theta)
+        HT.hough_accumulator = lambda *a, **kw: acc_k
+        try:
+            sc, pc = hough_tracker_update(sc, fc, kcfg)
+            s1, _ = hough_tracker_update(prev, fc, kcfg)
+        finally:
+            HT.hough_accumulator = HG.hough_accumulator
+        own = HG.hough_peaks(acc_c, 8, exclusion_theta=5, exclusion_rho=10,
+                             acc_threshold=10.0)
+        tol = 2 * float((acc_k - acc_c).abs().max()) + 1e-6
+        picks.append(leading_agree(
+            greedy_gaps(torch, acc_c, 8, 5, 10), tol,
+            [int(pk.theta_idx[i]) == int(own.theta_idx[i])
+             and int(pk.rho_idx[i]) == int(own.rho_idx[i])
+             for i in range(8)]))
+        check(all(torch.equal(getattr(pk, f).cpu(), getattr(pc, f))
+                  for f in ("theta_idx", "rho_idx", "valid")),
+              f"Kalman tracker: the card's peaks differ from the CPU's on "
+              f"the same accumulator at frame {t}")
+        for other in (sc, s1):
+            check(torch.equal(sk.age.cpu(), other.age)
+                  and torch.equal(sk.fwu.cpu(), other.fwu),
+                  f"Kalman tracker: ages or matches differ from the CPU at "
+                  f"frame {t}")
+        live = sk.age.cpu() > 0
+        for name in ("theta", "rho", "ukf_x"):
+            a = getattr(sk, name).cpu()[live]
+            for b, free in ((getattr(s1, name)[live], False),
+                            (getattr(sc, name)[live], True)):
+                # the reference's filter goes NaN where its covariance is
+                # not positive definite; the card must have the same NaNs
+                check(free or torch.equal(a.isnan(), b.isnan()),
+                      f"Kalman tracker: {name} NaN where the CPU's is not, "
+                      f"frame {t}")
+                d = (a - b).nan_to_num(0.0).abs()
+                if not d.numel():
+                    continue
+                if not free:
+                    step_dev = max(step_dev, float(d.max()))
+                elif name == "ukf_x":
+                    drift = max(drift, float(d[:, :2].max()))
+                    drift_rest = max(drift_rest, float(d[:, 2:].max()))
+                else:
+                    drift = max(drift, float(d.max()))
+    n_live = int((sk.age > 0).sum())
+    print(f"phase 11: Kalman tracker {W}x{H}, {HOUGH_FRAMES} frames on the "
+          "card and the CPU (the CPU fed the card's accumulator): ages and "
+          "matches equal every frame; each step from the card's state "
+          f"within {step_dev:.3g} (theta, rho, ukf_x of live slots); the "
+          f"free runs apart by {drift:.3g} bins in theta, rho, ukf_x[:2] "
+          f"and {drift_rest:.3g} in v, yaw, yaw rate (coasting on a filter "
+          f"that is chaotic in the reference); the CPU's own accumulator "
+          f"gives the card's leading picks {picks}; {n_live} live tracks")
+    check(n_live >= 2, "Kalman tracker: fewer than 2 live tracks")
+    check(step_dev <= 1e-2, f"Kalman tracker step off the CPU by {step_dev}")
+
+    st = hough_tracker_init(kcfg, device=dev)
+    hough_tracker_update(st, imgs[0], kcfg)                  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for f in imgs:
+        st, _ = hough_tracker_update(st, f, kcfg)
+    torch.cuda.synchronize()
+    kal_ms = (time.perf_counter() - t0) * 1e3 / HOUGH_FRAMES
+    kal_counts = launch_counts()
+    others = {k: v for k, v in kal_counts.items()
+              if k != "hough_acc" and v}
+    check(kal_counts["hough_acc"] == HOUGH_FRAMES and not others,
+          f"Kalman tracker launches {kal_counts}, not one K7 a frame")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hough_tracker_update(st, imgs[-1], kcfg)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    on_ops, on_by = device_ops(
+        torch, lambda: hough_tracker_update(st, imgs[-1], kcfg))
+    off_ops, off_by = device_ops(
+        torch, lambda: hough_tracker_update(st, imgs[-1], pcfg))
+    z, rm = torch.stack([st.rho, st.theta], -1), torch.eye(2, device=dev)
+    ukf_ops, _ = device_ops(torch, lambda: UK.ukf_update(
+        *UK.ukf_predict(UK.UKFState(st.ukf_x, st.ukf_P), 1.0), z,
+        UK.rho_theta_measurement, rm))
+    out["kalman"] = dict(ms_per_frame=kal_ms, launches=kal_counts,
+                         device_ops_on=on_ops, device_ops_off=off_ops,
+                         device_ops_by=(on_by, off_by),
+                         ukf_bank_ops=ukf_ops, live=n_live,
+                         step_max_dev=step_dev, free_run_drift=drift,
+                         free_run_drift_unobservable=drift_rest,
+                         leading_picks_equal=picks)
+    print(f"phase 11: Kalman tracker {kal_ms:.3f} ms/frame over "
+          f"{HOUGH_FRAMES} frames, K7 {kal_counts['hough_acc']} launches "
+          f"(one a frame, nothing else), one step with no host read; device "
+          f"operations a step: filter on {on_ops}, off {off_ops} ({on_by}); "
+          f"the UKF bank's predict and update alone {ukf_ops}")
+
+    # -- 11b. one-shot detection at 1920x1080 ---------------------------------
+    bw, bh = HOUGH_BIG
+    big = synthetic_line_clip(bw, bh, 1)[0]
+    bimg = from_array(torch.from_numpy(big).to(dev), border=3,
+                      border_mode="mirror")
+    cimg = from_array(big, border=3, border_mode="mirror")
+
+    def detect(img):
+        acc = HG.hough_accumulator(img)
+        th, n = HG.hough_adaptive_threshold(acc)
+        return HG.hough_peaks_clustered(acc, 16, threshold=th), th, n, acc
+
+    peaks, theta, rho, acc = HG.hough_lines(bimg, 10)
+    calls = {
+        "hough_lines": lambda: HG.hough_lines(bimg, 10),
+        "adaptive_clustered": lambda: detect(bimg),
+        "sparse_revote": lambda: HG.hough_sparse_revote(bimg, theta, rho,
+                                                        peaks.valid),
+        "accumulator_mxu": lambda: HG.hough_accumulator_mxu(bimg)}
+    timing = {}
+    for key, fn in calls.items():
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        check(launch_counts()["hough_acc"] == 1,
+              f"{key} at {bw}x{bh} launched K7 "
+              f"{launch_counts()['hough_acc']} times, not once")
+        d_ms, d_by = device_ms(torch, fn, calls=5, replays=10)
+        timing[key] = dict(device_ms=d_ms, device_ms_by=d_by,
+                           ms=cuda_ms(torch, fn, 20))
+    cacc = HG.hough_accumulator(cimg)
+    acc_cpu = acc.cpu()
+    acc_dev = float((acc_cpu - cacc).abs().max())
+    tol = 2 * acc_dev + 1e-6
+    # the peak picks on the card's own accumulator: bit-equal on the CPU
+    p_same = HG.hough_peaks(acc_cpu, 10)
+    check(all(torch.equal(getattr(peaks, f).cpu(), getattr(p_same, f))
+              for f in peaks._fields),
+          "hough_lines: the card's peaks differ from the CPU's on the same "
+          "accumulator")
+    p_cpu, t_cpu, r_cpu, _ = HG.hough_lines(cimg, 10)
+    same = [(int(peaks.theta_idx[i]), int(peaks.rho_idx[i]))
+            == (int(p_cpu.theta_idx[i]), int(p_cpu.rho_idx[i]))
+            and float(theta[i]) == float(t_cpu[i])
+            and float(rho[i]) == float(r_cpu[i]) for i in range(10)]
+    gaps = greedy_gaps(torch, cacc, 10, 5, 10)
+    n_lines = leading_agree(gaps, tol, same)
+    th, n = HG.hough_adaptive_threshold(acc)
+    clus = HG.hough_peaks_clustered(acc, 16, threshold=th)
+    th_c, n_c = HG.hough_adaptive_threshold(acc_cpu)
+    check(float(th) == float(th_c) and int(n) == int(n_c),
+          "adaptive threshold differs from the CPU on the same accumulator")
+    c_same = HG.hough_peaks_clustered(acc_cpu, 16, threshold=th_c)
+    check(all(torch.equal(getattr(clus, f).cpu(), getattr(c_same, f))
+              for f in clus._fields),
+          "clustered peaks differ from the CPU on the same accumulator")
+    c_cpu = HG.hough_peaks_clustered(cacc, 16, threshold=th_c)
+    cv = c_cpu.votes.double()
+    c_gaps = (cv[:-1] - cv[1:]).tolist() + [float(cv[-1])]
+    n_clus = leading_agree(c_gaps, tol, [
+        int(clus.theta_idx[i]) == int(c_cpu.theta_idx[i])
+        and int(clus.rho_idx[i]) == int(c_cpu.rho_idx[i])
+        for i in range(16)])
+    near = HG._near_lines(bimg.shape, theta, rho, peaks.valid, 4.0)
+    rev = HG.hough_sparse_revote(bimg, theta, rho, peaks.valid)
+    check(same_bits(torch, rev, HG.hough_accumulator(
+        bimg, vote_weight="magnitude", pixel_mask=near)),
+          "sparse revote differs from K7 on the same mask")
+    near_c = HG._near_lines(cimg.shape, theta.cpu(), rho.cpu(),
+                            peaks.valid.cpu(), 4.0)
+    rev_c = HG.hough_accumulator(cimg, vote_weight="magnitude",
+                                 pixel_mask=near.cpu())
+    rev_err = float((rev.cpu() - rev_c).abs().max())
+    check(rev_err <= 1e-4 * float(rev_c.max()),
+          f"sparse revote off the CPU by {rev_err}")
+    mxu = HG.hough_accumulator_mxu(bimg)
+    check(same_bits(torch, mxu, HG.hough_accumulator(bimg)),
+          "hough_accumulator_mxu is not bit-equal to hough_accumulator")
+    # K7 alone at 1080p beside its bound
+    t0i, r0i, ft, fr, wgt, rb = HG._vote_bins(bimg, 255, None, 40.0,
+                                              "binary", None)
+    th_n = (t0i.float() + ft).reshape(-1)
+    rho_n = (r0i.float() + fr).reshape(-1)
+    wv = wgt.reshape(-1).contiguous()
+    nbytes, sectors = k7_bound_bytes(torch, th_n, rho_n, wv, 255, rb)
+    n_edge = int((wv != 0).sum())
+    k7 = results["hough_acc"]
+    k7["device_ms_1080p"], k7["device_ms_1080p_by"] = device_ms(
+        torch, lambda: HC.hough_acc(th_n, rho_n, wv, 255, rb))
+    k7["bound_ms_1080p"], k7["bound_by_1080p"] = bound_ms(nbytes,
+                                                          n_edge * 20)
+    k7["launches_1080p_call"] = 1
+    stage = {
+        "local_maxima_mask": device_ops(torch, lambda: HG._local_maxima_mask(
+            acc, 15, 12, 50.0))[0],
+        "adaptive_threshold": device_ops(
+            torch, lambda: HG.hough_adaptive_threshold(acc))[0],
+        "peaks_clustered": device_ops(torch, lambda: HG.hough_peaks_clustered(
+            acc, 16, threshold=th))[0],
+        "hough_peaks_m10": device_ops(torch, lambda: HG.hough_peaks(
+            acc, 10))[0]}
+    out["detect_1080p"] = dict(
+        timing=timing, acc_max_abs_dev=acc_dev, lines_compared=n_lines,
+        clustered_compared=n_clus, threshold=float(th), count=int(n),
+        revote_err=rev_err, revote_mask_diff=int((near.cpu() != near_c).sum()),
+        k7_device_ms=k7["device_ms_1080p"], k7_bound_ms=k7["bound_ms_1080p"],
+        k7_bytes=nbytes, k7_sectors=sectors, voting=n_edge,
+        stage_ops=stage)
+    print(f"phase 11: {bw}x{bh} one-shot detection, one K7 launch a call; "
+          "device / as-called ms: " + ", ".join(
+              f"{k} {v['device_ms']:.4f} / {v['ms']:.4f}"
+              for k, v in timing.items())
+          + f"; card accumulator off the CPU's by {acc_dev:.3g} (tol "
+          f"{tol:.3g}): hough_lines' first {n_lines} of 10 picks and the "
+          f"first {n_clus} of 16 clustered peaks (the gap above tol) equal "
+          "the CPU's, all of them on the card's accumulator; threshold "
+          f"{float(th):.4g}, count {int(n)}; revote within {rev_err:.3g} "
+          f"(band masks differ in {out['detect_1080p']['revote_mask_diff']} "
+          "pixels, the CPU fed the card's), mxu bit-equal; K7 alone "
+          f"{k7['device_ms_1080p']:.4f} ms on the device against a bound of "
+          f"{k7['bound_ms_1080p']:.5f} ms ({nbytes} bytes, {n_edge} voting "
+          f"pixels); device operations {stage}")
+
+    # -- 11c. the painter on (a)'s final state --------------------------------
+    acc_shape = (kcfg.t_theta, HG.default_rho_bins((H, W)))
+    sc_cpu = on_cpu(st)
+    paint0 = torch.zeros((H, W, 4), device=dev)
+    frame3 = torch.from_numpy(np.repeat(lines[-1][..., None], 3, -1).astype(
+        np.uint8)).to(dev)
+    paints = {
+        "paint_hough_video": (lambda s, d: HP.paint_hough_video(
+            paint0.to(d), s, acc_shape)),
+        "draw_line_tracks": (lambda s, d: HP.draw_line_tracks(
+            frame3.to(d), s, acc_shape))}
+    painter = {}
+    blank = dataclasses.replace(sc_cpu, age=torch.zeros_like(sc_cpu.age))
+    for key, fn in paints.items():
+        a = fn(st, dev)
+        check(same_bits(torch, a.float(), fn(st, dev).float()),
+              f"{key} is not reproducible")
+        a = a.cpu().reshape(H * W, -1).double().nan_to_num(-1.0)
+        b = fn(sc_cpu, "cpu").reshape(H * W, -1).double().nan_to_num(-1.0)
+        z = fn(blank, "cpu").reshape(H * W, -1).double()
+        pa, pb = (a != z).any(-1), (b != z).any(-1)
+        painted = int((pa | pb).sum())
+        moved = int((pa != pb).sum())
+        both = pa & pb
+        # colours truncate to uint8 after a hue and a division that round
+        # otherwise on the card (atan2, x / 60 by its reciprocal): one level
+        level = float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+        check(painted > 0 and moved <= 0.01 * painted and level <= 1.0,
+              f"{key}: {moved} of {painted} painted pixels painted on one "
+              f"side only, values off by up to {level}")
+        painter[key] = dict(painted=painted, one_side=moved, max_level=level,
+                            exact=int((both & (a == b).all(-1)).sum()),
+                            ms=cuda_ms(torch, lambda: fn(st, dev), 20))
+    live = st.age > 0
+    sp = HP.track_support_points(imgs[-1], st.theta, st.rho, live, k=64)
+    sp_c = HP.track_support_points(cimgs[-1], sc_cpu.theta, sc_cpu.rho,
+                                   live.cpu(), k=64)
+    lc = live.cpu()
+    agree = ((sp[0].cpu() == sp_c[0]).all(-1)
+             & (sp[1].cpu() == sp_c[1]))[lc]
+    sp_frac = float(agree.float().mean())
+    check(sp_frac >= 0.99, f"support points agree on {sp_frac:.4f} only")
+    painter["track_support_points"] = dict(
+        agree=sp_frac, ms=cuda_ms(torch, lambda: HP.track_support_points(
+            imgs[-1], st.theta, st.rho, live, k=64), 20),
+        device_ops=device_ops(torch, lambda: HP.track_support_points(
+            imgs[-1], st.theta, st.rho, live, k=64))[0])
+    out["painter"] = painter
+    print("phase 11: painter on the final Kalman state against the CPU: "
+          + "; ".join(
+              f"{k}: {v['painted']} pixels painted, {v['one_side']} on one "
+              f"side only, {v['exact']} equal, the rest within "
+              f"{v['max_level']:.3g}, {v['ms']:.4f} ms"
+              for k, v in painter.items() if "painted" in v)
+          + f"; support points (k 64) agree on "
+          f"{sp_frac:.4f} of live slots, {painter['track_support_points']['ms']:.4f} "
+          f"ms, device operations {painter['track_support_points']['device_ops']}")
+
+    # -- 11d. the epipolar flow branch at 640x480 -----------------------------
+    clip = make_clip(W, H, 2, seed=0)
+    rng = np.random.RandomState(11)
+    pos = np.stack([rng.uniform(8, H - 8, EPI_KEYPOINTS),
+                    rng.uniform(8, W - 8, EPI_KEYPOINTS)], -1).astype(
+        np.float32)
+    Kc = np.array([[640.0, 0, 320], [0, 640, 240], [0, 0, 1]], np.float32)
+    P1 = Kc @ np.hstack([np.eye(3), np.zeros((3, 1))])
+    P2 = Kc @ np.hstack([np.eye(3), np.array([[0.05], [0.02], [-1.0]])])
+    Fm = fundamental_from_projections(torch.from_numpy(P1.astype(np.float32)),
+                                      torch.from_numpy(P2.astype(np.float32)))
+    epi = {}
+    kw = dict(winsize=9, nscales=3, propagation=2, patchsize=5)
+    for key, extra in (("epipolar_flow", dict(epipolar_flow=True)),
+                       ("epipolar_filter", dict(epipolar_filter=2.0))):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            i1, i2 = (from_array(torch.from_numpy(f).to(d), border=9,
+                                 border_mode="mirror") for f in clip)
+            args = (torch.from_numpy(pos).to(d),
+                    torch.ones(EPI_KEYPOINTS, dtype=torch.bool, device=d),
+                    i1, i2)
+            fn = (lambda a=args, d=d: FL.semi_dense_optical_flow(
+                *a, fundamental_matrix=Fm.to(d), **kw, **extra))
+            if d == dev:
+                fn()
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = fn()
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / 10
+                res.append(tuple(x.cpu() for x in got))
+            else:
+                res.append(fn())
+        (mk, dk, ok_k), (mc, dc, ok_c) = res
+        agree = float((ok_k == ok_c).float().mean())
+        both = ok_k & ok_c & (dc < 1e29)
+        close = both & ((dk - dc).abs() <= 1e-4 * dc.abs())
+        # K1's near ties: a coarse level that picks the other of two SADs
+        # within 1e-5 moves a neighbour cell's warp, and with it the SAD
+        # of a cell whose own flow is equal (phase 3 holds K1 per level)
+        off = int((both & ~close).sum())
+        check(agree >= 0.99, f"{key}: matched agrees on {agree:.4f} only")
+        check(off <= 0.01 * max(int(both.sum()), 1),
+              f"{key}: distance off the CPU by more than 1e-4 relative at "
+              f"{off} of {int(both.sum())} keypoints")
+        epi[key] = dict(ms=ms, launches=counts, matched_agree=agree,
+                        matched=int(ok_k.sum()), both=int(both.sum()),
+                        dist_off=off, same_match=int(
+                            (both & (mk == mc).all(-1)).sum()))
+    # K4 builds each frame's pyramid; the filter route is K1's two
+    # launches a level, the line search launches no kernel
+    for key, want in (("epipolar_filter", {"flow_level": 6,
+                                           "pyramid_decim": 2}),
+                      ("epipolar_flow", {"pyramid_decim": 2})):
+        got = {n: c for n, c in epi[key]["launches"].items() if c}
+        check(got == want, f"{key} launched {got}, not {want}")
+    # the line search's device operations, the epipole given
+    i1, i2 = (from_array(torch.from_numpy(f).to(dev), border=9,
+                         border_mode="mirror") for f in clip)
+    pyr1, pyr2 = pyramid(i1, 3, border=9), pyramid(i2, 3, border=9)
+    e0, fs = FL._epipole_and_scales(Fm.to(dev), 3)
+    grid = level_shapes((H // 5, W // 5), 3)
+    pos_d = torch.from_numpy(pos).to(dev)
+    val_d = torch.ones(EPI_KEYPOINTS, dtype=torch.bool, device=dev)
+    search_ops = device_ops(torch, lambda: FL._epipolar_levels(
+        pos_d, val_d, pyr1, pyr2, e0, fs, winsize=9, nscales=3,
+        min_scale=0, patchsize=5, steps=8, grid_shapes=grid))[0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            FL.semi_dense_optical_flow(pos_d, val_d, i1, i2,
+                                       fundamental_matrix=Fm.to(dev),
+                                       epipolar_flow=True, **kw)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    epi["epipolar_flow"]["host_reads"] = reads
+    epi["epipolar_flow"]["search_device_ops"] = search_ops
+    out["epipolar"] = epi
+    print(f"phase 11: epipolar flow {W}x{H}, {EPI_KEYPOINTS} keypoints, 3 "
+          "scales: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms a call as called, launches "
+              f"{ {n: c for n, c in v['launches'].items() if c} }, matched "
+              f"{v['matched']}, agreeing with the CPU on "
+              f"{v['matched_agree']:.4f}; of {v['both']} matched on both, "
+              f"{v['same_match']} at the same position, the distance within "
+              f"1e-4 relative at all but {v['dist_off']}"
+              for k, v in epi.items())
+          + f"; the epipolar branch read the host {reads} times a call; its "
+          f"line search (3 levels) is {search_ops} device operations")
+    return out
+
+
 def same_bits(torch, a, b) -> bool:
     """Bit-identical float32 tensors (NaN included)."""
     return a.shape == b.shape and torch.equal(
@@ -2325,13 +2845,8 @@ def main() -> int:
             th_n, rho_n, wv, tt, rho_bins), 50),
         library_ms=cuda_ms(torch, lambda: lib_acc.index_put_(
             (idx,), vals, accumulate=True), 50))
-    # the bytes K7 must move: w in full, th and rho only in the 32-byte
-    # sectors that hold a voting pixel, the float32 accumulator out
-    voters = torch.nonzero(wv != 0).reshape(-1)
-    k7_sectors = sum(
-        int(torch.unique((t.data_ptr() % 32 // 4 + voters) // 8).numel())
-        for t in (th_n, rho_n))
-    k7_bytes = wv.numel() * 4 + k7_sectors * 32 + tt * rho_bins * 4
+    k7_bytes, k7_sectors = k7_bound_bytes(torch, th_n, rho_n, wv, tt,
+                                          rho_bins)
     results["hough_acc"]["bound_ms"], results["hough_acc"]["bound_by"] = \
         bound_ms(k7_bytes, n_edge * 20)
     results["hough_acc"]["device_ms"], results["hough_acc"]["device_ms_by"] = \
@@ -3214,7 +3729,12 @@ def main() -> int:
                            smi)
     print(f"phase 10: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 11. results ----------------------------------------------------------
+    # -- 11. the Hough line path at full width --------------------------------
+    t0 = time.perf_counter()
+    hough_lines = phase_hough_lines(torch, np, dev, results, smi)
+    print(f"phase 11: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -3246,7 +3766,7 @@ def main() -> int:
                       "full_slam_launches": full_counts,
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
                       "streams": streams, "ba_generic": gen,
-                      "card": smi}))
+                      "hough_lines": hough_lines, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -236,3 +236,129 @@ def test_pyramid_from_raw_frame_and_strided_interior(shape):
     _eq(raw[0].data, t_image.from_array(a, border=9,
                                         border_mode="mirror").data)
 
+
+
+# --- the first slice's helpers ----------------------------------------------
+
+j_interp = importlib.import_module("vpp_tpu.core.interp")
+t_interp = importlib.import_module("vpp_tpu_torch.core.interp")
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_bilinear_image_bit_equal(channels):
+    """Interior coordinates, border reads included (test_core.py:115's
+    sampling, through the bordered image)."""
+    rng = np.random.RandomState(channels)
+    shape = (9, 11, channels) if channels else (9, 11)
+    a = (rng.rand(*shape) * 255).astype(np.float32)
+    pts = np.concatenate([rng.rand(40, 2) * [12, 14] - 2.5,
+                          [[0.0, 0.0], [8.0, 10.0], [-3.0, -3.0],
+                           [0.5, 0.5]]]).astype(np.float32)
+    ji = j_image.from_array(jnp.asarray(a), border=2, border_mode="mirror")
+    ti = t_image.from_array(a, border=2, border_mode="mirror")
+    _eq(j_interp.bilinear_image(ji, jnp.asarray(pts)),
+        t_interp.bilinear_image(ti, torch.from_numpy(pts)))
+
+
+def test_keypoint_helpers_bit_equal():
+    """test_keypoints.py's keypoints_from_positions, kp_move and kp_remove:
+    a scalar slot, a negative one and an index array naming a slot twice
+    (it ages twice and takes the last of its positions, as JAX's CPU
+    scatter does)."""
+    pos = np.array([[0.0, 0.0], [1.0, 1.0], [2.0, 2.0], [5.0, 5.0]],
+                   np.float32)
+    valid = np.array([True, True, False, True])
+    jk = j_kp.keypoints_from_positions(jnp.asarray(pos), jnp.asarray(valid))
+    tk = t_kp.keypoints_from_positions(torch.from_numpy(pos),
+                                       torch.from_numpy(valid))
+    _eq_kps(jk, tk)
+    moves = [(0, np.array([7.0, 4.0], np.float32)),
+             (-1, np.array([6.0, 6.5], np.float32)),
+             (np.array([3, 1, 3]), np.array([[1, 2], [3, 4], [5, 6]],
+                                            np.float32))]
+    for i, new in moves:
+        jk = j_kp.kp_move(jk, jnp.asarray(i), jnp.asarray(new))
+        tk = t_kp.kp_move(tk, i, torch.from_numpy(new))
+        _eq_kps(jk, tk)
+    assert int(tk.age[3]) == 4 and tk.position[3].tolist() == [5.0, 6.0]
+    for i in (1, np.array([0, 2, 0])):
+        jk = j_kp.kp_remove(jk, jnp.asarray(i))
+        tk = t_kp.kp_remove(tk, i)
+        _eq_kps(jk, tk)
+    assert int(tk.size()) == 1
+
+
+def test_scatter_last_rule():
+    """``.at[i].set(src, mode="drop")`` with repeats: the last writer in
+    index order; indices outside the buffer are dropped."""
+    out = torch.zeros((4, 2))
+    idx = torch.tensor([2, 0, 2, 9, -1, 0])
+    src = torch.arange(12, dtype=torch.float32).view(6, 2)
+    got = t_kp.scatter_last(out, idx, src)
+    assert got.tolist() == [[10, 11], [0, 0], [4, 5], [0, 0]]
+
+
+@pytest.mark.parametrize("border", [0, 2])
+def test_copy_and_copy_with_border(border):
+    rng = np.random.RandomState(border)
+    a = (rng.rand(6, 7) * 255).astype(np.float32)
+    b = rng.randint(0, 256, (6, 7)).astype(np.uint8)
+    for mode in ("zero", "mirror"):
+        js = j_image.from_array(jnp.asarray(a), border=border,
+                                border_mode=mode)
+        ts = t_image.from_array(a, border=border, border_mode=mode)
+        jd = j_image.from_array(jnp.asarray(b), border=border,
+                                border_mode="closest")
+        td = t_image.from_array(b, border=border, border_mode="closest")
+        for name in ("copy", "copy_with_border"):
+            jo = getattr(j_border, name)(js, jd)
+            to = getattr(t_border, name)(ts, td)
+            _eq(jo.data, to.data)
+            assert to.border == jo.border and to.dtype == torch.uint8
+    with pytest.raises(ValueError):
+        t_border.copy(ts, t_image.from_array(np.zeros((5, 7), np.float32)))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (5, 9), (13, 130, 3)])
+def test_pad_to_multiple_bit_equal(shape):
+    a = np.random.RandomState(len(shape)).rand(*shape).astype(np.float32)
+    for kw in (dict(), dict(row_mult=4, col_mult=16, value=-1.5)):
+        _eq(j_image.pad_to_multiple(jnp.asarray(a), **kw),
+            t_image.pad_to_multiple(torch.from_numpy(a), **kw))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+@pytest.mark.parametrize("border", [0, 1, 3])
+def test_antialias_subsample2_bit_equal(dtype, border):
+    """test_algorithms_basic.py's filter and decimation inputs, through
+    ``antialias_subsample2`` (a border below 2 gets a 2-px mirror pad)."""
+    rng = np.random.RandomState(border)
+    a = (rng.rand(21, 30) * 255).astype(dtype)
+    jo = j_pyr.antialias_subsample2(j_image.from_array(
+        jnp.asarray(a), border=border, border_mode="mirror"))
+    to = t_pyr.antialias_subsample2(t_image.from_array(
+        a, border=border, border_mode="mirror"))
+    assert to.border == jo.border == max(border, 1)
+    if dtype == np.uint8:
+        _eq(jo.data, to.data)
+    else:
+        np.testing.assert_allclose(to.data.numpy(), np.asarray(jo.data),
+                                   rtol=0, atol=1e-4)
+
+
+def test_pyramid_update_keeps_geometry():
+    """``pyramid_update`` rebuilds a pyramid's levels, factor and border
+    from a new frame: equal to JAX's within the float pyramid's 1e-5."""
+    rng = np.random.RandomState(3)
+    a, b = (rng.randint(0, 256, (61, 77)).astype(np.float32)
+            for _ in range(2))
+    jp = j_pyr.pyramid(j_image.from_array(jnp.asarray(a), border=5), 3,
+                       border=5)
+    tp = t_pyr.pyramid(t_image.from_array(a, border=5), 3, border=5)
+    ju = j_pyr.pyramid_update(jp, j_image.from_array(jnp.asarray(b)))
+    tu = t_pyr.pyramid_update(tp, t_image.from_array(b))
+    assert len(tu) == 3 and tu.factor == jp.factor
+    for lj, lt in zip(ju.levels, tu.levels):
+        assert lt.border == lj.border == 5
+        np.testing.assert_allclose(lt.data.numpy(), np.asarray(lj.data),
+                                   rtol=0, atol=1e-5)

@@ -264,9 +264,25 @@ def test_dense_flow_matches():
 
 
 def test_epipolar_branch_not_ported():
-    (_, _), (t1, t2) = _images(seed=0, t2=1, shape=(32, 48))
-    pos = torch.zeros((4, 2))
-    with pytest.raises(NotImplementedError):
-        tfl.semi_dense_optical_flow(pos, torch.ones(4, dtype=torch.bool),
-                                    t1, t2, fundamental_matrix=torch.eye(3),
-                                    epipolar_flow=True)
+    """The epipolar branch, which raised here before it was ported, runs
+    and equals JAX on this input (``test_torch_flow_epipolar.py`` holds it
+    in full); ``semi_dense_streams`` has no epipolar options, as JAX has no
+    streams form of the branch."""
+    (j1, j2), (t1, t2) = _images(seed=0, t2=1, shape=(32, 48))
+    pos = np.array([[8.0, 8.0], [16.0, 20.0], [20.0, 30.0], [10.0, 40.0]],
+                   np.float32)
+    F = np.array([[0, 0, 1], [0, 0, 0], [-1, 0, 0]], np.float32)
+    kw = dict(nscales=2, epipolar_flow=True, epipolar_filter=2.0)
+    j = jfl.semi_dense_optical_flow(jnp.asarray(pos), jnp.ones(4, bool),
+                                    j1, j2, fundamental_matrix=jnp.asarray(F),
+                                    **kw)
+    t = tfl.semi_dense_optical_flow(torch.from_numpy(pos),
+                                    torch.ones(4, dtype=torch.bool), t1, t2,
+                                    fundamental_matrix=torch.from_numpy(F),
+                                    **kw)
+    np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+    with pytest.raises(TypeError):
+        tfl.semi_dense_streams(torch.from_numpy(pos)[None],
+                               torch.ones((1, 4), dtype=torch.bool),
+                               (), (), 9, fundamental_matrix=F)

@@ -163,10 +163,19 @@ def test_hough_tracker_matches_with_handover():
 
 
 def test_hough_tracker_config_and_kalman():
+    """The configs agree; ``with_kalman_filter=True`` runs on the CPU and
+    its first two steps match JAX's (tests/test_torch_ukf.py holds the
+    filter and the Kalman tracker in full)."""
     assert tht.HoughTrackerConfig() == tht.HoughTrackerConfig(
         **dataclasses.asdict(jht.HoughTrackerConfig()))
-    cfg = tht.HoughTrackerConfig(with_kalman_filter=True)
-    st = tht.hough_tracker_init(cfg, device="cpu")
-    _, ti = _pair(synthetic_line_clip(64, 48, 1)[0])
-    with pytest.raises(NotImplementedError):
-        tht.hough_tracker_update(st, ti, cfg)
+    kw = dict(with_kalman_filter=True, acc_threshold=10.0)
+    jcfg, tcfg = jht.HoughTrackerConfig(**kw), tht.HoughTrackerConfig(**kw)
+    jst = jht.hough_tracker_init(jcfg)
+    st = tht.hough_tracker_init(tcfg, device="cpu")
+    for f in synthetic_line_clip(64, 48, 2):
+        ji, ti = _pair(f)
+        jst, _ = jht.hough_tracker_update(jst, ji, jcfg)
+        st, _ = tht.hough_tracker_update(st, ti, tcfg)
+        _assert_same_tracks(jst, st)
+        np.testing.assert_allclose(st.ukf_x.numpy(), np.asarray(jst.ukf_x),
+                                   rtol=1e-5, atol=1e-5)

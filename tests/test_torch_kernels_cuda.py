@@ -13,6 +13,9 @@ buffers, propagation exactly equal on equal inputs; K7 bit-reproducible
 and within 1e-4 * max of the float32 scatter, one device kernel a call;
 K4's whole pyramid one launch, bit-equal to the plain chain on
 integer-valued frames up to level 2 and within 1e-6 relative elsewhere;
+``hough_accumulator_mxu`` and ``hough_sparse_revote`` one K7 launch each,
+bit-equal to ``hough_accumulator`` with the same mask and weights; a Kalman
+Hough tracker step with no host read; the painter the same bits twice;
 K8's map-vote PnP one launch for every match set, bit-equal to its plain
 version up to the PnP (shifts, j1, uv1, inl), T and err within 1e-4 and
 n equal after it; K9 (the generic-layout BA, one launch a call) held
@@ -364,6 +367,109 @@ def test_trackers_on_card_match_cpu(cuda):
     assert torch.equal(sk.age.cpu(), sc.age)
     assert torch.equal(sk.rho.cpu(), sc.rho)
     assert launch_counts()["hough_acc"] > 0
+
+
+def _line_image(device, w=640, h=480):
+    frame = synthetic_line_clip(w, h, 1)[0]
+    return from_array(torch.from_numpy(frame).to(device), border=3,
+                      border_mode="mirror")
+
+
+def test_hough_mxu_and_revote_one_k7_launch(cuda):
+    """``hough_accumulator_mxu`` and ``hough_sparse_revote`` on the card are
+    one K7 launch a call, bit-equal to ``hough_accumulator`` with the same
+    mask and weights."""
+    img = _line_image(cuda)
+    reset_launch_counts()
+    mxu = hough.hough_accumulator_mxu(img, chunk=512)
+    assert launch_counts()["hough_acc"] == 1
+    assert torch.equal(mxu, hough.hough_accumulator(img))
+    peaks, theta, rho, _ = hough.hough_lines(img, 4)
+    near = hough._near_lines(img.shape, theta, rho, peaks.valid, 4.0)
+    reset_launch_counts()
+    rev = hough.hough_sparse_revote(img, theta, rho, peaks.valid, band=4.0)
+    assert launch_counts()["hough_acc"] == 1
+    want = hough.hough_accumulator(img, vote_weight="magnitude",
+                                   pixel_mask=near)
+    assert torch.equal(rev, want)
+    assert float(rev.sum()) > 0
+
+
+def test_kalman_tracker_step_reads_no_host(cuda):
+    """A step of the Kalman Hough tracker (UKF bank predict and update,
+    the Cholesky factors and 2x2 inverses included) under
+    ``set_sync_debug_mode("error")``: no host read."""
+    cfg = HoughTrackerConfig(m_first_lines=8, acc_threshold=10.0,
+                             with_kalman_filter=True)
+    st = hough_tracker_init(cfg, device="cuda")
+    frames = [from_array(torch.from_numpy(f).to(cuda), border=3,
+                         border_mode="mirror")
+              for f in synthetic_line_clip(320, 240, 4)]
+    for f in frames[:3]:
+        st, _ = hough_tracker_update(st, f, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, _ = hough_tracker_update(st, frames[3], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int((st.age > 0).sum()) >= 2
+    assert bool(torch.isfinite(st.ukf_x[st.age > 0]).all())
+
+
+def test_first_slice_helpers_on_card(cuda):
+    """``pyramid_update`` is one K4 launch, bit-equal to ``pyramid``;
+    ``kp_move`` with a slot named twice and ``bilinear_image`` give the
+    CPU's result on the card (the last writer wins, deterministically)."""
+    from vpp_tpu_torch.algorithms.pyramid import pyramid, pyramid_update
+    from vpp_tpu_torch.core import keypoints as kp
+    from vpp_tpu_torch.core.interp import bilinear_image
+    frames = [torch.from_numpy(f).to(cuda) for f in make_clip(160, 120, 2)]
+    pyr = pyramid(from_array(frames[0]), 3, border=9)
+    reset_launch_counts()
+    upd = pyramid_update(pyr, from_array(frames[1]))
+    assert launch_counts()["pyramid_decim"] == 1
+    want = pyramid(from_array(frames[1]), 3, border=9)
+    for a, b in zip(upd.levels, want.levels):
+        assert a.border == b.border and torch.equal(a.data, b.data)
+    pos = torch.rand((8, 2)) * 50
+    k = kp.keypoints_from_positions(pos, torch.ones(8, dtype=torch.bool))
+    idx = torch.tensor([3, 1, 3, 7, 3])
+    new = torch.rand((5, 2)) * 50
+    want = kp.kp_move(k, idx, new)
+    got = kp.kp_move(kp.Keypoints(*(t.to(cuda) for t in (
+        k.position, k.velocity, k.age))), idx.to(cuda), new.to(cuda))
+    for a, b in zip((got.position, got.velocity, got.age),
+                    (want.position, want.velocity, want.age)):
+        assert torch.equal(a.cpu(), b)
+    img = from_array(frames[0], border=2, border_mode="mirror")
+    pts = torch.rand((64, 2), device=cuda) * 120 - 2
+    torch.testing.assert_close(
+        bilinear_image(img, pts).cpu(),
+        bilinear_image(from_array(frames[0].cpu(), border=2,
+                                  border_mode="mirror"), pts.cpu()),
+        rtol=1e-6, atol=1e-4)
+
+
+def test_paint_hough_video_reproducible(cuda):
+    """``paint_hough_video`` and ``draw_line_tracks`` give the same bits in
+    two calls (the duplicate-pixel rule is deterministic)."""
+    from vpp_tpu_torch.draw.hough_paint import (draw_line_tracks,
+                                                paint_hough_video)
+    cfg = HoughTrackerConfig(m_first_lines=8, acc_threshold=10.0)
+    st = hough_tracker_init(cfg, device="cuda")
+    for f in synthetic_line_clip(320, 240, 6):
+        st, _ = hough_tracker_update(
+            st, from_array(torch.from_numpy(f).to(cuda), border=3,
+                           border_mode="mirror"), cfg)
+    acc_shape = (cfg.t_theta, hough.default_rho_bins((240, 320)))
+    paint = torch.zeros((240, 320, 4), device=cuda)
+    a = paint_hough_video(paint, st, acc_shape)
+    b = paint_hough_video(paint, st, acc_shape)
+    assert torch.equal(a, b) and float(a[..., 3].max()) > 0
+    frame = torch.zeros((240, 320, 3), dtype=torch.uint8, device=cuda)
+    assert torch.equal(draw_line_tracks(frame, st, acc_shape),
+                       draw_line_tracks(frame, st, acc_shape))
 
 
 # -- K3 block top-K, K4 pyramid decimation, K5 patches, K6 window BA --------

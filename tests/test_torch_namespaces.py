@@ -1,9 +1,9 @@
 """The port's package namespaces mirror vpp_tpu's: every name in the JAX
-``core``, ``algorithms`` and ``slam`` ``__all__`` resolves in the port with
-the same kind (class, function or module), except the names that
-``ROADMAP.md`` queue 1 still lists as not ported. That list may only
-shrink: a listed name that resolves fails the test, so that it leaves the
-list when its module lands."""
+``core``, ``algorithms``, ``slam``, ``draw`` and ``ops`` ``__all__``
+resolves in the port with the same kind (class, function, module or
+value), except the names that ``ROADMAP.md`` queue 1 still lists as not
+ported. That list may only shrink: a listed name that resolves fails the
+test, so that it leaves the list when its module lands."""
 
 import importlib
 import inspect
@@ -14,24 +14,10 @@ import pytest
 
 # name -> the queue-1 item of ROADMAP.md that ports it
 NOT_YET_PORTED = {
-    "core": {
-        **{n: "1.1 helpers" for n in (
-            "pad_to_multiple", "copy", "copy_with_border",
-            "bilinear_image")},
-        **{n: "3 core/imagend.py" for n in (
-            "BoxNd", "ImageNd", "from_array_nd", "image3d", "imagend",
-            "make_box3d", "make_boxNd")},
-    },
+    "core": {n: "3 core/imagend.py" for n in (
+        "BoxNd", "ImageNd", "from_array_nd", "image3d", "imagend",
+        "make_box3d", "make_boxNd")},
     "algorithms": {
-        **{n: "1.1 helpers" for n in (
-            "antialias_subsample2", "pyramid_update")},
-        **{n: "1.1 ukf.py" for n in (
-            "UKFState", "ukf_init", "ukf_predict", "ukf_update",
-            "ukf_predict_update_rho_theta")},
-        **{n: "1.1 the rest of hough.py" for n in (
-            "accumulator_to_lines", "hough_adaptive_threshold",
-            "hough_lines", "hough_peaks_clustered", "hough_sparse_revote",
-            "hough_top_k", "line_endpoints")},
         **{n: "2 scharr.py, lbp.py" for n in (
             "scharr", "scharr_point", "lbp_hamming_distance",
             "lbp_transform")},
@@ -51,6 +37,15 @@ NOT_YET_PORTED = {
         "plucker_from_points", "plucker_transform", "plucker_point_distance",
         "pose_from_line_correspondences", "vanishing_points",
         "image_line_normals")},
+    "draw": {},
+    "ops": {n: "3 ops/" for n in (
+        "pixel_wise", "relative_access", "RelAccess", "Coords", "block_wise",
+        "row_wise", "C4", "C5", "C8", "C9", "window_stack", "window_foreach",
+        "scan_left_to_right", "scan_right_to_left", "scan_top_to_bottom",
+        "scan_bottom_to_top", "directional_pixel_wise", "sum_", "min_",
+        "max_", "avg", "argmin", "argmax", "P1", "P2", "P3", "P4", "V", "if_",
+        "evaluate", "sum_of", "min_of", "max_of", "avg_of", "argmin_of",
+        "argmax_of")},
 }
 
 
@@ -62,7 +57,7 @@ def _kind(obj) -> str:
     return "function" if callable(obj) else "value"
 
 
-@pytest.mark.parametrize("sub", ["core", "algorithms", "slam"])
+@pytest.mark.parametrize("sub", ["core", "algorithms", "slam", "draw", "ops"])
 def test_jax_names_resolve_in_the_port(sub):
     jax_pkg = importlib.import_module(f"vpp_tpu.{sub}")
     port = importlib.import_module(f"vpp_tpu_torch.{sub}")
@@ -90,6 +85,8 @@ def test_bare_import_reaches_the_subpackages():
         "assert inspect.isclass(v.core.Image2d)\n"
         "assert inspect.isfunction(v.slam.slam_run)\n"
         "assert inspect.isfunction(v.algorithms.pyramid)\n"
+        "assert inspect.isfunction(v.draw.draw_line)\n"
+        "assert inspect.isfunction(v.ops.hsv_to_rgb)\n"
         "import importlib\n"
         "m = importlib.import_module('vpp_tpu_torch.algorithms.pyramid')\n"
         "assert inspect.ismodule(m) and m.pyramid is v.algorithms.pyramid\n"

@@ -19,6 +19,7 @@ from vpp_tpu_torch.algorithms import fast as t_fast
 from vpp_tpu_torch.algorithms import flow as t_flow
 from vpp_tpu_torch.algorithms import hough_cuda as t_hough_cuda
 from vpp_tpu_torch.algorithms import hough_tracker as t_ht
+from vpp_tpu_torch.algorithms import ukf as t_ukf
 from vpp_tpu_torch.algorithms import video_extruder as t_ve
 from vpp_tpu_torch.core.image import Image2d
 from vpp_tpu_torch.kernels import _build
@@ -80,6 +81,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                 t_ve.VideoExtruderConfig(capacity=8))
     with pytest.raises(RuntimeError):
         t_ht.hough_tracker_init(t_ht.HoughTrackerConfig())
+    with pytest.raises(RuntimeError):
+        t_ukf.ukf_init()
+    with pytest.raises(RuntimeError):
+        convert.ukf_state_from_numpy({"x": np.zeros(5, np.float32),
+                                      "P": np.eye(5, dtype=np.float32)})
     with pytest.raises(RuntimeError):
         convert.keypoints_from_numpy({
             "position": np.zeros((2, 2), np.float32),

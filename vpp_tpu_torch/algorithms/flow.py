@@ -21,8 +21,16 @@ Streams: every level function also takes S levels at once, buffers
 (the stream in the grid), and the plain versions carry the same leading
 S. ``semi_dense_streams`` is the tracker's flow for S streams.
 
-The epipolar-constrained branch (``epipolar_flow`` / ``epipolar_filter``
-with a fundamental matrix) is not ported yet and raises.
+With a fundamental matrix F, ``epipolar_flow=True`` replaces the cost
+volume at every level by a bounded SAD search along each occupied cell's
+epipolar line (``_epipolar_search``: one representative keypoint a cell,
+the lowest valid slot, 2·``epipolar_steps`` + 1 candidates 1.5 px apart
+through the epipole), and ``epipolar_filter`` kills matches farther than
+that many pixels from the source point's epipolar line (alone, it keeps
+the cost-volume route, K1). This branch is plain PyTorch with no kernel of
+its own; the epipole (the least eigenvector of F Fᵀ, ``torch.linalg.eigh``)
+is the one step that may read the host, once a call. It has no streams
+form, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import device_constant
 from ..core.image import Image2d, pad_hw
 from ..kernels import LAUNCHES, require_cuda, stream_handle
 from .pyramid import Pyramid, level_shapes, pyramid
@@ -41,6 +50,23 @@ from .pyramid import Pyramid, level_shapes, pyramid
 _INF = 1e30
 
 _C8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def _gather_patches(data: torch.Tensor, centers: torch.Tensor,
+                    ws: int) -> torch.Tensor:
+    """(N, ws, ws) windows around int (N, 2) centres (buffer coords),
+    reads clamped to the buffer."""
+    h, w = data.shape
+    half = ws // 2
+    o = torch.arange(-half, ws - half, device=data.device)
+    rr = (centers[:, 0, None, None].long() + o[None, :, None]).clamp(0, h - 1)
+    cc = (centers[:, 1, None, None].long() + o[None, None, :]).clamp(0, w - 1)
+    return data[rr, cc]
+
+
+def _sad(patches1: torch.Tensor, patches2: torch.Tensor) -> torch.Tensor:
+    """(N,) sums of absolute differences."""
+    return (patches1 - patches2).abs().sum(dim=(1, 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -521,6 +547,126 @@ def _level_bounds(nscales: int, radii: list) -> list:
     return bounds
 
 
+def _epipolar_search(a2: torch.Tensor, p_int: torch.Tensor,
+                     patches1: torch.Tensor, pred_pos: torch.Tensor,
+                     epipole: torch.Tensor, F: torch.Tensor, ws: int,
+                     nsteps: int, h: int, w: int, b: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bounded line search along each point's epipolar line: candidates at
+    ``epipole + (d0 + 1.5 j) v`` for j in [-nsteps, nsteps], v the line's
+    unit direction and d0 the prediction's offset along it; the first
+    strictly smallest SAD wins. Returns (best buffer position (N, 2)
+    int32, its SAD (N,), 1e30 where no candidate lies in the image)."""
+    pf = p_int.to(torch.float32)
+    n = pf.shape[0]
+    hom = torch.cat([pf, pf.new_ones((n, 1))], dim=1)
+    line = hom @ F.T                                  # (N, 3)
+    flat = line[:, 1].abs() < 1e-12
+    v = torch.stack([torch.ones_like(line[:, 0]),
+                     -line[:, 0] / torch.where(flat,
+                                               torch.ones_like(line[:, 1]),
+                                               line[:, 1])], dim=1)
+    v = torch.where(flat[:, None], torch.stack(
+        [torch.zeros_like(line[:, 0]), torch.ones_like(line[:, 0])], dim=1),
+        v)
+    v = v / torch.sqrt((v * v).sum(dim=1, keepdim=True))
+    d0 = ((pred_pos.to(torch.float32) - epipole[None]) * v).sum(dim=1)
+
+    best_d = torch.full((n,), _INF, dtype=torch.float32, device=pf.device)
+    best_m = pred_pos + b
+    for j in range(-nsteps, nsteps + 1):
+        pos = epipole[None] + (d0 + 1.5 * j)[:, None] * v
+        pos_i = torch.round(pos).to(torch.int32)
+        ok = ((pos_i[:, 0] >= 0) & (pos_i[:, 0] <= h - 1)
+              & (pos_i[:, 1] >= 0) & (pos_i[:, 1] <= w - 1))
+        d = _sad(patches1, _gather_patches(a2, pos_i + b, ws))
+        d = torch.where(ok, d, torch.full_like(d, _INF))
+        better = d < best_d
+        best_m = torch.where(better[:, None], pos_i + b, best_m)
+        best_d = torch.where(better, d, best_d)
+    return best_m, best_d
+
+
+def _epipole_and_scales(F0: torch.Tensor, nscales: int):
+    """The epipole (e[:2] / e[2], e the least eigenvector of F Fᵀ; e[2]
+    below 1e-12 left undivided) and each level's F: the next coarser
+    level's times [[2, 2, 1], [2, 2, 1], [1, 1, 0.5]]. With e[2] near 0
+    (lateral motion) float32 rounding moves the epipole a lot, as in the
+    JAX package."""
+    _, vecs = torch.linalg.eigh(F0 @ F0.T)
+    e = vecs[:, 0]
+    epipole = e[:2] / torch.where(e[2].abs() < 1e-12, torch.ones_like(e[2]),
+                                  e[2])
+    down = device_constant((2.0, 2.0, 1.0, 2.0, 2.0, 1.0, 1.0, 1.0, 0.5),
+                           torch.float32, F0.device).view(3, 3)
+    fs = [F0] * nscales
+    for s in range(nscales - 2, -1, -1):
+        fs[s] = fs[s + 1] * down
+    return epipole, fs
+
+
+def _epipolar_levels(positions: torch.Tensor, valid: torch.Tensor,
+                     pyr1: Pyramid, pyr2: Pyramid, epipole0: torch.Tensor,
+                     fs, *, winsize: int, nscales: int, min_scale: int,
+                     patchsize: int, steps: int, grid_shapes
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every level by the epipolar search, coarse to fine, from the epipole
+    and the levels' F (``_epipole_and_scales``); no host read. Returns the
+    readout level's (flow (gh, gw, 2) int32, dist (gh, gw), mark (gh, gw))."""
+    k = positions.shape[0]
+    dev = positions.device
+    b = pyr1[0].border
+    slot_ids = torch.arange(k, dtype=torch.int64, device=dev)
+    flow = None
+    for s in range(nscales - 1, min_scale - 1, -1):
+        a1 = pyr1[s].data.to(torch.float32)
+        a2 = pyr2[s].data.to(torch.float32)
+        h, w = pyr1[s].shape
+        gh, gw = grid_shapes[s]
+        scale_div = float(2 ** s)
+        pos_s = torch.floor(positions / scale_div).to(torch.int32)
+        pos_s = torch.stack([pos_s[:, 0].clamp(0, h - 1),
+                             pos_s[:, 1].clamp(0, w - 1)], dim=1)
+        cr = (pos_s[:, 0] // patchsize).clamp(0, gh - 1)
+        cc = (pos_s[:, 1] // patchsize).clamp(0, gw - 1)
+        slot = torch.where(valid, cr * gw + cc,
+                           torch.full_like(cr, gh * gw)).long()
+        # each cell's representative: its lowest valid slot (k if none);
+        # the spare entry gh*gw takes the invalid slots
+        rep = torch.full((gh * gw + 1,), k, dtype=torch.int64,
+                         device=dev).scatter_reduce(
+            0, slot, slot_ids, "amin", include_self=True)[:gh * gw]
+        mark = rep < k
+        p = pos_s[torch.where(mark, rep, torch.zeros_like(rep))]
+        if flow is not None:
+            cgh, cgw = grid_shapes[s + 1]
+            ir = (torch.arange(gh, device=dev) // 2).clamp(0, cgh - 1)
+            ic = (torch.arange(gw, device=dev) // 2).clamp(0, cgw - 1)
+            pred = 2 * flow[ir[:, None], ic[None, :]]
+        else:
+            pred = torch.zeros((gh, gw, 2), dtype=torch.int32, device=dev)
+        patches1 = _gather_patches(a1, p + b, winsize)
+        match, dist = _epipolar_search(
+            a2, p, patches1, p + pred.reshape(-1, 2), epipole0 / scale_div,
+            fs[s], winsize, steps, h, w, b)
+        flow = torch.where(mark[:, None], match - b - p,
+                           torch.zeros_like(p)).reshape(gh, gw, 2)
+        dist = torch.where(mark, dist, torch.full_like(dist, _INF))
+    return flow, dist.reshape(gh, gw), mark.reshape(gh, gw)
+
+
+def _epipolar_residual_ok(positions: torch.Tensor, match_pos: torch.Tensor,
+                          F0: torch.Tensor, th: float) -> torch.Tensor:
+    """|match · line(p)| / ||line[:2]|| <= th, line(p) = F (r, c, 1)."""
+    hom = torch.cat([positions, positions.new_ones(positions.shape[:-1]
+                                                   + (1,))], dim=-1)
+    line = hom @ F0.T
+    nrm = torch.sqrt((line[..., :2] * line[..., :2]).sum(-1))
+    res = ((line[..., :2] * match_pos).sum(-1) + line[..., 2]).abs() \
+        / nrm.clamp(min=1e-12)
+    return res <= th
+
+
 def semi_dense_optical_flow(
         positions: torch.Tensor, valid: torch.Tensor,
         i1: Image2d, i2: Image2d, *,
@@ -537,25 +683,47 @@ def semi_dense_optical_flow(
 
     Returns (match_positions (K, 2) float32, distance (K,) float32,
     matched (K,) bool); options and defaults are the JAX package's.
-    ``pyr1``/``pyr2`` reuse prebuilt pyramids. One stream of
-    ``semi_dense_streams``."""
-    if fundamental_matrix is not None and (epipolar_flow
-                                           or epipolar_filter is not None):
-        raise NotImplementedError(
-            "vpp_tpu_torch: the epipolar flow branch is not ported yet")
+    ``pyr1``/``pyr2`` reuse prebuilt pyramids. Without a fundamental
+    matrix it is one stream of ``semi_dense_streams``; with one,
+    ``epipolar_flow`` and ``epipolar_filter`` work as the module says."""
     border = max(3, winsize)
     if pyr1 is None:
         pyr1 = pyramid(i1, nscales, border=border)
     if pyr2 is None:
         pyr2 = pyramid(i2, nscales, border=border)
-    out = semi_dense_streams(
-        positions[None], valid[None],
-        tuple(lvl.data[None] for lvl in pyr1.levels),
-        tuple(lvl.data[None] for lvl in pyr2.levels), pyr1[0].border,
-        winsize=winsize, nscales=nscales, min_scale=min_scale,
-        propagation=propagation, patchsize=patchsize,
-        search_niters=search_niters, refine_radius=refine_radius)
-    return tuple(t[0] for t in out)
+    F0 = None
+    if fundamental_matrix is not None:
+        F0 = torch.as_tensor(fundamental_matrix, dtype=torch.float32,
+                             device=positions.device)
+    if F0 is not None and epipolar_flow:
+        h0, w0 = i1.shape
+        grid_shapes = level_shapes((max(h0 // patchsize, 1),
+                                    max(w0 // patchsize, 1)), nscales)
+        epipole0, fs = _epipole_and_scales(F0, nscales)
+        flow, dist, mark = _epipolar_levels(
+            positions, valid, pyr1, pyr2, epipole0, fs, winsize=winsize,
+            nscales=nscales, min_scale=min_scale, patchsize=patchsize,
+            steps=epipolar_steps, grid_shapes=grid_shapes)
+        gh, gw = grid_shapes[min_scale]
+        c = torch.floor(positions / (patchsize * 2 ** min_scale)).to(
+            torch.int64)
+        cr, cc = c[:, 0].clamp(0, gh - 1), c[:, 1].clamp(0, gw - 1)
+        matched = valid & mark[cr, cc]
+        match_pos = positions + (flow[cr, cc] * 2 ** min_scale).to(
+            torch.float32)
+        distance = dist[cr, cc]
+    else:
+        match_pos, distance, matched = (t[0] for t in semi_dense_streams(
+            positions[None], valid[None],
+            tuple(lvl.data[None] for lvl in pyr1.levels),
+            tuple(lvl.data[None] for lvl in pyr2.levels), pyr1[0].border,
+            winsize=winsize, nscales=nscales, min_scale=min_scale,
+            propagation=propagation, patchsize=patchsize,
+            search_niters=search_niters, refine_radius=refine_radius))
+    if F0 is not None and epipolar_filter is not None:
+        matched = matched & _epipolar_residual_ok(positions, match_pos, F0,
+                                                  epipolar_filter)
+    return match_pos, distance, matched
 
 
 def semi_dense_streams(

@@ -9,8 +9,11 @@ up to ``max_frames_without_update`` frames, births into dead slots, and a
 (θ, ρ) trajectory ring per track.
 
 Tracks are a fixed-capacity masked slot array; every step is tensor code
-with no host synchronisation. The UKF mode (``with_kalman_filter=True``)
-needs ``ukf.py``, which is not ported yet, and raises.
+with no host synchronisation. With ``with_kalman_filter=True`` (the
+reference's ``line_tracker_4_sfm`` mode) a CTRV unscented Kalman filter per
+slot (``ukf.py``) bridges occlusions: the whole bank predicts each frame,
+matched slots update on their (ρ, θ) detection, coasting tracks take the
+filter's prediction, and fresh matches re-seed its (ρ, θ).
 """
 
 from __future__ import annotations
@@ -20,10 +23,11 @@ from typing import Tuple
 
 import torch
 
-from .._device import resolve_device
+from .._device import device_constant, resolve_device
 from ..core.image import Image2d
 from ..core.keypoints import drop_scatter
 from .hough import HoughLines, hough_accumulator, hough_peaks
+from .ukf import UKFState, rho_theta_measurement, ukf_predict, ukf_update
 
 _INF = 1e30
 
@@ -111,9 +115,6 @@ def hough_tracker_update(st: HoughTrackerState, frame: Image2d,
                          cfg: HoughTrackerConfig
                          ) -> Tuple[HoughTrackerState, HoughLines]:
     """One tracker step on the frame's device."""
-    if cfg.with_kalman_filter:
-        raise NotImplementedError(
-            "vpp_tpu_torch: with_kalman_filter needs ukf.py, not ported yet")
     c = cfg.capacity
     m = cfg.m_first_lines
     t_theta = cfg.t_theta
@@ -171,8 +172,18 @@ def hough_tracker_update(st: HoughTrackerState, frame: Image2d,
     new_rho_det = peaks.rho_idx[pk].to(torch.float32)
     new_th_det = peaks.theta_idx[pk].to(torch.float32)
 
-    ukf_x, ukf_P = st.ukf_x, st.ukf_P
-    coast_rho, coast_th = st.rho, st.theta
+    # -- UKF bank: every filter predicts, the matched ones update ----------
+    if cfg.with_kalman_filter:
+        s1, sp = ukf_predict(UKFState(st.ukf_x, st.ukf_P), 1.0)
+        z = torch.stack([new_rho_det, new_th_det], dim=-1)
+        rm = device_constant((9.0, 0.0, 0.0, 2.0), torch.float32, dev)
+        s2 = ukf_update(s1, sp, z, rho_theta_measurement, rm.view(2, 2))
+        ukf_x = torch.where(has_match[:, None], s2.x, s1.x)
+        ukf_P = torch.where(has_match[:, None, None], s2.P, s1.P)
+        coast_rho, coast_th = ukf_x[:, 0], ukf_x[:, 1]
+    else:
+        ukf_x, ukf_P = st.ukf_x, st.ukf_P
+        coast_rho, coast_th = st.rho, st.theta
     matched = alive & has_match
     coasting = alive & ~has_match & (st.fwu < cfg.max_frames_without_update)
     survive = matched | coasting
@@ -187,6 +198,11 @@ def hough_tracker_update(st: HoughTrackerState, frame: Image2d,
                       torch.where(coasting, st.fwu + 1, st.fwu))
     appearance = torch.where(matched[:, None, None], peak_app[pk],
                              st.appearance)
+    if cfg.with_kalman_filter:
+        # seed the filter's (ρ, θ) on fresh matches
+        ukf_x = torch.cat([torch.where(matched[:, None],
+                                       torch.stack([rho, theta], dim=-1),
+                                       ukf_x[:, :2]), ukf_x[:, 2:]], dim=1)
 
     # -- births: unmatched valid peaks into dead slots ---------------------
     unmatched_peak = peaks.valid & (track_of_peak < 0)
@@ -206,9 +222,9 @@ def hough_tracker_update(st: HoughTrackerState, frame: Image2d,
     age = torch.where(take, torch.ones_like(age), age)
     fwu = torch.where(take, torch.zeros_like(fwu), fwu)
     appearance = torch.where(take[:, None, None], peak_app[src], appearance)
-    ukf_x = ukf_x.clone()
-    ukf_x[:, 0] = torch.where(take, rho, ukf_x[:, 0])
-    ukf_x[:, 1] = torch.where(take, theta, ukf_x[:, 1])
+    ukf_x = torch.cat([torch.where(take[:, None],
+                                   torch.stack([rho, theta], dim=-1),
+                                   ukf_x[:, :2]), ukf_x[:, 2:]], dim=1)
 
     # -- Hough-space trajectory ring ---------------------------------------
     live = age > 0

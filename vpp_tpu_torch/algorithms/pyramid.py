@@ -106,6 +106,16 @@ def subsample(img: Image2d, out_shape: Tuple[int, int], factor: float,
                       border_mode="mirror" if out_border else "zero")
 
 
+def antialias_subsample2(img: Image2d) -> Image2d:
+    """Filter + decimate: the binomial blur (on a 2-px mirror border where
+    the image has less), then stride-2 decimation into a mirror border of
+    ``max(border, 1)``."""
+    src = img if img.border >= 2 else from_array(
+        img.interior, border=2, border_mode="mirror")
+    lp = antialiasing_lowpass_filter(src)
+    return subsample2(lp, out_border=max(img.border, 1))
+
+
 def level_shapes(shape: Tuple[int, int], nlevels: int,
                  factor: float = 2.0) -> Tuple[Tuple[int, int], ...]:
     """Static level geometry chain."""
@@ -319,6 +329,13 @@ def pyramid(img: Image2d, nlevels: int, factor: float = 2.0,
             nxt = subsample(lp, shapes[i], factor, out_border=b)
         levels.append(fill_border_mirror(nxt))
     return Pyramid(levels=tuple(levels), factor=factor)
+
+
+def pyramid_update(pyr: Pyramid, img: Image2d) -> Pyramid:
+    """The pyramid of a new frame with ``pyr``'s geometry (levels, factor,
+    border): one K4 launch on the card, like ``pyramid``."""
+    return pyramid(img, len(pyr.levels), pyr.factor,
+                   border=pyr.levels[0].border)
 
 
 def pyramid_streams(frames: torch.Tensor, nlevels: int,

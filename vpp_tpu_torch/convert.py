@@ -28,6 +28,7 @@ import torch
 
 from ._device import resolve_device
 from .algorithms.hough_tracker import HoughTrackerState
+from .algorithms.ukf import UKFState
 from .algorithms.video_extruder import VideoExtruderState
 from .core.keypoints import Keypoints
 from .slam.ba import BAProblem, BATracks
@@ -105,6 +106,7 @@ keypoints_to_numpy = video_extruder_state_to_numpy = state_to_numpy
 hough_tracker_state_to_numpy = slam_state_to_numpy = state_to_numpy
 pose_graph_to_numpy = ba_problem_to_numpy = ba_tracks_to_numpy = \
     state_to_numpy
+ukf_state_to_numpy = state_to_numpy
 
 
 def keypoints_from_numpy(m: Mapping[str, Any], device="cuda") -> Keypoints:
@@ -119,6 +121,10 @@ def video_extruder_state_from_numpy(m: Mapping[str, Any],
 def hough_tracker_state_from_numpy(m: Mapping[str, Any],
                                    device="cuda") -> HoughTrackerState:
     return state_from_numpy(HoughTrackerState, m, device)
+
+
+def ukf_state_from_numpy(m: Mapping[str, Any], device="cuda") -> UKFState:
+    return state_from_numpy(UKFState, m, device)
 
 
 def slam_state_from_numpy(m: Mapping[str, Any], device="cuda") -> SlamState:

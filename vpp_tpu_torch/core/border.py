@@ -44,6 +44,21 @@ def fill_border_closest(img: Image2d) -> Image2d:
     return _repad(img, "edge")
 
 
+def copy(src: Image2d, dst: Image2d) -> Image2d:
+    """Interior copy into dst's geometry (dst's border kept)."""
+    if src.shape != dst.shape:
+        raise ValueError(f"copy: shapes {src.shape} and {dst.shape} differ")
+    return dst.with_interior(src.interior.to(dst.dtype))
+
+
+def copy_with_border(src: Image2d, dst: Image2d) -> Image2d:
+    """Copy the border region too; borders and shapes must match."""
+    if src.border != dst.border or src.shape != dst.shape:
+        raise ValueError("copy_with_border: borders or shapes differ")
+    return Image2d(data=src.data.to(device=dst.device, dtype=dst.dtype,
+                                    copy=True), border=dst.border)
+
+
 def clone(img: Image2d, *, border: int | None = None,
           border_mode: str = "zero") -> Image2d:
     """Deep copy with optional border override."""

@@ -195,3 +195,25 @@ def from_array(arr, *, border: int = 0, border_mode: str = "zero",
         return Image2d(data=arr, border=0)
     data = pad2d(arr, border, border, border, border, _MODES[border_mode])
     return Image2d(data=data, border=border)
+
+
+def pad_to_multiple(arr, row_mult: int = 8, col_mult: int = 128,
+                    value=0) -> torch.Tensor:
+    """Pad the leading (H, W) dims at their ends up to multiples of
+    ``row_mult`` and ``col_mult`` with ``value`` (the JAX package's
+    hardware-tile alignment; nothing on the card needs it)."""
+    arr = _as_tensor(arr)
+    h, w = arr.shape[0], arr.shape[1]
+    ph, pw = (-h) % row_mult, (-w) % col_mult
+    if ph == 0 and pw == 0:
+        return arr
+    return pad2d(arr, 0, ph, 0, pw, "constant", value)
+
+
+def saturate_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float to integer as XLA converts (the JAX package's ``astype``): the
+    fraction truncated, NaN to 0, values past the type's range to its
+    bounds. A plain ``.to`` leaves NaN and overflow to the platform: INT_MIN
+    on the CPU, 0 on the card."""
+    info = torch.iinfo(dtype)
+    return x.nan_to_num(0.0).double().clamp(info.min, info.max).to(dtype)

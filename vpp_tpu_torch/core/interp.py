@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import LAUNCHES, require_cuda, stream_handle
+from .image import Image2d
 
 
 def bilinear(data: torch.Tensor, pts: torch.Tensor,
@@ -46,6 +47,12 @@ def bilinear(data: torch.Tensor, pts: torch.Tensor,
         top = data[r0, c0] * (1 - fc) + data[r0, c1] * fc
         bot = data[r1, c0] * (1 - fc) + data[r1, c1] * fc
     return top * (1 - fr) + bot * fr
+
+
+def bilinear_image(img: Image2d, pts: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample at (..., 2) points in interior coordinates; reads
+    that fall in the border are valid."""
+    return bilinear(img.data, pts + img.border)
 
 
 def nearest(data: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ stable alive-first permutation, spawn fills dead slots in slot order.
 Where the JAX package scatters with ``mode="drop"`` (out-of-range indices
 silently ignored), torch would raise; the port scatters into one extra
 trailing slot instead and slices it off, which keeps the op free of host
-synchronisation on the card.
+synchronisation on the card. Where a JAX ``.at[i].set`` may see an index
+twice, the port writes the entry that comes last in index order
+(``scatter_last``), on the card as on the CPU; ``.at[i].add`` counts every
+repeat (``index_put_`` with ``accumulate=True``).
 
 Every operation also takes leading stream dimensions (fields (S, K, ...)):
 each stream's slots are its own, and no scatter or compaction crosses a
@@ -66,6 +69,67 @@ def drop_scatter(out: torch.Tensor, index: torch.Tensor,
     idx = idx.view(idx.shape + (1,) * (src.dim() - idx.dim())).expand_as(src)
     buf.scatter_(dim, idx, src.to(buf.dtype))
     return buf.narrow(dim, 0, n)
+
+
+def scatter_last(out: torch.Tensor, index: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+    """``out.at[index].set(src, mode="drop")`` along dim 0, deterministic
+    where ``index`` repeats: the entry last in index order is written.
+    Indices outside [0, len(out)) are dropped; ``src`` has one row per
+    index (its leading dims flattened). The winner of each row is the
+    ``amax`` of the writers' positions (``scatter_reduce``), then one
+    gather: no host read, the same result on the card as on the CPU."""
+    n = out.shape[0]
+    idx = index.reshape(-1).long()
+    m = idx.numel()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    order = torch.arange(m, device=idx.device)
+    win = torch.full((n + 1,), -1, dtype=torch.int64,
+                     device=idx.device).scatter_reduce(
+        0, idx, order, "amax", include_self=True)[:n]
+    rows = src.reshape((m,) + out.shape[1:]).to(out.dtype)
+    picked = rows[win.clamp(min=0)] if m else torch.zeros_like(out)
+    written = (win >= 0).view((n,) + (1,) * (out.dim() - 1))
+    return torch.where(written, picked, out)
+
+
+def _slot_index(i, k: int, device) -> torch.Tensor:
+    """Slot index (an int or an index array) as int64, negative slots
+    counted from the end as in numpy."""
+    idx = torch.as_tensor(i, device=device).reshape(-1).long()
+    return torch.where(idx < 0, idx + k, idx)
+
+
+def keypoints_from_positions(pos: torch.Tensor,
+                             valid: torch.Tensor) -> Keypoints:
+    """Build from detector output; invalid slots are dead."""
+    return Keypoints(position=pos.to(torch.float32),
+                     velocity=torch.zeros(pos.shape, dtype=torch.float32,
+                                          device=pos.device),
+                     age=valid.to(torch.int32))
+
+
+def kp_move(kps: Keypoints, i, new_pos) -> Keypoints:
+    """Move slot(s) ``i`` to ``new_pos``: position and velocity set, age
+    +1. ``i`` may be an index array; a slot named twice ages twice and
+    takes the last of its new positions."""
+    dev = kps.position.device
+    idx = _slot_index(i, kps.capacity, dev)
+    new_pos = torch.as_tensor(new_pos, dtype=torch.float32,
+                              device=dev).reshape(-1, 2)
+    vel = new_pos - kps.position[idx]
+    age = kps.age.clone()
+    age.index_put_((idx,), torch.ones_like(idx, dtype=age.dtype),
+                   accumulate=True)
+    return Keypoints(position=scatter_last(kps.position, idx, new_pos),
+                     velocity=scatter_last(kps.velocity, idx, vel),
+                     age=age)
+
+
+def kp_remove(kps: Keypoints, i) -> Keypoints:
+    """Kill slot(s) ``i``."""
+    idx = _slot_index(i, kps.capacity, kps.age.device)
+    return dataclasses.replace(kps, age=kps.age.index_fill(0, idx, 0))
 
 
 def kp_move_all(kps: Keypoints, new_pos: torch.Tensor,
