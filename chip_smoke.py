@@ -197,10 +197,43 @@ Phases, in order; any failure exits nonzero and prints no result:
    keypoints, distance within 1e-4 relative on >= 99% of those matched on
    both (K1's near ties), the filter route two K1 launches a level, the
    branch's host reads counted;
-12. one ``{"kernels": [...]}`` line (each batched kernel with its
+12. pyramidal LK, sparse flow, the distance transforms, Scharr, LBP, the
+   matchers and the line-based pose at full width: (a) ``lucas_kanade`` at
+   benchmarks/micro.py:232-243's workload (two bench-clip frames at
+   640x480, border 9; 1024 keypoints from seed 0; winsize 11, 3 scales,
+   21 iterations): three K10 and two K4 launches a call and nothing else;
+   K10 level by level against its plain version on the same inputs (flow
+   within 1e-4 px and err within 1e-4 relative on >= 99% of keypoints,
+   the kill decision differing on <= 0.5%; every template and gradient
+   window sample bit-equal, the search windows where the flows are; the
+   plain version sums in the kernel's lane order, so the run prints how
+   many are bit-equal); the call against the plain CPU path on the card's
+   pyramids (flow within 1e-2 px on >= 99% of the keypoints both keep; K4
+   and the plain chain differ in float32 ulps, which the coarsest level's
+   wandering Newton iteration amplifies, so the CPU's run on its own
+   pyramids is printed, not held); device and as-called ms, K10's bound,
+   the plain levels' ms and device operations on the card; (b)
+   ``pyrlk_match`` on 4096 FAST slots of the first frame with the
+   tracker's pyramids (border 9): three K10 launches, alive agreeing with
+   the CPU (on the card's pyramids) on >= 99% of slots, positions within
+   1e-2 px; (c) ``sparse_optical_flow`` at its defaults: K2, K3, K4, K5
+   and K10 two, two, two, two and three launches, ``pos1`` and ``valid``
+   bit-equal to the CPU, ``pos2`` within 1e-2 px on >= 99% of valid
+   matches (the CPU on the card's LK pyramids; its own printed); (d) at
+   960x540 (micro.py:179-186, seeds ``rand < 0.001`` from seed 0) the
+   Euclidean transform in 11 K11 launches, bit-equal to its plain version
+   on the card and to the CPU, the chamfer ``d3_4`` doubling bit-equal to
+   the CPU, the ``d5_7_11`` sweeps equal where a seed reaches and >= 1e9
+   elsewhere; (e) ``scharr`` and ``lbp_transform`` at 1920x1080 bit-equal
+   to the CPU; (f) ``bruteforce_match`` SAD (49 bytes) and Hamming (32
+   bytes) at Q = T = 2048 bit-equal to the CPU, and
+   ``pose_from_line_correspondences`` on tests/test_sfm.py:48's recipe
+   within its gates and within 1e-3 of the CPU in R and t; each timed;
+13. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
-   ``bound_ms_1080p`` from phase 11), then ``{"ok": true,
+   ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
+   per lucas_kanade call and per Euclidean transform), then ``{"ok": true,
    "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
@@ -214,7 +247,12 @@ written once, and the separable window sums (one |diff| per region pixel
 and displacement, ws - 1 additions per column sum and per window). The
 phase-3 line prints beside it the bound that counts every window summed in
 full, six operations a pixel, as this script counted before the separable
-sums; the kernels line carries only ``bound_ms``.
+sums; the kernels line carries only ``bound_ms``. K10's bound counts the
+distinct 32-byte sectors of the template, gradient and search levels that
+the windows touch (the template and gradient windows, and the search
+windows at the prediction and at the final position) and 12 operations a
+window sample, with the Newton steps each keypoint took (``k10_level_
+bound``); K11's two int32 planes read and two written a pass.
 """
 
 from __future__ import annotations
@@ -2535,6 +2573,543 @@ def phase_hough_lines(torch, np, dev, results, smi):
     return out
 
 
+SLICE_C_KP = 1024            # micro.py:232-243's pyrLK keypoints
+PYRLK_SLOTS = 4096           # phase 12b's FAST slots
+DT_SHAPE = (540, 960)        # micro.py:179-186's seed mask (1080p halved)
+MATCH_N = 2048               # phase 12f's bruteforce query and train sets
+LK_KW = dict(winsize=11, min_ev=1e-4, niterations=21, convergence_delta=0.1)
+
+
+def lk_chain(torch, pp, pn, pg, kp, level):
+    """``lucas_kanade``'s coarse-to-fine loop on given pyramids with
+    ``level`` as the LK level: (flow, err, [(level args, level result)])."""
+    tr = torch.zeros_like(kp)
+    out = []
+    for s in range(len(pp) - 1, -1, -1):
+        tr = tr * 2.0
+        args = (pp[s], pn[s], pg[s], kp / float(2 ** s), tr)
+        res = level(*args, **LK_KW)
+        out.append((args, res))
+        tr = res[0]
+    return tr, res[1], out
+
+
+def on_cpu_pyramid(PY, Image2d, pyr):
+    return PY.Pyramid(levels=tuple(Image2d(data=lvl.data.cpu(),
+                                           border=lvl.border)
+                                   for lvl in pyr.levels), factor=pyr.factor)
+
+
+def _sectors(torch, buf, rows, cols, nrows: int, ncols: int, stride: int):
+    """The distinct 32-byte sectors of float32 ``buf`` that (N,) blocks of
+    ``nrows`` rows of ``ncols`` floats at (rows, cols) touch (row stride
+    ``stride`` floats)."""
+    r = rows.long()[:, None] + torch.arange(nrows, device=rows.device)
+    start = buf.data_ptr() % 32 // 4 + r * stride + cols.long()[:, None]
+    s0, s1 = start // 8, (start + ncols - 1) // 8
+    ids = s0[..., None] + torch.arange(int((s1 - s0).max()) + 1,
+                                       device=rows.device)
+    return int(torch.unique(ids[ids <= s1[..., None]]).numel())
+
+
+def k10_level_bound(torch, args, res, ws: int):
+    """K10's least work at one level: bytes are the 32-byte sectors of A,
+    the gradient level and B that the template and gradient windows and
+    the search windows at the prediction and at the final position touch
+    ((ws + 1)² pixels a window), with p, tr, flow and err; operations are
+    12 a window sample (two-tap rows and columns), per template sample 7
+    more (the three G sums, the mean), per Newton-step sample 5 more (the
+    difference, two products and sums) and per final sample 5 (the
+    residual sums), over the steps each keypoint took. Returns (bytes,
+    operations)."""
+    A, B, G, p, tr = args
+    flow, _, _, steps = res
+    hws, pt = ws // 2, ws + 2
+    pad = max(1, min(12, (min(B.data.shape[:2]) - ws - 2) // 2))
+    pb = ws + 2 * pad + 2
+
+    def block(img, centre, size, k):
+        h, w = img.data.shape[:2]
+        c = centre + img.border
+        tl = torch.round(c).to(torch.int64) - size // 2
+        tl = torch.stack([tl[:, 0].clamp(0, h - size),
+                          tl[:, 1].clamp(0, w - size)], -1)
+        return tl, c
+
+    def start(c, tl, k):
+        i = torch.clamp(torch.floor(c - tl.float() - hws), 0, k - 2)
+        return tl + i.long()
+
+    atl, ac = block(A, p, pt, 3)
+    a0 = start(ac, atl, 3)
+    gtl, gcen = block(G, p, pt, 3)
+    g0 = start(gcen, gtl, 3)
+    v0 = p + tr
+    btl, bc = block(B, v0, pb, pb - ws + 1)
+    nb = 0
+    for v in (v0, p + flow):
+        b0 = start(v + B.border, btl, pb - ws + 1)
+        nb += _sectors(torch, B.data, b0[:, 0], b0[:, 1], ws + 1, ws + 1,
+                       B.data.shape[1])
+    na = _sectors(torch, A.data, a0[:, 0], a0[:, 1], ws + 1, ws + 1,
+                  A.data.shape[1])
+    ng = _sectors(torch, G.data, g0[:, 0], 2 * g0[:, 1], ws + 1,
+                  2 * (ws + 1), 2 * G.data.shape[1])
+    n, nw = p.shape[0], ws * ws
+    nbytes = 32 * (na + nb + ng) + n * (8 + 8 + 8 + 4)
+    ops = nw * (n * (3 * 12 + 7) + int(steps.sum()) * 17 + n * 17)
+    return nbytes, ops
+
+
+def phase_slice_c(torch, np, dev, results, smi):
+    """Phase 12: pyramidal LK and sparse flow (K10), the distance
+    transforms (K11), Scharr and LBP, the matchers and the line-based
+    pose, at full width on the card against the plain CPU path. Returns
+    the numbers it prints."""
+    import importlib
+    from vpp_tpu_torch.algorithms import distance_transform as DT
+    from vpp_tpu_torch.algorithms import lbp as LB
+    from vpp_tpu_torch.algorithms import lk as LK
+    from vpp_tpu_torch.algorithms import matcher as MT
+    from vpp_tpu_torch.algorithms import sparse_flow as SF
+    from vpp_tpu_torch.algorithms.fast import fast9
+    from vpp_tpu_torch.core.image import Image2d, from_array
+    from vpp_tpu_torch.core.keypoints import keypoints_from_positions
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.slam import ba as BA
+    from vpp_tpu_torch.slam import se3 as SE
+    from vpp_tpu_torch.slam import sfm as SFM
+    from vpp_tpu_torch.utils.clips import make_clip
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    SC = importlib.import_module("vpp_tpu_torch.algorithms.scharr")
+    cpu = torch.device("cpu")
+    out = {}
+
+    def fired():
+        return {k: v for k, v in launch_counts().items() if v}
+
+    # -- 12a. lucas_kanade at micro.py:232-243's workload ---------------------
+    clip = make_clip(W, H, 2, seed=0)
+    fr = {d: [from_array(torch.from_numpy(f).to(d), border=9,
+                         border_mode="mirror") for f in clip]
+          for d in (dev, cpu)}
+    i1, i2 = fr[dev]
+    rng = np.random.RandomState(0)
+    kp_c = torch.from_numpy((rng.rand(SLICE_C_KP, 2) * [H - 20, W - 20]
+                             + 10).astype(np.float32))
+    kp = kp_c.to(dev)
+
+    def call():
+        return LK.lucas_kanade(i1, i2, kp, winsize=11, nscales=3)
+
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    flow, dist = call()
+    torch.cuda.synchronize()
+    counts = fired()
+    check(counts == {"lk_level": 3, "pyramid_decim": 2},
+          f"lucas_kanade launched {counts}, not 3 K10 and 2 K4")
+    pp, pn = PY.pyramid(i1, 3, border=5), PY.pyramid(i2, 3, border=5)
+    pg = LK.gradient_pyramid(pp)
+    kf, ke, klev = lk_chain(torch, pp, pn, pg, kp, lambda *a, **kw:
+                            LK.lk_level(*a, windows=True, **kw))
+    check(same_bits(torch, kf, flow) and same_bits(torch, ke, dist),
+          "lucas_kanade differs from its own level chain")
+    # K10 against its plain version on the card, level by level
+    lev_rows, k10_bytes, k10_ops, k10_err = [], 0, 0, 0.0
+    for (args, kr), s in zip(klev, (2, 1, 0)):
+        pr = LK.lk_match_batch_plain(*args, windows=True, **LK_KW)
+        d = (kr[0] - pr[0]).abs().amax(1)
+        k10_err = max(k10_err, float(d.max()))
+        kbig, pbig = kr[1] >= 1e38, pr[1] >= 1e38
+        fin = ~kbig & ~pbig
+        rel = ((kr[1] - pr[1]).abs() / pr[1].abs().clamp(min=1e-30))[fin]
+        flips = int((kbig != pbig).sum())
+        row = dict(level=s, keypoints=int(kp.shape[0]),
+                   bit_equal_flow=int((kr[0] == pr[0]).all(1).sum()),
+                   bit_equal_err=int((kr[1].view(torch.int32)
+                                      == pr[1].view(torch.int32)).sum()),
+                   flow_within_1e4=float((d <= 1e-4).float().mean()),
+                   err_within_1e4=float((rel <= 1e-4).float().mean())
+                   if bool(fin.any()) else 1.0,
+                   kill_flips=flips, killed=int(kbig.sum()),
+                   steps=int(kr[3].sum()),
+                   steps_equal=bool(torch.equal(kr[3], pr[3])))
+        check(same_bits(torch, kr[2][:, :3], pr[2][:, :3]),
+              f"K10's template or gradient windows differ at level {s}")
+        same_v = (kr[0] == pr[0]).all(1)
+        check(same_bits(torch, kr[2][same_v, 3], pr[2][same_v, 3]),
+              f"K10's search windows differ at level {s}")
+        if flips:
+            print(f"phase 12: level {s}: kill decision differs at "
+                  f"{flips} keypoints: err {kr[1][kbig != pbig].tolist()} "
+                  f"against {pr[1][kbig != pbig].tolist()}")
+        check(row["flow_within_1e4"] >= 0.99 and row["err_within_1e4"]
+              >= 0.99 and flips <= 0.005 * kp.shape[0],
+              f"K10 against its plain version at level {s}: {row}")
+        lev_rows.append(row)
+        nb, no = k10_level_bound(torch, args, kr, 11)
+        k10_bytes += nb
+        k10_ops += no
+    # the call against the plain CPU path on the card's pyramids (K4 and
+    # the plain chain differ in float32 ulps, which the coarsest level's
+    # wandering iteration amplifies), and on its own pyramids (printed)
+    cpp = on_cpu_pyramid(PY, Image2d, pp)
+    cpn = on_cpu_pyramid(PY, Image2d, pn)
+    cpg = LK.gradient_pyramid(cpp)
+    for a, b in zip(pg.levels, cpg.levels):
+        check(same_bits(torch, a.data.cpu(), b.data),
+              "the gradient pyramid differs between card and CPU")
+    cf, ce, _ = lk_chain(torch, cpp, cpn, cpg, kp_c, LK.lk_match_batch)
+    fc, dc = flow.cpu(), dist.cpu()
+    keep = (dc < 1e30) & (ce < 1e30)
+    dd = (fc - cf).abs().amax(1)
+    lk_cpu = dict(both_keep=int(keep.sum()),
+                  within_1e2=float((dd[keep] <= 1e-2).float().mean()),
+                  bit_equal=int(((fc == cf).all(1) & (dc == ce)).sum()),
+                  keep_differs=int(((dc < 1e30) != (ce < 1e30)).sum()))
+    check(lk_cpu["within_1e2"] >= 0.99,
+          f"lucas_kanade against the CPU on the card's pyramids: {lk_cpu}")
+    ff, fe = LK.lucas_kanade(*fr[cpu], kp_c, winsize=11, nscales=3)
+    keep_f = (dc < 1e30) & (fe < 1e30)
+    lk_cpu["free_run_within_1e2"] = float(
+        ((fc - ff).abs().amax(1)[keep_f] <= 1e-2).float().mean())
+    lk_cpu["k4_max_rel"] = max(
+        float(((a.data.cpu() - b.data).abs()
+               / b.data.abs().clamp(min=1e-30)).max())
+        for a, b in zip(pp.levels, PY.pyramid(fr[cpu][0], 3,
+                                              border=5).levels))
+    # times: the call, K10's three launches, the plain levels on the card
+    k10_args = [a for a, _ in klev]
+
+    def k10_call():
+        for a in k10_args:
+            LK.lk_level(*a, **LK_KW)
+
+    def plain_call():
+        for a in k10_args:
+            LK.lk_match_batch_plain(*a, **LK_KW)
+
+    lk_t = dict(call_ms=cuda_ms(torch, call, 20),
+                call_device_ms=device_ms(torch, call)[0],
+                call_device_ops=device_ops(torch, call)[0],
+                gradient_pyramid_device_ops=device_ops(
+                    torch, lambda: LK.gradient_pyramid(pp))[0],
+                k10_ms=cuda_ms(torch, k10_call, 50),
+                plain_ms=cuda_ms(torch, plain_call, 3),
+                plain_device_ops=device_ops(torch, plain_call)[0])
+    lk_t["k10_device_ms"], lk_t["device_ms_by"] = device_ms(torch, k10_call)
+    lk_t["k10_level_device_ms"] = [
+        device_ms(torch, lambda a=a: LK.lk_level(*a, **LK_KW))[0]
+        for a in k10_args]
+    out["lucas_kanade"] = dict(launches=counts, levels=lev_rows,
+                               cpu=lk_cpu, **lk_t)
+    b_ms, b_by = bound_ms(k10_bytes, k10_ops)
+    results["lk_level"] = dict(
+        name="lk_level", route="cuda",
+        source="vpp_tpu_torch/kernels/csrc/lk_level.cu",
+        replaces="vpp_tpu/algorithms/lk.py:102",
+        per=f"the three launches (levels 2, 1, 0) of one lucas_kanade call, "
+            f"{SLICE_C_KP} keypoints at {W}x{H}, winsize 11, 21 iterations",
+        max_abs_err=k10_err,
+        ms=lk_t["k10_ms"], device_ms=lk_t["k10_device_ms"],
+        device_ms_by=lk_t["device_ms_by"],
+        level_device_ms=lk_t["k10_level_device_ms"],
+        plain_ms=lk_t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        bound_bytes=k10_bytes, bound_ops=k10_ops, library_ms=None,
+        plain_device_ops=lk_t["plain_device_ops"])
+    print(f"phase 12: lucas_kanade {W}x{H}, {SLICE_C_KP} keypoints, winsize "
+          f"11, 3 scales: launches {counts}; K10 against its plain version "
+          "on the card: " + "; ".join(
+              f"level {r['level']} flow bit-equal at {r['bit_equal_flow']}, "
+              f"err at {r['bit_equal_err']}, steps equal "
+              f"{r['steps_equal']} ({r['steps']}), {r['killed']} killed, "
+              f"{r['kill_flips']} kill flips" for r in lev_rows)
+          + f", every window sample bit-equal; the call against the plain "
+          f"CPU path on the card's pyramids: {lk_cpu['bit_equal']} of "
+          f"{SLICE_C_KP} bit-equal, {lk_cpu['within_1e2']:.4f} of "
+          f"{lk_cpu['both_keep']} kept on both within 1e-2 px, keep "
+          f"differs at {lk_cpu['keep_differs']}; on the CPU's own pyramids "
+          f"(K4 within {lk_cpu['k4_max_rel']:.3g} relative of the plain "
+          f"chain) {lk_cpu['free_run_within_1e2']:.4f} within 1e-2 px; "
+          f"{lk_t['call_device_ms']:.4f} ms a call on the device, "
+          f"{lk_t['call_ms']:.4f} as called, {lk_t['call_device_ops']} "
+          f"device operations (the 2-channel gradient pyramid "
+          f"{lk_t['gradient_pyramid_device_ops']}); K10 {lk_t['k10_device_ms']:.4f} ms on the "
+          f"device for its three launches (levels "
+          + ", ".join(f"{x:.4f}" for x in lk_t["k10_level_device_ms"])
+          + f"), {lk_t['k10_ms']:.4f} as called, bound {b_ms:.5f} ({b_by}: "
+          f"{k10_bytes} bytes, {k10_ops} operations); the plain levels "
+          f"{lk_t['plain_ms']:.2f} ms on the card in "
+          f"{lk_t['plain_device_ops']} device operations")
+
+    # -- 12b. pyrlk_match on FAST slots with the tracker's pyramids ------------
+    pos, _, valid = fast9(i1, 10, k=PYRLK_SLOTS)
+    kps = keypoints_from_positions(pos, valid)
+    tp, tn = PY.pyramid(i1, 3, border=9), PY.pyramid(i2, 3, border=9)
+    tg = LK.gradient_pyramid(tp)
+    reset_launch_counts()
+    moved = LK.pyrlk_match(tp, tg, tn, kps)
+    torch.cuda.synchronize()
+    pyr_counts = fired()
+    check(pyr_counts == {"lk_level": 3},
+          f"pyrlk_match launched {pyr_counts}, not 3 K10")
+    ctp = on_cpu_pyramid(PY, Image2d, tp)
+    cmoved = LK.pyrlk_match(ctp, LK.gradient_pyramid(ctp),
+                            on_cpu_pyramid(PY, Image2d, tn),
+                            keypoints_from_positions(pos.cpu(), valid.cpu()))
+    alive_agree = float((moved.alive.cpu() == cmoved.alive).float().mean())
+    both = moved.alive.cpu() & cmoved.alive
+    pos_err = float((moved.position.cpu() - cmoved.position)[both].abs()
+                    .max()) if bool(both.any()) else 0.0
+    check(alive_agree >= 0.99 and pos_err <= 1e-2,
+          f"pyrlk_match: alive agrees on {alive_agree}, positions within "
+          f"{pos_err}")
+    out["pyrlk_match"] = dict(
+        slots=PYRLK_SLOTS, live_in=int(valid.sum()),
+        alive=int(moved.alive.sum()), alive_agree=alive_agree,
+        pos_err=pos_err, launches=pyr_counts,
+        ms=cuda_ms(torch, lambda: LK.pyrlk_match(tp, tg, tn, kps), 20),
+        device_ms=device_ms(torch, lambda: LK.pyrlk_match(tp, tg, tn,
+                                                          kps))[0])
+    r = out["pyrlk_match"]
+    print(f"phase 12: pyrlk_match on {PYRLK_SLOTS} FAST slots ({r['live_in']}"
+          f" live, {r['alive']} alive after), the tracker's pyramids (border "
+          f"9, 3 levels): launches {pyr_counts}, alive agrees with the CPU "
+          f"on {alive_agree:.4f}, positions within {pos_err:.3g}; "
+          f"{r['device_ms']:.4f} ms on the device, {r['ms']:.4f} as called")
+
+    # -- 12c. sparse_optical_flow at its defaults ------------------------------
+    SF.sparse_optical_flow(i1, i2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sf = SF.sparse_optical_flow(i1, i2)
+    torch.cuda.synchronize()
+    sf_counts = fired()
+    check(sf_counts == {"fast9": 2, "block_topk": 2, "pyramid_decim": 2,
+                        "patches": 2, "lk_level": 3},
+          f"sparse_optical_flow launched {sf_counts}")
+    real_pyramid = LK.pyramid
+    c1, c2 = fr[cpu]
+
+    def card_pyramids(img, nlevels, factor=2.0, border=3):
+        if img is c1 or img is c2:
+            check(nlevels == 3 and border == 5, "unexpected LK pyramid")
+            return cpp if img is c1 else cpn
+        return real_pyramid(img, nlevels, factor=factor, border=border)
+
+    LK.pyramid = card_pyramids
+    try:
+        csf = SF.sparse_optical_flow(c1, c2)
+    finally:
+        LK.pyramid = real_pyramid
+    fsf = SF.sparse_optical_flow(c1, c2)
+    v = sf.valid.cpu()
+    check(torch.equal(sf.pos1.cpu(), csf.pos1) and torch.equal(v, csf.valid),
+          "sparse_optical_flow: pos1 or valid differ from the CPU")
+    d2 = (sf.pos2.cpu() - csf.pos2).abs().amax(1)[v]
+    d2f = (sf.pos2.cpu() - fsf.pos2).abs().amax(1)[v]
+    sf_row = dict(valid=int(v.sum()), launches=sf_counts,
+                  within_1e2=float((d2 <= 1e-2).float().mean()),
+                  bit_equal=int((d2 == 0).sum()),
+                  free_run_within_1e2=float((d2f <= 1e-2).float().mean()),
+                  ms=cuda_ms(torch, lambda: SF.sparse_optical_flow(i1, i2),
+                             20),
+                  device_ms=device_ms(torch, lambda: SF.sparse_optical_flow(
+                      i1, i2))[0])
+    check(sf_row["within_1e2"] >= 0.99,
+          f"sparse_optical_flow pos2 against the CPU: {sf_row}")
+    out["sparse_optical_flow"] = sf_row
+    print(f"phase 12: sparse_optical_flow {W}x{H} (k 512, block 10, patch "
+          f"radius 3, search 30): launches {sf_counts}; pos1 and valid "
+          f"bit-equal to the CPU, {sf_row['valid']} valid, pos2 on the "
+          f"card's pyramids {sf_row['bit_equal']} bit-equal and "
+          f"{sf_row['within_1e2']:.4f} within 1e-2 px (on the CPU's own "
+          f"{sf_row['free_run_within_1e2']:.4f}); "
+          f"{sf_row['device_ms']:.4f} ms on the device, {sf_row['ms']:.4f} "
+          "as called")
+
+    # -- 12d. the distance transforms at 960x540 -------------------------------
+    seeds = np.random.RandomState(0).rand(*DT_SHAPE) < 0.001
+    m = torch.from_numpy(seeds).to(dev)
+    reset_launch_counts()
+    ed, ev = DT.euclidean_distance_transform(m)
+    torch.cuda.synchronize()
+    dt_counts = fired()
+    steps = DT._steps(*DT_SHAPE)
+    check(dt_counts == {"jfa": len(steps)},
+          f"euclidean_distance_transform launched {dt_counts}, not "
+          f"{len(steps)} K11")
+    pd, pv = DT._jump_flood(m, DT.jfa_pass_plain)
+    cd, cv = DT.euclidean_distance_transform(seeds, device="cpu")
+    check(torch.equal(ed, pd) and torch.equal(ev, pv),
+          "K11's transform differs from its plain version on the card")
+    check(torch.equal(ed.cpu(), cd) and torch.equal(ev.cpu(), cv),
+          "the Euclidean transform differs between card and CPU")
+    h, w = DT_SHAPE
+    rr = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    cc = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    none = torch.full((h, w), -(1 << 20), dtype=torch.int32, device=dev)
+    br0, bc0 = torch.where(m, rr, none), torch.where(m, cc, none)
+    bufs = [torch.empty_like(br0) for _ in range(6)]
+
+    def k11_passes():
+        cur = (br0, bc0)
+        for i, s in enumerate(steps):
+            cur = DT.jfa_pass(cur[0], cur[1], s, tuple(bufs[2 * (i % 2):
+                                                          2 * (i % 2) + 2]),
+                              tuple(bufs[4:]))
+        return cur
+
+    fin_r = k11_passes()[0]
+    check(torch.equal(torch.where(fin_r <= -(1 << 20), 0, fin_r - rr),
+                      ev[..., 0]), "K11's passes differ from the transform")
+    k11_ms = cuda_ms(torch, k11_passes, 50)
+    k11_dev, k11_by = device_ms(torch, k11_passes)
+    k11_bytes = len(steps) * 16 * h * w
+    k11_ops = len(steps) * h * w * 8 * 15    # 2 distances, a compare a step
+    kb_ms, kb_by = bound_ms(k11_bytes, k11_ops)
+
+    def plain_passes():
+        return DT._jump_flood(m, DT.jfa_pass_plain)
+
+    edt = dict(launches=dt_counts, seeds=int(seeds.sum()),
+               ms=cuda_ms(torch, lambda: DT.euclidean_distance_transform(m),
+                          20),
+               device_ms=device_ms(torch, lambda:
+                                   DT.euclidean_distance_transform(m))[0],
+               plain_ms=cuda_ms(torch, plain_passes, 3),
+               plain_device_ops=device_ops(torch, plain_passes)[0])
+    results["jfa"] = dict(
+        name="jfa", route="cuda", source="vpp_tpu_torch/kernels/csrc/jfa.cu",
+        replaces="vpp_tpu/algorithms/distance_transform.py:209",
+        per=f"the {len(steps)} passes of one euclidean_distance_transform "
+            f"at {w}x{h}",
+        max_abs_err=0.0, ms=k11_ms, device_ms=k11_dev, device_ms_by=k11_by,
+        plain_ms=edt["plain_ms"], bound_ms=kb_ms, bound_by=kb_by,
+        bound_bytes=k11_bytes, library_ms=None,
+        plain_device_ops=edt["plain_device_ops"])
+    cham = {}
+    for metric, method in (("d3_4", "doubling"), ("d5_7_11", "sweeps")):
+        fn = (lambda mm=metric, me=method: DT.chamfer_distance_transform(
+            m, mm, me))
+        t0 = time.perf_counter()
+        g = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        c = DT.chamfer_distance_transform(seeds, metric, method,
+                                          device="cpu")
+        g = g.cpu()
+        reached = c < 1e9
+        check(torch.equal(g[reached], c[reached])
+              and bool((g[~reached] >= 1e9).all()),
+              f"chamfer {metric} {method} differs from the CPU")
+        row = dict(bit_equal=bool(torch.equal(g, c)),
+                   unreached=int((~reached).sum()), ms=first * 1e3)
+        if method == "doubling":
+            check(row["bit_equal"], "chamfer doubling is not bit-equal")
+            row["device_ms"] = device_ms(torch, fn)[0]
+            row["device_ops"] = device_ops(torch, fn)[0]
+        cham[f"{metric}_{method}"] = row
+    out["distance_transforms"] = dict(euclidean=edt, chamfer=cham,
+                                      k11_device_ms=k11_dev)
+    print(f"phase 12: distance transforms {w}x{h}, {edt['seeds']} seeds: "
+          f"euclidean launches {dt_counts}, distances and R bit-equal to the "
+          f"plain version on the card and to the CPU; "
+          f"{edt['device_ms']:.4f} ms a call on the device "
+          f"({k11_dev:.4f} the {len(steps)} K11 passes, bound {kb_ms:.5f}, "
+          f"{kb_by}), {edt['ms']:.4f} as called; the plain passes "
+          f"{edt['plain_ms']:.2f} ms in {edt['plain_device_ops']} device "
+          "operations; chamfer " + "; ".join(
+              f"{k}: bit-equal {r['bit_equal']} ({r['unreached']} unreached "
+              f"pixels), {r.get('device_ms', r['ms']):.4f} ms"
+              + (f" on the device in {r['device_ops']} device operations"
+                 if "device_ms" in r else " (one call, host clock)")
+              for k, r in cham.items()))
+
+    # -- 12e. Scharr and LBP at 1920x1080 --------------------------------------
+    big = make_clip(1920, 1080, 1, seed=0)[0]
+    sl = {}
+    for d in (dev, cpu):
+        img = from_array(torch.from_numpy(big).to(d), border=1,
+                         border_mode="mirror")
+        sl[d] = (img, SC.scharr(img).data, LB.lbp_transform(img).data)
+    check(same_bits(torch, sl[dev][1].cpu(), sl[cpu][1]),
+          "scharr differs between card and CPU")
+    check(torch.equal(sl[dev][2].cpu(), sl[cpu][2]),
+          "lbp_transform differs between card and CPU")
+    img = sl[dev][0]
+    sc_row = dict(scharr_device_ms=device_ms(torch, lambda: SC.scharr(img))[0],
+                  lbp_device_ms=device_ms(torch,
+                                          lambda: LB.lbp_transform(img))[0])
+    out["scharr_lbp"] = sc_row
+    print("phase 12: scharr and lbp_transform at 1920x1080 bit-equal to the "
+          f"CPU; {sc_row['scharr_device_ms']:.4f} and "
+          f"{sc_row['lbp_device_ms']:.4f} ms on the device")
+
+    # -- 12f. matchers and the line-based pose ----------------------------------
+    rng = np.random.RandomState(1)
+    mt = {}
+    for dist_name, nbytes in (("sad", 49), ("hamming", 32)):
+        q = rng.randint(0, 256, (MATCH_N, nbytes)).astype(np.uint8)
+        t = rng.randint(0, 256, (MATCH_N, nbytes)).astype(np.uint8)
+        qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+        gi, gd = MT.bruteforce_match(qd, td, distance=dist_name)
+        ci, cd_ = MT.bruteforce_match(torch.from_numpy(q),
+                                      torch.from_numpy(t),
+                                      distance=dist_name)
+        check(torch.equal(gi.cpu(), ci) and same_bits(torch, gd.cpu(), cd_),
+              f"bruteforce_match {dist_name} differs from the CPU")
+        fn = (lambda a=qd, b=td, n=dist_name:
+              MT.bruteforce_match(a, b, distance=n))
+        mt[dist_name] = device_ms(torch, fn)[0]
+        mt[f"{dist_name}_device_ops"] = device_ops(torch, fn)[0]
+    p1, p2 = sfm_scene(np)
+    xi_gt = torch.tensor([0.1, -0.15, 0.05, 0.2, -0.1, 0.15])
+    intr = torch.tensor([300.0, 300.0, 160.0, 120.0])
+    poses = {}
+    for d in (dev, cpu):
+        T = SE.se3_exp(xi_gt.to(d))
+        a, b = torch.from_numpy(p1).to(d), torch.from_numpy(p2).to(d)
+        uv1 = BA.project(T, a, intr.to(d))
+        uv2 = BA.project(T, b, intr.to(d))
+        poses[d] = (SFM.pose_from_line_correspondences(
+            a, b, uv1, uv2, intr.to(d)), T, (a, b, uv1, uv2))
+    (gR, gt, gc), T_gt, gargs = poses[dev]
+    (cR, ct, cc_), _, _ = poses[cpu]
+    r_err = float((gR.cpu() - cR).abs().max())
+    t_err = float((gt.cpu() - ct).abs().max())
+    check(float(gc) < 1e-6 and float((gR - T_gt[:3, :3]).abs().max()) < 2e-2,
+          f"pose_from_line_correspondences misses its gates: cost "
+          f"{float(gc)}")
+    check(r_err <= 1e-3 and t_err <= 1e-3,
+          f"pose_from_line_correspondences: R within {r_err}, t within "
+          f"{t_err} of the CPU")
+    mt["pose_ms"] = cuda_ms(torch, lambda: SFM.pose_from_line_correspondences(
+        *gargs, intr.to(dev)), 3)
+    mt["pose_cost"] = float(gc)
+    out["matchers_sfm"] = mt
+    print(f"phase 12: bruteforce_match at Q = T = {MATCH_N}: SAD (49 bytes) "
+          f"and Hamming (32 bytes) bit-equal to the CPU, {mt['sad']:.4f} and "
+          f"{mt['hamming']:.4f} ms on the device in {mt['sad_device_ops']} "
+          f"and {mt['hamming_device_ops']} device operations; pose from 8 line "
+          f"correspondences: cost {mt['pose_cost']:.3g}, R and t within "
+          f"{r_err:.3g} and {t_err:.3g} of the CPU, {mt['pose_ms']:.2f} ms "
+          "as called")
+    out["card"] = smi
+    return out
+
+
+def sfm_scene(np, m: int = 8, seed: int = 0):
+    """tests/test_sfm.py:39's 3-D segments in front of the camera."""
+    rng = np.random.RandomState(seed)
+    p1 = rng.rand(m, 3) * [2, 1.5, 1] + [-1, -0.75, 3]
+    d = rng.randn(m, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return p1.astype(np.float32), (p1 + d * 0.8).astype(np.float32)
+
+
 def same_bits(torch, a, b) -> bool:
     """Bit-identical float32 tensors (NaN included)."""
     return a.shape == b.shape and torch.equal(
@@ -3734,7 +4309,12 @@ def main() -> int:
     hough_lines = phase_hough_lines(torch, np, dev, results, smi)
     print(f"phase 11: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 12. results ----------------------------------------------------------
+    # -- 12. pyramidal LK, sparse flow, distance transforms, matchers --------
+    t0 = time.perf_counter()
+    slice_c = phase_slice_c(torch, np, dev, results, smi)
+    print(f"phase 12: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -3755,6 +4335,11 @@ def main() -> int:
         kernels.append(r)
     results["ba_generic"]["launches"] = gen["counts"]["ba_generic"]
     kernels.append(results["ba_generic"])
+    results["lk_level"]["launches"] = (
+        slice_c["lucas_kanade"]["launches"]["lk_level"])
+    results["jfa"]["launches"] = (
+        slice_c["distance_transforms"]["euclidean"]["launches"]["jfa"])
+    kernels += [results["lk_level"], results["jfa"]]
     print(json.dumps({"tracker_fps": fps, "tracker_live": live,
                       "hough_ms_per_frame": hough_ms, "slam_fps": slam_fps,
                       "slam_ate": slam_ate, "slam_landmarks": slam_lms,
@@ -3766,7 +4351,8 @@ def main() -> int:
                       "full_slam_launches": full_counts,
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
                       "streams": streams, "ba_generic": gen,
-                      "hough_lines": hough_lines, "card": smi}))
+                      "hough_lines": hough_lines, "slice_c": slice_c,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,7 +26,12 @@ below 1e-5, NaN where the plain solve has one, the first candidate within
 1e-4), the same bits twice, and a ring problem down K9 within 1e-5 of K6;
 a loop
 closure keyframe (the pose-graph smoother's full and refresh branches)
-within 1e-4 of the plain CPU path from one state.
+within 1e-4 of the plain CPU path from one state; K10 (the LK level) one
+launch a level, bit-equal to its plain version (flow, err, every window
+sample, the Newton step counts), a ``lucas_kanade`` call three K10 and two
+K4 launches and bit-equal to the plain CPU path on the card's pyramids;
+K11 (the jump-flooding pass) bit-equal to its plain version pass by pass
+and the whole transform bit-equal to the CPU.
 """
 
 import dataclasses
@@ -42,7 +47,7 @@ from vpp_tpu_torch.algorithms.hough_tracker import (HoughTrackerConfig,
                                                     hough_tracker_update)
 from vpp_tpu_torch.algorithms.video_extruder import (VideoExtruderConfig,
                                                      video_extruder_run)
-from vpp_tpu_torch.core.image import from_array
+from vpp_tpu_torch.core.image import Image2d, from_array
 from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
 from vpp_tpu_torch.utils.clips import make_clip, synthetic_line_clip
 
@@ -1660,3 +1665,112 @@ def test_slam_run_streams_on_card(cuda):
                            st.tracker.keypoints.position[s])
         assert one.n_keyframes == st.n_keyframes == 4
         assert float((one.hist_pose - st.hist_pose[s]).abs().max()) <= 0.05
+
+
+# -- K10 (the LK level) and K11 (the jump-flooding pass) ----------------------
+
+def _lk_frames(device, h, w, shift=2, border=9):
+    clip = make_clip(w, h, 1 + shift, seed=h)
+    return [from_array(torch.from_numpy(f).to(device), border=border,
+                       border_mode="mirror") for f in (clip[0], clip[shift])]
+
+
+@pytest.mark.parametrize("h,w,n,ws", [(128, 160, 48, 11), (61, 77, 17, 7),
+                                      (96, 128, 64, 15)])
+def test_lk_level_kernel_bit_equal(cuda, h, w, n, ws):
+    """K10 against its plain version on the same inputs, level by level:
+    one launch a level, the flow, err, every window sample and the Newton
+    step counts bit-equal (the plain version sums in the kernel's lane
+    order), and a whole ``lucas_kanade`` call three K10 and two K4
+    launches, equal to the plain CPU path on the card's pyramids."""
+    lk = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    pyramid = importlib.import_module(
+        "vpp_tpu_torch.algorithms.pyramid").pyramid
+    i1, i2 = _lk_frames(cuda, h, w)
+    rng = np.random.RandomState(n)
+    kp = torch.from_numpy((rng.rand(n, 2) * [h - 1, w - 1]).astype(
+        np.float32)).to(cuda)
+    border = max(3, ws // 2)
+    pp, pn = pyramid(i1, 3, border=border), pyramid(i2, 3, border=border)
+    pg = lk.gradient_pyramid(pp)
+    kw = dict(winsize=ws, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1)
+    tr = torch.zeros_like(kp)
+    for s in (2, 1, 0):
+        tr = tr * 2.0
+        args = (pp[s], pn[s], pg[s], kp / float(2 ** s), tr)
+        reset_launch_counts()
+        got = lk.lk_level(*args, windows=True, **kw)
+        assert launch_counts()["lk_level"] == 1
+        want = lk.lk_match_batch_plain(*args, windows=True, **kw)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), s
+        assert torch.equal(lk.lk_match_batch(*args, **kw)[0], got[0])
+        tr = got[0]
+    reset_launch_counts()
+    flow, dist = lk.lucas_kanade(i1, i2, kp, winsize=ws)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"lk_level": 3, "pyramid_decim": 2}
+    assert torch.equal(flow, tr)
+    cpu = [Image2d(data=lvl.data.cpu(), border=lvl.border) for lvl in pp]
+    cpn = [Image2d(data=lvl.data.cpu(), border=lvl.border) for lvl in pn]
+    cpg = lk.gradient_pyramid(type(pp)(levels=tuple(cpu)))
+    tr = torch.zeros((n, 2))
+    for s in (2, 1, 0):
+        tr, err = lk.lk_match_batch(cpu[s], cpn[s], cpg[s],
+                                    kp.cpu() / float(2 ** s), tr * 2.0, **kw)
+    assert torch.equal(tr, flow.cpu()) and torch.equal(err, dist.cpu())
+
+
+def test_lk_level_kernel_edges(cuda):
+    """Keypoints on and beyond the image edge, a prediction that leaves the
+    search patch, no iteration, and no keypoint: bit-equal, one launch."""
+    lk = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    pyramid = importlib.import_module(
+        "vpp_tpu_torch.algorithms.pyramid").pyramid
+    i1, i2 = _lk_frames(cuda, 64, 80)
+    pp, pn = pyramid(i1, 1, border=5), pyramid(i2, 1, border=5)
+    pg = lk.gradient_pyramid(pp)
+    kp = torch.tensor([[0.0, 0.0], [63.0, 79.0], [-3.5, 40.0], [70.0, -2.0],
+                       [31.5, 40.5], [20.0, 20.0]], device=cuda)
+    tr = torch.tensor([[0.0, 0.0], [0.0, 0.0], [0.0, 0.0], [0.0, 0.0],
+                       [30.0, -30.0], [0.5, 0.5]], device=cuda)
+    for niter in (0, 1, 21):
+        kw = dict(winsize=11, min_ev=1e-4, niterations=niter,
+                  convergence_delta=0.1)
+        got = lk.lk_level(pp[0], pn[0], pg[0], kp, tr, windows=True, **kw)
+        want = lk.lk_match_batch_plain(pp[0], pn[0], pg[0], kp, tr,
+                                       windows=True, **kw)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), niter
+    reset_launch_counts()
+    f, e = lk.lk_level(pp[0], pn[0], pg[0], kp[:0], tr[:0], winsize=11,
+                       min_ev=1e-4, niterations=21, convergence_delta=0.1)
+    assert f.shape == (0, 2) and e.shape == (0,)
+    assert launch_counts()["lk_level"] == 0
+
+
+@pytest.mark.parametrize("h,w,p", [(96, 128, 0.002), (7, 90, 0.02),
+                                   (540, 960, 0.001), (33, 17, 0.0)])
+def test_jfa_kernel_bit_equal(cuda, h, w, p):
+    """K11 pass by pass against its plain version, and the whole transform
+    (one launch a pass) against the plain CPU path, bit for bit."""
+    dt = importlib.import_module("vpp_tpu_torch.algorithms.distance_transform")
+    rng = np.random.RandomState(h)
+    m = rng.rand(h, w) < p
+    m[h // 2, w // 3] = True
+    mask = torch.from_numpy(m).to(cuda)
+    rr = torch.arange(h, dtype=torch.int32, device=cuda)[:, None].expand(h, w)
+    cc = torch.arange(w, dtype=torch.int32, device=cuda)[None, :].expand(h, w)
+    none = torch.full((h, w), -(1 << 20), dtype=torch.int32, device=cuda)
+    br, bc = torch.where(mask, rr, none), torch.where(mask, cc, none)
+    for step in dt._steps(h, w):
+        got = dt.jfa_pass(br, bc, step)
+        want = dt.jfa_pass_plain(br, bc, step)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        br, bc = got
+    reset_launch_counts()
+    d, v = dt.euclidean_distance_transform(mask)
+    assert launch_counts()["jfa"] == len(dt._steps(h, w))
+    dc, vc = dt.euclidean_distance_transform(m, device="cpu")
+    assert torch.equal(d.cpu(), dc) and torch.equal(v.cpu(), vc)

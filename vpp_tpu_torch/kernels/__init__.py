@@ -28,6 +28,12 @@ show that it went through the kernels:
   ``ba_solve_tracks`` on the generic layout, and on a ring of more poses
   than K6 takes: one cooperative launch a call, every LM iteration and
   its band pose solve included)
+* ``lk_level``   — K10, ``algorithms/lk.py:lk_level`` (behind
+  ``lk_match_batch`` on CUDA images: one launch a pyramid level, so three a
+  ``lucas_kanade`` call at nscales 3)
+* ``jfa``        — K11, ``algorithms/distance_transform.py:jfa_pass`` (one
+  launch a jump-flooding pass: 11 an ``euclidean_distance_transform`` at
+  960x540)
 
 K1-K6 also take S streams in one launch (the stream in the grid): a run
 of ``slam_run_streams`` counts the launches of one stream.
@@ -42,7 +48,7 @@ import torch
 LAUNCHES: Dict[str, int] = {"fast9": 0, "flow_level": 0, "hough_acc": 0,
                             "block_topk": 0, "pyramid_decim": 0,
                             "patches": 0, "ba_tracks": 0, "map_vote": 0,
-                            "ba_generic": 0}
+                            "ba_generic": 0, "lk_level": 0, "jfa": 0}
 
 
 def reset_launch_counts() -> None:

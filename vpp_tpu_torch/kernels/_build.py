@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpp_tpu_torch"
 SOURCES = ("fast9.cu", "flow_level.cu", "hough_acc.cu", "block_topk.cu",
            "pyramid_decim.cu", "patches.cu", "ba_tracks.cu", "map_vote.cu",
-           "ba_generic.cu")
+           "ba_generic.cu", "lk_level.cu", "jfa.cu")
 # included by ba_tracks.cu, map_vote.cu and ba_generic.cu
 HEADERS = ("pose_math.cuh",)
 TOOLKIT_ROOT = "/usr/local/cuda"       # the CUDA toolkit's default install
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
     "vpp_ba_generic_workspace": [_I, _I, _I, _I, _P],
     "vpp_ba_generic_lm": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P] * 9,
+    "vpp_lk_level": [_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] + [_I] * 3
+    + [_P, _P] + [_I] * 5 + [_F, _I, _F] + [_P] * 5,
+    "vpp_jfa_pass": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
