@@ -7,6 +7,7 @@ caller), on one CUDA card, for this checkout or against another one.
 
     python3 call_times.py                   # this checkout
     python3 call_times.py --compare DIR     # DIR's checkout against this
+    python3 call_times.py --slice-c [--compare DIR]   # K10's, K11's callers
 
 The BA problem is the last keyframe window of a 24-frame warm-up of
 ``chip_smoke.py``'s SLAM configuration (640x480, ring 6, 3 LM iterations,
@@ -37,6 +38,10 @@ times its kernels), the as-called ``ms`` (CUDA events around the Python
 calls), and the device kernels one BA call runs (``torch.profiler``).
 ``--compare`` measures DIR, this checkout, this checkout, DIR, each in its
 own process, and prints the card's name and power limit first.
+``--slice-c`` measures only ``slice_c``: ``lucas_kanade``, ``pyrlk_match``
+and ``euclidean_distance_transform`` at ``chip_smoke.py`` phase 12's
+workloads, with K10's own launches of one ``lucas_kanade`` call (one
+launch a level, or the whole pass in one, as the checkout has it).
 """
 
 from __future__ import annotations
@@ -228,6 +233,69 @@ def measure(root: str, path: str) -> dict:
             **k3, **k4k7, **k8}
 
 
+def slice_c(root: str) -> dict:
+    """K10's and K11's callers at ``chip_smoke.py`` phase 12's workloads in
+    the checkout at ``root``: ``lucas_kanade`` (1024 keypoints at 640x480,
+    winsize 11, 3 levels), ``pyrlk_match`` on 4096 FAST slots, and
+    ``euclidean_distance_transform`` at 960x540; each call's device and
+    as-called ms and K10's or K11's launches, and K10's own device ms (its
+    launches of one ``lucas_kanade`` call on the same pyramids)."""
+    import numpy as np
+    import torch
+    import chip_smoke as CS          # this checkout's, before the path moves
+    sys.path.insert(0, root)
+    from vpp_tpu_torch.algorithms import distance_transform as DT
+    from vpp_tpu_torch.algorithms import lk as LK
+    from vpp_tpu_torch.algorithms.fast import fast9
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.core.keypoints import keypoints_from_positions
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.utils.clips import make_clip
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    dev = torch.device("cuda")
+    i1, i2 = [from_array(torch.from_numpy(f).to(dev), border=9,
+                         border_mode="mirror")
+              for f in make_clip(CS.W, CS.H, 2, seed=0)]
+    rng = np.random.RandomState(0)
+    kp = torch.from_numpy((rng.rand(CS.SLICE_C_KP, 2)
+                           * [CS.H - 20, CS.W - 20] + 10)
+                          .astype(np.float32)).to(dev)
+    pp, pn = PY.pyramid(i1, 3, border=5), PY.pyramid(i2, 3, border=5)
+    pg = LK.gradient_pyramid(pp)
+    if hasattr(LK, "lk_levels"):           # one launch a call
+        def k10():
+            LK.lk_levels([(pp[s], pn[s], pg[s]) for s in (2, 1, 0)],
+                         [2, 1, 0], kp, torch.zeros_like(kp),
+                         adopt="always", factor=2.0, **CS.LK_KW)
+    else:                                  # one launch a level
+        def k10():
+            CS.lk_chain(torch, pp, pn, pg, kp, LK.lk_level)
+    pos, _, valid = fast9(i1, 10, k=CS.PYRLK_SLOTS)
+    kps = keypoints_from_positions(pos, valid)
+    tp, tn = PY.pyramid(i1, 3, border=9), PY.pyramid(i2, 3, border=9)
+    tg = LK.gradient_pyramid(tp)
+    mask = torch.from_numpy(np.random.RandomState(0).rand(*CS.DT_SHAPE)
+                            < 0.001).to(dev)
+    calls = {"lucas_kanade": lambda: LK.lucas_kanade(i1, i2, kp, winsize=11,
+                                                     nscales=3),
+             "pyrlk_match": lambda: LK.pyrlk_match(tp, tg, tn, kps),
+             "euclidean_distance_transform":
+                 lambda: DT.euclidean_distance_transform(mask),
+             "k10": k10}
+    out = {"root": root}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_launches"] = {k: v for k, v in launch_counts().items()
+                                   if v}
+        out[f"{name}_device_ms"] = CS.device_ms(torch, fn)[0]
+        out[f"{name}_ms"] = CS.cuda_ms(torch, fn, 50)
+    return out
+
+
 def _device_ops(torch, CS, fn) -> int:
     """Device operations one call of ``fn`` runs (the nodes of a CUDA
     graph of the call, ``chip_smoke.graph_ops``)."""
@@ -350,6 +418,10 @@ def main() -> int:
     ap.add_argument("--compare", metavar="DIR")
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     ap.add_argument("--problem", help=argparse.SUPPRESS)
+    ap.add_argument("--slice-c", action="store_true",
+                    help="time only K10's and K11's callers (phase 12's "
+                    "workloads), no SLAM warm-up")
+    ap.add_argument("--slice-c-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -358,20 +430,26 @@ def main() -> int:
     if args.problem:
         print(json.dumps(measure(os.path.abspath(args.root), args.problem)))
         return 0
+    if args.slice_c_root:
+        print(json.dumps(slice_c(os.path.abspath(args.slice_c_root))))
+        return 0
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0])
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "problem.pt")
-        make_problem(path)
+        if not args.slice_c:
+            make_problem(path)
         roots = [HERE] if not args.compare else [
             os.path.abspath(args.compare), HERE, HERE,
             os.path.abspath(args.compare)]
         for root in roots:
+            what = (["--slice-c-root", root] if args.slice_c
+                    else ["--root", root, "--problem", path])
             out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--root", root,
-                 "--problem", path], cwd=root, capture_output=True,
+                [sys.executable, os.path.abspath(__file__), *what],
+                cwd=HERE if args.slice_c else root, capture_output=True,
                 text=True, timeout=900)
             sys.stderr.write(out.stderr[-4000:])
             if out.returncode != 0:

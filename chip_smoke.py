@@ -201,30 +201,35 @@ Phases, in order; any failure exits nonzero and prints no result:
    matchers and the line-based pose at full width: (a) ``lucas_kanade`` at
    benchmarks/micro.py:232-243's workload (two bench-clip frames at
    640x480, border 9; 1024 keypoints from seed 0; winsize 11, 3 scales,
-   21 iterations): three K10 and two K4 launches a call and nothing else;
-   K10 level by level against its plain version on the same inputs (flow
-   within 1e-4 px and err within 1e-4 relative on >= 99% of keypoints,
-   the kill decision differing on <= 0.5%; every template and gradient
-   window sample bit-equal, the search windows where the flows are; the
-   plain version sums in the kernel's lane order, so the run prints how
-   many are bit-equal); the call against the plain CPU path on the card's
-   pyramids (flow within 1e-2 px on >= 99% of the keypoints both keep; K4
-   and the plain chain differ in float32 ulps, which the coarsest level's
-   wandering Newton iteration amplifies, so the CPU's run on its own
-   pyramids is printed, not held); device and as-called ms, K10's bound,
-   the plain levels' ms and device operations on the card; (b)
-   ``pyrlk_match`` on 4096 FAST slots of the first frame with the
-   tracker's pyramids (border 9): three K10 launches, alive agreeing with
-   the CPU (on the card's pyramids) on >= 99% of slots, positions within
-   1e-2 px; (c) ``sparse_optical_flow`` at its defaults: K2, K3, K4, K5
-   and K10 two, two, two, two and three launches, ``pos1`` and ``valid``
-   bit-equal to the CPU, ``pos2`` within 1e-2 px on >= 99% of valid
-   matches (the CPU on the card's LK pyramids; its own printed); (d) at
-   960x540 (micro.py:179-186, seeds ``rand < 0.001`` from seed 0) the
-   Euclidean transform in 11 K11 launches, bit-equal to its plain version
-   on the card and to the CPU, the chamfer ``d3_4`` doubling bit-equal to
-   the CPU, the ``d5_7_11`` sweeps equal where a seed reaches and >= 1e9
-   elsewhere; (e) ``scharr`` and ``lbp_transform`` at 1920x1080 bit-equal
+   21 iterations): one K10 and two K4 launches a call and nothing else;
+   K10 asked for one level at a time against its plain version on the
+   same inputs (flow within 1e-4 px and err within 1e-4 relative on >= 99%
+   of keypoints, the kill decision differing on <= 0.5%; every template
+   and gradient window sample bit-equal, the search windows where the
+   flows are; the plain version sums in the kernel's lane order, so the
+   run prints how many are bit-equal), and the call's one launch, every
+   level in it, bit-equal to the plain level loop (each level's flow, err,
+   windows and Newton steps) and to the call; the call against the plain
+   CPU path on the card's pyramids (flow within 1e-2 px on >= 99% of the
+   keypoints both keep; K4 and the plain chain differ in float32 ulps,
+   which the coarsest level's wandering Newton iteration amplifies, so the
+   CPU's run on its own pyramids is printed, not held); device and
+   as-called ms, K10's bound, the plain levels' ms and device operations
+   on the card, and K10's split (``k10_split``: device ms of one level by
+   keypoint count and Newton-step cap); (b) ``pyrlk_match`` on 4096 FAST
+   slots of the first frame with the tracker's pyramids (border 9): one
+   K10 launch, alive agreeing with the CPU (on the card's pyramids) on >=
+   99% of slots, positions within 1e-2 px; (c) ``sparse_optical_flow`` at
+   its defaults: K2, K3, K4, K5 and K10 two, two, two, two and one
+   launches, ``pos1`` and ``valid`` bit-equal to the CPU, ``pos2`` within
+   1e-2 px on >= 99% of valid matches (the CPU on the card's LK pyramids;
+   its own printed); (d) at 960x540 (micro.py:179-186, seeds ``rand <
+   0.001`` from seed 0) the Euclidean transform in one K11 launch,
+   bit-equal to its plain version on the card and to the CPU, K11 asked
+   for each pass alone bit-equal to the plain pass, the chamfer ``d3_4``
+   doubling bit-equal to the CPU, the ``d5_7_11`` sweeps equal where a
+   seed reaches and >= 1e9 elsewhere; (e) ``scharr`` and
+   ``lbp_transform`` at 1920x1080 bit-equal
    to the CPU; (f) ``bruteforce_match`` SAD (49 bytes) and Hamming (32
    bytes) at Q = T = 2048 bit-equal to the CPU, and
    ``pose_from_line_correspondences`` on tests/test_sfm.py:48's recipe
@@ -233,7 +238,8 @@ Phases, in order; any failure exits nonzero and prints no result:
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
    ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
-   per lucas_kanade call and per Euclidean transform), then ``{"ok": true,
+   one launch a lucas_kanade call and one a Euclidean transform), then
+   ``{"ok": true,
    "device": ...}``.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s device memory, 67 TFLOP/s
@@ -2661,6 +2667,45 @@ def k10_level_bound(torch, args, res, ws: int):
     return nbytes, ops
 
 
+def k10_split(torch, np, dev):
+    """K10's device ms at one pyramid level (``lk_level``, no windows
+    output), the finest and the coarsest, by keypoint count (32, 1024,
+    8192) and Newton-step cap (0, 1, 21), on phase 12a's frames and
+    pyramids: the launch, set-up, per-step and occupancy costs apart.
+    Returns {"level L": {"n N": {"iters I": ms, "steps": mean steps}}}."""
+    import importlib
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.utils.clips import make_clip
+    LK = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    i1, i2 = [from_array(torch.from_numpy(f).to(dev), border=9,
+                         border_mode="mirror") for f in make_clip(W, H, 2,
+                                                                  seed=0)]
+    pp, pn = PY.pyramid(i1, 3, border=5), PY.pyramid(i2, 3, border=5)
+    pg = LK.gradient_pyramid(pp)
+    out = {}
+    for s in (0, 2):
+        row = {}
+        for n in (32, 1024, 8192):
+            rng = np.random.RandomState(n)
+            kp = torch.from_numpy((rng.rand(n, 2) * [H - 20, W - 20] + 10)
+                                  .astype(np.float32)).to(dev) / float(2 ** s)
+            tr = torch.zeros_like(kp)
+            cell = {}
+            for it in (0, 1, 21):
+                kw = dict(LK_KW, niterations=it)
+                cell[f"iters {it}"] = device_ms(
+                    torch, lambda kw=kw: LK.lk_level(pp[s], pn[s], pg[s], kp,
+                                                     tr, **kw),
+                    calls=10, replays=10)[0]
+            steps = LK.lk_level(pp[s], pn[s], pg[s], kp, tr, windows=True,
+                                **LK_KW)[3]
+            cell["steps"] = float(steps.float().mean())
+            row[f"n {n}"] = cell
+        out[f"level {s}"] = row
+    return out
+
+
 def phase_slice_c(torch, np, dev, results, smi):
     """Phase 12: pyramidal LK and sparse flow (K10), the distance
     transforms (K11), Scharr and LBP, the matchers and the line-based
@@ -2708,14 +2753,27 @@ def phase_slice_c(torch, np, dev, results, smi):
     flow, dist = call()
     torch.cuda.synchronize()
     counts = fired()
-    check(counts == {"lk_level": 3, "pyramid_decim": 2},
-          f"lucas_kanade launched {counts}, not 3 K10 and 2 K4")
+    check(counts == {"lk_level": 1, "pyramid_decim": 2},
+          f"lucas_kanade launched {counts}, not 1 K10 and 2 K4")
     pp, pn = PY.pyramid(i1, 3, border=5), PY.pyramid(i2, 3, border=5)
     pg = LK.gradient_pyramid(pp)
     kf, ke, klev = lk_chain(torch, pp, pn, pg, kp, lambda *a, **kw:
                             LK.lk_level(*a, windows=True, **kw))
     check(same_bits(torch, kf, flow) and same_bits(torch, ke, dist),
           "lucas_kanade differs from its own level chain")
+    # the call's one launch, every level's results, against the plain loop
+    k10_levels = [(pp[s], pn[s], pg[s]) for s in (2, 1, 0)]
+    k10_kw = dict(LK_KW, adopt="always", factor=2.0)
+    kall = LK.lk_levels(k10_levels, [2, 1, 0], kp, torch.zeros_like(kp),
+                        windows=True, **k10_kw)
+    pall = LK.lk_levels_plain(k10_levels, [2, 1, 0], kp,
+                              torch.zeros_like(kp), windows=True, **k10_kw)
+    check(all(same_bits(torch, g, x) if g.dtype == torch.float32
+              else torch.equal(g, x) for g, x in zip(kall, pall)),
+          "K10's one launch differs from the plain level loop (flow, err, "
+          "windows or steps at some level)")
+    check(same_bits(torch, kall[0], flow) and same_bits(torch, kall[1], dist),
+          "K10's one launch differs from lucas_kanade")
     # K10 against its plain version on the card, level by level
     lev_rows, k10_bytes, k10_ops, k10_err = [], 0, 0, 0.0
     for (args, kr), s in zip(klev, (2, 1, 0)):
@@ -2780,12 +2838,12 @@ def phase_slice_c(torch, np, dev, results, smi):
                / b.data.abs().clamp(min=1e-30)).max())
         for a, b in zip(pp.levels, PY.pyramid(fr[cpu][0], 3,
                                               border=5).levels))
-    # times: the call, K10's three launches, the plain levels on the card
+    # times: the call, K10's one launch, the plain levels on the card
     k10_args = [a for a, _ in klev]
+    tr_zero = torch.zeros_like(kp)
 
     def k10_call():
-        for a in k10_args:
-            LK.lk_level(*a, **LK_KW)
+        LK.lk_levels(k10_levels, [2, 1, 0], kp, tr_zero, **k10_kw)
 
     def plain_call():
         for a in k10_args:
@@ -2803,14 +2861,15 @@ def phase_slice_c(torch, np, dev, results, smi):
     lk_t["k10_level_device_ms"] = [
         device_ms(torch, lambda a=a: LK.lk_level(*a, **LK_KW))[0]
         for a in k10_args]
+    split = k10_split(torch, np, dev)
     out["lucas_kanade"] = dict(launches=counts, levels=lev_rows,
-                               cpu=lk_cpu, **lk_t)
+                               cpu=lk_cpu, k10_split=split, **lk_t)
     b_ms, b_by = bound_ms(k10_bytes, k10_ops)
     results["lk_level"] = dict(
         name="lk_level", route="cuda",
         source="vpp_tpu_torch/kernels/csrc/lk_level.cu",
         replaces="vpp_tpu/algorithms/lk.py:102",
-        per=f"the three launches (levels 2, 1, 0) of one lucas_kanade call, "
+        per=f"the one launch (levels 2, 1, 0) of one lucas_kanade call, "
             f"{SLICE_C_KP} keypoints at {W}x{H}, winsize 11, 21 iterations",
         max_abs_err=k10_err,
         ms=lk_t["k10_ms"], device_ms=lk_t["k10_device_ms"],
@@ -2837,12 +2896,22 @@ def phase_slice_c(torch, np, dev, results, smi):
           f"{lk_t['call_ms']:.4f} as called, {lk_t['call_device_ops']} "
           f"device operations (the 2-channel gradient pyramid "
           f"{lk_t['gradient_pyramid_device_ops']}); K10 {lk_t['k10_device_ms']:.4f} ms on the "
-          f"device for its three launches (levels "
+          f"device for its one launch (the design of one launch a level, "
+          f"recorded in PERF.md: 0.0841 for three launches), "
+          f"{lk_t['k10_ms']:.4f} as called, "
+          f"asked for one level at a time "
           + ", ".join(f"{x:.4f}" for x in lk_t["k10_level_device_ms"])
-          + f"), {lk_t['k10_ms']:.4f} as called, bound {b_ms:.5f} ({b_by}: "
+          + f"; bound {b_ms:.5f} ({b_by}: "
           f"{k10_bytes} bytes, {k10_ops} operations); the plain levels "
           f"{lk_t['plain_ms']:.2f} ms on the card in "
           f"{lk_t['plain_device_ops']} device operations")
+    print("phase 12: K10's split, device ms of one level (lk_level, no "
+          "windows) by keypoints and Newton-step cap, with the mean steps "
+          "taken: " + "; ".join(
+              f"{lv}, {nk}: " + ", ".join(
+                  f"{k} {v:.4f}" if k != "steps" else f"steps {v:.2f}"
+                  for k, v in cell.items())
+              for lv, row in split.items() for nk, cell in row.items()))
 
     # -- 12b. pyrlk_match on FAST slots with the tracker's pyramids ------------
     pos, _, valid = fast9(i1, 10, k=PYRLK_SLOTS)
@@ -2853,8 +2922,8 @@ def phase_slice_c(torch, np, dev, results, smi):
     moved = LK.pyrlk_match(tp, tg, tn, kps)
     torch.cuda.synchronize()
     pyr_counts = fired()
-    check(pyr_counts == {"lk_level": 3},
-          f"pyrlk_match launched {pyr_counts}, not 3 K10")
+    check(pyr_counts == {"lk_level": 1},
+          f"pyrlk_match launched {pyr_counts}, not 1 K10")
     ctp = on_cpu_pyramid(PY, Image2d, tp)
     cmoved = LK.pyrlk_match(ctp, LK.gradient_pyramid(ctp),
                             on_cpu_pyramid(PY, Image2d, tn),
@@ -2888,7 +2957,7 @@ def phase_slice_c(torch, np, dev, results, smi):
     torch.cuda.synchronize()
     sf_counts = fired()
     check(sf_counts == {"fast9": 2, "block_topk": 2, "pyramid_decim": 2,
-                        "patches": 2, "lk_level": 3},
+                        "patches": 2, "lk_level": 1},
           f"sparse_optical_flow launched {sf_counts}")
     real_pyramid = LK.pyramid
     c1, c2 = fr[cpu]
@@ -2938,9 +3007,8 @@ def phase_slice_c(torch, np, dev, results, smi):
     torch.cuda.synchronize()
     dt_counts = fired()
     steps = DT._steps(*DT_SHAPE)
-    check(dt_counts == {"jfa": len(steps)},
-          f"euclidean_distance_transform launched {dt_counts}, not "
-          f"{len(steps)} K11")
+    check(dt_counts == {"jfa": 1},
+          f"euclidean_distance_transform launched {dt_counts}, not 1 K11")
     pd, pv = DT._jump_flood(m, DT.jfa_pass_plain)
     cd, cv = DT.euclidean_distance_transform(seeds, device="cpu")
     check(torch.equal(ed, pd) and torch.equal(ev, pv),
@@ -2952,21 +3020,33 @@ def phase_slice_c(torch, np, dev, results, smi):
     cc = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
     none = torch.full((h, w), -(1 << 20), dtype=torch.int32, device=dev)
     br0, bc0 = torch.where(m, rr, none), torch.where(m, cc, none)
-    bufs = [torch.empty_like(br0) for _ in range(6)]
+    bufs = [torch.empty_like(br0) for _ in range(4)]
 
     def k11_passes():
         cur = (br0, bc0)
         for i, s in enumerate(steps):
-            cur = DT.jfa_pass(cur[0], cur[1], s, tuple(bufs[2 * (i % 2):
-                                                          2 * (i % 2) + 2]),
-                              tuple(bufs[4:]))
+            cur = DT.jfa_pass(cur[0], cur[1], s,
+                              tuple(bufs[2 * (i % 2):2 * (i % 2) + 2]))
         return cur
 
+    # K11 asked for one pass at a time, each against the plain pass
+    cur = (br0, bc0)
+    for s in steps:
+        nxt = DT.jfa_pass(*cur, s)
+        want = DT.jfa_pass_plain(*cur, s)
+        check(torch.equal(nxt[0], want[0]) and torch.equal(nxt[1], want[1]),
+              f"K11's pass at stride {s} differs from its plain version")
+        cur = nxt
     fin_r = k11_passes()[0]
     check(torch.equal(torch.where(fin_r <= -(1 << 20), 0, fin_r - rr),
                       ev[..., 0]), "K11's passes differ from the transform")
-    k11_ms = cuda_ms(torch, k11_passes, 50)
-    k11_dev, k11_by = device_ms(torch, k11_passes)
+
+    def k11_call():
+        return DT.euclidean_distance_transform(m)
+
+    k11_ms = cuda_ms(torch, k11_call, 50)
+    k11_dev, k11_by = device_ms(torch, k11_call)
+    k11_pass_dev = device_ms(torch, k11_passes)[0]
     k11_bytes = len(steps) * 16 * h * w
     k11_ops = len(steps) * h * w * 8 * 15    # 2 distances, a compare a step
     kb_ms, kb_by = bound_ms(k11_bytes, k11_ops)
@@ -2974,18 +3054,16 @@ def phase_slice_c(torch, np, dev, results, smi):
     def plain_passes():
         return DT._jump_flood(m, DT.jfa_pass_plain)
 
-    edt = dict(launches=dt_counts, seeds=int(seeds.sum()),
-               ms=cuda_ms(torch, lambda: DT.euclidean_distance_transform(m),
-                          20),
-               device_ms=device_ms(torch, lambda:
-                                   DT.euclidean_distance_transform(m))[0],
+    edt = dict(launches=dt_counts, seeds=int(seeds.sum()), ms=k11_ms,
+               device_ms=k11_dev,
+               passes_device_ms=k11_pass_dev,
                plain_ms=cuda_ms(torch, plain_passes, 3),
                plain_device_ops=device_ops(torch, plain_passes)[0])
     results["jfa"] = dict(
         name="jfa", route="cuda", source="vpp_tpu_torch/kernels/csrc/jfa.cu",
         replaces="vpp_tpu/algorithms/distance_transform.py:209",
-        per=f"the {len(steps)} passes of one euclidean_distance_transform "
-            f"at {w}x{h}",
+        per=f"the one launch of one euclidean_distance_transform at {w}x{h} "
+            f"({len(steps)} passes)",
         max_abs_err=0.0, ms=k11_ms, device_ms=k11_dev, device_ms_by=k11_by,
         plain_ms=edt["plain_ms"], bound_ms=kb_ms, bound_by=kb_by,
         bound_bytes=k11_bytes, library_ms=None,
@@ -3012,14 +3090,16 @@ def phase_slice_c(torch, np, dev, results, smi):
             row["device_ms"] = device_ms(torch, fn)[0]
             row["device_ops"] = device_ops(torch, fn)[0]
         cham[f"{metric}_{method}"] = row
-    out["distance_transforms"] = dict(euclidean=edt, chamfer=cham,
-                                      k11_device_ms=k11_dev)
+    out["distance_transforms"] = dict(euclidean=edt, chamfer=cham)
     print(f"phase 12: distance transforms {w}x{h}, {edt['seeds']} seeds: "
           f"euclidean launches {dt_counts}, distances and R bit-equal to the "
-          f"plain version on the card and to the CPU; "
-          f"{edt['device_ms']:.4f} ms a call on the device "
-          f"({k11_dev:.4f} the {len(steps)} K11 passes, bound {kb_ms:.5f}, "
-          f"{kb_by}), {edt['ms']:.4f} as called; the plain passes "
+          f"plain version on the card and to the CPU, each pass asked alone "
+          f"bit-equal to the plain pass; K11 {edt['device_ms']:.4f} ms a "
+          f"call on the device (the design of one launch a pass, recorded in "
+          f"PERF.md: 0.4407 for its 11 launches), {edt['ms']:.4f} as called, "
+          f"bound "
+          f"{kb_ms:.5f} ({kb_by}); the {len(steps)} passes asked one at a "
+          f"time {edt['passes_device_ms']:.4f}; the plain passes "
           f"{edt['plain_ms']:.2f} ms in {edt['plain_device_ops']} device "
           "operations; chamfer " + "; ".join(
               f"{k}: bit-equal {r['bit_equal']} ({r['unreached']} unreached "

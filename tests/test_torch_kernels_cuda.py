@@ -26,12 +26,16 @@ below 1e-5, NaN where the plain solve has one, the first candidate within
 1e-4), the same bits twice, and a ring problem down K9 within 1e-5 of K6;
 a loop
 closure keyframe (the pose-graph smoother's full and refresh branches)
-within 1e-4 of the plain CPU path from one state; K10 (the LK level) one
-launch a level, bit-equal to its plain version (flow, err, every window
-sample, the Newton step counts), a ``lucas_kanade`` call three K10 and two
-K4 launches and bit-equal to the plain CPU path on the card's pyramids;
-K11 (the jump-flooding pass) bit-equal to its plain version pass by pass
-and the whole transform bit-equal to the CPU.
+within 1e-4 of the plain CPU path from one state; K10 (LK) asked for one
+level one launch, bit-equal to its plain version (flow, err, every window
+sample, the Newton step counts), a whole coarse-to-fine pass one launch,
+every level in it bit-equal to the plain level loop with either adopt
+rule, a ``lucas_kanade`` call one K10 and two K4 launches and bit-equal to
+the plain CPU path on the card's pyramids, a ``pyrlk_match`` call one K10
+launch; K11 (jump flooding) asked for one pass one launch, bit-equal to
+its plain version pass by pass (and from random claims), the whole
+transform one launch bit-equal to the plain passes and to the CPU, and
+an image whose squared diagonal reaches 1e9 refused.
 """
 
 import dataclasses
@@ -1678,11 +1682,13 @@ def _lk_frames(device, h, w, shift=2, border=9):
 @pytest.mark.parametrize("h,w,n,ws", [(128, 160, 48, 11), (61, 77, 17, 7),
                                       (96, 128, 64, 15)])
 def test_lk_level_kernel_bit_equal(cuda, h, w, n, ws):
-    """K10 against its plain version on the same inputs, level by level:
-    one launch a level, the flow, err, every window sample and the Newton
+    """K10 against its plain version on the same inputs: asked for one
+    level, one launch, the flow, err, every window sample and the Newton
     step counts bit-equal (the plain version sums in the kernel's lane
-    order), and a whole ``lucas_kanade`` call three K10 and two K4
-    launches, equal to the plain CPU path on the card's pyramids."""
+    order); a whole ``lucas_kanade`` call one K10 and two K4 launches, its
+    levels (in the one launch, windows included) bit-equal to the plain
+    level loop, and the call equal to the plain CPU path on the card's
+    pyramids."""
     lk = importlib.import_module("vpp_tpu_torch.algorithms.lk")
     pyramid = importlib.import_module(
         "vpp_tpu_torch.algorithms.pyramid").pyramid
@@ -1710,8 +1716,16 @@ def test_lk_level_kernel_bit_equal(cuda, h, w, n, ws):
     reset_launch_counts()
     flow, dist = lk.lucas_kanade(i1, i2, kp, winsize=ws)
     counts = {k: v for k, v in launch_counts().items() if v}
-    assert counts == {"lk_level": 3, "pyramid_decim": 2}
+    assert counts == {"lk_level": 1, "pyramid_decim": 2}
     assert torch.equal(flow, tr)
+    levels = [(pp[s], pn[s], pg[s]) for s in (2, 1, 0)]
+    got = lk.lk_levels(levels, [2, 1, 0], kp, torch.zeros_like(kp),
+                       adopt="always", factor=2.0, windows=True, **kw)
+    want = lk.lk_levels_plain(levels, [2, 1, 0], kp, torch.zeros_like(kp),
+                              adopt="always", factor=2.0, windows=True, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert torch.equal(got[0], flow) and torch.equal(got[1], dist)
     cpu = [Image2d(data=lvl.data.cpu(), border=lvl.border) for lvl in pp]
     cpn = [Image2d(data=lvl.data.cpu(), border=lvl.border) for lvl in pn]
     cpg = lk.gradient_pyramid(type(pp)(levels=tuple(cpu)))
@@ -1720,6 +1734,67 @@ def test_lk_level_kernel_bit_equal(cuda, h, w, n, ws):
         tr, err = lk.lk_match_batch(cpu[s], cpn[s], cpg[s],
                                     kp.cpu() / float(2 ** s), tr * 2.0, **kw)
     assert torch.equal(tr, flow.cpu()) and torch.equal(err, dist.cpu())
+
+
+@pytest.mark.parametrize("nscales,pred,n", [(1, False, 13), (3, True, 33),
+                                            (4, False, 31), (4, True, 4)])
+def test_lk_levels_kernel_glue(cuda, nscales, pred, n):
+    """K10 with every level in one launch, against the plain level loop on
+    the same pyramids: both adopt rules (always; where err < max_err, with
+    max_err equal to some keypoints' err), a prediction, and keypoint
+    counts that are not a multiple of the 4 a CTA takes; every level's
+    flow, err, windows and Newton steps bit-equal, and ``pyrlk_match`` one
+    launch."""
+    lk = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    kps_mod = importlib.import_module("vpp_tpu_torch.core.keypoints")
+    i1, i2 = _lk_frames(cuda, 128, 160)
+    pp, pn = PY.pyramid(i1, nscales, border=9), PY.pyramid(i2, nscales,
+                                                           border=9)
+    pg = lk.gradient_pyramid(pp)
+    rng = np.random.RandomState(n)
+    kp = torch.from_numpy((rng.rand(n, 2) * [127, 159]).astype(
+        np.float32)).to(cuda)
+    tr0 = (torch.from_numpy(rng.randn(n, 2).astype(np.float32)).to(cuda)
+           if pred else torch.zeros_like(kp))
+    scales = list(range(nscales - 1, -1, -1))
+    levels = [(pp[s], pn[s], pg[s]) for s in scales]
+    kw = dict(winsize=11, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1)
+    first = lk.lk_levels_plain(levels[:1], scales[:1], kp, tr0,
+                               adopt="always", factor=pp.factor, **kw)[1]
+    kept = first[first < 1e30]
+    max_err = float(kept.median()) if kept.numel() else 2.0
+    for adopt in ("always", "below"):
+        reset_launch_counts()
+        got = lk.lk_levels(levels, scales, kp, tr0, adopt=adopt,
+                           factor=pp.factor, max_err=max_err, windows=True,
+                           **kw)
+        assert launch_counts()["lk_level"] == 1
+        want = lk.lk_levels_plain(levels, scales, kp, tr0, adopt=adopt,
+                                  factor=pp.factor, max_err=max_err,
+                                  windows=True, **kw)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), adopt
+        plain = lk.lk_levels(levels, scales, kp, tr0, adopt=adopt,
+                             factor=pp.factor, max_err=max_err, **kw)
+        assert torch.equal(plain[0], got[0]) and torch.equal(plain[1],
+                                                             got[1])
+    kps = kps_mod.keypoints_from_positions(kp, torch.ones(
+        n, dtype=torch.bool, device=cuda))
+    reset_launch_counts()
+    moved = lk.pyrlk_match(pp, pg, pn, kps)
+    assert launch_counts()["lk_level"] == 1
+    cpu = [Image2d(data=lvl.data.cpu(), border=lvl.border) for lvl in pp]
+    cpp = type(pp)(levels=tuple(cpu), factor=pp.factor)
+    cpn = type(pp)(levels=tuple(Image2d(data=lvl.data.cpu(),
+                                        border=lvl.border) for lvl in pn),
+                   factor=pn.factor)
+    cmoved = lk.pyrlk_match(cpp, lk.gradient_pyramid(cpp), cpn,
+                            kps_mod.keypoints_from_positions(
+                                kp.cpu(), torch.ones(n, dtype=torch.bool)))
+    assert torch.equal(moved.alive.cpu(), cmoved.alive)
+    assert torch.equal(moved.position.cpu(), cmoved.position)
 
 
 def test_lk_level_kernel_edges(cuda):
@@ -1750,27 +1825,75 @@ def test_lk_level_kernel_edges(cuda):
     assert launch_counts()["lk_level"] == 0
 
 
-@pytest.mark.parametrize("h,w,p", [(96, 128, 0.002), (7, 90, 0.02),
-                                   (540, 960, 0.001), (33, 17, 0.0)])
-def test_jfa_kernel_bit_equal(cuda, h, w, p):
-    """K11 pass by pass against its plain version, and the whole transform
-    (one launch a pass) against the plain CPU path, bit for bit."""
+@pytest.mark.parametrize("h,w,p,seed_at", [
+    (96, 128, 0.002, None), (7, 90, 0.02, None), (540, 960, 0.001, None),
+    (33, 17, 0.0, None), (1, 300, 0.01, None), (200, 1, 0.02, None),
+    (1, 31000, 0.0, (0, 0)), (540, 960, 0.0, "tiles")])
+def test_jfa_kernel_bit_equal(cuda, h, w, p, seed_at):
+    """K11: ``jfa_pass`` one launch at every stride of the schedule and at
+    strides at or beyond a side, bit-equal to its plain version from the
+    schedule's state and from random claims (every pixel some coordinate
+    in the image, a fifth none); the whole transform one launch, bit-equal
+    to the plain passes on the card and to the CPU. ``(1, 31000)`` puts
+    its one seed at an end, so that real distances come near the JAX
+    loop's 1e9 for "none"; ``"tiles"`` puts seeds on both sides of every
+    tile edge of the finest pass."""
     dt = importlib.import_module("vpp_tpu_torch.algorithms.distance_transform")
-    rng = np.random.RandomState(h)
+    rng = np.random.RandomState(h + w)
     m = rng.rand(h, w) < p
-    m[h // 2, w // 3] = True
+    if seed_at == "tiles":
+        lg_lr, tr, lg_lc, tc = dt._jfa_plan(h, w, 1)
+        for r in range(0, h, tr):
+            m[r, ::tc] = True
+            m[max(r - 1, 0), max(tc - 1, 0)::tc] = True
+    elif seed_at is not None:
+        m[seed_at] = True
+    else:
+        m[h // 2, w // 3] = True
     mask = torch.from_numpy(m).to(cuda)
     rr = torch.arange(h, dtype=torch.int32, device=cuda)[:, None].expand(h, w)
     cc = torch.arange(w, dtype=torch.int32, device=cuda)[None, :].expand(h, w)
     none = torch.full((h, w), -(1 << 20), dtype=torch.int32, device=cuda)
     br, bc = torch.where(mask, rr, none), torch.where(mask, cc, none)
-    for step in dt._steps(h, w):
-        got = dt.jfa_pass(br, bc, step)
-        want = dt.jfa_pass_plain(br, bc, step)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        br, bc = got
+    gone = torch.from_numpy(rng.rand(h, w) < 0.2).to(cuda)
+    claims = tuple(torch.where(gone, none, torch.from_numpy(
+        rng.randint(0, n, (h, w)).astype(np.int32)).to(cuda))
+        for n in (h, w))
+    steps = dt._steps(h, w)
+    # the schedule's passes, then the larger strides on the final state
+    for q, step in enumerate(steps + (h, w, max(h, w) + 3, 1 << 20)):
+        for state in ((br, bc), claims):
+            reset_launch_counts()
+            got = dt.jfa_pass(*state, step)
+            assert launch_counts()["jfa"] == 1
+            want = dt.jfa_pass_plain(*state, step)
+            assert torch.equal(got[0], want[0]), step
+            assert torch.equal(got[1], want[1]), step
+            if q < len(steps) and state[0] is br:
+                nxt = got
+        if q < len(steps):
+            br, bc = nxt
     reset_launch_counts()
     d, v = dt.euclidean_distance_transform(mask)
-    assert launch_counts()["jfa"] == len(dt._steps(h, w))
+    assert launch_counts()["jfa"] == 1
+    pd, pv = dt._jump_flood(mask, dt.jfa_pass_plain)
+    assert torch.equal(d, pd) and torch.equal(v, pv)
     dc, vc = dt.euclidean_distance_transform(m, device="cpu")
     assert torch.equal(d.cpu(), dc) and torch.equal(v.cpu(), vc)
+    fr = torch.where(br <= -(1 << 20), 0, br - rr)
+    assert torch.equal(fr, v[..., 0])
+
+
+def test_jfa_kernel_refuses_wide_images(cuda):
+    """Past a squared diagonal of 1e9 the JAX loop takes neighbours wrapped
+    around the image (its "no candidate" distance is 1e9); K11 refuses
+    such an image, and launches nothing."""
+    dt = importlib.import_module("vpp_tpu_torch.algorithms.distance_transform")
+    m = torch.zeros((1, 40000), dtype=torch.bool, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="1e9"):
+        dt.euclidean_distance_transform(m)
+    planes = torch.zeros((2, 1, 40000), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1e9"):
+        dt.jfa_pass(planes[0], planes[1], 1)
+    assert launch_counts()["jfa"] == 0

@@ -336,3 +336,144 @@ def test_lk_level_refuses_cpu_tensors():
         tlk.lk_level(t1, t1, tg, torch.zeros((2, 2)), torch.zeros((2, 2)),
                      winsize=17, min_ev=1e-4, niterations=3,
                      convergence_delta=0.1)
+
+
+# -- K10's plain pieces: the lane order and the level glue ----------------------
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 121, 225, 256])
+def test_lane_sum_order(m):
+    """``_lane_sum`` is K10's order: lane l (of 32) adds terms l, l + 32,
+    ... to 0 in turn, then an xor butterfly over the lanes at strides 16,
+    8, 4, 2, 1; held bit for bit to that order written out in float32."""
+    rng = np.random.RandomState(m)
+    t = (rng.randn(5, m) * 10 ** rng.uniform(-3, 3, (5, m))).astype(
+        np.float32)
+    t[0, :3] = [-0.0, 0.0, -0.0][:min(3, m)]
+    got = tlk._lane_sum(torch.from_numpy(t)).numpy()
+    for row, want_row in zip(t, got):
+        lanes = [np.float32(0.0)] * 32
+        for e in range(m):
+            lanes[e % 32] = np.float32(lanes[e % 32] + row[e])
+        for o in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[i] + lanes[i ^ o]) for i in range(32)]
+        assert np.float32(lanes[0]).view(np.int32) == np.float32(
+            want_row).view(np.int32)
+
+
+def _lucas_kanade_loop(i1, i2, keypoints, nscales, prediction, kw):
+    """``lucas_kanade``'s level loop as it was written level by level."""
+    border = max(3, kw["winsize"] // 2)
+    p_prev = t_pyramid(i1, nscales, border=border)
+    p_next = t_pyramid(i2, nscales, border=border)
+    p_grad = tlk.gradient_pyramid(p_prev)
+    n = keypoints.shape[0]
+    tr = (torch.zeros((n, 2)) if prediction is None
+          else prediction.to(torch.float32) / float(2 ** nscales))
+    dist = torch.zeros((n,))
+    for s in range(nscales - 1, -1, -1):
+        tr = tr * 2.0
+        flow, err = tlk.lk_match_batch(p_prev[s], p_next[s], p_grad[s],
+                                       keypoints / float(2 ** s), tr, **kw)
+        tr = flow
+        dist = err
+    return tr, dist
+
+
+def _pyrlk_loop(pyr_prev, pyr_grad, pyr_next, position, max_err, kw):
+    """``pyrlk_match``'s level loop as it was written level by level."""
+    tr = torch.zeros((position.shape[0], 2))
+    dist = torch.zeros((position.shape[0],))
+    for s in range(len(pyr_prev) - 1, -1, -1):
+        tr = tr * pyr_prev.factor
+        flow, err = tlk.lk_match_batch(pyr_prev[s], pyr_next[s],
+                                       pyr_grad[s], position / float(2 ** s),
+                                       tr, **kw)
+        tr = torch.where((err < max_err)[:, None], flow, tr)
+        dist = err
+    return tr, dist
+
+
+def _bits(a, b):
+    return np.array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("nscales", [1, 3, 4])
+@pytest.mark.parametrize("pred", [False, True])
+def test_level_glue_matches_level_loop(nscales, pred):
+    """The level glue with its adopt flag (``_coarse_to_fine``, which the
+    CPU routes take and ``lk_levels_plain`` runs over K10's plain level)
+    against the level-by-level loops it replaced, bit for bit: adopt
+    always (``lucas_kanade``, with and without a prediction) and adopt
+    below ``max_err`` (``pyrlk_match``, ``max_err`` set to a keypoint's
+    own residual at the coarsest level, so that ``err == max_err`` occurs
+    and is not adopted)."""
+    (_, t1), (_, t2) = _texture(3)
+    p = torch.from_numpy(_keypoints(24, 128, 160, 11))
+    prediction = (torch.from_numpy(np.random.RandomState(3).randn(24, 2)
+                                   .astype(np.float32)) if pred else None)
+    kw = dict(winsize=11, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1)
+    want = _lucas_kanade_loop(t1, t2, p, nscales, prediction, kw)
+    got = tlk.lucas_kanade(t1, t2, p, nscales=nscales, prediction=prediction)
+    assert _bits(got[0], want[0]) and _bits(got[1], want[1])
+    pp, pn = t_pyramid(t1, nscales, border=9), t_pyramid(t2, nscales,
+                                                         border=9)
+    pg = tlk.gradient_pyramid(pp)
+    scales = list(range(nscales - 1, -1, -1))
+    levels = [(pp[s], pn[s], pg[s]) for s in scales]
+    tr0 = torch.zeros((24, 2)) if prediction is None else prediction
+    coarse = tlk.lk_match_batch(*levels[0], p / float(2 ** scales[0]),
+                                tr0 * pp.factor, **kw)[1]
+    max_err = float(coarse[coarse < 1e30][5])
+    want = _pyrlk_loop(pp, pg, pn, p, max_err, kw)
+    plain = tlk.lk_levels_plain(levels, scales, p, torch.zeros((24, 2)),
+                                adopt="below", factor=pp.factor,
+                                max_err=max_err, **kw)
+    assert _bits(plain[0], want[0]) and _bits(plain[1], want[1])
+    moved = tlk.pyrlk_match(pp, pg, pn, t_kps(p, torch.ones(24, dtype=bool)),
+                            max_err=max_err)
+    final = p + want[0]
+    ok = ((want[1] <= max_err) & (final[:, 0] >= 0) & (final[:, 0] <= 127)
+          & (final[:, 1] >= 0) & (final[:, 1] <= 159))
+    assert torch.equal(moved.alive, ok) and bool(ok.any())
+    assert _bits(moved.position[ok], final[ok])
+    # adopt always is not adopt below an infinite max_err: a NaN residual
+    nan_err = {0: torch.tensor([float("nan"), 0.5])}
+
+    def stub(A, B, Ag, q, tr, **_):
+        return tr + 1.0, nan_err.get(0)
+
+    one = [(pp[0], pn[0], pg[0])]
+    always = tlk._coarse_to_fine(one, [0], p[:2], torch.zeros((2, 2)), stub,
+                                 adopt="always", factor=2.0)
+    below = tlk._coarse_to_fine(one, [0], p[:2], torch.zeros((2, 2)), stub,
+                                adopt="below", factor=2.0,
+                                max_err=float("inf"))
+    assert float(always[0][0, 0]) == 1.0 and float(below[0][0, 0]) == 0.0
+
+
+def test_level_glue_err_at_max_err():
+    """``err == max_err`` at a level is not adopted (``<``), and the final
+    kill tests ``<=``: the stubbed residuals of tests/test_lk.py:62's
+    schedule moved onto ``max_err`` itself."""
+    errs = {2: [2.0, 0.1], 1: [0.1, 2.0], 0: [2.0, 0.1]}
+    flows = {2: [[8.0, 8.0], [1.0, 1.0]], 1: [[1.0, 1.0], [4.0, 4.0]],
+             0: [[2.0, 2.0], [1.0, 1.0]]}
+    shapes = {100: 0, 51: 1, 26: 2}
+
+    def stub(A, B, Ag, p, tr, **kw):
+        s = shapes[A.shape[0]]
+        return torch.tensor(flows[s]), torch.tensor(errs[s])
+
+    _, t1 = _square(0, 0)
+    pyr = t_pyramid(t1, 3, border=5)
+    levels = [(pyr[s], pyr[s], pyr[s]) for s in (2, 1, 0)]
+    p = torch.tensor([[50.0, 50.0], [50.0, 50.0]])
+    tr, dist = tlk._coarse_to_fine(levels, [2, 1, 0], p, torch.zeros((2, 2)),
+                                   stub, adopt="below", factor=2.0,
+                                   max_err=2.0)
+    # keypoint 0: level 2 not adopted, level 1 adopted, level 0 not
+    # adopted; keypoint 1: levels 2 and 0 adopted, level 1 not
+    np.testing.assert_array_equal(tr.numpy(), [[2.0, 2.0], [1.0, 1.0]])
+    np.testing.assert_array_equal(dist.numpy(),
+                                  np.array([2.0, 0.1], np.float32))

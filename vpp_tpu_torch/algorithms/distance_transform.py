@@ -17,12 +17,17 @@
 * ``euclidean_distance_transform``: jump flooding, log2(max(H, W)) passes
   at strides N/2 ... 1 and one more at stride 1. A pass is the JAX
   package's 8 whole-image neighbour steps, each reading the planes the
-  previous one left. Each pass is kernel K11 (``kernels/csrc/jfa.cu``, one
-  cooperative launch a pass) on a CUDA mask and its plain version
-  (``jfa_pass_plain``) on a CPU one. Distances are float32
-  sums of two squared int32 differences below 2^24, exact, so the kernel,
-  the plain version and the JAX package agree bit for bit, in the
-  distances and in the displacement vectors.
+  previous one left. On a CUDA mask the whole transform is kernel K11
+  (``kernels/csrc/jfa.cu``, one cooperative launch: each pass as
+  tile-local replays in shared memory, a grid barrier between passes;
+  ``jfa_pass`` is the same kernel asked for one pass); on a CPU mask the
+  passes are its plain version (``jfa_pass_plain``). Distances are float32
+  sums of two squared int32 differences, the same operations everywhere,
+  so the kernel, the plain version and the JAX package agree bit for bit,
+  in the distances and in the displacement vectors. The card refuses an
+  image whose squared diagonal reaches 1e9, the JAX loop's distance for
+  "no candidate": past it the loop takes neighbours wrapped around the
+  image.
 
 A numpy mask goes to ``device`` (the card unless the caller asks for the
 CPU); a tensor mask keeps its device.
@@ -30,7 +35,8 @@ CPU); a tensor mask keeps its device.
 
 from __future__ import annotations
 
-from functools import partial
+import ctypes
+from functools import lru_cache, partial
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -223,40 +229,157 @@ def _row_ok(h: int, w: int, dr: int, dc: int, dev) -> torch.Tensor:
     return _ROW_OK[key]
 
 
+# K11's tiles (kernels/csrc/jfa.cu): a tile is Lr row residues x Tr lattice
+# rows by Lc column residues x Tc lattice columns; its region, with a halo
+# of 3 lattice points a side, at most _JFA_REGION points, and at most
+# _JFA_PADDED with a ring of one more.
+_JFA_REGION = 2048        # jfa.cu's kRegion (256 threads x 8 points)
+_JFA_PADDED = 4096        # jfa.cu's kPadded (32 KB of float2)
+_JFA_HALO = 3
+_JFA_SLOTS = 264          # CTAs the H100 holds at once: 132 SMs x 2
+
+
+def _axis_tiles(n: int, s: int, l: int, t: int) -> Tuple[int, int, int]:
+    """One axis of a pass's tiles: (tiles, region lattice points summed
+    over them, the largest region), residue blocks of ``l`` by lattice
+    blocks of ``t`` as jfa.cu's ``axis_region`` cuts them."""
+    count = total = most = 0
+    for r0 in range(0, min(s, n), l):
+        e = -(-(n - r0) // s)
+        for t0 in range(0, e, t):
+            size = min(t0 + t + _JFA_HALO, e) - max(t0 - _JFA_HALO, 0)
+            count += 1
+            total += size
+            most = max(most, size)
+    return count, total, most
+
+
+@lru_cache(maxsize=None)
+def _jfa_plan(h: int, w: int, s: int, region: int = _JFA_REGION,
+              padded: int = _JFA_PADDED, slots: int = _JFA_SLOTS
+              ) -> Tuple[int, int, int, int]:
+    """K11's tile for the pass at stride ``s`` on an (h, w) image: (log2
+    Lr, Tr, log2 Lc, Tc), within ``region`` points, ``padded`` with the
+    ring (``k11_tiles.py`` plans other tile shapes). A cost model picks
+    it: the waves of tiles over the card's CTA slots, each the largest
+    region's points (the 8 steps' work, halo included) plus a fixed cost a
+    tile, the loads dearer where fewer than 8 column residues share a
+    32-byte sector."""
+    er, ec = -(-h // s), -(-w // s)
+    best = None
+    for lg_lc in range(min(s, w, 64).bit_length()):
+        lc = 1 << lg_lc
+        load = 1.0 + 0.25 * 8 / min(lc, 8)
+        for lg_lr in range(min(s, h, 64).bit_length()):
+            lr = 1 << lg_lr
+            for tr in sorted(set(range(1, min(er, 64) + 1)) | {er}):
+                # the widest region that fits, with and without its ring
+                rr = min(tr + 2 * _JFA_HALO, er)
+                rc = min(region // (lr * lc * rr),
+                         padded // (lr * lc * (rr + 2)) - 2)
+                tc = ec if rc >= ec else rc - 2 * _JFA_HALO
+                if tc < 1:
+                    continue
+                nr, sr, mr = _axis_tiles(h, s, lr, tr)
+                nc, sc, mc = _axis_tiles(w, s, lc, tc)
+                waves = -(-nr * nc // slots)
+                cost = max(waves * (256 + mr * lr * mc * lc * load),
+                           sr * lr * sc * lc * load / slots)
+                if best is None or cost < best[0]:
+                    best = (cost, (lg_lr, tr, lg_lc, tc))
+    return best[1]
+
+
+def _jfa_rows(h: int, w: int, steps: Sequence[int], **caps):
+    """K11's plan as the C entry takes it: (s, log2 Lr, Tr, log2 Lc, Tc) a
+    pass. A stride at or beyond both sides leaves every pixel as it is, as
+    does any stride there, so it is taken as max(h, w)."""
+    rows = []
+    for s in steps:
+        s = min(s, max(h, w))
+        rows += [s, *_jfa_plan(h, w, s, **caps)]
+    return rows
+
+
+@lru_cache(maxsize=64)
+def _jfa_plan_array(h: int, w: int, steps: Tuple[int, ...], **caps):
+    rows = _jfa_rows(h, w, steps, **caps)
+    return (ctypes.c_int * len(rows))(*rows)
+
+
+def _launch_k11(h: int, w: int, steps: Tuple[int, ...], src, out,
+                scratch=(None, None), mask=None) -> None:
+    """One K11 launch: the passes at ``steps`` from ``mask`` or the (r, c)
+    planes ``src`` into ``out``: two int32 planes, or (dist, vec);
+    ``scratch``: two (h, w, 2) float32 planes between passes."""
+    if (h - 1) ** 2 + (w - 1) ** 2 >= _INF:
+        # the JAX loop's "no candidate" distance is 1e9: past it, it takes
+        # neighbours wrapped around the image
+        raise ValueError(f"jfa: a {h}x{w} image; K11 takes images whose "
+                         "squared diagonal is below 1e9")
+    from ..kernels import _build
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    planes = out if out[0].dtype == torch.int32 else (None, None)
+    dist, vec = (None, None) if planes[0] is not None else out
+    anchor = mask if mask is not None else src[0]
+    code = _build.load().vpp_jfa(
+        ptr(mask), ptr(src[0]), ptr(src[1]), h, w,
+        _jfa_plan_array(h, w, steps), len(steps), *map(ptr, scratch),
+        ptr(planes[0]), ptr(planes[1]), ptr(dist), ptr(vec),
+        stream_handle(anchor))
+    LAUNCHES["jfa"] += 1
+    _build.check(code, "jfa")
+
+
 def jfa_pass(best_r: torch.Tensor, best_c: torch.Tensor, step: int,
-             out=None, scratch=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K11: one jump-flooding pass in one cooperative launch (the 8
-    neighbour steps, grid barriers between), into the ``out`` pair of
-    planes through the ``scratch`` pair (each allocated when not given;
-    neither may alias the input); a CPU tensor takes ``jfa_pass_plain``."""
+             out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 asked for one jump-flooding pass: one launch, no grid barrier,
+    into the ``out`` pair of planes (allocated when not given; it may not
+    alias the input). The planes hold coordinates inside the image or the
+    "none" marker, which the result holds in both planes. A CPU tensor
+    takes ``jfa_pass_plain``."""
     if best_r.device.type == "cpu":
         return jfa_pass_plain(best_r, best_c, step)
     h, w = best_r.shape
     if out is None:
         out = (torch.empty_like(best_r), torch.empty_like(best_c))
-    if scratch is None:
-        scratch = (torch.empty_like(best_r), torch.empty_like(best_c))
     best_r, best_c = best_r.contiguous(), best_c.contiguous()
-    require_cuda("jfa", best_r, best_c, *scratch, *out,
-                 dtypes=(torch.int32,) * 6)
-    if h * w >= 2 ** 31:
-        raise ValueError("jfa: more than 2^31 pixels")
-    from ..kernels import _build
-    code = _build.load().vpp_jfa_pass(
-        best_r.data_ptr(), best_c.data_ptr(), h, w, step,
-        scratch[0].data_ptr(), scratch[1].data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), stream_handle(best_r))
-    LAUNCHES["jfa"] += 1
-    _build.check(code, "jfa")
+    require_cuda("jfa", best_r, best_c, *out, dtypes=(torch.int32,) * 4)
+    _launch_k11(h, w, (int(step),), (best_r, best_c), out)
     return out
+
+
+def jfa_transform(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 on a CUDA bool mask: the whole transform in one cooperative
+    launch (the seed init, every pass of ``_steps``, a grid barrier
+    between passes, the distance and the vectors). Returns (dist, vec) as
+    ``euclidean_distance_transform``."""
+    mask = mask.contiguous()
+    require_cuda("jfa", mask, dtypes=(torch.bool,))
+    h, w = mask.shape
+    steps = _steps(h, w)
+    # vec and dist in one allocation (vec first: its int2 stores), the two
+    # float2 scratch planes in another
+    buf = torch.empty((3, h, w), dtype=torch.int32, device=mask.device)
+    vec, dist = buf[:2].view(h, w, 2), buf[2].view(torch.float32)
+    scratch = torch.empty((2, h, w, 2), dtype=torch.float32,
+                          device=mask.device)
+    _launch_k11(h, w, steps, (None, None), (dist, vec),
+                scratch=tuple(scratch), mask=mask)
+    return dist, vec
 
 
 def _jump_flood(mask: torch.Tensor, pass_fn=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Jump flooding from a bool mask: the passes through ``pass_fn``
-    (``jfa_pass`` when None: on the card its output and scratch planes
-    are allocated once and reused), then the squared distance and the
+    """Jump flooding from a bool mask: K11's one launch on a CUDA mask
+    when ``pass_fn`` is None; else the passes through ``pass_fn``
+    (``jfa_pass_plain`` when None), then the squared distance and the
     vectors from the final coordinates."""
+    if pass_fn is None and mask.device.type == "cuda":
+        return jfa_transform(mask)
     h, w = mask.shape
     dev = mask.device
     rr = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
@@ -264,17 +387,8 @@ def _jump_flood(mask: torch.Tensor, pass_fn=None
     none = torch.full((h, w), _NONE, dtype=torch.int32, device=dev)
     best_r = torch.where(mask, rr, none)
     best_c = torch.where(mask, cc, none)
-    if pass_fn is None and dev.type == "cuda":
-        planes = [torch.empty_like(best_r) for _ in range(4)]
-        out, scratch = tuple(planes[:2]), tuple(planes[2:])
-        for step in _steps(h, w):
-            nxt = jfa_pass(best_r, best_c, step, out, scratch)
-            out = (best_r, best_c)
-            best_r, best_c = nxt
-    else:
-        for step in _steps(h, w):
-            best_r, best_c = (pass_fn or jfa_pass_plain)(best_r, best_c,
-                                                         step)
+    for step in _steps(h, w):
+        best_r, best_c = (pass_fn or jfa_pass_plain)(best_r, best_c, step)
     vec = torch.stack([best_r - rr, best_c - cc], dim=-1)
     d = _dist2(best_r, best_c, rr, cc)
     return d, torch.where((best_r <= _NONE)[..., None], 0, vec)
@@ -285,7 +399,7 @@ def euclidean_distance_transform(seeds, *, device="cuda"
     """Squared-Euclidean distance transform by jump flooding. Returns (dist
     (H, W) float32 squared distance, R (H, W, 2) int32 displacement vectors
     to the closest seed; 1e9 and 0 where there is no seed at all). One K11
-    launch a pass on the card."""
+    launch a transform on the card."""
     return _jump_flood(_seed_mask(seeds, device))
 
 

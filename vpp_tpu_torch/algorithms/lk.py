@@ -5,8 +5,8 @@
   winsize² window of bilinearly sampled Scharr gradients, a min-eigenvalue
   gate, Newton iterations ``v += G⁻¹ b`` on the temporal difference in a
   search patch around the prediction, and a normalised-SAD residual. It is
-  kernel K10 (``kernels/csrc/lk_level.cu``, one launch a pyramid level) on
-  CUDA tensors and its plain version ``lk_match_batch_plain`` on CPU ones.
+  kernel K10 (``kernels/csrc/lk_level.cu``) asked for one level on CUDA
+  tensors, and its plain version ``lk_match_batch_plain`` on CPU ones.
 * ``pyrlk_match``: coarse to fine over the pyramid on a keypoint set; the
   translation doubles between levels, a level's flow is adopted only where
   its residual is below ``max_err``, ``dist`` is overwritten every level,
@@ -14,9 +14,14 @@
   image bounds.
 * ``lucas_kanade``: the same with runtime options, building the pyramids
   itself (K4 for the two frames, the 2-channel gradient pyramid on the
-  plain route).
+  plain route); each level's flow is adopted.
 * ``oriented_lk_match_batch``: LK with the window rotated into a match
   direction, plain PyTorch on ``core.interp.bilinear``.
+
+On CUDA images the whole coarse-to-fine pass of ``pyrlk_match`` and
+``lucas_kanade`` is one K10 launch (``lk_levels``: every level, the level
+glue in the kernel); its plain version is ``lk_levels_plain``, the level
+loop with its adopt rule (``_coarse_to_fine``) over ``lk_match_batch_plain``.
 
 The windows are sampled inside integer patches as the JAX package's
 ``_sample_windows_local`` samples them: the integer shift clipped to
@@ -32,6 +37,8 @@ reference's, as in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -46,7 +53,8 @@ from .scharr import scharr
 
 # np.float32(3.4e38) as a Python float (exact in float32)
 _BIG = float(np.float32(3.4e38))
-_MAX_WINDOW = 256         # K10 keeps ws² <= 8 samples a lane: winsize <= 15
+_MAX_WINSIZE = 15         # K10 keeps ws² <= 8 samples a lane
+_MAX_LEVELS = 16          # lk_level.cu's kMaxLevels
 
 
 def _window_offsets(winsize: int, device=None) -> torch.Tensor:
@@ -238,49 +246,158 @@ def _level_operand(img: Image2d, name: str, channels: int) -> torch.Tensor:
     return data.contiguous()
 
 
-def lk_level(A: Image2d, B: Image2d, Ag: Image2d, p: torch.Tensor,
-             tr_prediction: torch.Tensor, *, winsize: int, min_ev: float,
-             niterations: int, convergence_delta: float,
-             windows: bool = False):
-    """K10 on CUDA images: one launch for the level's N keypoints. Same
-    returns as ``lk_match_batch_plain``."""
-    if winsize < 1 or winsize * winsize > _MAX_WINDOW:
-        raise ValueError(f"lk_level: winsize {winsize} outside 1..15")
+@lru_cache(maxsize=64)
+def _sqrt_at_least(delta: float) -> float:
+    """The least float32 x with a correctly rounded square root at or above
+    float32(``delta``): ``sqrt(x) >= delta`` exactly where ``x >=`` it (the
+    square root is monotone). K10 holds a step's squared norm against it;
+    -inf for a delta at or below 0, NaN for a NaN delta."""
+    d = np.float32(delta)
+    if np.isnan(d):
+        return float("nan")
+    if d <= 0:
+        return float("-inf")
+    lo, hi = 0, 0x7F800000          # the bit patterns of +0 ... +inf
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.sqrt(np.array(mid, np.uint32).view(np.float32)) >= d:
+            hi = mid
+        else:
+            lo = mid + 1
+    return float(np.array(lo, np.uint32).view(np.float32))
+
+
+def _level_row(A: Image2d, B: Image2d, Ag: Image2d, s: int, winsize: int):
+    """A level's operands and its row of the C entry's level table: a, ha,
+    wa, ba, b, hb, wb, bb, g, hg, wg, bg, h, w, pad, s."""
     a = _level_operand(A, "A", 1)
     b = _level_operand(B, "B", 1)
     g = _level_operand(Ag, "Ag", 2)
-    p = p.to(torch.float32).contiguous()
-    tr = tr_prediction.to(torch.float32).contiguous()
-    require_cuda("lk_level", a, b, g, p, tr, dtypes=(torch.float32,) * 5)
     pad = _search_pad(B, winsize)
     pt, pb = winsize + 2, winsize + 2 * pad + 2
     if (pt > min(a.shape[0], a.shape[1], g.shape[0], g.shape[1])
             or pb > min(b.shape[0], b.shape[1])):
         raise ValueError(f"lk_level: the {pt}x{pt} template or {pb}x{pb} "
                          "search patch does not fit its level buffer")
-    n = p.shape[0]
-    flow = torch.empty((n, 2), dtype=torch.float32, device=p.device)
-    err = torch.empty((n,), dtype=torch.float32, device=p.device)
-    win = steps = None
+    h, w = A.shape
+    row = [a.data_ptr(), a.shape[0], a.shape[1], A.border,
+           b.data_ptr(), b.shape[0], b.shape[1], B.border,
+           g.data_ptr(), g.shape[0], g.shape[1], Ag.border, h, w, pad, s]
+    return (a, b, g), row
+
+
+def lk_levels(levels, scales, p: torch.Tensor, tr0: torch.Tensor, *,
+              winsize: int, min_ev: float, niterations: int,
+              convergence_delta: float, adopt: str, factor: float,
+              max_err: float = 0.0, windows: bool = False):
+    """K10 on CUDA images: LK over ``levels`` ((A, B, Ag) a level, coarsest
+    first; the level's keypoints are ``p / 2**scales[i]``) in one launch,
+    for the N keypoints ``p`` (finest-level positions) from the prediction
+    ``tr0``. At each level the prediction is multiplied by ``factor``, then
+    the level's flow replaces it always (``adopt="always"``) or where its
+    residual is below ``max_err`` (``adopt="below"``); ``dist`` is the
+    level's residual. Returns (tr (N, 2), dist (N,)); with ``windows``
+    also each level's flow (L, N, 2), err (L, N), windows (L, N, 4, ws²)
+    and Newton steps (L, N) int32, as ``lk_match_batch_plain`` returns
+    them."""
+    if winsize < 1 or winsize > _MAX_WINSIZE:
+        raise ValueError(f"lk_level: winsize {winsize} outside 1..15")
+    if adopt not in ("always", "below"):
+        raise ValueError(f"lk_level: adopt {adopt!r}")
+    if not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError(f"lk_level: {len(levels)} levels, 1..16 taken")
+    ops, rows = [], []
+    for (A, B, Ag), s in zip(levels, scales):
+        o, row = _level_row(A, B, Ag, int(s), winsize)
+        ops += o
+        rows += row
+    p = p.to(torch.float32).contiguous()
+    tr0 = tr0.to(torch.float32).contiguous()
+    require_cuda("lk_level", *ops, p, tr0,
+                 dtypes=(torch.float32,) * (len(ops) + 2))
+    n, nl, nw = p.shape[0], len(levels), winsize * winsize
+    dev = p.device
+    buf = torch.empty((3 * n,), dtype=torch.float32, device=dev)
+    tr, dist = buf[:2 * n].view(n, 2), buf[2 * n:]
+    per = None
     if windows:
-        win = torch.empty((n, 4, winsize * winsize), dtype=torch.float32,
-                          device=p.device)
-        steps = torch.empty((n,), dtype=torch.int32, device=p.device)
+        per = (torch.empty((nl, n, 2), dtype=torch.float32, device=dev),
+               torch.empty((nl, n), dtype=torch.float32, device=dev),
+               torch.empty((nl, n, 4, nw), dtype=torch.float32, device=dev),
+               torch.empty((nl, n), dtype=torch.int32, device=dev))
     if n:
         from ..kernels import _build
-        h, w = A.shape
-        code = _build.load().vpp_lk_level(
-            a.data_ptr(), a.shape[0], a.shape[1], A.border,
-            b.data_ptr(), b.shape[0], b.shape[1], B.border,
-            g.data_ptr(), g.shape[0], g.shape[1], Ag.border,
-            p.data_ptr(), tr.data_ptr(), n, winsize, pad, h, w,
-            float(min_ev), int(niterations), float(convergence_delta),
-            flow.data_ptr(), err.data_ptr(),
-            None if win is None else win.data_ptr(),
-            None if steps is None else steps.data_ptr(), stream_handle(p))
+        code = _build.load().vpp_lk(
+            (ctypes.c_longlong * len(rows))(*rows), nl, p.data_ptr(),
+            tr0.data_ptr(), n, winsize, float(min_ev), int(niterations),
+            _sqrt_at_least(convergence_delta), int(adopt == "below"),
+            float(max_err), float(factor), tr.data_ptr(), dist.data_ptr(),
+            *((None,) * 4 if per is None else (t.data_ptr() for t in per)),
+            stream_handle(p))
         LAUNCHES["lk_level"] += 1
         _build.check(code, "lk_level")
-    return (flow, err, win, steps) if windows else (flow, err)
+    return (tr, dist) + per if windows else (tr, dist)
+
+
+def _coarse_to_fine(levels, scales, p: torch.Tensor, tr: torch.Tensor,
+                    level_fn, *, adopt: str, factor: float,
+                    max_err: float = 0.0, windows: bool = False, **kw):
+    """The level loop of ``pyrlk_match`` and ``lucas_kanade`` over
+    ``level_fn``: at each level the prediction times ``factor``, the
+    level's flow adopted always or where its err is below ``max_err``,
+    ``dist`` the level's err. With ``windows``, also each level's result
+    stacked as ``lk_levels`` returns it."""
+    dist = torch.zeros((p.shape[0],), dtype=torch.float32, device=p.device)
+    per = []
+    for (A, B, Ag), s in zip(levels, scales):
+        tr = tr * factor
+        res = level_fn(A, B, Ag, p / float(2 ** s), tr,
+                       **(dict(windows=True) if windows else {}), **kw)
+        flow, err = res[0], res[1]
+        tr = (flow if adopt == "always"
+              else torch.where((err < max_err)[:, None], flow, tr))
+        dist = err
+        per.append(res)
+    if windows:
+        return (tr, dist) + tuple(torch.stack([r[i] for r in per])
+                                  for i in range(4))
+    return tr, dist
+
+
+def lk_levels_plain(levels, scales, p: torch.Tensor, tr0: torch.Tensor, *,
+                    winsize: int, min_ev: float, niterations: int,
+                    convergence_delta: float, adopt: str, factor: float,
+                    max_err: float = 0.0, windows: bool = False):
+    """Plain version of ``lk_levels``: the level loop over
+    ``lk_match_batch_plain``, the same returns."""
+    return _coarse_to_fine(
+        levels, scales, p.to(torch.float32), tr0.to(torch.float32),
+        lk_match_batch_plain, adopt=adopt, factor=factor, max_err=max_err,
+        windows=windows, winsize=winsize, min_ev=min_ev,
+        niterations=niterations, convergence_delta=convergence_delta)
+
+
+def lk_level(A: Image2d, B: Image2d, Ag: Image2d, p: torch.Tensor,
+             tr_prediction: torch.Tensor, *, winsize: int, min_ev: float,
+             niterations: int, convergence_delta: float,
+             windows: bool = False):
+    """K10 asked for one level on CUDA images: one launch for the level's
+    N keypoints. Same returns as ``lk_match_batch_plain``."""
+    out = lk_levels([(A, B, Ag)], [0], p, tr_prediction, winsize=winsize,
+                    min_ev=min_ev, niterations=niterations,
+                    convergence_delta=convergence_delta, adopt="always",
+                    factor=1.0, windows=windows)
+    if windows:
+        return out[0], out[1], out[4][0], out[5][0]
+    return out
+
+
+def _pyramid_lk(levels, scales, p: torch.Tensor, tr0: torch.Tensor, **kw):
+    """The coarse-to-fine pass: one K10 launch on CUDA images, the level
+    loop over ``lk_match_batch`` on CPU ones (or where there is no level)."""
+    if not levels or levels[0][0].data.device.type == "cpu":
+        return _coarse_to_fine(levels, scales, p, tr0, lk_match_batch, **kw)
+    return lk_levels(levels, scales, p, tr0, **kw)
 
 
 def lk_match_batch(A: Image2d, B: Image2d, Ag: Image2d, p: torch.Tensor,
@@ -390,20 +507,17 @@ def pyrlk_match(pyr_prev: Pyramid, pyr_grad: Pyramid, pyr_next: Pyramid,
     residual exceeds ``max_err`` (or that leaves the image) dies, the
     others move by the estimated flow. A level's flow is adopted only
     where its residual is below ``max_err``; ``dist`` is overwritten every
-    level, so the kill tests the finest processed level's residual."""
-    nscales = len(pyr_prev)
-    k = kps.capacity
+    level, so the kill tests the finest processed level's residual. On
+    CUDA pyramids the whole pass is one K10 launch."""
+    scales = list(range(len(pyr_prev) - 1, min_scale - 1, -1))
     dev = kps.position.device
-    tr = torch.zeros((k, 2), dtype=torch.float32, device=dev)
-    dist = torch.zeros((k,), dtype=torch.float32, device=dev)
-    for s in range(nscales - 1, min_scale - 1, -1):
-        tr = tr * pyr_prev.factor
-        flow, err = lk_match_batch(
-            pyr_prev[s], pyr_next[s], pyr_grad[s],
-            kps.position / float(2 ** s), tr, winsize=winsize, min_ev=min_ev,
-            niterations=niterations, convergence_delta=convergence_delta)
-        tr = torch.where((err < max_err)[:, None], flow, tr)
-        dist = err
+    tr, dist = _pyramid_lk(
+        [(pyr_prev[s], pyr_next[s], pyr_grad[s]) for s in scales], scales,
+        kps.position, torch.zeros((kps.capacity, 2), dtype=torch.float32,
+                                  device=dev),
+        adopt="below", factor=pyr_prev.factor, max_err=max_err,
+        winsize=winsize, min_ev=min_ev, niterations=niterations,
+        convergence_delta=convergence_delta)
     h, w = pyr_prev[0].shape
     final = kps.position + tr
     ok = ((dist <= max_err) & (final[:, 0] >= 0) & (final[:, 0] <= h - 1)
@@ -418,7 +532,7 @@ def lucas_kanade(i1: Image2d, i2: Image2d, keypoints: torch.Tensor, *,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Named-option LK: builds the three pyramids and returns (flow (N, 2),
     dist (N,)) for (N, 2) float keypoint positions. On the card: one K4
-    launch a frame's pyramid and one K10 launch a level."""
+    launch a frame's pyramid and one K10 launch for every level."""
     border = max(3, winsize // 2)
     p_prev = pyramid(i1, nscales, border=border)
     p_next = pyramid(i2, nscales, border=border)
@@ -427,14 +541,9 @@ def lucas_kanade(i1: Image2d, i2: Image2d, keypoints: torch.Tensor, *,
     tr = (torch.zeros((n, 2), dtype=torch.float32, device=keypoints.device)
           if prediction is None
           else prediction.to(torch.float32) / float(2 ** nscales))
-    dist = torch.zeros((n,), dtype=torch.float32, device=keypoints.device)
-    keypoints = keypoints.to(torch.float32)
-    for s in range(nscales - 1, -1, -1):
-        tr = tr * 2.0
-        flow, err = lk_match_batch(
-            p_prev[s], p_next[s], p_grad[s], keypoints / float(2 ** s), tr,
-            winsize=winsize, min_ev=min_ev, niterations=niterations,
-            convergence_delta=convergence_delta)
-        tr = flow
-        dist = err
-    return tr, dist
+    scales = list(range(nscales - 1, -1, -1))
+    return _pyramid_lk(
+        [(p_prev[s], p_next[s], p_grad[s]) for s in scales], scales,
+        keypoints.to(torch.float32), tr, adopt="always", factor=2.0,
+        winsize=winsize, min_ev=min_ev, niterations=niterations,
+        convergence_delta=convergence_delta)

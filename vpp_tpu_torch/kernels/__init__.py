@@ -28,12 +28,13 @@ show that it went through the kernels:
   ``ba_solve_tracks`` on the generic layout, and on a ring of more poses
   than K6 takes: one cooperative launch a call, every LM iteration and
   its band pose solve included)
-* ``lk_level``   — K10, ``algorithms/lk.py:lk_level`` (behind
-  ``lk_match_batch`` on CUDA images: one launch a pyramid level, so three a
-  ``lucas_kanade`` call at nscales 3)
-* ``jfa``        — K11, ``algorithms/distance_transform.py:jfa_pass`` (one
-  launch a jump-flooding pass: 11 an ``euclidean_distance_transform`` at
-  960x540)
+* ``lk_level``   — K10, ``algorithms/lk.py:lk_levels`` (one launch for a
+  whole coarse-to-fine pass: one a ``lucas_kanade``, ``pyrlk_match`` or
+  ``sparse_optical_flow`` call; ``lk_level`` and ``lk_match_batch`` on
+  CUDA images ask it for one level, one launch)
+* ``jfa``        — K11, ``algorithms/distance_transform.py:_launch_k11``
+  (one cooperative launch an ``euclidean_distance_transform``, every pass
+  included; ``jfa_pass`` asks it for one pass, one launch)
 
 K1-K6 also take S streams in one launch (the stream in the grid): a run
 of ``slam_run_streams`` counts the launches of one stream.

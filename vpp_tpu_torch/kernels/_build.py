@@ -57,9 +57,9 @@ _SIGNATURES = {
     "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
     "vpp_ba_generic_workspace": [_I, _I, _I, _I, _P],
     "vpp_ba_generic_lm": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P] * 9,
-    "vpp_lk_level": [_P] + [_I] * 3 + [_P] + [_I] * 3 + [_P] + [_I] * 3
-    + [_P, _P] + [_I] * 5 + [_F, _I, _F] + [_P] * 5,
-    "vpp_jfa_pass": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vpp_lk": [ctypes.POINTER(_L), _I, _P, _P, _I, _I, _F, _I, _F, _I, _F,
+               _F] + [_P] * 7,
+    "vpp_jfa": [_P, _P, _P, _I, _I, ctypes.POINTER(_I), _I] + [_P] * 7,
 }
 
 _lib: Optional[ctypes.CDLL] = None
