@@ -258,7 +258,12 @@ distinct 32-byte sectors of the template, gradient and search levels that
 the windows touch (the template and gradient windows, and the search
 windows at the prediction and at the final position) and 12 operations a
 window sample, with the Newton steps each keypoint took (``k10_level_
-bound``); K11's two int32 planes read and two written a pass.
+bound``). K11's bound is the transform's: the bool mask read, the
+distance and vectors written, and 44 operations a pixel a pass (each of
+the 8 steps' two products, sum and compare, and the 12 shifts of a
+displacement); the phase-12 line and the kernels line also carry the
+bound of the earlier design of one launch a pass (two int32 planes read
+and two written a pass).
 """
 
 from __future__ import annotations
@@ -3047,9 +3052,16 @@ def phase_slice_c(torch, np, dev, results, smi):
     k11_ms = cuda_ms(torch, k11_call, 50)
     k11_dev, k11_by = device_ms(torch, k11_call)
     k11_pass_dev = device_ms(torch, k11_passes)[0]
-    k11_bytes = len(steps) * 16 * h * w
-    k11_ops = len(steps) * h * w * 8 * 15    # 2 distances, a compare a step
+    # the transform from the mask: the mask read, the distance and vectors
+    # written; 44 operations a pixel a pass (a step's 2 products, sum and
+    # compare, 8 steps, and 12 shifts of a displacement: 4 steps shift one
+    # coordinate, 4 both)
+    k11_bytes = h * w * (1 + 4 + 8)
+    k11_ops = len(steps) * h * w * 44
     kb_ms, kb_by = bound_ms(k11_bytes, k11_ops)
+    # the bound of the earlier design of one launch a pass (two int32
+    # planes read and two written a pass), for the comparison with it
+    k11_pass_bound = bound_ms(len(steps) * 16 * h * w, 0)[0]
 
     def plain_passes():
         return DT._jump_flood(m, DT.jfa_pass_plain)
@@ -3066,7 +3078,8 @@ def phase_slice_c(torch, np, dev, results, smi):
             f"({len(steps)} passes)",
         max_abs_err=0.0, ms=k11_ms, device_ms=k11_dev, device_ms_by=k11_by,
         plain_ms=edt["plain_ms"], bound_ms=kb_ms, bound_by=kb_by,
-        bound_bytes=k11_bytes, library_ms=None,
+        bound_bytes=k11_bytes, bound_ops=k11_ops,
+        bound_ms_per_pass_planes=k11_pass_bound, library_ms=None,
         plain_device_ops=edt["plain_device_ops"])
     cham = {}
     for metric, method in (("d3_4", "doubling"), ("d5_7_11", "sweeps")):
@@ -3097,8 +3110,9 @@ def phase_slice_c(torch, np, dev, results, smi):
           f"bit-equal to the plain pass; K11 {edt['device_ms']:.4f} ms a "
           f"call on the device (the design of one launch a pass, recorded in "
           f"PERF.md: 0.4407 for its 11 launches), {edt['ms']:.4f} as called, "
-          f"bound "
-          f"{kb_ms:.5f} ({kb_by}); the {len(steps)} passes asked one at a "
+          f"bound {kb_ms:.5f} ({kb_by}; the bound of one launch a pass, two "
+          f"int32 planes read and two written a pass: {k11_pass_bound:.5f}); "
+          f"the {len(steps)} passes asked one at a "
           f"time {edt['passes_device_ms']:.4f}; the plain passes "
           f"{edt['plain_ms']:.2f} ms in {edt['plain_device_ops']} device "
           "operations; chamfer " + "; ".join(

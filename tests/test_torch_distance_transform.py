@@ -226,26 +226,34 @@ def _subsampled_bench_mask():
 
 K11_SHAPES = [((45, 60), 0.004, 7), ((7, 90), 0.02, 3), ((33, 17), 0.0, 1),
               ((1, 5), 0.3, 2), ((135, 240), None, 0)]
+# the tile shapes the plan keeps to, as jfa.cu's vpp_jfa_shape reports
+# them: on the H100 (kRegion, kPadded, 132 SMs x 2 CTAs), and a smaller one
+# whose tiles cut every side
+K11_TILE_SHAPES = {"plan": (2048, 4096, 264), "plan_small": (256, 512, 16)}
 
 
 @pytest.mark.parametrize(
     "shape,p,seed,tiles",
     [case + ("plan",) for case in K11_SHAPES]
+    + [case + ("plan_small",) for case in K11_SHAPES]
     + [case + ("smaller_than_halo",) for case in K11_SHAPES[:4]])
 def test_k11_tile_decomposition_bit_equal(shape, p, seed, tiles):
     """K11's tile-local pass, emulated, at every stride of ``_steps``:
     every pixel written once, bit-equal to ``jfa_pass_plain`` pass by
     pass (on the schedule's state, the seeds alone and random claims), and
     the transform bit-equal to the JAX package's. ``plan`` takes
-    the wrapper's tiles; ``smaller_than_halo`` one lattice row by two
-    lattice columns of one residue (a tile smaller than its halo)."""
+    the wrapper's tiles for the H100's tile shape, ``plan_small`` for a
+    smaller one; ``smaller_than_halo`` one lattice row by two lattice
+    columns of one residue (a tile smaller than its halo)."""
     m = (_subsampled_bench_mask() if p is None
          else _mask(shape, p, seed))
     h, w = m.shape
     rr, cc = np.mgrid[0:h, 0:w].astype(np.int32)
     br = np.where(m, rr, -(1 << 20)).astype(np.int32)
     bc = np.where(m, cc, -(1 << 20)).astype(np.int32)
-    rows = tdt._jfa_rows(h, w, tdt._steps(h, w))
+    region, padded, _ = tile_shape = K11_TILE_SHAPES.get(tiles, (0, 0, 0))
+    rows = (tdt._jfa_rows(h, w, tdt._steps(h, w), tile_shape)
+            if region else None)
     # besides the schedule's own state, each pass from the seeds alone
     # (information crosses 3 lattice points in a pass) and from random
     # claims (every pixel some coordinate in the image, a fifth none)
@@ -255,14 +263,17 @@ def test_k11_tile_decomposition_bit_equal(shape, p, seed, tiles):
     claims = tuple(np.where(gone, -(1 << 20), rng.randint(0, n, (h, w)))
                    .astype(np.int32) for n in (h, w))
     for q, step in enumerate(tdt._steps(h, w)):
-        s = rows[5 * q]
-        plan = (tuple(rows[5 * q + 1:5 * q + 5]) if tiles == "plan"
-                else (0, 1, 0, 2))
-        er, ec = -(-h // s), -(-w // s)
-        assert (min(plan[1] + 6, er) << plan[0]) * (
-            min(plan[3] + 6, ec) << plan[2]) <= tdt._JFA_REGION
-        assert ((min(plan[1] + 6, er) + 2) << plan[0]) * (
-            (min(plan[3] + 6, ec) + 2) << plan[2]) <= tdt._JFA_PADDED
+        s = min(step, max(h, w))
+        if rows is None:
+            plan = (0, 1, 0, 2)
+        else:
+            assert rows[5 * q] == s
+            plan = tuple(rows[5 * q + 1:5 * q + 5])
+            er, ec = -(-h // s), -(-w // s)
+            assert (min(plan[1] + 6, er) << plan[0]) * (
+                min(plan[3] + 6, ec) << plan[2]) <= region
+            assert ((min(plan[1] + 6, er) + 2) << plan[0]) * (
+                (min(plan[3] + 6, ec) + 2) << plan[2]) <= padded
         for state in ((br, bc), seeds, claims):
             got_r, got_c, writes = _emulate_k11_pass(*state, s, plan)
             assert (writes == 1).all()

@@ -1825,11 +1825,12 @@ def test_lk_level_kernel_edges(cuda):
     assert launch_counts()["lk_level"] == 0
 
 
-@pytest.mark.parametrize("h,w,p,seed_at", [
-    (96, 128, 0.002, None), (7, 90, 0.02, None), (540, 960, 0.001, None),
-    (33, 17, 0.0, None), (1, 300, 0.01, None), (200, 1, 0.02, None),
-    (1, 31000, 0.0, (0, 0)), (540, 960, 0.0, "tiles")])
-def test_jfa_kernel_bit_equal(cuda, h, w, p, seed_at):
+@pytest.mark.parametrize("h,w,p,seed_at,seed", [
+    (96, 128, 0.002, None, 96), (7, 90, 0.02, None, 7),
+    (540, 960, 0.001, None, 540), (33, 17, 0.0, None, 33),
+    (1, 300, 0.01, None, 301), (200, 1, 0.02, None, 201),
+    (1, 31000, 0.0, (0, 0), 31001), (540, 960, 0.0, "tiles", 1500)])
+def test_jfa_kernel_bit_equal(cuda, h, w, p, seed_at, seed):
     """K11: ``jfa_pass`` one launch at every stride of the schedule and at
     strides at or beyond a side, bit-equal to its plain version from the
     schedule's state and from random claims (every pixel some coordinate
@@ -1839,10 +1840,10 @@ def test_jfa_kernel_bit_equal(cuda, h, w, p, seed_at):
     loop's 1e9 for "none"; ``"tiles"`` puts seeds on both sides of every
     tile edge of the finest pass."""
     dt = importlib.import_module("vpp_tpu_torch.algorithms.distance_transform")
-    rng = np.random.RandomState(h + w)
+    rng = np.random.RandomState(seed)
     m = rng.rand(h, w) < p
     if seed_at == "tiles":
-        lg_lr, tr, lg_lc, tc = dt._jfa_plan(h, w, 1)
+        lg_lr, tr, lg_lc, tc = dt._jfa_plan(h, w, 1, dt._jfa_shape(cuda))
         for r in range(0, h, tr):
             m[r, ::tc] = True
             m[max(r - 1, 0), max(tc - 1, 0)::tc] = True
@@ -1882,6 +1883,66 @@ def test_jfa_kernel_bit_equal(cuda, h, w, p, seed_at):
     assert torch.equal(d.cpu(), dc) and torch.equal(v.cpu(), vc)
     fr = torch.where(br <= -(1 << 20), 0, br - rr)
     assert torch.equal(fr, v[..., 0])
+
+
+@pytest.mark.parametrize("h,w,p", [
+    (1, 1, 1.0), (1, 5, 0.3), (5, 1, 0.3), (2, 3, 0.0), (33, 17, 0.05),
+    (7, 90, 0.02), (129, 257, 0.003), (540, 960, 0.001),
+    (1080, 1920, 0.0005)])
+def test_jfa_kernel_stays_in_its_buffers(cuda, h, w, p):
+    """K11 reads and writes only inside its buffers: every buffer of the
+    transform (mask, distance, vectors, both scratch planes) and of each
+    pass asked alone (two planes in, two out) lies between two guard
+    zones of 64 Ki elements that hold a pattern; after each launch the
+    card reports no fault, every guard still holds its pattern, and the
+    result equals the plain version."""
+    dt = importlib.import_module("vpp_tpu_torch.algorithms.distance_transform")
+    guard, pattern = 1 << 16, -0x5A5A5A5B
+    held = []
+
+    def guarded(n, dtype=torch.int32):
+        buf = torch.full((2 * guard + n,), pattern, dtype=torch.int32,
+                         device=cuda)
+        held.append(buf)
+        return buf[guard:guard + n].view(dtype)
+
+    def guards_hold():
+        torch.cuda.synchronize()
+        return all(bool((b[:guard] == pattern).all())
+                   and bool((b[-guard:] == pattern).all()) for b in held)
+
+    rng = np.random.RandomState(h * w)
+    m = rng.rand(h, w) < p
+    mbuf = torch.full((2 * guard + h * w,), 0xA5, dtype=torch.uint8,
+                      device=cuda)
+    mbuf[guard:guard + h * w] = torch.from_numpy(m.ravel()).to(cuda)
+    mask = mbuf[guard:guard + h * w].view(torch.bool).view(h, w)
+    steps = dt._steps(h, w)
+    vec = guarded(2 * h * w).view(h, w, 2)
+    dist = guarded(h * w, torch.float32).view(h, w)
+    scratch = tuple(guarded(2 * h * w, torch.float32).view(h, w, 2)
+                    for _ in range(2))
+    dt._launch_k11(h, w, steps, (None, None), (dist, vec), scratch=scratch,
+                   mask=mask)
+    assert guards_hold()
+    assert bool((mbuf[:guard] == 0xA5).all())
+    assert bool((mbuf[guard + h * w:] == 0xA5).all())
+    pd, pv = dt._jump_flood(mask, dt.jfa_pass_plain)
+    assert torch.equal(dist, pd) and torch.equal(vec, pv)
+    gone = torch.from_numpy(rng.rand(h, w) < 0.2).to(cuda)
+    none = torch.full((h, w), -(1 << 20), dtype=torch.int32, device=cuda)
+    for step in steps + (max(h, w) + 3,):
+        planes = []
+        for n in (h, w):
+            plane = guarded(h * w).view(h, w)
+            plane.copy_(torch.where(gone, none, torch.from_numpy(
+                rng.randint(0, n, (h, w)).astype(np.int32)).to(cuda)))
+            planes.append(plane)
+        out = (guarded(h * w).view(h, w), guarded(h * w).view(h, w))
+        dt._launch_k11(h, w, (step,), tuple(planes), out)
+        assert guards_hold(), step
+        want = dt.jfa_pass_plain(*planes, step)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
 
 
 def test_jfa_kernel_refuses_wide_images(cuda):

@@ -231,12 +231,26 @@ def _row_ok(h: int, w: int, dr: int, dc: int, dev) -> torch.Tensor:
 
 # K11's tiles (kernels/csrc/jfa.cu): a tile is Lr row residues x Tr lattice
 # rows by Lc column residues x Tc lattice columns; its region, with a halo
-# of 3 lattice points a side, at most _JFA_REGION points, and at most
-# _JFA_PADDED with a ring of one more.
-_JFA_REGION = 2048        # jfa.cu's kRegion (256 threads x 8 points)
-_JFA_PADDED = 4096        # jfa.cu's kPadded (32 KB of float2)
+# of 3 lattice points a side, within the region and ring sizes of the
+# kernel's shape (``_jfa_shape``).
 _JFA_HALO = 3
-_JFA_SLOTS = 264          # CTAs the H100 holds at once: 132 SMs x 2
+_JFA_SHAPES: Dict[int, Tuple[int, int, int]] = {}
+
+
+def _jfa_shape(device: torch.device) -> Tuple[int, int, int]:
+    """K11's tile shape as the kernel reports it on ``device``: (region
+    points a tile at most, with its ring at most, CTAs the card holds at
+    once)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _JFA_SHAPES:
+        from ..kernels import _build
+        shape = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            _build.check(_build.load().vpp_jfa_shape(shape), "jfa shape")
+        _JFA_SHAPES[index] = tuple(shape)
+    return _JFA_SHAPES[index]
 
 
 def _axis_tiles(n: int, s: int, l: int, t: int) -> Tuple[int, int, int]:
@@ -255,16 +269,15 @@ def _axis_tiles(n: int, s: int, l: int, t: int) -> Tuple[int, int, int]:
 
 
 @lru_cache(maxsize=None)
-def _jfa_plan(h: int, w: int, s: int, region: int = _JFA_REGION,
-              padded: int = _JFA_PADDED, slots: int = _JFA_SLOTS
+def _jfa_plan(h: int, w: int, s: int, shape: Tuple[int, int, int]
               ) -> Tuple[int, int, int, int]:
     """K11's tile for the pass at stride ``s`` on an (h, w) image: (log2
-    Lr, Tr, log2 Lc, Tc), within ``region`` points, ``padded`` with the
-    ring (``k11_tiles.py`` plans other tile shapes). A cost model picks
-    it: the waves of tiles over the card's CTA slots, each the largest
-    region's points (the 8 steps' work, halo included) plus a fixed cost a
-    tile, the loads dearer where fewer than 8 column residues share a
-    32-byte sector."""
+    Lr, Tr, log2 Lc, Tc) within ``shape`` (``_jfa_shape``). A cost model
+    picks it: the waves of tiles over the card's CTA slots, each the
+    largest region's points (the 8 steps' work, halo included) plus a
+    fixed cost a tile, the loads dearer where fewer than 8 column residues
+    share a 32-byte sector."""
+    region, padded, slots = shape
     er, ec = -(-h // s), -(-w // s)
     best = None
     for lg_lc in range(min(s, w, 64).bit_length()):
@@ -290,20 +303,22 @@ def _jfa_plan(h: int, w: int, s: int, region: int = _JFA_REGION,
     return best[1]
 
 
-def _jfa_rows(h: int, w: int, steps: Sequence[int], **caps):
+def _jfa_rows(h: int, w: int, steps: Sequence[int],
+              shape: Tuple[int, int, int]):
     """K11's plan as the C entry takes it: (s, log2 Lr, Tr, log2 Lc, Tc) a
     pass. A stride at or beyond both sides leaves every pixel as it is, as
     does any stride there, so it is taken as max(h, w)."""
     rows = []
     for s in steps:
         s = min(s, max(h, w))
-        rows += [s, *_jfa_plan(h, w, s, **caps)]
+        rows += [s, *_jfa_plan(h, w, s, shape)]
     return rows
 
 
 @lru_cache(maxsize=64)
-def _jfa_plan_array(h: int, w: int, steps: Tuple[int, ...], **caps):
-    rows = _jfa_rows(h, w, steps, **caps)
+def _jfa_plan_array(h: int, w: int, steps: Tuple[int, ...],
+                    shape: Tuple[int, int, int]):
+    rows = _jfa_rows(h, w, steps, shape)
     return (ctypes.c_int * len(rows))(*rows)
 
 
@@ -327,7 +342,8 @@ def _launch_k11(h: int, w: int, steps: Tuple[int, ...], src, out,
     anchor = mask if mask is not None else src[0]
     code = _build.load().vpp_jfa(
         ptr(mask), ptr(src[0]), ptr(src[1]), h, w,
-        _jfa_plan_array(h, w, steps), len(steps), *map(ptr, scratch),
+        _jfa_plan_array(h, w, steps, _jfa_shape(anchor.device)), len(steps),
+        *map(ptr, scratch),
         ptr(planes[0]), ptr(planes[1]), ptr(dist), ptr(vec),
         stream_handle(anchor))
     LAUNCHES["jfa"] += 1

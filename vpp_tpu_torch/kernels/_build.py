@@ -60,6 +60,7 @@ _SIGNATURES = {
     "vpp_lk": [ctypes.POINTER(_L), _I, _P, _P, _I, _I, _F, _I, _F, _I, _F,
                _F] + [_P] * 7,
     "vpp_jfa": [_P, _P, _P, _I, _I, ctypes.POINTER(_I), _I] + [_P] * 7,
+    "vpp_jfa_shape": [ctypes.POINTER(_I)],
 }
 
 _lib: Optional[ctypes.CDLL] = None

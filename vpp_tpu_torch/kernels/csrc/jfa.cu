@@ -13,14 +13,15 @@
 // where they are strictly closer. XLA fused each step into a few
 // whole-image operations on the TPU.
 //
-// Bound on the H100: device-memory bytes, a pass's two int32 planes read
-// and two written (960x540: 8.3 MB, ~2.5 us at 3.35 TB/s; the planes stay
-// in the 50 MB L2 between passes). The previous design replayed the 8 steps
-// over the whole image with 7 grid barriers a pass, every step reading both
-// planes twice from L2, a launch a pass. What bounds this design is a
-// tile's latency: about one tile a CTA a pass at 960x540, its decode,
-// loads, 8 steps between block barriers and stores in sequence
-// (k11_tiles.py's stage clock, PERF.md).
+// Bound on the H100, for the transform from the mask: operations, 44 a
+// pixel a pass (8 steps of 2 products, a sum and a compare, and 12 shifts
+// of a displacement; 960x540: 2.5e8, ~3.7 us at 67 TFLOP/s), above its
+// device-memory bytes (the mask read, the distance and vectors written: 13
+// a pixel, 6.7 MB, ~2.0 us at 3.35 TB/s; the scratch planes between passes
+// stay in the 50 MB L2). One pass asked alone also reads two int32 planes
+// and writes two. What holds this design above the bound is a tile's
+// latency: one or two tiles a CTA a pass at 960x540, each its decode,
+// loads, 8 steps between block barriers and stores in sequence (PERF.md).
 //
 // Design. After the pass at stride s, pixel (r, c) depends only on the 7x7
 // lattice {(r + i s, c + j s) : i, j in [-3, 3]}: the step offsets' row
@@ -82,18 +83,11 @@ namespace {
 
 constexpr int kNone = -(1 << 20);
 constexpr float kInf = 1e9f;
-// The tile shape: threads a CTA, CTAs an SM, region points a tile. Build
-// knobs for k11_tiles.py, which times other shapes against this one (the
-// wrapper's plan must use the same region; distance_transform.py).
-#ifndef JFA_THREADS
-#define JFA_THREADS 256
-#define JFA_CTAS 2
-#endif
-#ifndef JFA_REGION
-#define JFA_REGION 2048
-#endif
-constexpr int kThreads = JFA_THREADS;
-constexpr int kPer = JFA_REGION / JFA_THREADS; // region points a thread
+// The tile shape: 256 threads a CTA, 2 CTAs an SM, 8 region points a
+// thread. vpp_jfa_shape reports it to the wrapper's plan.
+constexpr int kThreads = 256;
+constexpr int kCtasPerSm = 2;
+constexpr int kPer = 8;                        // region points a thread
 constexpr int kRegion = kThreads * kPer;       // a tile's region points
 constexpr int kPadded = 2 * kRegion;           // with its ring
 constexpr int kSmem = kPadded * 8;             // float2 each
@@ -195,21 +189,6 @@ struct Io {
   int* vec;
 };
 
-// k11_tiles.py's stage clock (built with JFA_STAMPS): thread 0 of each
-// CTA writes %globaltimer at a pass's start, at its end, after the grid
-// barrier, and in its first tile after the tile's decode and barrier,
-// after the loads, after the steps and after the stores.
-#ifdef JFA_STAMPS
-__device__ unsigned long long g_stamps[1024][kMaxPasses][8];
-__device__ __forceinline__ void stamp(int q, int i) {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  if (threadIdx.x == 0 && blockIdx.x < 1024) g_stamps[blockIdx.x][q][i] = t;
-}
-#else
-__device__ __forceinline__ void stamp(int, int) {}
-#endif
-
 // One pass over every tile this CTA owns. A scratch plane a pass reads was
 // written by the pass before, in this launch, so it is read through L2
 // (__ldcg), never from a stale L1 line.
@@ -222,8 +201,7 @@ __device__ __forceinline__ void stamp(int, int) {}
 // wrapper's bound on the image). A point outside the image has distance
 // -inf, so it never changes and stays "none".
 __device__ void run_pass(const Pass& P, int h, int w, const Io& io,
-                         float2* sm, int q) {
-  bool first_tile = true;
+                         float2* sm) {
   const float2 none = make_float2(-CUDART_INF_F, 0.f);
   int nrr, nlr, nrc, nlc;
   axis_counts(h, P.s, 1 << P.lg_lr, P.tr, nrr, nlr);
@@ -251,7 +229,6 @@ __device__ void run_pass(const Pass& P, int h, int w, const Io& io,
     const int ring = R.lr * wp;                  // the top (bottom) ring
     const int mid = (R.rr + 1) * ring;           // the bottom ring's start
     __syncthreads();                             // the last tile's reads
-    if (first_tile) stamp(q, 3);
 
     // the ring: top and bottom bands, then the side columns of the rest
     for (int i = threadIdx.x; i < 2 * ring; i += kThreads) {
@@ -329,7 +306,6 @@ __device__ void run_pass(const Pass& P, int h, int w, const Io& io,
       *reinterpret_cast<float2*>(reinterpret_cast<char*>(sm) + sidx[k]) =
           make_float2(sx[k], sy[k]);
     __syncthreads();
-    if (first_tile) stamp(q, 4);
 
     // the 8 steps in the JAX order: every point reads its neighbour, then
     // the points that took theirs write back, between two block barriers
@@ -371,7 +347,6 @@ __device__ void run_pass(const Pass& P, int h, int w, const Io& io,
       }
     }
 
-    if (first_tile) stamp(q, 5);
     // store the tile's points
     Walker wk(R.wl);
 #pragma unroll
@@ -394,12 +369,10 @@ __device__ void run_pass(const Pass& P, int h, int w, const Io& io,
         io.out_c[i] = none ? kNone : c + vy;
       }
     }
-    if (first_tile) stamp(q, 6);
-    first_tile = false;
   }
 }
 
-__global__ void __launch_bounds__(kThreads, JFA_CTAS)
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 jfa_kernel(const uint8_t* __restrict__ mask, const int* in_r,
            const int* in_c, int h, int w, Plan plan, float2* x, float2* y,
            int* out_r, int* out_c, float* dist, int* vec) {
@@ -424,20 +397,55 @@ jfa_kernel(const uint8_t* __restrict__ mask, const int* in_r,
     } else {
       io.out_d = (q & 1) ? y : x;
     }
-    stamp(q, 0);
-    run_pass(plan.p[q], h, w, io, sm, q);
-    stamp(q, 1);
+    run_pass(plan.p[q], h, w, io, sm);
     if (!last) grid.sync();
-    stamp(q, 2);
   }
 }
 
 }  // namespace
 
+// As many CTAs as the current card holds at once (asked once a device).
+static cudaError_t ctas_here(int* ctas) {
+  static int ctas_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (ctas_of[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(jfa_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jfa_kernel,
+                                                      kThreads, kSmem);
+    if (e != cudaSuccess) return e;
+    ctas_of[dev] = sms * per_sm;
+  }
+  *ctas = ctas_of[dev];
+  return ctas_of[dev] < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
+// The tile shape the plan must keep to, into shape[3]: a tile's region
+// points at most, with its ring at most, and the CTAs the current card
+// holds at once.
+extern "C" int vpp_jfa_shape(int* shape) {
+  int ctas = 0;
+  const cudaError_t e = ctas_here(&ctas);
+  if (e != cudaSuccess) return (int)e;
+  shape[0] = kRegion;
+  shape[1] = kPadded;
+  shape[2] = ctas;
+  return 0;
+}
+
 // The transform or one pass. plan: a host array of npasses rows (s, log2
 // Lr, Tr, log2 Lc, Tc), each tile's region (min(Tr + 6, ceil(h / s)) Lr
-// by min(Tc + 6, ceil(w / s)) Lc points) at most 4096 points, 8192 with a
-// ring of one more lattice point a side. Source: mask, a
+// by min(Tc + 6, ceil(w / s)) Lc points) within vpp_jfa_shape's region,
+// and within its ring size with a ring of one more lattice point a side.
+// Source: mask, a
 // contiguous (h, w) bool/uint8 seed mask, or (mask null) in_r, in_c, (h, w)
 // int32 closest-seed coordinates (kNone where none; others inside the
 // image). Destination: out_r, out_c, (h, w) int32 planes, or (out_r null)
@@ -480,27 +488,10 @@ extern "C" int vpp_jfa(const void* mask, const void* in_r, const void* in_c,
     if (tiles >= (1ll << 31)) return (int)cudaErrorInvalidValue;
     most = tiles > most ? tiles : most;
   }
-  // as many CTAs as the card holds at once (asked once per device)
-  static int ctas_of[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int ctas = 0;
+  const cudaError_t e = ctas_here(&ctas);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (ctas_of[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(jfa_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jfa_kernel,
-                                                      kThreads, kSmem);
-    if (e != cudaSuccess) return (int)e;
-    ctas_of[dev] = sms * per_sm;
-  }
-  if (ctas_of[dev] < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int G = most < ctas_of[dev] ? (int)most : ctas_of[dev];
+  const int G = most < ctas ? (int)most : ctas;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(G, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -511,17 +502,10 @@ extern "C" int vpp_jfa(const void* mask, const void* in_r, const void* in_c,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, jfa_kernel, (const uint8_t*)mask,
-                         (const int*)in_r, (const int*)in_c, h, w, P,
-                         (float2*)x, (float2*)y, (int*)out_r, (int*)out_c,
-                         (float*)dist, (int*)vec);
-  if (e != cudaSuccess) return (int)e;
+  const cudaError_t l = cudaLaunchKernelEx(
+      &cfg, jfa_kernel, (const uint8_t*)mask, (const int*)in_r,
+      (const int*)in_c, h, w, P, (float2*)x, (float2*)y, (int*)out_r,
+      (int*)out_c, (float*)dist, (int*)vec);
+  if (l != cudaSuccess) return (int)l;
   return (int)cudaGetLastError();
 }
-
-#ifdef JFA_STAMPS
-// k11_tiles.py: the stage clock of the last launch, (1024, 40, 8) uint64
-extern "C" int vpp_jfa_stamps(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
-}
-#endif
