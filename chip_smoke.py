@@ -234,7 +234,34 @@ Phases, in order; any failure exits nonzero and prints no result:
    bytes) at Q = T = 2048 bit-equal to the CPU, and
    ``pose_from_line_correspondences`` on tests/test_sfm.py:48's recipe
    within its gates and within 1e-3 of the CPU in R and t; each timed;
-13. one ``{"kernels": [...]}`` line (each batched kernel with its
+13. slice D at full width, on the card against the CPU, each part timed on
+   the device (CUDA-graph replays, else the profiler's device time, named)
+   and as called, with its device operations: (a) on one 1920x1080 frame
+   of the bench clip recipe (border 1), a 3x3 ``pixel_wise`` stencil
+   through ``relative_access``, ``block_wise`` at 16x16 (ragged at 1080),
+   ``row_wise`` and a ``window_stack`` erosion over ``C8``, each bit-equal
+   to the CPU; (b) an LIIE expression with ``if_``, ``sum_of`` and
+   ``argmax_of`` on two such frames: the image bit-equal, ``argmax_of``
+   equal, the sum within 1e-6 relative; (c) ``directional_pixel_wise
+   ("left_to_right")`` as an int32 running sum over the frame's columns,
+   bit-equal and equal to ``cumsum``, with its kernel launches a call (at
+   least one a column: the evidence that the scan stays plain); (d) a
+   64x256x256 ``image3d`` with border 1: a 6-neighbour stencil through
+   ``shifted`` and ``linear_interpolate`` at 65536 seeded points, each
+   within 1e-6 of the CPU relative to the largest magnitude; (e) phase 4's
+   tracker fed through ``foreach_videoframe`` with and without prefetch
+   over its 60 frames (12 runs alternating): final states bit-equal,
+   frames/s both ways with their medians, the pump alone (a consumer that
+   does nothing) both ways, and whether the states equal phase 4's
+   ``video_extruder_run``;
+   (f) the same run under ``Profiler`` sections (flow, lifecycle, detect,
+   each stage's functions below it) with ``sync=``: the same final state,
+   the report printed; (g) the native CPU baseline
+   (``utils/native.py``, built here with g++) at 640x480 on 60 frames,
+   three runs, beside phase 4's frames/s and live keypoints, with the
+   host's CPU model and core count (``/proc/cpuinfo``); a build that fails
+   fails the phase;
+14. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
    ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
@@ -3195,6 +3222,353 @@ def phase_slice_c(torch, np, dev, results, smi):
     return out
 
 
+SLICE_D_FRAME = (1920, 1080)     # phase 13a-c's frame (W, H)
+VOLUME = (64, 256, 256)          # phase 13d's image3d (slices, rows, cols)
+INTERP_POINTS = 65536            # phase 13d's interpolation points
+
+
+def tree_bits_equal(torch, a, b) -> bool:
+    """Two results bit for bit: tensors by their bytes (NaN included),
+    images by border and buffer, tuples, lists, dicts and dataclasses
+    field by field, anything else by ``==``."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and torch.equal(a.detach().cpu().contiguous().view(
+                    torch.uint8), b.detach().cpu().contiguous().view(
+                        torch.uint8)))
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            tree_bits_equal(torch, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(tree_bits_equal(torch, x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(
+            tree_bits_equal(torch, a[k], b[k]) for k in a)
+    return a == b
+
+
+def host_cpu():
+    """The host's CPU model and logical core count, from /proc/cpuinfo: its
+    model name with the architecture, vendor, family and model numbers (a
+    host may name its model "unknown"; an Arm host has only an implementer
+    and a part)."""
+    import platform
+    with open("/proc/cpuinfo") as f:
+        lines = f.read().splitlines()
+    fields = {}
+    for ln in lines:
+        key, _, val = ln.partition(":")
+        fields.setdefault(key.strip().lower(), val.strip())
+    cores = sum(1 for ln in lines if ln.startswith("processor"))
+    ident = ", ".join(f"{k} {fields[k]}" for k in (
+        "vendor_id", "cpu family", "model", "cpu implementer", "cpu part")
+        if k in fields)
+    if "avx512f" in fields.get("flags", "").split():
+        ident += ", avx512f"
+    name = next((fields[k] for k in ("model name", "cpu model", "hardware")
+                 if fields.get(k)), "no model name")
+    return f"{name} ({platform.machine()}; {ident})", cores
+
+
+def phase_slice_d(torch, np, dev, cfg, clip, track_fps, track_live,
+                  track_state, smi):
+    """Phase 13: slice D on the card. The loop constructs, the windows and
+    an LIIE expression on a 1080p frame, the ordered scan, a 3-D image,
+    the tracker fed through ``foreach_videoframe`` with and without
+    prefetch and under ``Profiler`` sections, and the native CPU
+    baseline. Returns the numbers it prints."""
+    import importlib
+    import os
+    from vpp_tpu_torch import ops as O
+    from vpp_tpu_torch.algorithms import video_extruder as VE
+    from vpp_tpu_torch.algorithms.pyramid import pyramid
+    from vpp_tpu_torch.core.image import Image2d
+    from vpp_tpu_torch.io import foreach_videoframe, from_numpy
+    from vpp_tpu_torch.utils import Profiler
+    from vpp_tpu_torch.utils import native as NT
+    from vpp_tpu_torch.utils.clips import make_clip
+    ND = importlib.import_module("vpp_tpu_torch.core.imagend")
+    cpu = torch.device("cpu")
+    devs = (dev, cpu)
+    out = {}
+
+    def timed(name, fn, calls=20, iters=20):
+        """Device ms (CUDA-graph replays, else the profiler), as-called ms
+        and device operations of one call of ``fn`` on the card."""
+        dms, by = device_ms(torch, fn, calls=calls)
+        ms = cuda_ms(torch, fn, iters)
+        ops, ops_by = device_ops(torch, fn)
+        out[name] = dict(device_ms=dms, device_ms_by=by, ms=ms,
+                         device_ops=ops, device_ops_by=ops_by)
+        print(f"phase 13: {name}: {dms:.4f} ms on the device ({by}), "
+              f"{ms:.4f} as called, device operations {ops} ({ops_by})")
+        return out[name]
+
+    def held(name, fn, args):
+        """``fn`` on the card and on the CPU, bit for bit."""
+        got, want = fn(*args[dev]), fn(*args[cpu])
+        check(tree_bits_equal(torch, got, want),
+              f"phase 13: {name} on the card differs from the CPU")
+        return got
+
+    # -- 13a. the loop constructs and a window on a 1080p frame -------------
+    fw, fh = SLICE_D_FRAME
+    frames = make_clip(fw, fh, 2, seed=0)
+    pair = {d: tuple(from_numpy(f, border=1, border_mode="mirror", device=d)
+                     for f in frames) for d in devs}
+    one = {d: pair[d][:1] for d in devs}
+
+    def stencil(im):
+        return O.pixel_wise(O.relative_access(im)) | (lambda n: (
+            n(-1, -1) + 2 * n(-1, 0) + n(-1, 1) + 2 * n(0, -1)
+            + 4 * n.center + 2 * n(0, 1) + n(1, -1) + 2 * n(1, 0)
+            + n(1, 1)) * 0.0625)
+
+    def blocks(im):
+        return O.block_wise((16, 16), im) | (lambda blk, valid: (
+            blk - torch.amax(torch.where(valid, blk, -1.0)),
+            torch.sum(valid, dtype=torch.int32)))
+
+    def rows(im):
+        return O.row_wise(im) | (lambda r: (r - torch.amin(r),
+                                            torch.argmax(r)))
+
+    def erosion(im):
+        return torch.amin(O.window_stack(im, O.C8), 0)
+
+    for name, fn in (("pixel_wise_3x3", stencil), ("block_wise_16", blocks),
+                     ("row_wise", rows), ("window_stack_c8_erosion",
+                                          erosion)):
+        held(name, fn, one)
+        timed(name, lambda fn=fn: fn(*one[dev]))
+    bw = blocks(*one[dev])
+    check(tuple(bw[1].shape) == (-(-fh // 16), -(-fw // 16))
+          and int(bw[1][-1, 0]) == (fh % 16) * 16,
+          "phase 13: block_wise's ragged bottom row of blocks")
+    print(f"phase 13a: pixel_wise, block_wise (ragged at {fh}), row_wise "
+          f"and the C8 erosion at {fw}x{fh} bit-equal to the CPU")
+
+    # -- 13b. an LIIE expression with a select and global reductions ---------
+    def liie(a, b):
+        P1, P2 = O.P1, O.P2
+        return (O.evaluate(O.if_(P1 > P2)(P1 - P2)(P2 * 0.5), a, b),
+                O.evaluate(O.sum_of(O.if_(P1 > P2)(P1)(P2)), a, b),
+                O.evaluate(O.argmax_of(P1 - P2), a, b))
+
+    got, want = liie(*pair[dev]), liie(*pair[cpu])
+    check(tree_bits_equal(torch, got[0], want[0]),
+          "phase 13b: the LIIE image differs from the CPU")
+    check(torch.equal(got[2].cpu(), want[2]),
+          "phase 13b: argmax_of differs from the CPU")
+    sum_rel = abs(float(got[1]) - float(want[1])) / abs(float(want[1]))
+    check(sum_rel <= 1e-6, f"phase 13b: sum_of off by {sum_rel:.3g} relative")
+    out["liie_sum_rel_err"] = sum_rel
+    timed("liie", lambda: liie(*pair[dev]))
+    print(f"phase 13b: LIIE image bit-equal, argmax_of "
+          f"{got[2].tolist()} equal, sum_of within {sum_rel:.3g} relative")
+
+    # -- 13c. the ordered scan: an int32 running sum along the columns -------
+    ints = {d: (from_numpy(np.rint(frames[0] * 9).astype(np.int32),
+                           device=d),) for d in devs}
+
+    def run_sum(carry, col):
+        s = carry + col
+        return s, s
+
+    def scan(im):
+        return O.directional_pixel_wise(
+            "left_to_right", run_sum,
+            torch.zeros(fh, dtype=torch.int32, device=im.device), im)
+
+    ref = held("directional_pixel_wise", scan, ints)
+    check(torch.equal(ref.data.cpu(), torch.cumsum(
+        ints[cpu][0].data, 1, dtype=torch.int32)),
+        "phase 13c: the running sum is not the cumulative sum")
+    sc = timed("directional_pixel_wise", lambda: scan(*ints[dev]),
+               calls=2, iters=3)
+    launches = sc["device_ops"].get("kernel", 0)
+    check(launches >= fw, f"phase 13c: the scan made {launches} kernel "
+          f"launches a call, fewer than its {fw} columns")
+    out["scan_launches_per_call"] = launches
+    print(f"phase 13c: left_to_right int32 running sum over {fw} columns "
+          f"bit-equal to the CPU; {launches} kernel launches a call "
+          f"({launches / fw:.3f} a column)")
+
+    # -- 13d. a 3-D image: 6-neighbour stencil and N-linear interpolation ----
+    vs, vr, vc = VOLUME
+    rng = np.random.RandomState(0)
+    vol = rng.rand(vs, vr, vc).astype(np.float32)
+    pts = (rng.rand(INTERP_POINTS, 3) * [vs - 1, vr - 1, vc - 1]).astype(
+        np.float32)
+    img3 = {d: (ND.from_array_nd(vol, border=1, border_mode="closest",
+                                 device=d), torch.from_numpy(pts).to(d))
+            for d in devs}
+
+    def six(im, _):
+        return (im.shifted(-1, 0, 0) + im.shifted(1, 0, 0)
+                + im.shifted(0, -1, 0) + im.shifted(0, 1, 0)
+                + im.shifted(0, 0, -1) + im.shifted(0, 0, 1)
+                - 6 * im.interior)
+
+    def interp(im, p):
+        return im.linear_interpolate(p)
+
+    for name, fn in (("image3d_six_neighbours", six),
+                     ("image3d_linear_interpolate", interp)):
+        got, want = fn(*img3[dev]), fn(*img3[cpu])
+        err = rel_err(got.cpu().double(), want.double())
+        check(tuple(got.shape) == tuple(want.shape) and err <= 1e-6,
+              f"phase 13d: {name} off by {err:.3g} relative to the largest "
+              "magnitude")
+        timed(name, lambda fn=fn: fn(*img3[dev]))
+        out[name]["rel_err"] = err
+        out[name]["bit_equal"] = tree_bits_equal(torch, got, want)
+    print(f"phase 13d: {vs}x{vr}x{vc} image3d (border 1): the stencil and "
+          f"{INTERP_POINTS} interpolations within 1e-6 of the CPU "
+          f"(bit-equal: {out['image3d_six_neighbours']['bit_equal']}, "
+          f"{out['image3d_linear_interpolate']['bit_equal']})")
+
+    # -- 13e. the tracker fed through foreach_videoframe ---------------------
+    b = max(3, cfg.winsize)
+
+    def track(source, prefetch, prof=None):
+        st = {"state": VE.video_extruder_init(cfg, device=dev), "prev": None}
+
+        def step(frame):
+            if prof is not None:
+                prof.begin("frame")
+                prof.begin("flow")
+                prof.begin("pyramid")
+            pyr = pyramid(Image2d(frame, border=0), cfg.nscales, border=b)
+            if prof is not None:
+                prof.end("pyramid", sync=pyr)
+                prof.end("flow")
+            prev = pyr if st["prev"] is None else st["prev"]
+            st["state"] = VE.video_extruder_update(st["state"], prev[0],
+                                                   pyr[0], cfg, prev, pyr)
+            st["prev"] = pyr
+            if prof is not None:
+                prof.end("frame", sync=st["state"])
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = foreach_videoframe(source, step, prefetch=prefetch, device=dev)
+        torch.cuda.synchronize()
+        return st["state"], n / (time.perf_counter() - t0), n
+
+    def pump(prefetch):
+        """Frames/s of the frame pump alone (a consumer that does
+        nothing), to the card and synchronised."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = foreach_videoframe(clip, lambda f: None, prefetch=prefetch,
+                               device=dev)
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    track(clip[:6], True)                                   # warm-up
+    order = (True, False, False, True) * 3
+    runs = {True: [], False: []}
+    for prefetch in order:
+        state, fps, n = track(clip, prefetch)
+        check(n == len(clip), f"phase 13e: {n} frames of {len(clip)}")
+        runs[prefetch].append((state, fps))
+    pumps = {True: [], False: []}
+    for prefetch in order:
+        pumps[prefetch].append(pump(prefetch))
+    base = runs[True][0][0]
+    for prefetch, rr in runs.items():
+        for state, _ in rr:
+            check(tree_bits_equal(torch, state, base),
+                  "phase 13e: the tracker's final state differs between "
+                  "runs with and without prefetch")
+    same_as_run = tree_bits_equal(torch, base, track_state)
+    med = {}
+    for key, vals in (("foreach_fps_prefetch", [f for _, f in runs[True]]),
+                      ("foreach_fps_no_prefetch",
+                       [f for _, f in runs[False]]),
+                      ("pump_fps_prefetch", pumps[True]),
+                      ("pump_fps_no_prefetch", pumps[False])):
+        out[key] = vals
+        med[key] = float(np.median(vals))
+        out[key + "_median"] = med[key]
+    out["foreach_state_equals_phase4"] = same_as_run
+    print(f"phase 13e: the tracker through foreach_videoframe, {len(clip)} "
+          f"frames of {W}x{H}, {len(order)} runs alternating: prefetch "
+          + ", ".join(f"{f:.2f}" for f in out["foreach_fps_prefetch"])
+          + f" frames/s (median {med['foreach_fps_prefetch']:.2f}), without "
+          + ", ".join(f"{f:.2f}" for f in out["foreach_fps_no_prefetch"])
+          + f" (median {med['foreach_fps_no_prefetch']:.2f}); the pump "
+          f"alone {med['pump_fps_prefetch']:.2f} and "
+          f"{med['pump_fps_no_prefetch']:.2f} frames/s (medians); final "
+          f"states bit-equal; equal to phase 4's video_extruder_run: "
+          f"{same_as_run}")
+
+    # -- 13f. the same run under Profiler sections ---------------------------
+    prof = Profiler()
+    stages = {"semi_dense_streams": "flow", "kp_move_all": "lifecycle",
+              "_merge_collided": "lifecycle", "cull_scores": "lifecycle",
+              "kp_kill_where": "lifecycle", "_occupancy_mask": "detect",
+              "score_image": "detect", "block_topk": "detect",
+              "kp_add": "detect"}
+    saved = {name: getattr(VE, name) for name in stages}
+
+    def sectioned(stage, name, fn):
+        def call(*args, **kw):
+            with prof(stage):
+                prof.begin(name)
+                res = fn(*args, **kw)
+                prof.end(name, sync=res)
+            return res
+        return call
+
+    try:
+        for name, stage in stages.items():
+            setattr(VE, name, sectioned(stage, name, saved[name]))
+        state, fps, n = track(clip, True, prof)
+    finally:
+        for name, fn in saved.items():
+            setattr(VE, name, fn)
+    check(tree_bits_equal(torch, state, base),
+          "phase 13f: the profiled run's final state differs")
+    frame = prof.root.children["frame"]
+    check(frame.ncalls == n and set(frame.children) == {
+        "flow", "lifecycle", "detect"}, "phase 13f: the profiler's tree")
+    out["profiled_fps"] = fps
+    out["profile_ms_per_frame"] = {
+        k: v.duration * 1e3 / n for k, v in frame.children.items()}
+    out["profile_ms_per_frame"]["frame"] = frame.duration * 1e3 / n
+    out["profile_report"] = prof.report()
+    print(f"phase 13f: the tracker under Profiler sections with sync= "
+          f"({fps:.2f} frames/s, the same final state):")
+    print(out["profile_report"])
+
+    # -- 13g. the native CPU baseline beside the port's tracker --------------
+    t0 = time.perf_counter()
+    lib = NT.build_native()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, "phase 13g: the native CPU baseline did not build")
+    stats = [NT.cpu_tracker_fps_stats(W, H, TRACK_FRAMES) for _ in range(3)]
+    check(all(f is not None for f, _ in stats),
+          "phase 13g: cpu_tracker_fps_stats returned None")
+    model, cores = host_cpu()
+    out["cpu_baseline"] = dict(
+        fps=[f for f, _ in stats], live=stats[0][1], build_s=build_s,
+        cpu=model, logical_cores=cores, os_cpu_count=os.cpu_count(),
+        port_fps=track_fps, port_live=track_live, card=smi)
+    fps_cpu = sorted(f for f, _ in stats)[1]
+    print(f"phase 13g: cpu_baseline {W}x{H}, {TRACK_FRAMES} frames: "
+          + ", ".join(f"{f:.2f}" for f, _ in stats)
+          + f" frames/s ({stats[0][1]} live keypoints; built in "
+          f"{build_s:.1f} s) on {model}, {cores} logical cores; the port's "
+          f"tracker (phase 4) {track_fps:.2f} frames/s, {track_live} live "
+          f"keypoints, on {smi}: {track_fps / fps_cpu:.2f}x the median")
+    return out
+
+
 def sfm_scene(np, m: int = 8, seed: int = 0):
     """tests/test_sfm.py:39's 3-D segments in front of the camera."""
     rng = np.random.RandomState(seed)
@@ -4408,7 +4782,12 @@ def main() -> int:
     slice_c = phase_slice_c(torch, np, dev, results, smi)
     print(f"phase 12: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 13. results ----------------------------------------------------------
+    # -- 13. slice D: ops, N-d images, video I/O, profiler, CPU baseline ------
+    t0 = time.perf_counter()
+    slice_d = phase_slice_d(torch, np, dev, cfg, clip, fps, live, state, smi)
+    print(f"phase 13: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -4446,7 +4825,7 @@ def main() -> int:
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
                       "streams": streams, "ba_generic": gen,
                       "hough_lines": hough_lines, "slice_c": slice_c,
-                      "card": smi}))
+                      "slice_d": slice_d, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -118,3 +118,33 @@ def test_epipolar_line():
     assert t.dtype == torch.float32
     np.testing.assert_allclose(t.numpy(), j, rtol=1e-5,
                                atol=1e-6 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_epipoles_at_the_float64_null_vector(seed):
+    """The port's epipoles lie within 1e-3 px of the float64 null vectors of
+    F^T F and F F^T (the float32 eigenvector of a float32 F^T F does not:
+    its error depends on the host's LAPACK path and reached 215 px)."""
+    P1, P2 = _projections(seed)
+    F = np.asarray(jgeo.fundamental_from_projections(P1, P2))
+    for name, M in (("epipole_right", F), ("epipole_left", F.T)):
+        M = M.astype(np.float64)
+        e = np.linalg.eigh(M.T @ M)[1][:, 0]
+        t = getattr(tgeo, name)(torch.from_numpy(F))
+        assert t.dtype == torch.float32 and tuple(t.shape) == (2,)
+        np.testing.assert_allclose(t.numpy(), e[:2] / e[2], rtol=0,
+                                   atol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flow_epipole_at_the_float64_null_vector(seed):
+    """The epipolar flow branch's own epipole (the null vector of F F^T,
+    ``flow._epipole_and_scales``) within 1e-3 px of the float64 one."""
+    tfl = importlib.import_module("vpp_tpu_torch.algorithms.flow")
+    P1, P2 = _projections(seed)
+    F = np.asarray(jgeo.fundamental_from_projections(P1, P2))
+    M = F.astype(np.float64)
+    e = np.linalg.eigh(M @ M.T)[1][:, 0]
+    t, _ = tfl._epipole_and_scales(torch.from_numpy(F), 3)
+    assert t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), e[:2] / e[2], rtol=0, atol=1e-3)

@@ -1,5 +1,6 @@
 """The port's package namespaces mirror vpp_tpu's: every name in the JAX
-``core``, ``algorithms``, ``slam``, ``draw`` and ``ops`` ``__all__``
+``core``, ``algorithms``, ``slam``, ``draw``, ``ops``, ``io`` and
+``utils`` ``__all__``
 resolves in the port with the same kind (class, function, module or
 value), except the names that ``ROADMAP.md`` queue 1 still lists as not
 ported. That list may only shrink: a listed name that resolves fails the
@@ -14,20 +15,13 @@ import pytest
 
 # name -> the queue-1 item of ROADMAP.md that ports it
 NOT_YET_PORTED = {
-    "core": {n: "3 core/imagend.py" for n in (
-        "BoxNd", "ImageNd", "from_array_nd", "image3d", "imagend",
-        "make_box3d", "make_boxNd")},
+    "core": {},
     "algorithms": {},
     "slam": {},
     "draw": {},
-    "ops": {n: "3 ops/" for n in (
-        "pixel_wise", "relative_access", "RelAccess", "Coords", "block_wise",
-        "row_wise", "C4", "C5", "C8", "C9", "window_stack", "window_foreach",
-        "scan_left_to_right", "scan_right_to_left", "scan_top_to_bottom",
-        "scan_bottom_to_top", "directional_pixel_wise", "sum_", "min_",
-        "max_", "avg", "argmin", "argmax", "P1", "P2", "P3", "P4", "V", "if_",
-        "evaluate", "sum_of", "min_of", "max_of", "avg_of", "argmin_of",
-        "argmax_of")},
+    "ops": {},
+    "io": {},
+    "utils": {},
 }
 
 
@@ -39,7 +33,8 @@ def _kind(obj) -> str:
     return "function" if callable(obj) else "value"
 
 
-@pytest.mark.parametrize("sub", ["core", "algorithms", "slam", "draw", "ops"])
+@pytest.mark.parametrize("sub", ["core", "algorithms", "slam", "draw", "ops",
+                                 "io", "utils"])
 def test_jax_names_resolve_in_the_port(sub):
     jax_pkg = importlib.import_module(f"vpp_tpu.{sub}")
     port = importlib.import_module(f"vpp_tpu_torch.{sub}")
@@ -69,6 +64,8 @@ def test_bare_import_reaches_the_subpackages():
         "assert inspect.isfunction(v.algorithms.pyramid)\n"
         "assert inspect.isfunction(v.draw.draw_line)\n"
         "assert inspect.isfunction(v.ops.hsv_to_rgb)\n"
+        "assert inspect.isfunction(v.ops.pixel_wise)\n"
+        "assert inspect.isfunction(v.io.foreach_videoframe)\n"
         "assert inspect.isfunction(v.algorithms.lucas_kanade)\n"
         "assert inspect.isfunction(v.slam.vanishing_points)\n"
         "import importlib\n"

@@ -23,7 +23,8 @@ __all__ = ["core", "resolve_device"]
 
 # The heavier subpackages are imported on attribute access, as in
 # ``vpp_tpu``, so that a bare ``import vpp_tpu_torch`` stays light.
-_SUBPACKAGES = ("algorithms", "slam", "draw", "ops", "kernels", "utils")
+_SUBPACKAGES = ("algorithms", "slam", "draw", "ops", "kernels", "utils",
+                "io")
 
 
 def __getattr__(name):

@@ -589,14 +589,15 @@ def _epipolar_search(a2: torch.Tensor, p_int: torch.Tensor,
 
 def _epipole_and_scales(F0: torch.Tensor, nscales: int):
     """The epipole (e[:2] / e[2], e the least eigenvector of F Fᵀ; e[2]
-    below 1e-12 left undivided) and each level's F: the next coarser
-    level's times [[2, 2, 1], [2, 2, 1], [1, 1, 0.5]]. With e[2] near 0
-    (lateral motion) float32 rounding moves the epipole a lot, as in the
-    JAX package."""
-    _, vecs = torch.linalg.eigh(F0 @ F0.T)
+    below 1e-12 left undivided; float32) and each level's F: the next
+    coarser level's times [[2, 2, 1], [2, 2, 1], [1, 1, 0.5]]. F Fᵀ and e
+    are taken in float64: the float32 null vector of F Fᵀ is only as good
+    as its eigenvalue gap."""
+    F64 = F0.double()
+    _, vecs = torch.linalg.eigh(F64 @ F64.T)
     e = vecs[:, 0]
-    epipole = e[:2] / torch.where(e[2].abs() < 1e-12, torch.ones_like(e[2]),
-                                  e[2])
+    epipole = (e[:2] / torch.where(e[2].abs() < 1e-12, torch.ones_like(e[2]),
+                                   e[2])).float()
     down = device_constant((2.0, 2.0, 1.0, 2.0, 2.0, 1.0, 1.0, 1.0, 0.5),
                            torch.float32, F0.device).view(3, 3)
     fs = [F0] * nscales

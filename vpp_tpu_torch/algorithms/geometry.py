@@ -3,7 +3,8 @@
 module computes it with ``jnp.linalg``.
 
 * ``epipole_left`` / ``epipole_right``: the null vectors of F F^T / F^T F
-  by symmetric eigen-decomposition (smallest eigenvalue), dehomogenised.
+  by symmetric eigen-decomposition (smallest eigenvalue) in float64,
+  dehomogenised to float32.
 * ``epipolar_line``: l' = F x for homogenised points.
 * ``triangulate``: two-view DLT solved by a batched SVD of the four DLT
   rows; ``triangulate_ls``: the same rows as 3x3 normal equations, the SLAM
@@ -36,10 +37,12 @@ def _dehomogenise(v: torch.Tensor, eps: float, fill: float) -> torch.Tensor:
 def epipole_right(F) -> torch.Tensor:
     """Right epipole e with F e = 0: the null vector of F^T F (eigenvector
     of the smallest eigenvalue), dehomogenised (a last coordinate below
-    1e-12 divides by 1)."""
-    F = _f32(F)
+    1e-12 divides by 1), returned in float32. F^T F and its eigenvectors
+    are taken in float64: the float32 null vector of F^T F is only as good
+    as its eigenvalue gap."""
+    F = _f32(F).double()
     _, vecs = torch.linalg.eigh(F.mT @ F)    # ascending eigenvalues
-    return _dehomogenise(vecs[..., :, 0], 1e-12, 1.0)
+    return _dehomogenise(vecs[..., :, 0], 1e-12, 1.0).float()
 
 
 def epipole_left(F) -> torch.Tensor:

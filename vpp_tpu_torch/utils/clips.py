@@ -9,17 +9,14 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..io.video import synthetic_clip
+
 
 def make_clip(w: int, h: int, nframes: int, seed: int = 0) -> np.ndarray:
     """(nframes, h, w) float32: a 3x3 box-smoothed random texture that
-    translates by one pixel per frame along both axes."""
-    rng = np.random.RandomState(seed)
-    th, tw = h + nframes + 8, w + nframes + 8
-    base = rng.randint(0, 256, (th, tw)).astype(np.float32)
-    p = np.pad(base, 1, mode="edge")
-    sm = sum(p[r:r + th, c:c + tw] for r in range(3) for c in range(3)) / 9.0
-    frames = np.stack([sm[t:t + h, t:t + w] for t in range(nframes)])
-    return frames.astype(np.float32)
+    translates by one pixel per frame along both axes
+    (``io.synthetic_clip`` at speed 1)."""
+    return synthetic_clip(w, h, nframes, seed=seed)
 
 
 def synthetic_line_clip(w: int, h: int, nframes: int) -> np.ndarray:
