@@ -261,7 +261,34 @@ Phases, in order; any failure exits nonzero and prints no result:
    three runs, beside phase 4's frames/s and live keypoints, with the
    host's CPU model and core count (``/proc/cpuinfo``); a build that fails
    fails the phase;
-14. one ``{"kernels": [...]}`` line (each batched kernel with its
+14. slice E, the sharded paths, on the card: (a) K1 at a column slice
+   (``LevelGeometry.col0``, ``w_total``) on the extended slices of ranks 0,
+   1 and 3 of 4 at every level (the pyramids by K4), against its plain
+   version by phase 3's K1 rule, and rank 1's three levels timed; (b) the
+   sharded tracker (``sharded_video_extruder_update``) at 640x480 with the
+   bench config (halo 80) on 20 frames of the bench clip, at world size 1
+   over NCCL and over 4 gloo ranks on this one card (shard width 160, the
+   ring route; ranks started with ``spawn``, a ``file://`` store, rank 0
+   loading the kernels before a barrier), the margin keypoints (40 px
+   left, 80 right) killed each step in both runs: every step's ``age``,
+   ``position`` and ``traj_len`` bit-equal to ``video_extruder_update`` on
+   the card and ``sharded_semi_dense_flow`` on the final keypoints to
+   ``semi_dense_optical_flow``, with ms/frame as called beside the
+   single-device tracker's, K1/K2/K4 launches a frame per rank, the host
+   time in collectives and each collective's backend and route (gloo's
+   point-to-point staged through pinned host buffers); (c) the same at
+   240x480 (shard width 60 < the halo: the all-gather route) on 6 frames;
+   (d) over the 4 gloo ranks, ``ba_solve_tracks`` at phase 10's problem
+   (the plain stages on the card, declared) against the plain LM loop on
+   the card (tests/test_slam_scale.py:114-119's tolerances: costs rtol
+   1e-3 atol 1e-5, poses and landmarks atol 1e-3) with its distance to
+   K9's call, the flat ``ba_solve`` at tests/test_slam.py:82's problem,
+   and ``slam_run(mesh=)`` at phase 6's configuration on 40 frames against
+   phase 6's single-device card run within phase 6's gates (the same
+   keyframes, landmarks within 5%, ATE within 0.02), each timed; every
+   gloo rank's results the same bits as rank 0's. Four ranks on one card
+   say nothing of scaling across cards;
+15. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
    ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
@@ -3569,6 +3596,559 @@ def phase_slice_d(torch, np, dev, cfg, clip, track_fps, track_live,
     return out
 
 
+SHARD_RANKS = 4          # phase 14's gloo ranks on the one card
+SHARD_FRAMES = 20        # phase 14b's frames of the bench clip
+SHARD_MARGIN = (40, 80)  # px killed at the left and right edges each step
+SHARD_AG_W = 240         # phase 14c: shard width 60 < the halo of 80
+SHARD_AG_FRAMES = 6
+SHARD_TIMEOUT = 300.0
+
+
+def bench_tracker_config():
+    """``bench.py``'s tracker configuration (phase 4's)."""
+    from vpp_tpu_torch.algorithms.video_extruder import VideoExtruderConfig
+    return VideoExtruderConfig(capacity=4096, detect_k=2048, nscales=3,
+                               winsize=9, keypoint_spacing=10,
+                               detector_period=5, detector_th=10)
+
+
+def kill_margin(torch, st, w: int):
+    """The keypoints within ``SHARD_MARGIN`` of the left and right edges
+    killed: the sharded flow may differ at the right margin (the global
+    grid chain's overhang column, ``parallel/sharded_tracker.py``), as
+    tests/test_sharded_tracker.py:173-218 kills them."""
+    from vpp_tpu_torch.core.keypoints import kp_kill_where
+    col = st.keypoints.position[:, 1]
+    bad = st.keypoints.alive & ((col < SHARD_MARGIN[0])
+                                | (col >= w - SHARD_MARGIN[1]))
+    return dataclasses.replace(st, keypoints=kp_kill_where(st.keypoints,
+                                                           bad))
+
+
+def tracker_steps(torch, clip, cfg, step):
+    """``step(state, f1, f2)`` over a (T, H, W) clip on the card from an
+    empty state, the margin killed after each step (phase 14b): the
+    states' (age, position, traj_len) each step on the card, the final
+    state, and ms a frame as called (host clock to a synchronise, after
+    a two-frame warm-up)."""
+    from vpp_tpu_torch.algorithms.video_extruder import video_extruder_init
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.parallel.mesh import comm_stats, reset_comm_stats
+    w = clip.shape[-1]
+    st = video_extruder_init(cfg, device="cuda")
+    for i in range(2):
+        st = step(st, clip[max(i - 1, 0)], clip[i])
+    torch.cuda.synchronize()
+    st = video_extruder_init(cfg, device="cuda")
+    steps = []
+    reset_launch_counts()
+    reset_comm_stats()
+    t0 = time.perf_counter()
+    for i in range(len(clip)):
+        st = kill_margin(torch, step(st, clip[max(i - 1, 0)], clip[i]), w)
+        steps.append((st.keypoints.age, st.keypoints.position, st.traj_len))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(clip)
+    return dict(steps=[tuple(t.cpu() for t in s) for s in steps], state=st,
+                ms=ms, launches=launch_counts(), comm=comm_stats())
+
+
+def flow_arrays(m, d, ok, alive):
+    """The flow's outputs at the live slots, on the CPU."""
+    return (m[alive].cpu(), d[alive].cpu(), ok[alive].cpu())
+
+
+def shard_tracker_job(torch, np, mesh, clip, flow_kw):
+    """Phase 14b/c on one rank: the sharded tracker over the clip, then the
+    sharded flow on the final keypoints between the last two frames."""
+    from vpp_tpu_torch.parallel.mesh import collective_routes
+    from vpp_tpu_torch.parallel.sharded_tracker import (
+        sharded_semi_dense_flow, sharded_video_extruder_update)
+    cfg = bench_tracker_config()
+    out = tracker_steps(torch, clip, cfg, lambda st, f1, f2: (
+        sharded_video_extruder_update(mesh, st, f1, f2, cfg)))
+    kps = out.pop("state").keypoints
+    out["flow"] = flow_arrays(*sharded_semi_dense_flow(
+        mesh, kps.position, kps.alive, clip[-2], clip[-1], **flow_kw),
+        kps.alive)
+    out["routes"] = collective_routes(mesh, "sp", torch.device("cuda"))
+    return out
+
+
+def flat82_problem(torch, np, BA, dev):
+    """tests/test_slam.py:82's flat problem (tests/test_slam.py:25's
+    recipe, m 4, n 64, the landmarks perturbed by 0.05 from seed 2) made
+    through the port's ``se3_exp`` and ``project``."""
+    from vpp_tpu_torch.slam.se3 import se3_exp
+    m, n = 4, 64
+    rng = np.random.RandomState(0)
+    xi = np.zeros((m, 6), np.float32)
+    xi[:, 3] = -0.3 * np.arange(m)
+    xi[:, :3] = rng.randn(m, 3) * 0.02
+    poses = se3_exp(torch.from_numpy(xi).to(dev))
+    lms = torch.from_numpy((rng.rand(n, 3) * [2.0, 1.5, 1.0]
+                            + [-1.0, -0.75, 3.0]).astype(np.float32)).to(dev)
+    op = torch.arange(m, dtype=torch.int32, device=dev).repeat_interleave(n)
+    ol = torch.arange(n, dtype=torch.int32, device=dev).repeat(m)
+    intr = torch.tensor([300.0, 300.0, 160.0, 120.0], device=dev)
+    noise = np.random.RandomState(2).randn(n, 3) * 0.05
+    return BA.BAProblem(
+        poses=poses, landmarks=lms + torch.from_numpy(
+            noise.astype(np.float32)).to(dev),
+        obs_pose=op, obs_lm=ol,
+        obs_uv=BA.project(poses[op.long()], lms[ol.long()], intr),
+        obs_valid=torch.ones(m * n, dtype=torch.bool, device=dev),
+        intrinsics=intr,
+        fixed_poses=torch.tensor([True, True, False, False], device=dev))
+
+
+def timed(torch, fn):
+    """(fn's result, ms as called: host clock to a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def shard_ba_job(torch, np, world, slam_path):
+    """Phase 14d on one rank: ``ba_solve_tracks`` at phase 10's problem
+    over "lm", the flat ``ba_solve`` over "obs", and ``slam_run`` at phase
+    6's configuration with its window BA over "lm" (each run twice, the
+    second timed)."""
+    from vpp_tpu_torch.parallel import make_mesh
+    from vpp_tpu_torch.parallel.mesh import comm_stats, reset_comm_stats
+    from vpp_tpu_torch.slam import ba as BA
+    from vpp_tpu_torch.slam import pipeline as SP
+    dev = torch.device("cuda")
+    lm = make_mesh((world,), ("lm",))
+    obs = make_mesh((world,), ("obs",))
+    out = {}
+    p, _ = generic_problem(torch, np, BA, dev, GEN_N, GEN_M, GEN_K, 2)
+    call = lambda: BA.ba_solve_tracks(  # noqa: E731
+        p, iters=GEN_ITERS, lam0=GEN_LAM0, huber=GEN_HUBER, mesh=lm,
+        axis="lm")
+    call()
+    reset_comm_stats()
+    (s, c), out["tracks_ms"] = timed(torch, call)
+    out["tracks_comm"] = comm_stats()
+    out["tracks"] = (s.poses.cpu(), s.landmarks.cpu(), c.cpu())
+    flat = flat82_problem(torch, np, BA, dev)
+    call = lambda: BA.ba_solve(flat, iters=4, mesh=obs,  # noqa: E731
+                               axis="obs")
+    call()
+    (s, c), out["flat_ms"] = timed(torch, call)
+    out["flat"] = (s.poses.cpu(), s.landmarks.cpu(), c.cpu())
+    frames = torch.from_numpy(np.load(slam_path)).to(dev)
+    cfg = slam_config()
+    boot = torch.from_numpy(np.load(slam_path.replace(".npy", "_boot.npy")))
+    run = lambda: SP.slam_run(frames, cfg, bootstrap_poses=boot,  # noqa
+                              mesh=lm, axis="lm", device="cuda")
+    run()
+    reset_comm_stats()
+    st, out["slam_ms"] = timed(torch, run)
+    out["slam_comm"] = comm_stats()
+    est, fids = SP.keyframe_trajectory(st)
+    out["slam"] = dict(n_keyframes=st.n_keyframes, est=est.cpu(),
+                       fids=fids.cpu(), kf_pose=st.kf_pose.cpu(),
+                       lm_X=st.lm_X.cpu(), lm_valid=st.lm_valid.cpu(),
+                       position=st.tracker.keypoints.position.cpu())
+    return out
+
+
+def shard_rank(rank: int, world: int, backend: str, store: str,
+               out_dir: str, jobs) -> None:
+    """One rank of phase 14 (a process of its own, started with ``spawn``;
+    it imports only ``vpp_tpu_torch``): join the group, load the kernels
+    (rank 0 first, the others after a barrier), run ``jobs`` and save what
+    they return, or the traceback."""
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from vpp_tpu_torch.kernels import _build
+    from vpp_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)     # four ranks share the host's cores
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        **({"device_id": torch.device("cuda", 0)} if backend == "nccl"
+           else {}))
+    if rank == 0:
+        _build.load()
+    dist.barrier()
+    _build.load()
+    res = {}
+    try:
+        mesh = make_mesh((world,), ("sp",))
+        for job, arg in jobs:
+            if job == "ba":
+                res[job] = shard_ba_job(torch, np, world, arg)
+                continue
+            clip = torch.from_numpy(np.load(arg)).to("cuda")
+            res[job] = shard_tracker_job(torch, np, mesh, clip,
+                                         SHARD_FLOW_KW)
+    except BaseException:  # reported by the parent, which fails the phase
+        res = {"error": traceback.format_exc()}
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    if "error" not in res:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, jobs, tmp: str):
+    """Run ``shard_rank`` on ``world`` new processes; every rank's results,
+    in rank order. Any rank that fails, hangs past ``SHARD_TIMEOUT`` or
+    saves an error fails the phase; every process is ended."""
+    import multiprocessing as mp
+    import os
+    import torch
+    ctx = mp.get_context("spawn")
+    out_dir = os.path.join(tmp, f"{backend}{world}")
+    os.makedirs(out_dir)
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, world, backend,
+                               os.path.join(out_dir, "store"), out_dir,
+                               jobs)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    res = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"rank{r}.pt")
+        check(os.path.exists(path), f"phase 14: {backend} rank {r} of "
+              f"{world} left no result (exit code {p.exitcode})")
+        got = torch.load(path, weights_only=False)
+        check("error" not in got, f"phase 14: {backend} rank {r} of {world} "
+              f"failed:\n{got.get('error')}")
+        res.append(got)
+    return res
+
+
+SHARD_FLOW_KW = dict(winsize=9, nscales=3, patchsize=5, search_niters=5)
+
+
+TIMING_KEYS = ("ms", "comm", "tracks_ms", "tracks_comm", "flat_ms",
+               "slam_ms", "slam_comm")
+
+
+def untimed(res):
+    """A rank's results without its clocks (each rank times its own)."""
+    if isinstance(res, dict):
+        return {k: untimed(v) for k, v in res.items()
+                if k not in TIMING_KEYS}
+    return res
+
+
+def equal_bits(torch, a, b) -> bool:
+    """Tensors of one dtype and shape with the same bits (floats compared
+    as integers of their width, so NaN and -0.0 count)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(as_int[a.element_size()])
+        b = b.contiguous().view(as_int[b.element_size()])
+    return torch.equal(a, b)
+
+
+def same_tree(torch, a, b) -> bool:
+    """Every tensor, number and string of two nested results equal, bit for
+    bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(torch, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return equal_bits(torch, a, b)
+    return a == b
+
+
+def k1_slice_check(torch, FL, ST, clip_dev, cfg):
+    """Phase 14a: K1 on the extended slices of phase 14b's ranks 0, 1 and
+    3 (col0 negative, positive and past the image's middle; w_total the
+    whole level's width) on frames 0 and 2 of the bench clip, every level,
+    against its plain version by phase 3's K1 rule: on the level buffers
+    rounded to integers the whole level bit-equal; on the float buffers
+    the match's flow equal wherever best and second-best differ by more
+    than 1e-5 relative, dist and volume within rtol 1e-5, and the passes
+    exactly equal on the kernel's own match. The predictions are the
+    plain levels' upsampled flows. Returns (cases, max relative dist
+    error, device ms of rank 1's three levels a frame)."""
+    cases, err = [], 0.0
+    frames = torch.stack([clip_dev[0], clip_dev[2]])
+    times = None
+    for rank in (0, 1, SHARD_RANKS - 1):
+        geo = ST._flow_geometry(SHARD_RANKS, rank, (H, W), cfg.winsize,
+                                cfg.nscales, cfg.propagation, cfg.patchsize,
+                                5, 1)
+        fill = [ST._edge_fill(frames, geo.halo, geo.border, left)
+                for left in (True, False)]
+        ext = torch.cat([fill[0], frames, fill[1]], dim=-1)[
+            ..., geo.g0:geo.g0 + geo.wl + 2 * geo.halo].contiguous()
+        pyr = ST._ext_pyramid(ext, geo.border, geo.ext_shapes)
+        for kind in ("integer", "float"):
+            prev, ops = None, []
+            for s in range(cfg.nscales - 1, -1, -1):
+                g = geo.levels[s]
+                a1, a2 = pyr[s][0], pyr[s][1]
+                if kind == "integer":
+                    a1, a2 = a1.round(), a2.round()
+                if prev is None:
+                    pred = torch.zeros((g.gh, g.gw, 2), dtype=torch.int32,
+                                       device=a1.device)
+                else:
+                    ir = (torch.arange(g.gh, device=a1.device) // 2).clamp(
+                        0, prev.shape[0] - 1)
+                    ic = torch.arange(g.gw, device=a1.device) // 2
+                    pred = 2 * prev[ir[:, None], ic[None, :]]
+                fp, dp, vp = FL.flow_match_plain(a1, a2, pred, g)
+                lf, ld = FL.flow_level(a1, a2, pred, g, cfg.propagation)
+                if kind == "integer":
+                    pf, pd = fp, dp
+                    for _ in range(cfg.propagation):
+                        pf, pd = FL.flow_propagate_plain(pf, pd, pred, vp,
+                                                         g.R)
+                    check(equal_bits(torch, lf, pf)
+                          and equal_bits(torch, ld, pd),
+                          f"phase 14a: K1 at col0 {g.col0} (level {s}, rank "
+                          f"{rank}) differs from its plain version on "
+                          "integer-valued buffers")
+                else:
+                    fk, dk, vk = FL.flow_match(a1, a2, pred, g)
+                    two = torch.topk(vp, 2, dim=0, largest=False).values
+                    clear = (two[1] - two[0]) > 1e-5 * two[0].abs().clamp(
+                        min=1e-30)
+                    rel = float(((dk - dp).abs() / dp.abs().clamp(
+                        min=1e-30))[clear].max())
+                    err = max(err, rel)
+                    check(bool(((fk == fp).all(-1) | ~clear).all())
+                          and rel <= 1e-5
+                          and torch.allclose(vk, vp, rtol=1e-5, atol=0),
+                          f"phase 14a: K1 at col0 {g.col0} (level {s}, rank "
+                          f"{rank}) off its plain version beyond the near-"
+                          "tie rule")
+                    sf, sd = FL.flow_propagate(fk, dk, pred, vk, g.R,
+                                               iters=cfg.propagation)
+                    check(equal_bits(torch, lf, sf)
+                          and equal_bits(torch, ld, sd),
+                          "phase 14a: K1's passes at a column slice differ")
+                    ops.append((a1, a2, pred, g))
+                cases.append((rank, s, g.col0, g.w, g.w_total,
+                              int((ld >= 1e29).sum())))
+                prev = fp
+            if rank == 1 and kind == "float":
+                times = device_ms(torch, lambda: [
+                    FL.flow_level(*o, cfg.propagation) for o in ops])[0]
+    return cases, err, times
+
+
+def phase_sharded(torch, np, dev, clip, cfg, slam_frames, gt_poses, ga,
+                  ga_ate, results, smi):
+    """Phase 14, slice E on the card: (a) K1 at a column slice; (b) the
+    sharded tracker at full width on ``SHARD_FRAMES`` frames of the bench
+    clip, world size 1 over NCCL and ``SHARD_RANKS`` gloo ranks on this
+    one card (shard width 160, the ring route), against
+    ``video_extruder_update`` on the card, then ``sharded_semi_dense_flow``
+    on the final keypoints; (c) the all-gather route at width
+    ``SHARD_AG_W``; (d) the sharded BA and ``slam_run(mesh=)`` over the
+    gloo ranks. Every rank's results the same bits."""
+    import tempfile
+    from vpp_tpu_torch.algorithms import flow as FL
+    from vpp_tpu_torch.algorithms.flow import semi_dense_optical_flow
+    from vpp_tpu_torch.algorithms.video_extruder import video_extruder_update
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.parallel import sharded_tracker as ST
+    from vpp_tpu_torch.slam import ba as BA
+    from vpp_tpu_torch.slam import pipeline as SP
+    from vpp_tpu_torch.utils.clips import make_clip
+    out = {}
+    b = max(3, cfg.winsize)
+    clip_dev = torch.from_numpy(clip[:SHARD_FRAMES]).to(dev)
+
+    # (a) K1 at a column slice
+    cases, err, k1_ms = k1_slice_check(torch, FL, ST, clip_dev, cfg)
+    out["k1_slice"] = dict(cases=cases, max_rel_dist_err=err,
+                           device_ms_rank1=k1_ms)
+    print(f"phase 14a: K1 at a column slice on the extended slices of "
+          f"ranks 0, 1, {SHARD_RANKS - 1} of {SHARD_RANKS} (col0, w, "
+          f"w_total, rejected cells: "
+          + ", ".join(f"{c[2]}/{c[3]}/{c[4]}/{c[5]}" for c in cases)
+          + f"): bit-equal on integer buffers, near-tie rule on float ones "
+          f"(dist within {err:.3g}); rank 1's three levels "
+          f"{k1_ms:.4f} ms a frame on the device (card {smi})")
+
+    def single(st, f1, f2):
+        return video_extruder_update(
+            st, from_array(f1, border=b, border_mode="mirror"),
+            from_array(f2, border=b, border_mode="mirror"), cfg)
+
+    def reference(frames):
+        ref = tracker_steps(torch, frames, cfg, single)
+        kps = ref.pop("state").keypoints
+        ref["flow"] = flow_arrays(*semi_dense_optical_flow(
+            kps.position, kps.alive,
+            from_array(frames[-2], border=b, border_mode="mirror"),
+            from_array(frames[-1], border=b, border_mode="mirror"),
+            **SHARD_FLOW_KW), kps.alive)
+        return ref
+
+    ag_clip = make_clip(SHARD_AG_W, H, SHARD_AG_FRAMES, seed=0)
+    refs = {"tracker": reference(clip_dev),
+            "allgather": reference(torch.from_numpy(ag_clip).to(dev))}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, arr in (("tracker", clip[:SHARD_FRAMES]),
+                          ("allgather", ag_clip),
+                          ("slam", slam_frames[:SLAM_CPU_FRAMES])):
+            paths[name] = f"{tmp}/{name}.npy"
+            np.save(paths[name], arr)
+        np.save(f"{tmp}/slam_boot.npy",
+                gt_poses[[0, slam_config().keyframe_period]])
+        t0 = time.perf_counter()
+        one = spawn_ranks(1, "nccl", [("tracker", paths["tracker"])], tmp)
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        four = spawn_ranks(SHARD_RANKS, "gloo",
+                           [("tracker", paths["tracker"]),
+                            ("allgather", paths["allgather"]),
+                            ("ba", paths["slam"])], tmp)
+        t_four = time.perf_counter() - t0
+    for r, res in enumerate(four[1:], 1):
+        check(same_tree(torch, untimed(four[0]), untimed(res)),
+              f"phase 14: gloo rank {r}'s results differ from rank 0's")
+
+    # (b), (c): the sharded tracker against the single-device one
+    for label, group, job in (("NCCL x 1", one, "tracker"),
+                              (f"gloo x {SHARD_RANKS}", four, "tracker"),
+                              (f"gloo x {SHARD_RANKS}, all-gather route "
+                               f"({SHARD_AG_W}x{H})", four, "allgather")):
+        got, ref = group[0][job], refs[job]
+        n_frames = len(ref["steps"])
+        for i, (g, w) in enumerate(zip(got["steps"], ref["steps"])):
+            check(all(equal_bits(torch, x, y) for x, y in zip(g, w)),
+                  f"phase 14 ({label}): step {i}'s age, position or "
+                  "traj_len differ from video_extruder_update on the card")
+        check(all(equal_bits(torch, x, y)
+                  for x, y in zip(got["flow"], ref["flow"])),
+              f"phase 14 ({label}): sharded_semi_dense_flow differs from "
+              "semi_dense_optical_flow on the live keypoints")
+        live = int(got["steps"][-1][0].gt(0).sum())
+        check(live > 100, f"phase 14 ({label}): only {live} live keypoints")
+        per = {k: got["launches"][k] / n_frames
+               for k in ("flow_level", "fast9", "pyramid_decim")}
+        comm_s = sum(v["seconds"] for v in got["comm"].values())
+        out[f"{job} {label}"] = dict(
+            ms_per_frame=got["ms"], single_ms_per_frame=ref["ms"],
+            launches_per_frame_per_rank=per, comm=got["comm"],
+            comm_ms_per_frame=comm_s * 1e3 / n_frames,
+            routes=got["routes"], live=live)
+        print(f"phase 14{'c' if job == 'allgather' else 'b'}: sharded "
+              f"tracker, {label}, {n_frames} frames at "
+              f"{clip_dev.shape[-1] if job == 'tracker' else SHARD_AG_W}"
+              f"x{H}: every step's age, position and traj_len bit-equal to "
+              f"video_extruder_update on the card, the flow on {live} live "
+              f"keypoints bit-equal; {got['ms']:.3f} ms/frame as called "
+              f"(single-device {ref['ms']:.3f}); per rank a frame K1 "
+              f"{per['flow_level']:.2f}, K2 {per['fast9']:.2f}, K4 "
+              f"{per['pyramid_decim']:.2f} launches; collectives "
+              f"{comm_s * 1e3 / n_frames:.3f} ms a frame of host time "
+              f"({got['comm']}); routes {got['routes']}; "
+              + ("one rank" if group is one else
+                 f"{SHARD_RANKS} ranks share one card, so this says nothing "
+                 "of scaling across cards")
+              + f" (card {smi})")
+    check(one[0]["tracker"]["launches"]["flow_level"]
+          == 2 * cfg.nscales * SHARD_FRAMES,
+          "phase 14b: K1 is not two launches a level and frame")
+    check(one[0]["tracker"]["launches"]["pyramid_decim"] == SHARD_FRAMES,
+          "phase 14b: K4 is not one launch a frame (both slices)")
+    k2 = SHARD_FRAMES + -(-SHARD_FRAMES // cfg.detector_period)
+    check(one[0]["tracker"]["launches"]["fast9"] == k2,
+          f"phase 14b: K2 is not {k2} launches (a cull a frame, a score "
+          "image a detection)")
+
+    # (d) the sharded BA and slam_run(mesh=) against the card alone
+    ba = four[0]["ba"]
+    p, _ = generic_problem(torch, np, BA, dev, GEN_N, GEN_M, GEN_K, 2)
+    plain_call = lambda: BA._lm_tracks(  # noqa: E731
+        p, GEN_ITERS, GEN_HUBER, GEN_LAM0, False, "lu", kernel=False)
+    plain_call()
+    plain, plain_ms = timed(torch, plain_call)
+    k9 = BA.ba_solve_tracks(p, iters=GEN_ITERS, lam0=GEN_LAM0,
+                            huber=GEN_HUBER)
+
+    def ba_dist(got, want):
+        (poses, lms, costs), (s, c) = got, want
+        return (float((poses - s.poses.cpu()).abs().max()),
+                float((lms - s.landmarks.cpu()).abs().max()),
+                float(((costs - c.cpu()).abs()
+                       - 1e-3 * c.cpu().abs()).max()))
+
+    d_plain = ba_dist(ba["tracks"], plain)
+    d_k9 = ba_dist(ba["tracks"], k9)
+    check(d_plain[0] <= 1e-3 and d_plain[1] <= 1e-3 and d_plain[2] <= 1e-5,
+          f"phase 14d: sharded ba_solve_tracks off the plain loop on the "
+          f"card: {d_plain}")
+    flat = flat82_problem(torch, np, BA, dev)
+    fs = BA.ba_solve(flat, iters=4)
+    d_flat = ba_dist(ba["flat"], fs)
+    check(d_flat[0] <= 1e-3 and d_flat[1] <= 1e-3 and d_flat[2] <= 1e-5,
+          f"phase 14d: sharded flat ba_solve off the card's: {d_flat}")
+    sl = ba["slam"]
+    s_ate = float(SP.ate_rmse(sl["est"], torch.from_numpy(
+        gt_poses[sl["fids"].numpy()])))
+    s_lm, g_lm = int(sl["lm_valid"].sum()), int(ga.lm_valid.sum())
+    check(sl["n_keyframes"] == ga.n_keyframes,
+          "phase 14d: slam_run(mesh=) made another keyframe count")
+    check(abs(s_lm - g_lm) <= 0.05 * max(g_lm, 1),
+          "phase 14d: slam_run(mesh=) landmarks differ by more than 5%")
+    check(abs(s_ate - ga_ate) <= 0.02,
+          "phase 14d: slam_run(mesh=) ATE differs by more than 0.02")
+    out["ba"] = dict(tracks_ms=ba["tracks_ms"], plain_ms=plain_ms,
+                     tracks_comm=ba["tracks_comm"], dist_plain=d_plain,
+                     dist_k9=d_k9, flat_ms=ba["flat_ms"], dist_flat=d_flat,
+                     slam_ms=ba["slam_ms"], slam_comm=ba["slam_comm"],
+                     slam_ate=s_ate, slam_landmarks=s_lm)
+    print(f"phase 14d: gloo x {SHARD_RANKS} on the card: ba_solve_tracks at "
+          f"N {GEN_N} x M {GEN_M} x K {GEN_K}, {GEN_ITERS} iterations "
+          f"(plain stages on the card, declared) within {d_plain} (poses, "
+          f"landmarks, costs over 1e-3 relative) of the plain loop on the "
+          f"card, {d_k9} of K9's call; {ba['tracks_ms']:.2f} ms a call as "
+          f"called (the plain loop alone on the card {plain_ms:.2f}), "
+          "collectives "
+          f"{ba['tracks_comm']}; flat ba_solve (tests/test_slam.py:82) "
+          f"within {d_flat}, {ba['flat_ms']:.2f} ms; slam_run(mesh=) on "
+          f"{SLAM_CPU_FRAMES} frames: {sl['n_keyframes']} keyframes, {s_lm} "
+          f"landmarks, ATE {s_ate:.4f} (single-device on the card: "
+          f"{ga.n_keyframes}, {g_lm}, {ga_ate:.4f}), {ba['slam_ms']:.1f} ms "
+          f"as called, collectives {ba['slam_comm']} (card {smi})")
+    out["spawn_s"] = dict(nccl1=t_one, gloo4=t_four)
+    print(f"phase 14: world size 1 over NCCL took {t_one:.1f} s, "
+          f"{SHARD_RANKS} gloo ranks {t_four:.1f} s, process start "
+          "included")
+
+    # the kernels line's sharded launches a frame per rank
+    per = out[f"tracker gloo x {SHARD_RANKS}"]["launches_per_frame_per_rank"]
+    results["flow_level"]["sharded_launches_per_frame_per_rank"] = \
+        per["flow_level"]
+    results["flow_level"]["device_ms_col0_rank1"] = k1_ms
+    results["fast9"]["sharded_launches_per_frame_per_rank"] = per["fast9"]
+    results["pyramid_decim"]["sharded_launches_per_frame_per_rank"] = \
+        per["pyramid_decim"]
+    return out
+
+
+
 def sfm_scene(np, m: int = 8, seed: int = 0):
     """tests/test_sfm.py:39's 3-D segments in front of the camera."""
     rng = np.random.RandomState(seed)
@@ -4787,7 +5367,13 @@ def main() -> int:
     slice_d = phase_slice_d(torch, np, dev, cfg, clip, fps, live, state, smi)
     print(f"phase 13: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 14. results ----------------------------------------------------------
+    # -- 14. slice E: the sharded tracker and BA ------------------------------
+    t0 = time.perf_counter()
+    sharded = phase_sharded(torch, np, dev, clip, cfg, slam_frames, gt_poses,
+                            ga, g_ate, results, smi)
+    print(f"phase 14: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -4825,7 +5411,8 @@ def main() -> int:
                       "smoother_ms": {b: v[0] for b, v in smooth.items()},
                       "streams": streams, "ba_generic": gen,
                       "hough_lines": hough_lines, "slice_c": slice_c,
-                      "slice_d": slice_d, "card": smi}))
+                      "slice_d": slice_d, "sharded": sharded,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -35,7 +35,11 @@ the plain CPU path on the card's pyramids, a ``pyrlk_match`` call one K10
 launch; K11 (jump flooding) asked for one pass one launch, bit-equal to
 its plain version pass by pass (and from random claims), the whole
 transform one launch bit-equal to the plain passes and to the CPU, and
-an image whose squared diagonal reaches 1e9 refused.
+an image whose squared diagonal reaches 1e9 refused; K1 at a column slice
+(``col0`` left of, at and inside the image, ``w_total`` wider than the
+slice) by the K1 rule above; and the sharded tracker at world size 1 over
+NCCL bit-equal to ``video_extruder_update`` away from the margins, with
+its launches a frame.
 """
 
 import dataclasses
@@ -1958,3 +1962,99 @@ def test_jfa_kernel_refuses_wide_images(cuda):
     with pytest.raises(ValueError, match="1e9"):
         dt.jfa_pass(planes[0], planes[1], 1)
     assert launch_counts()["jfa"] == 0
+
+
+# (case of K1_CASES, col0, w_total): a column slice's origin left of the
+# image (the sharded tracker's rank 0), at it, and inside it, each of a
+# level wider than the slice
+K1_SLICES = [(1, -40, 640), (1, 0, 321), (2, 60, 900), (4, -13, 130)]
+
+
+@pytest.mark.parametrize("kind", ["float", "integer"])
+@pytest.mark.parametrize("slice_", K1_SLICES)
+def test_flow_level_kernel_column_slice(cuda, slice_, kind):
+    """K1's rejection against a column slice of a wider level (``col0``,
+    ``w_total``, the sharded tracker's levels): the match and the whole
+    level against the plain version by the K1 rule (bit-equal on
+    integer-valued buffers, the near-tie rule on float ones), and some
+    cells really rejected at the slice's own edges or kept past them."""
+    case, col0, w_total = slice_
+    t1, t2, tp, g0 = _k1_inputs(K1_CASES[case], kind, cuda)
+    g = dataclasses.replace(g0, col0=col0, w_total=w_total)
+    assert g.domain == (g.h, g.w, g.patch, col0, w_total)
+    fk, dk, vk = flow.flow_match(t1, t2, tp, g)
+    fp, dp, vp = flow.flow_match_plain(t1, t2, tp, g)
+    _, d0, _ = flow.flow_match_plain(t1, t2, tp, g0)
+    assert not torch.equal(dp >= 1e29, d0 >= 1e29)     # the slice matters
+    if kind == "float":
+        two = torch.topk(vp, 2, dim=0, largest=False).values
+        clear = (two[1] - two[0]) > 1e-5 * two[0].abs().clamp(min=1e-30)
+        assert bool(((fk == fp).all(-1) | ~clear).all())
+        assert torch.allclose(dk[clear], dp[clear], rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(fk, fp) and torch.equal(dk, dp)
+    lf, ld = flow.flow_level(t1, t2, tp, g, 2)
+    pf, pd, _ = _level_by_plain(t1, t2, tp, g, 2)
+    if kind == "integer":
+        assert torch.equal(lf, pf) and torch.equal(ld, pd)
+    else:
+        sf, sd = flow.flow_propagate(fk, dk, tp, vk, g.R, iters=2)
+        assert torch.equal(lf, sf) and torch.equal(ld, sd)
+
+
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    """A process group of this process alone over NCCL."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_update_one_rank_nccl(cuda, nccl_one_rank):
+    """The sharded tracker at world size 1 over NCCL (the ring degenerates
+    to the edge fills; the flow, cull and candidate collectives go through
+    NCCL) against ``video_extruder_update`` on the card: ``age``,
+    ``position`` and ``traj_len`` the same bits with the margin killed
+    between steps, and one K4, six K1 and one K2 launch a frame plus a
+    score image a detection."""
+    from vpp_tpu_torch.core.keypoints import kp_kill_where
+    from vpp_tpu_torch.parallel import make_mesh
+    from vpp_tpu_torch.parallel.sharded_tracker import (
+        sharded_video_extruder_update)
+    ve = importlib.import_module("vpp_tpu_torch.algorithms.video_extruder")
+    w, h = 240, 96
+    cfg = VideoExtruderConfig(capacity=512, detect_k=256, nscales=3,
+                              winsize=9, keypoint_spacing=10,
+                              detector_period=2, detector_th=10)
+    b = max(3, cfg.winsize)
+    mesh = make_mesh((1,), ("sp",))
+    clip = torch.from_numpy(make_clip(w, h, 5, seed=2)).to(cuda)
+
+    def kill_margin(st):
+        col = st.keypoints.position[:, 1]
+        bad = st.keypoints.alive & ((col < 40) | (col >= w - 80))
+        return dataclasses.replace(
+            st, keypoints=kp_kill_where(st.keypoints, bad))
+
+    ref = ve.video_extruder_init(cfg, device="cuda")
+    sh = ve.video_extruder_init(cfg, device="cuda")
+    for i in range(len(clip)):
+        f1, f2 = clip[max(i - 1, 0)], clip[i]
+        ref = ve.video_extruder_update(
+            ref, from_array(f1, border=b, border_mode="mirror"),
+            from_array(f2, border=b, border_mode="mirror"), cfg)
+        reset_launch_counts()
+        sh = sharded_video_extruder_update(mesh, sh, f1, f2, cfg)
+        counts = launch_counts()
+        assert counts["pyramid_decim"] == 1
+        assert counts["flow_level"] == 2 * cfg.nscales
+        assert counts["fast9"] == 1 + (sh.frame_id % 2 == 0)
+        for name in ("age", "position"):
+            assert torch.equal(getattr(ref.keypoints, name),
+                               getattr(sh.keypoints, name)), (i, name)
+        assert torch.equal(ref.traj_len, sh.traj_len)
+        ref, sh = kill_margin(ref), kill_margin(sh)
+    assert int(sh.keypoints.alive.sum()) > 50

@@ -1,6 +1,6 @@
 """The port's package namespaces mirror vpp_tpu's: every name in the JAX
-``core``, ``algorithms``, ``slam``, ``draw``, ``ops``, ``io`` and
-``utils`` ``__all__``
+``core``, ``algorithms``, ``slam``, ``draw``, ``ops``, ``io``, ``utils``
+and ``parallel`` ``__all__``
 resolves in the port with the same kind (class, function, module or
 value), except the names that ``ROADMAP.md`` queue 1 still lists as not
 ported. That list may only shrink: a listed name that resolves fails the
@@ -22,6 +22,7 @@ NOT_YET_PORTED = {
     "ops": {},
     "io": {},
     "utils": {},
+    "parallel": {},
 }
 
 
@@ -34,7 +35,7 @@ def _kind(obj) -> str:
 
 
 @pytest.mark.parametrize("sub", ["core", "algorithms", "slam", "draw", "ops",
-                                 "io", "utils"])
+                                 "io", "utils", "parallel"])
 def test_jax_names_resolve_in_the_port(sub):
     jax_pkg = importlib.import_module(f"vpp_tpu.{sub}")
     port = importlib.import_module(f"vpp_tpu_torch.{sub}")
@@ -68,6 +69,7 @@ def test_bare_import_reaches_the_subpackages():
         "assert inspect.isfunction(v.io.foreach_videoframe)\n"
         "assert inspect.isfunction(v.algorithms.lucas_kanade)\n"
         "assert inspect.isfunction(v.slam.vanishing_points)\n"
+        "assert inspect.isfunction(v.parallel.make_mesh)\n"
         "import importlib\n"
         "m = importlib.import_module('vpp_tpu_torch.algorithms.pyramid')\n"
         "assert inspect.ismodule(m) and m.pyramid is v.algorithms.pyramid\n"

@@ -221,10 +221,35 @@ def test_ba_solve_tracks_zero_iterations(ring):
                                       np.asarray(getattr(js, name)))
 
 
+class _StubAxis:
+    """An axis of ``n`` ranks seen from rank 0, for the sharded routes'
+    guards, which raise before any collective."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, name):
+        return self.n
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_ba_solve_tracks_guards():
+    """The landmark-sharded route (``mesh``): on a one-rank mesh the same
+    bits as without one; N not divisible by the axis size raises. The
+    ring layout needs K == M."""
+    from vpp_tpu_torch.parallel import make_mesh
     _, tp = _both(_synthetic_tracks())
-    with pytest.raises(NotImplementedError):
-        tba.ba_solve_tracks(tp, iters=1, mesh=object())
+    one = make_mesh((1,), ("lm",))
+    for ring in (True, False):
+        s0, c0 = tba.ba_solve_tracks(tp, iters=2, ring_layout=ring)
+        s1, c1 = tba.ba_solve_tracks(tp, iters=2, mesh=one, axis="lm",
+                                     ring_layout=ring)
+        assert torch.equal(c0, c1) and torch.equal(s0.poses, s1.poses)
+        assert torch.equal(s0.landmarks, s1.landmarks)
+    with pytest.raises(ValueError, match="shard"):
+        tba.ba_solve_tracks(tp, iters=1, mesh=_StubAxis(7))
     with pytest.raises(ValueError):
         tba.ba_solve_tracks(tp._replace(obs_pose=tp.obs_pose[:, :3],
                                         obs_uv=tp.obs_uv[:, :3],

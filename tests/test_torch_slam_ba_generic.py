@@ -156,7 +156,10 @@ def test_flat_residuals_and_jacobians():
 
 def test_flat_guards():
     """The JAX package's 4 GB guard on the coupling tensor (checked before
-    anything is allocated), ``mesh`` refused, and ``iters=0``."""
+    anything is allocated), the observation-sharded route (``mesh``: on a
+    one-rank mesh the same bits as without one, O not divisible by the
+    axis size refused), and ``iters=0``."""
+    from vpp_tpu_torch.parallel import make_mesh
     m, n = 128, 2_000_000
     p = tba.BAProblem(
         poses=torch.eye(4).expand(m, 4, 4), landmarks=torch.zeros(n, 3),
@@ -168,8 +171,20 @@ def test_flat_guards():
     with pytest.raises(ValueError, match="coupling"):
         tba.ba_solve(p, iters=1)
     tp = _port(tba.BAProblem, _flat())
-    with pytest.raises(NotImplementedError):
-        tba.ba_solve(tp, iters=1, mesh=object())
+    s0, c0 = tba.ba_solve(tp, iters=2)
+    s1, c1 = tba.ba_solve(tp, iters=2, mesh=make_mesh((1,), ("obs",)))
+    assert torch.equal(c0, c1) and torch.equal(s0.poses, s1.poses)
+    assert torch.equal(s0.landmarks, s1.landmarks)
+
+    class Axis:           # an axis of O + 1 ranks, seen from rank 0
+        def size(self, name):
+            return tp.obs_pose.shape[0] + 1
+
+        def get_local_rank(self, name):
+            return 0
+
+    with pytest.raises(ValueError, match="shard"):
+        tba.ba_solve(tp, iters=1, mesh=Axis())
     s, c = tba.ba_solve(tp, iters=0)
     assert tuple(c.shape) == (0,) and s is tp
 

@@ -8,9 +8,9 @@ scene and config.
 * ``slam_run``: the same keyframe count, ATE < 0.065 on both (the JAX
   test's bound) and within 0.01 of each other.
 * ``slam_run`` with ``ba_iters=0``: the same keyframes, poses atol 1e-4.
-* ``convert`` round trip of a JAX state after two keyframes, and the one
-  configuration the port does not run yet (``mesh=``) raises
-  ``NotImplementedError``.
+* ``convert`` round trip of a JAX state after two keyframes; every JAX
+  configuration runs, ``mesh=`` too (on a one-rank mesh the same state as
+  without one; tests/test_torch_slam_sharded.py holds it on 4 ranks).
 """
 
 import dataclasses
@@ -204,8 +204,10 @@ def test_slam_run_without_ba_iterations():
 
 
 def test_unported_configurations_raise():
-    """Only the landmark-sharded BA (``mesh=``) raises; the JAX defaults
-    (``enable_recovery=True``) and ``subpix_refine=True`` run."""
+    """No configuration raises: the JAX defaults (``enable_recovery=
+    True``), ``subpix_refine=True`` and the landmark-sharded BA (``mesh=``,
+    here a one-rank mesh: the same state as without one) run."""
+    from vpp_tpu_torch.parallel import make_mesh
     _, frames = _scene(n_frames=2)
     _, tcfg = _cfgs()
     tp.slam_init(tp.SlamConfig(intrinsics=INTR), device="cpu")
@@ -213,8 +215,12 @@ def test_unported_configurations_raise():
         st = tp.slam_run(frames, dataclasses.replace(tcfg, **kw),
                          device="cpu")
         assert st.tracker.frame_id == 1
-    with pytest.raises(NotImplementedError):
-        tp.slam_run(frames, tcfg, mesh=object(), device="cpu")
+    plain = tp.slam_run(frames, tcfg, device="cpu")
+    meshed = tp.slam_run(frames, tcfg, mesh=make_mesh((1,), ("lm",)),
+                         axis="lm", device="cpu")
+    assert meshed.n_keyframes == plain.n_keyframes
+    for name in ("kf_pose", "lm_X", "lm_valid", "obs_valid"):
+        assert torch.equal(getattr(meshed, name), getattr(plain, name))
     assert tp.SlamConfig(intrinsics=INTR) == tp.SlamConfig(
         **{k: v for k, v in dataclasses.asdict(jp.SlamConfig(
             intrinsics=INTR)).items() if k != "tracker"},

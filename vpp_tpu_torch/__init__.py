@@ -24,7 +24,7 @@ __all__ = ["core", "resolve_device"]
 # The heavier subpackages are imported on attribute access, as in
 # ``vpp_tpu``, so that a bare ``import vpp_tpu_torch`` stays light.
 _SUBPACKAGES = ("algorithms", "slam", "draw", "ops", "kernels", "utils",
-                "io")
+                "io", "parallel")
 
 
 def __getattr__(name):

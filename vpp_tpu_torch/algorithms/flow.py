@@ -73,7 +73,13 @@ def _sad(patches1: torch.Tensor, patches2: torch.Tensor) -> torch.Tensor:
 class LevelGeometry:
     """Static shape of one level's match: buffer border ``b`` around an
     ``h`` x ``w`` domain, ``ws``² windows on a ``gh`` x ``gw`` grid of
-    ``patch`` px cells, search radius ``R``, warp clip ``pred_bound``."""
+    ``patch`` px cells, search radius ``R``, warp clip ``pred_bound``.
+
+    ``col0``/``w_total``: where the buffers hold a column slice of a wider
+    level (the sharded tracker), local column c is column ``col0 + c`` of
+    a ``w_total``-wide level, and the in-domain rejection tests the wide
+    level's columns. The defaults (0, ``None`` meaning ``w``) are the
+    unsliced level."""
     b: int
     h: int
     w: int
@@ -83,6 +89,14 @@ class LevelGeometry:
     gw: int
     R: int
     pred_bound: int
+    col0: int = 0
+    w_total: Optional[int] = None
+
+    @property
+    def domain(self) -> Tuple[int, int, int, int, int]:
+        """(h, w, patch, col0, w_total): the rejection's operands."""
+        return (self.h, self.w, self.patch, self.col0,
+                self.w if self.w_total is None else self.w_total)
 
 
 def _displacement_table(R: int) -> Tuple[np.ndarray, list]:
@@ -179,14 +193,17 @@ def _cost_volume(a1: torch.Tensor, a2w: torch.Tensor, g: LevelGeometry,
 def _reject_out_of_domain(flow: torch.Tensor, dist: torch.Tensor,
                           pred: torch.Tensor, g: LevelGeometry):
     """Keep ``pred`` and an infinite distance where the matched window
-    centre leaves the level domain."""
+    centre leaves the level domain (the wide level's columns for a column
+    slice, ``LevelGeometry.col0``/``w_total``)."""
     dev = flow.device
-    ctr_r = torch.arange(g.gh, device=dev)[:, None] * g.patch + g.patch // 2
-    ctr_c = torch.arange(g.gw, device=dev)[None, :] * g.patch + g.patch // 2
+    h, _, patch, col0, w_total = g.domain
+    ctr_r = torch.arange(g.gh, device=dev)[:, None] * patch + patch // 2
+    ctr_c = (torch.arange(g.gw, device=dev)[None, :] * patch + patch // 2
+             + col0)
     tgt_r = ctr_r + flow[..., 0]
     tgt_c = ctr_c + flow[..., 1]
-    in_dom = ((tgt_r >= 0) & (tgt_r <= g.h - 1) &
-              (tgt_c >= 0) & (tgt_c <= g.w - 1))
+    in_dom = ((tgt_r >= 0) & (tgt_r <= h - 1) &
+              (tgt_c >= 0) & (tgt_c <= w_total - 1))
     flow = torch.where(in_dom[..., None], flow, pred)
     dist = torch.where(in_dom, dist, torch.full_like(dist, _INF))
     return flow, dist
@@ -422,14 +439,16 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
                    iters: int, tile: int, part=None,
                    flow_in: Optional[torch.Tensor] = None,
                    dist_in: Optional[torch.Tensor] = None,
-                   domain: Tuple[int, int, int] = (0, 0, 1)
+                   domain: Tuple[int, ...] = (0, 0, 1)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch B on one level or S levels (the volume's leading S),
     ``tile`` x ``tile`` cell tiles: ``iters`` passes from
     ``flow_in``/``dist_in``, or from the argmin over launch A's chunk
-    minima ``part`` and the rejection against ``domain`` = (h, w,
-    patch)."""
+    minima ``part`` and the rejection against ``domain`` = (h, w, patch)
+    or (h, w, patch, col0, w_total) (``LevelGeometry.domain``; a 3-tuple
+    is the unsliced level, col0 0 and w_total w)."""
     from ..kernels import _build
+    h, _, patch, col0, w_total = (*domain, 0, domain[1])[:5]
     lib = _build.load()
     dev = vol.device
     lead, (d2, gh, gw) = vol.shape[:-3], vol.shape[-3:]
@@ -443,7 +462,8 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
         _table(R, "flat_to_k", dev).data_ptr(),
         None if flow_in is None else flow_in.data_ptr(),
         None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
-        *domain, tile, iters, _select_smem(tile, iters, R), lead.numel(),
+        h, patch, col0, w_total, tile, iters, _select_smem(tile, iters, R),
+        lead.numel(),
         flow.data_ptr(), dist.data_ptr(), stream_handle(vol))
     LAUNCHES["flow_level"] += 1
     _build.check(code, "flow level, select launch")
@@ -484,7 +504,7 @@ def flow_match(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
     a1, a2, pred, plan = _level_operands(a1, a2, pred, g, 0)
     vol, part = _launch_volume(a1, a2, pred, g, plan)
     flow, dist = _launch_select(vol, pred, g.R, 0, plan.b_tile, part,
-                                domain=(g.h, g.w, g.patch))
+                                domain=g.domain)
     return flow, dist, vol
 
 
@@ -530,7 +550,7 @@ def flow_level(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
     a1, a2, pred, plan = _level_operands(a1, a2, pred, g, prop_iters)
     vol, part = _launch_volume(a1, a2, pred, g, plan)
     return _launch_select(vol, pred, g.R, prop_iters, plan.b_tile, part,
-                          domain=(g.h, g.w, g.patch))
+                          domain=g.domain)
 
 
 def _level_radii(nscales: int, R_top: int, refine: int) -> list:

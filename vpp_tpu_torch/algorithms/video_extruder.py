@@ -156,7 +156,14 @@ def _tracker_step(state: VideoExtruderState, frame2: torch.Tensor,
                                    cfg.detect_k)
         kps = kp_add(kps, pos.to(torch.float32), valid)
 
-    # 5. Trajectories: newest-first ring, slot-parallel.
+    return _with_trajectories(state, kps, frame_id, cfg)
+
+
+def _with_trajectories(state: VideoExtruderState, kps: Keypoints,
+                       frame_id: int, cfg: VideoExtruderConfig
+                       ) -> VideoExtruderState:
+    """Stage 5, the new state: each live slot's position pushed onto its
+    newest-first trajectory ring, slot-parallel (any leading S)."""
     is_new = kps.age == 1
     alive = kps.alive
     shifted = torch.cat([kps.position[..., None, :], state.traj[..., :-1, :]],

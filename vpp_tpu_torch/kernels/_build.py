@@ -46,7 +46,7 @@ _SIGNATURES = {
     "vpp_fast9_image": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "vpp_fast9_cull": [_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
     "vpp_flow_volume": [_P] * 4 + [_I] * 18 + [_P] * 4,
-    "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 11 + [_P] * 3,
+    "vpp_flow_select": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 12 + [_P] * 3,
     "vpp_hough_acc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "vpp_block_topk": [_P] + [_I] * 8 + [_L, _P, _L] + [_P] * 4,
     "vpp_pyramid": [_P, _I, _L, ctypes.POINTER(_L)] + [_I] * 5

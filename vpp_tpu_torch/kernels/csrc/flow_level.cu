@@ -13,7 +13,8 @@
 //             shift read at the shifted column, both wrapping like jnp.roll;
 //   best    = first k of minimum cost, flow = pred + d_best, dist = cost,
 //             reset to (pred, 1e30) where the matched window centre leaves
-//             the level domain;
+//             the level domain (for a column slice of a wider level, the
+//             sharded tracker's, the wide level's columns: col0, w_total);
 //   then prop_iters Jacobi passes: every cell scores its 8 neighbours'
 //   flows (_C8 order) against its own volume and adopts a strictly better
 //   one that differs by more than 2 px.
@@ -319,8 +320,9 @@ flow_select_kernel(const float* __restrict__ vol,
                    const int* __restrict__ flat_to_k,
                    const int* __restrict__ flow_in,
                    const float* __restrict__ dist_in, int R, int gh, int gw,
-                   int h, int w, int patch, int tile, int iters,
-                   int* __restrict__ flow_out, float* __restrict__ dist_out) {
+                   int h, int patch, int col0, int w_total, int tile,
+                   int iters, int* __restrict__ flow_out,
+                   float* __restrict__ dist_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   {  // stream blockIdx.z: its volume, minima, prediction, flows and dists
     const size_t nc = (size_t)gh * gw, st = blockIdx.z;
@@ -373,8 +375,9 @@ flow_select_kernel(const float* __restrict__ vol,
     }
     const int f0 = p0 + disp[2 * bk], f1 = p1 + disp[2 * bk + 1];
     const int tr = gy * patch + patch / 2 + f0;
-    const int tc = gx * patch + patch / 2 + f1;
-    const bool in_dom = tr >= 0 && tr <= h - 1 && tc >= 0 && tc <= w - 1;
+    const int tc = col0 + gx * patch + patch / 2 + f1;
+    const bool in_dom =
+        tr >= 0 && tr <= h - 1 && tc >= 0 && tc <= w_total - 1;
     s_flow[r] = in_dom ? make_int2(f0, f1) : make_int2(p0, p1);
     s_dist[r] = in_dom ? bv : kInf;
   }
@@ -534,18 +537,21 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
 // x gw (launch A's); pred, flow_in, flow_out: gh x gw x 2 int32; dist_in,
 // dist_out: gh x gw float32; flat_to_k: (2R+1)^2 int32, row-major
 // displacement id -> volume index. flow_in == dist_in == NULL starts from
-// the argmin and the rejection (h, w, patch: the level domain and cell
-// size); otherwise from the given flow, and part_* are not read. Tiles of
+// the argmin and the rejection (h, patch: the level's rows and the cell
+// size; col0, w_total: the level's first column and the width of the
+// whole level, whose columns the rejection tests: 0 and the level's width
+// w, or a column slice's origin and the wide level's width); otherwise
+// from the given flow, and part_* are not read. Tiles of
 // `tile` cells a side, iters passes, smem_bytes of dynamic shared memory
 // (flow.py:_k1_plan).
 extern "C" int vpp_flow_select(const float* vol, const float* part_cost,
                                const int* part_k, int nchunk, const int* pred,
                                const int* disp, const int* flat_to_k,
                                const int* flow_in, const float* dist_in,
-                               int d2, int R, int gh, int gw, int h, int w,
-                               int patch, int tile, int iters, int smem_bytes,
-                               int n_streams, int* flow_out, float* dist_out,
-                               void* stream) {
+                               int d2, int R, int gh, int gw, int h,
+                               int patch, int col0, int w_total, int tile,
+                               int iters, int smem_bytes, int n_streams,
+                               int* flow_out, float* dist_out, void* stream) {
   if (gh <= 0 || gw <= 0) return 0;
   const bool given = flow_in != nullptr;
   if (d2 != (2 * R + 1) * (2 * R + 1) || d2 > kMaxD2 || tile <= 0 ||
@@ -560,6 +566,6 @@ extern "C" int vpp_flow_select(const float* vol, const float* part_cost,
   flow_select_kernel<<<grid, kSelectThreads, smem_bytes,
                        (cudaStream_t)stream>>>(
       vol, part_cost, part_k, nchunk, pred, disp, flat_to_k, flow_in, dist_in,
-      R, gh, gw, h, w, patch, tile, iters, flow_out, dist_out);
+      R, gh, gw, h, patch, col0, w_total, tile, iters, flow_out, dist_out);
   return (int)cudaGetLastError();
 }

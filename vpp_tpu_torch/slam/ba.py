@@ -8,7 +8,7 @@ reduction of its observation pairs into the (6M, 6M) reduced camera system;
 a dense pose solve; back-substitution of the landmarks; a cost comparison
 that accepts or rejects the step on the device, without a host read.
 
-The LM loop ``_lm_tracks`` with ``_tracks_assemble``,
+The LM loop ``_lm_plain`` with ``_tracks_assemble``,
 ``_tracks_solve_poses``, ``apply_pose_step``, ``_tracks_backsub`` and
 ``_tracks_cost`` here is the plain PyTorch version of kernels K6 and K9.
 ``ba_solve_tracks`` on CUDA tensors in the ring layout runs K6 instead
@@ -65,15 +65,30 @@ JAX package's rules, on both layouts and on the card: a negative index
 counts from the end; a gather then clamps into range, and a scatter-add
 drops what is still outside (``gather_index``, ``scatter_index``).
 
-Not ported yet: the landmark-sharded path (``mesh``).
+Sharded (``mesh=``, ``parallel/mesh.py``'s process mesh; every rank calls
+with the whole problem, as a JAX caller passes global arrays): the flat
+``ba_solve`` shards its observations over ``axis`` (O divisible by the axis
+size), each rank assembles the normal-equation blocks of its share and the
+blocks are all-reduced; ``ba_solve_tracks`` shards its landmarks (N
+divisible by the axis size), each rank assembles its block's S, rhs and
+cost, only those pose-sized sums (and each trial cost) are all-reduced, the
+pose solve is replicated and each rank back-substitutes its own landmarks;
+the landmarks are all-gathered at the end, so every rank returns the whole
+problem, the same bits on each. The sums cross ranks in float64 and are
+rounded to float32 after the reduction, as the single-device sums are. On
+CUDA tensors this route runs the plain PyTorch stages on the card, by
+design and not as a fallback: K6 and K9 fuse the whole LM call into one
+launch, and a reduction across ranks every iteration cannot sit inside it
+(the JAX sharded BA has no kernel either); without a mesh nothing changes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import all_gather_stack, all_reduce_sum
 from .se3 import _hat, se3_apply, se3_exp
 
 
@@ -351,6 +366,18 @@ def _masked_cost(p: BAProblem, huber: float) -> torch.Tensor:
         dtype=torch.float64).float()
 
 
+def _all_reduce_parts(parts, mesh, axis: str):
+    """Every tensor of ``parts`` summed over ``axis`` in one all-reduce of
+    their flattened float64 concatenation (all must be float64)."""
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in parts]), mesh,
+                          axis)
+    out, at = [], 0
+    for t in parts:
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        at += t.numel()
+    return tuple(out)
+
+
 def ba_solve(p: BAProblem, *, iters: int = 10, huber: float = 4.0,
              lam0: float = 1e-3, mesh=None, axis: str = "obs"
              ) -> Tuple[BAProblem, torch.Tensor]:
@@ -361,8 +388,10 @@ def ba_solve(p: BAProblem, *, iters: int = 10, huber: float = 4.0,
     The Schur assembly materialises an (N, M, 6, 3) coupling tensor; as in
     the JAX package a problem whose float32 coupling would pass 4 GB raises
     ``ValueError`` (this port holds it in float64, twice that). Returns
-    (refined problem, (iters,) accepted costs). ``mesh`` (the sharded
-    assembly) raises ``NotImplementedError``."""
+    (refined problem, (iters,) accepted costs). With ``mesh`` the
+    observations shard over ``axis`` (O divisible by its size): each rank
+    assembles the blocks of its share, the blocks are all-reduced, and
+    every rank makes the same replicated solve (module docstring)."""
     n_lm, n_pose = p.landmarks.shape[0], p.poses.shape[0]
     coupling_gb = n_lm * n_pose * 18 * 4 / 1e9
     if coupling_gb > 4.0:
@@ -370,19 +399,28 @@ def ba_solve(p: BAProblem, *, iters: int = 10, huber: float = 4.0,
             f"ba_solve's flat layout would allocate ~{coupling_gb:.1f} GB "
             f"for the (N={n_lm}, M={n_pose}, 6, 3) coupling tensor; use "
             "ba_solve_tracks (landmark-major, shardable) at this scale")
-    if mesh is not None:
-        raise NotImplementedError(
-            "ba_solve: the observation-sharded path (mesh) is not ported "
-            "yet")
     dev = p.landmarks.device
+    part = p
+    if mesh is not None:
+        n_ax, rank = mesh.size(axis), mesh.get_local_rank(axis)
+        o = p.obs_pose.shape[0]
+        if o % n_ax:
+            raise ValueError(f"ba_solve: {o} observations do not shard over "
+                             f"{n_ax} ranks of {axis!r}")
+        sl = slice(rank * (o // n_ax), (rank + 1) * (o // n_ax))
+        part = p._replace(obs_pose=p.obs_pose[sl], obs_lm=p.obs_lm[sl],
+                          obs_uv=p.obs_uv[sl], obs_valid=p.obs_valid[sl])
     if iters == 0:
         return p, torch.empty((0,), dtype=torch.float32, device=dev)
     lam = torch.full((), lam0, dtype=torch.float32, device=dev)
     costs = []
     for _ in range(iters):
-        r, Jp, Jl = _obs_jacobians(p)
-        Hpp, Hll, Hpl, bp, bl, cost, nobs = _assemble(
-            p, r, Jp, Jl, _huber_weight(r, huber))
+        part = part._replace(poses=p.poses, landmarks=p.landmarks)
+        r, Jp, Jl = _obs_jacobians(part)
+        blocks = _assemble(part, r, Jp, Jl, _huber_weight(r, huber))
+        if mesh is not None:
+            blocks = _all_reduce_parts(blocks, mesh, axis)
+        Hpp, Hll, Hpl, bp, bl, cost, nobs = blocks
         cost = cost.float()
         dp, dl = _schur_solve(p, Hpp, Hll, Hpl, bp, bl, nobs, lam)
         cand = _apply_step(p, dp, dl)
@@ -487,15 +525,22 @@ def _track_jacobians(p: BATracks, ring_layout: bool = False):
     return pred - p.obs_uv, Jp, Jl
 
 
-def _tracks_cost(p: BATracks, huber: float,
-                 ring_layout: bool = False) -> torch.Tensor:
-    """Plain version of K6's cost: the Huber-weighted squared residuals,
-    one a stream."""
+def _tracks_cost64(p: BATracks, huber: float,
+                   ring_layout: bool = False) -> torch.Tensor:
+    """The Huber-weighted squared residuals summed in float64, one a
+    stream."""
     r = track_residuals(p, ring_layout)
     w = _huber(torch.linalg.norm(r, dim=-1), huber)
     c = w * (r * r).sum(-1)
     return torch.where(p.obs_valid, c, torch.zeros_like(c)).sum(
-        dim=(-2, -1), dtype=torch.float64).float()
+        dim=(-2, -1), dtype=torch.float64)
+
+
+def _tracks_cost(p: BATracks, huber: float,
+                 ring_layout: bool = False) -> torch.Tensor:
+    """Plain version of K6's cost: ``_tracks_cost64`` rounded to
+    float32."""
+    return _tracks_cost64(p, huber, ring_layout).float()
 
 
 def rhs_term_scale(p: BATracks, huber: float,
@@ -512,12 +557,15 @@ def rhs_term_scale(p: BATracks, huber: float,
 
 
 def _tracks_assemble(p: BATracks, lam, huber: float,
-                     ring_layout: bool = False, linalg: str = "lu"):
+                     ring_layout: bool = False, linalg: str = "lu",
+                     reduce: Optional[Callable] = None):
     """Plain version of K6's assembly. Returns (S (M,6,M,6), rhs (M,6),
     cost) in float32 and the landmark-local (Hll_inv (N,3,3), bl (N,3),
     U (N,K,6,3) in float64, pose_idx or None, seen (N,)), each with the
     problem's leading stream dimensions (``lam`` one a stream). Pose
-    damping is added in ``_tracks_solve_poses``; landmark damping here."""
+    damping is added in ``_tracks_solve_poses``; landmark damping here.
+    ``reduce`` maps the float64 (S, rhs, cost) sums before they are
+    rounded (the sharded route's all-reduce)."""
     m = p.poses.shape[-3]
     r, Jp, Jl = _track_jacobians(p, ring_layout)
     w = _huber(torch.linalg.norm(r, dim=-1), huber)
@@ -580,6 +628,8 @@ def _tracks_assemble(p: BATracks, lam, huber: float,
         Wbl.index_add_(0, si, torch.einsum(
             "nkij,nj->nki", W, bl).reshape(-1, 6))
         rhs = bp[:m] - Wbl[:m]
+    if reduce is not None:
+        S, rhs, cost = reduce((S, rhs, cost))
     S = S.transpose(-3, -2).float().contiguous()                 # (M,6,M,6)
     return ((S, rhs.float(), cost.float()),
             (Hll_inv, bl, U, pose_idx, seen))
@@ -647,11 +697,16 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
     them). ``linalg`` is "lu" (pivoted landmark
     inverses and pose solve) or "chol" (closed-form scaled Cholesky
     inverses and a Cholesky pose solve). Raises ``NotImplementedError``
-    for ``mesh`` and for the generic layout with a stream dimension."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "ba_solve_tracks: the landmark-sharded path (mesh) is not "
-            "ported yet")
+    for the generic layout with a stream dimension.
+
+    With ``mesh`` the landmarks shard over ``axis`` (N divisible by its
+    size): every rank calls with the whole problem, assembles its block,
+    all-reduces S, rhs and the cost, solves the poses, back-substitutes its
+    landmarks and all-reduces each trial cost; the landmarks are
+    all-gathered at the end. This route runs the plain stages on every
+    device, the card included: K6 and K9 hold the whole LM loop in one
+    launch, where a reduction across ranks cannot sit (module
+    docstring)."""
     if linalg not in ("lu", "chol"):
         raise ValueError(f"ba_solve_tracks: unknown linalg {linalg!r}")
     if ring_layout and p.obs_pose.shape[-1] != p.poses.shape[-3]:
@@ -661,8 +716,39 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
         raise NotImplementedError(
             "ba_solve_tracks: the generic (non-ring) layout takes one "
             "problem, not streams")
+    if mesh is not None:
+        return _lm_tracks_sharded(p, iters, huber, lam0, ring_layout, linalg,
+                                  mesh, axis)
     return _lm_tracks(p, iters, huber, lam0, ring_layout, linalg,
                       kernel=p.landmarks.device.type == "cuda")
+
+
+def _lm_tracks_sharded(p: BATracks, iters: int, huber: float, lam0: float,
+                       ring_layout: bool, linalg: str, mesh, axis: str):
+    """``_lm_plain`` on this rank's landmark block (rows ``rank * N/n``
+    on), its float64 sums all-reduced over ``axis``: every decision is made
+    on reduced, replicated values, so the ranks stay equal. The landmarks
+    are all-gathered at the end."""
+    n_ax, rank = mesh.size(axis), mesh.get_local_rank(axis)
+    n = p.landmarks.shape[-2]
+    if n % n_ax:
+        raise ValueError(f"ba_solve_tracks: {n} landmarks do not shard over "
+                         f"{n_ax} ranks of {axis!r}")
+    lead = p.landmarks.shape[:-2]
+    if iters == 0:
+        return p, torch.empty(lead + (0,), dtype=torch.float32,
+                              device=p.landmarks.device)
+    sl = slice(rank * (n // n_ax), (rank + 1) * (n // n_ax))
+    part = p._replace(landmarks=p.landmarks[..., sl, :],
+                      obs_pose=p.obs_pose[..., sl, :],
+                      obs_uv=p.obs_uv[..., sl, :, :],
+                      obs_valid=p.obs_valid[..., sl, :])
+    part, costs = _lm_plain(part, iters, huber, lam0, ring_layout, linalg,
+                            reduce=lambda t: _all_reduce_parts(t, mesh, axis))
+    # (n, ..., N/n, 3) blocks back into rows in rank order
+    blocks = all_gather_stack(part.landmarks, mesh, axis)
+    return (p._replace(poses=part.poses,
+                       landmarks=torch.cat(tuple(blocks), dim=-2)), costs)
 
 
 def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
@@ -704,19 +790,34 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
         else:
             poses, lms, costs, _ = fused(p, iters, huber, lam0, linalg)
         return p._replace(poses=poses, landmarks=lms), costs
+    return _lm_plain(p, iters, huber, lam0, ring_layout, linalg)
+
+
+def _lm_plain(p: BATracks, iters: int, huber: float, lam0: float,
+              ring_layout: bool, linalg: str,
+              reduce: Optional[Callable] = None):
+    """The plain LM loop, the plain version of K6 and K9 (any device; at
+    least one iteration), every stream's decisions and damping its own.
+    ``reduce`` sums a tuple of float64 partial sums over the ranks of the
+    sharded route: S, rhs and the cost before they are rounded, and each
+    trial cost."""
+    lead = p.landmarks.shape[:-2]
     poses0, lms0 = p.poses, p.landmarks
     lam = torch.full(lead, lam0, dtype=torch.float32, device=lms0.device)
     costs = []
     for _ in range(iters):
         prob = p._replace(poses=poses0, landmarks=lms0)
         (S, rhs, cost), local = _tracks_assemble(
-            prob, lam, huber, ring_layout, linalg)
+            prob, lam, huber, ring_layout, linalg, reduce=reduce)
         dp = _tracks_solve_poses(S, rhs, p.fixed_poses, lam, linalg)
         cand_poses = apply_pose_step(poses0, dp, p.fixed_poses)
         cand_lms = lms0 + _tracks_backsub(local, dp)
-        new_cost = _tracks_cost(p._replace(poses=cand_poses,
-                                           landmarks=cand_lms),
-                                huber, ring_layout)
+        new_cost = _tracks_cost64(p._replace(poses=cand_poses,
+                                             landmarks=cand_lms),
+                                  huber, ring_layout)
+        if reduce is not None:
+            (new_cost,) = reduce((new_cost,))
+        new_cost = new_cost.float()
         accept = new_cost < cost
         poses0 = torch.where(accept[..., None, None, None], cand_poses,
                              poses0)

@@ -44,8 +44,11 @@ shared by the streams. The recovery branch (archive PnP, loop closure,
 smoother) runs at S = 1 only; ``slam_run_streams`` refuses it, as the JAX
 package does.
 
-Not ported yet: the landmark-sharded BA (``mesh=``, which raises
-``NotImplementedError``).
+Sharded BA: ``slam_step``, ``slam_run`` and the keyframe take a process
+mesh (``parallel/mesh.py``) and an axis, as in the JAX package, and pass
+them to the window BA, whose landmarks shard over the axis (capacity
+divisible by its size; ``slam.ba``). Every rank runs the rest, the tracker
+included, on the same frames, so the ranks hold the same state.
 """
 
 from __future__ import annotations
@@ -141,13 +144,6 @@ class SlamState:
     lc_T: torch.Tensor          # (L, 4, 4) measured absolute pose
     lc_w: torch.Tensor          # (L,) float32 edge weight (0 = empty)
     lc_ptr: torch.Tensor        # () int32 ring write pointer
-
-
-def _check_supported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "vpp_tpu_torch SLAM: the landmark-sharded BA (mesh) is not "
-            "ported yet")
 
 
 def _eye4(*lead: int, device) -> torch.Tensor:
@@ -375,10 +371,10 @@ def _smooth_history(hist: torch.Tensor, pg_T: torch.Tensor,
 
 def _do_keyframe(state: SlamState, frame2: Image2d, cfg: SlamConfig,
                  mesh=None, axis: str = "lm") -> SlamState:
-    """Keyframe work of one stream: ``_keyframe_step`` at S = 1."""
-    _check_supported(mesh)
+    """Keyframe work of one stream: ``_keyframe_step`` at S = 1, the window
+    BA's landmarks sharded over ``axis`` of ``mesh`` where one is given."""
     return drop(_keyframe_step(lift(state), frame2.data[None], frame2.border,
-                              cfg))
+                              cfg, mesh=mesh, axis=axis))
 
 
 def _recovery(state: SlamState, frame: torch.Tensor, border: int,
@@ -395,7 +391,7 @@ def _recovery(state: SlamState, frame: torch.Tensor, border: int,
 
 
 def _keyframe_step(state: SlamState, frame: torch.Tensor, border: int,
-                  cfg: SlamConfig) -> SlamState:
+                  cfg: SlamConfig, mesh=None, axis: str = "lm") -> SlamState:
     """Keyframe work of S streams: obs write -> PnP pose -> triangulate ->
     window BA -> prune -> archive and history writes. ``state`` carries a
     leading S, ``frame`` is (S, H+2b, W+2b) with border ``border``; K5 and
@@ -530,8 +526,8 @@ def _keyframe_step(state: SlamState, frame: torch.Tensor, border: int,
                     fixed_poses=fixed)
     enough = ba_obs_valid.sum((-2, -1)) >= 12                    # (S,)
     solved, _ = ba_solve_tracks(prob, iters=cfg.ba_iters, huber=cfg.ba_huber,
-                                lam0=cfg.ba_lam0, ring_layout=True,
-                                linalg=cfg.ba_linalg)
+                                lam0=cfg.ba_lam0, mesh=mesh, axis=axis,
+                                ring_layout=True, linalg=cfg.ba_linalg)
     kf_pose = torch.where(enough[:, None, None, None], solved.poses, kf_pose)
     lm_X = torch.where(enough[:, None, None], solved.landmarks, lm_X)
 
@@ -627,8 +623,8 @@ def slam_step(state: SlamState, frame1: Image2d, frame2: Image2d,
               cfg: SlamConfig, mesh=None, axis: str = "lm",
               pyr1=None, pyr2=None) -> SlamState:
     """One frame: track, and on keyframe frames run the back end
-    (``_slam_step_streams`` at S = 1)."""
-    _check_supported(mesh)
+    (``_slam_step_streams`` at S = 1; ``mesh``/``axis`` shard the window
+    BA's landmarks)."""
     b = max(3, cfg.tracker.winsize)
     if pyr1 is None:
         pyr1 = build_pyramid(frame1, cfg.tracker.nscales, border=b)
@@ -636,16 +632,19 @@ def slam_step(state: SlamState, frame1: Image2d, frame2: Image2d,
         pyr2 = build_pyramid(frame2, cfg.tracker.nscales, border=b)
     return drop(_slam_step_streams(lift(state), frame2.data[None],
                                   frame2.border, cfg, _levels(pyr1),
-                                  _levels(pyr2), pyr1[0].border))
+                                  _levels(pyr2), pyr1[0].border, mesh=mesh,
+                                  axis=axis))
 
 
 def _slam_step_streams(state: SlamState, frame2: torch.Tensor, border: int,
                       cfg: SlamConfig, levels1: Tuple[torch.Tensor, ...],
                       levels2: Tuple[torch.Tensor, ...],
-                      level_border: int) -> SlamState:
+                      level_border: int, mesh=None,
+                      axis: str = "lm") -> SlamState:
     """One frame of S streams (``_tracker_step``'s operands): track, and on
     keyframe frames (the frame index decides, the same for every stream)
-    run ``_keyframe_step``."""
+    run ``_keyframe_step`` (its window BA sharded over ``mesh`` where one is
+    given, one stream)."""
     tracker = _tracker_step(state.tracker, frame2, border, cfg.tracker,
                            levels1, levels2, level_border)
     state = dataclasses.replace(state, tracker=tracker)
@@ -654,14 +653,16 @@ def _slam_step_streams(state: SlamState, frame2: torch.Tensor, border: int,
             # one stream goes through the single-stream entry, views both
             # ways, so that a caller who wraps ``_do_keyframe`` sees it
             state = lift(_do_keyframe(drop(state), Image2d(
-                data=frame2[0], border=border), cfg))
+                data=frame2[0], border=border), cfg, mesh=mesh, axis=axis))
         else:
-            state = _keyframe_step(state, frame2, border, cfg)
+            state = _keyframe_step(state, frame2, border, cfg, mesh=mesh,
+                                   axis=axis)
     return state
 
 
 def _run_streams(frames: torch.Tensor, cfg: SlamConfig,
-                 boot: Optional[torch.Tensor], collect_tracks: bool):
+                 boot: Optional[torch.Tensor], collect_tracks: bool,
+                 mesh=None, axis: str = "lm"):
     """The run loop of S clips (S, T, H, W) on their device: each frame's
     pyramids built once for every stream (``pyramid_streams``), reused as
     the next step's frame-1 levels, level 0 as the frame buffer."""
@@ -680,7 +681,8 @@ def _run_streams(frames: torch.Tensor, cfg: SlamConfig,
     lv1 = pyramid_streams(frames[:, 0], cfg.tracker.nscales, border=b)
     for i in range(t):
         lv2 = pyramid_streams(frames[:, i], cfg.tracker.nscales, border=b)
-        state = _slam_step_streams(state, lv2[0], b, cfg, lv1, lv2, b)
+        state = _slam_step_streams(state, lv2[0], b, cfg, lv1, lv2, b,
+                                   mesh=mesh, axis=axis)
         if collect_tracks:
             hist_pos[:, i] = state.tracker.keypoints.position
             hist_alive[:, i] = state.tracker.keypoints.alive
@@ -698,13 +700,15 @@ def slam_run(frames, cfg: SlamConfig, bootstrap_poses=None, mesh=None,
     streams' run loop at S = 1.
 
     With ``collect_tracks`` returns (state, (positions (T, K, 2),
-    alive (T, K))), the per-frame tracker history."""
-    _check_supported(mesh)
+    alive (T, K))), the per-frame tracker history. ``mesh``/``axis`` shard
+    the window BA's landmarks; every rank of the mesh calls with the whole
+    clip and gets the same state."""
     dev = resolve_device(device)
     frames = _as_tensor(frames, dev)
     boot = (None if bootstrap_poses is None
             else _as_tensor(bootstrap_poses, dev)[None])
-    out = _run_streams(frames[None], cfg, boot, collect_tracks)
+    out = _run_streams(frames[None], cfg, boot, collect_tracks, mesh=mesh,
+                       axis=axis)
     if collect_tracks:
         state, (pos, alive) = out
         return drop(state), (pos[0], alive[0])
