@@ -288,11 +288,40 @@ Phases, in order; any failure exits nonzero and prints no result:
    keyframes, landmarks within 5%, ATE within 0.02), each timed; every
    gloo rank's results the same bits as rank 0's. Four ranks on one card
    say nothing of scaling across cards;
-15. one ``{"kernels": [...]}`` line (each batched kernel with its
+15. the configurations the kernels once refused, on the card (every line
+   beside the card's name and power limit): (a) ``lucas_kanade`` at phase
+   12a's workload (two bench-clip frames at 640x480, 1024 keypoints from
+   seed 0, 3 scales, 21 iterations) at winsize 21 and 31 (K10's staged
+   route), at winsize 121 on a 1920x1080 pair (its global route; the CPU
+   gate on the first 128 keypoints) and at 18 scales (two chained K10
+   launches; K4 decimates the 2x2 levels to 2x2): each call's launches (one
+   K10 a 16 levels, two K4), K10 bit-equal to the plain level loop on the
+   card's pyramids (flow, err, windows, steps at every level), the call
+   against the plain CPU path on those pyramids by phase 12a's gate (the
+   keep decision on >= 99% of keypoints, >= 99% of those kept on both
+   within 1e-2 px), the routes, device and as-called ms and K10's bound by
+   phase 12a's count; (b) ``semi_dense_optical_flow`` at 640x480 on the
+   tracker's pyramids at ``search_niters`` 5, 16 and 24 (121, 1089 and
+   2401 displacements at the top level): every level held to its plain
+   version by phase 3's K1 rule (bit-equal on the levels rounded to
+   integers), each level's plan, K1's device ms by level and its bound,
+   the call's device and as-called ms; then K1's global route (151 px
+   windows on 40 px cells, one 640x480 level of the bench pair) held the
+   same way, timed beside its bound; (c) ``slam_run_streams`` with
+   ``ring = 20`` at phase 9's configuration otherwise on 4 clips (seeds
+   1-4) of 40 frames: K9 launched once a stream a keyframe (4x one
+   stream's count, no K6), each stream held to ``slam_run(ring=20)`` on its
+   clip by phase 9's gates (the tracker bit-equal, ``hist_pose`` within
+   0.05, ATE within 0.02), K9 on the last keyframe's window of the first
+   S = 1, 2 and 4 streams (S launches, device and as-called ms), aggregate
+   frames/s at S = 1, 2 and 4 (median of 3);
+16. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
    ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
-   one launch a lucas_kanade call and one a Euclidean transform), then
+   one launch a lucas_kanade call and one a Euclidean transform; K10's
+   device ms and bound by phase 15a's route, K1's device ms by phase 15b's
+   ``search_niters``, K9's launches on phase 15c's ring-20 streams), then
    ``{"ok": true,
    "device": ...}``.
 
@@ -2645,15 +2674,16 @@ MATCH_N = 2048               # phase 12f's bruteforce query and train sets
 LK_KW = dict(winsize=11, min_ev=1e-4, niterations=21, convergence_delta=0.1)
 
 
-def lk_chain(torch, pp, pn, pg, kp, level):
+def lk_chain(torch, pp, pn, pg, kp, level, kw=None):
     """``lucas_kanade``'s coarse-to-fine loop on given pyramids with
-    ``level`` as the LK level: (flow, err, [(level args, level result)])."""
+    ``level`` as the LK level (``LK_KW``, or ``kw``): (flow, err, [(level
+    args, level result)])."""
     tr = torch.zeros_like(kp)
     out = []
     for s in range(len(pp) - 1, -1, -1):
         tr = tr * 2.0
         args = (pp[s], pn[s], pg[s], kp / float(2 ** s), tr)
-        res = level(*args, **LK_KW)
+        res = level(*args, **(LK_KW if kw is None else kw))
         out.append((args, res))
         tr = res[0]
     return tr, res[1], out
@@ -4149,6 +4179,529 @@ def phase_sharded(torch, np, dev, clip, cfg, slam_frames, gt_poses, ga,
 
 
 
+FRONT_BIG = (1920, 1080)     # phase 15a's winsize-121 frame pair (W, H)
+FRONT_CPU_KP = 128           # phase 15a: keypoints held to the CPU at 121
+FRONT_DEEP = 18              # phase 15a's scales past K10's 16 a launch
+FRONT_NITERS = (16, 24)      # phase 15b's search_niters, beside the default 5
+RING_FRAMES = 40             # phase 15c's frames a clip
+RING = 20                    # phase 15c's BA window: K9, one launch a stream
+
+
+def front_lk(torch, frames, kp, ws: int, nscales: int, cpu_n: int,
+             smi: str) -> dict:
+    """Phase 15a at one (winsize, nscales): ``lucas_kanade`` on the card,
+    its launches, K10 against the plain level loop on the card's pyramids
+    (every level's flow, err, windows and steps bit-equal), the call
+    against the plain CPU path on those pyramids on the first ``cpu_n``
+    keypoints (phase 12a's gate: >= 99% of the keypoints both keep within
+    1e-2 px; here also the keep decision on >= 99%), the routes, times and
+    K10's bound by phase 12a's count."""
+    import importlib
+    from vpp_tpu_torch.core.image import Image2d
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    LK = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    i1, i2 = frames
+    n = kp.shape[0]
+    kw = dict(LK_KW, winsize=ws)
+    n_k10 = -(-nscales // 16)
+
+    def call():
+        return LK.lucas_kanade(i1, i2, kp, winsize=ws, nscales=nscales)
+
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    flow, dist = call()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check(counts == {"lk_level": n_k10, "pyramid_decim": 2},
+          f"lucas_kanade at winsize {ws}, {nscales} scales launched "
+          f"{counts}, not {n_k10} K10 and 2 K4")
+    border = max(3, ws // 2)
+    pp, pn = PY.pyramid(i1, nscales, border=border), PY.pyramid(
+        i2, nscales, border=border)
+    pg = LK.gradient_pyramid(pp)
+    scales = list(range(nscales - 1, -1, -1))
+    levels = [(pp[s], pn[s], pg[s]) for s in scales]
+    lkw = dict(kw, adopt="always", factor=2.0)
+    zero = torch.zeros_like(kp)
+    kall = LK.lk_levels(levels, scales, kp, zero, windows=True, **lkw)
+    pall = LK.lk_levels_plain(levels, scales, kp, zero, windows=True, **lkw)
+    check(all(torch.equal(g, x) for g, x in zip(kall, pall)),
+          f"K10 at winsize {ws}, {nscales} scales differs from the plain "
+          "level loop (flow, err, windows or steps at some level)")
+    check(same_bits(torch, kall[0], flow) and same_bits(torch, kall[1], dist),
+          f"K10's launches differ from lucas_kanade at winsize {ws}")
+    rows = [LK._level_row(A, B, G, s, ws) for (A, B, G), s in
+            zip(levels, scales)]
+    cuts = [0] + list(range(nscales % 16 or 16, nscales + 1, 16))
+    routes = [LK._k10_plan(ws, max(r[2] for r in rows[lo:hi]),
+                           all(r[3] for r in rows[lo:hi]))
+              for lo, hi in zip(cuts, cuts[1:])]
+    # the plain CPU path on the card's pyramids, the first cpu_n keypoints
+    cpp = on_cpu_pyramid(PY, Image2d, pp)
+    cpn = on_cpu_pyramid(PY, Image2d, pn)
+    cpg = LK.gradient_pyramid(cpp)
+    check(all(same_bits(torch, a.data.cpu(), b.data)
+              for a, b in zip(pg.levels, cpg.levels)),
+          "the gradient pyramid differs between card and CPU")
+    cf, ce, _ = lk_chain(torch, cpp, cpn, cpg, kp[:cpu_n].cpu(),
+                         LK.lk_match_batch, kw)
+    fc, dc = flow[:cpu_n].cpu(), dist[:cpu_n].cpu()
+    keep = (dc < 1e30) & (ce < 1e30)
+    dd = (fc - cf).abs().amax(1)
+    same_keep = float(((dc < 1e30) == (ce < 1e30)).float().mean())
+    within = (float((dd[keep] <= 1e-2).float().mean()) if bool(keep.any())
+              else 1.0)
+    check(same_keep >= 0.99 and within >= 0.99,
+          f"lucas_kanade at winsize {ws}, {nscales} scales against the CPU "
+          f"on the card's pyramids: keep equal on {same_keep}, {within} of "
+          f"{int(keep.sum())} kept within 1e-2 px")
+    # K10's bound by phase 12a's count, level by level (adopt always: a
+    # level's prediction is twice the last level's flow)
+    nbytes = nops = 0
+    tr = zero
+    for i, ((A, B, G), s) in enumerate(zip(levels, scales)):
+        tr = tr * 2.0
+        res = (kall[2][i], kall[3][i], None, kall[5][i])
+        b_, o_ = k10_level_bound(torch, (A, B, G, kp / float(2 ** s), tr),
+                                 res, ws)
+        nbytes += b_
+        nops += o_
+        tr = kall[2][i]
+    b_ms, b_by = bound_ms(nbytes, nops)
+
+    def k10_call():
+        LK.lk_levels(levels, scales, kp, zero, **lkw)
+
+    out = dict(winsize=ws, nscales=nscales, keypoints=n,
+               frame=list(i1.shape)[::-1], launches=counts,
+               routes=[list(r) for r in routes],
+               cpu=dict(keypoints=cpu_n, both_keep=int(keep.sum()),
+                        keep_equal=same_keep, within_1e2=within,
+                        bit_equal=int(((fc == cf).all(1) & (dc == ce))
+                                      .sum())),
+               steps=int(kall[5].sum()),
+               call_device_ms=device_ms(torch, call, calls=5, replays=5)[0],
+               call_ms=cuda_ms(torch, call, 5),
+               k10_ms=cuda_ms(torch, k10_call, 5),
+               plain_ms=cuda_ms(torch, lambda: LK.lk_levels_plain(
+                   levels, scales, kp, zero, **lkw), 1),
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+               bound_ops=nops, card=smi)
+    out["k10_device_ms"], out["device_ms_by"] = device_ms(
+        torch, k10_call, calls=5, replays=5)
+    print(f"phase 15a: lucas_kanade {out['frame'][0]}x{out['frame'][1]}, "
+          f"{n} keypoints, winsize {ws}, {nscales} scales ({smi}): "
+          f"launches {counts}, K10 route(s) {out['routes']}, every level "
+          f"bit-equal to the plain level loop ({out['steps']} Newton "
+          f"steps); against the CPU on the card's pyramids ({cpu_n} "
+          f"keypoints): keep equal {same_keep:.4f}, {within:.4f} of "
+          f"{int(keep.sum())} kept on both within 1e-2 px, "
+          f"{out['cpu']['bit_equal']} bit-equal; the call "
+          f"{out['call_device_ms']:.4f} ms on the device, "
+          f"{out['call_ms']:.4f} as called; K10 {out['k10_device_ms']:.4f} "
+          f"ms on the device ({out['device_ms_by']}), {out['k10_ms']:.4f} "
+          f"as called, bound {b_ms:.5f} ({b_by}: {nbytes} bytes, {nops} "
+          f"operations); the plain levels {out['plain_ms']:.2f} ms")
+    return out
+
+
+def k1_level_work(g, a1, props: int):
+    """K1's least work at one level, phase 3's count: (bytes, operations)."""
+    d2 = (2 * g.R + 1) ** 2
+    lr = (g.gh - 1) * g.patch + g.ws
+    lc = (g.gw - 1) * g.patch + g.ws
+    nbytes = a1.numel() * 4 * 2 + g.gh * g.gw * (8 + 8 + 4)
+    ops = (d2 * (lr * lc * 2 + g.gh * lc * (g.ws - 1)
+                 + g.gh * g.gw * (g.ws - 1))
+           + g.gh * g.gw * (d2 - 1) + props * g.gh * g.gw * 8 * 12)
+    return nbytes, ops
+
+
+def front_flow(torch, p1, p2, cfg, niters: int, pos, valid,
+               smi: str) -> dict:
+    """Phase 15b at one ``search_niters``: ``semi_dense_optical_flow`` on
+    the tracker's pyramids; every level of its coarse-to-fine loop held to
+    the plain level by phase 3's K1 rule (on the float levels flow equal
+    off near-ties, dist and volume within rtol 1e-5; on the levels rounded
+    to integers volume, flow and dist bit-equal), the plan each level
+    takes, times and K1's bound by phase 3's count."""
+    import importlib
+    from vpp_tpu_torch.algorithms.pyramid import level_shapes
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    FL = importlib.import_module("vpp_tpu_torch.algorithms.flow")
+    dev = p1[0].data.device
+    props = cfg.propagation
+    b = p1[0].border
+    grid = level_shapes((H // cfg.patchsize, W // cfg.patchsize),
+                        cfg.nscales)
+    radii = FL._level_radii(cfg.nscales, max(1, niters), 1)
+    bounds = FL._level_bounds(cfg.nscales, radii)
+    plans, ties, nbytes, nops, lv_ms = [], 0, 0, 0, {}
+    flow_k = None
+    for s in range(cfg.nscales - 1, -1, -1):
+        h, w = p1[s].shape
+        gh, gw = grid[s]
+        if flow_k is None:
+            pred = torch.zeros((gh, gw, 2), dtype=torch.int32, device=dev)
+        else:
+            cgh, cgw = grid[s + 1]
+            ir = (torch.arange(gh, device=dev) // 2).clamp(0, cgh - 1)
+            ic = (torch.arange(gw, device=dev) // 2).clamp(0, cgw - 1)
+            pred = 2 * flow_k[ir[:, None], ic[None, :]]
+        g = FL.LevelGeometry(b=b, h=h, w=w, ws=cfg.winsize,
+                             patch=cfg.patchsize, gh=gh, gw=gw, R=radii[s],
+                             pred_bound=0 if s == cfg.nscales - 1
+                             else 2 * bounds[s + 1])
+        a1, a2 = p1[s].data, p2[s].data
+        plan = FL._k1_plan(g, props, FL._sm_count(dev))
+        plans.append(dict(level=s, R=g.R, displacements=(2 * g.R + 1) ** 2,
+                          a_tile=plan.a_tile, a_threads=plan.a_threads,
+                          a_route=plan.a_route, chunk=plan.chunk,
+                          batch=plan.batch, a_grid=list(plan.a_grid),
+                          b_table=plan.b_table))
+        fk, dk, vk = FL.flow_match(a1, a2, pred, g)
+        fp, dp, vp = FL.flow_match_plain(a1, a2, pred, g)
+        two = torch.topk(vp, 2, dim=0, largest=False).values
+        clear = (two[1] - two[0]) > 1e-5 * two[0].abs().clamp(min=1e-30)
+        ties += int((~clear).sum())
+        fin = clear & (dp < 1e29)
+        rel = ((dk - dp).abs() / dp.abs().clamp(min=1e-30))[fin]
+        check(bool(((fk == fp).all(-1) | ~clear).all())
+              and torch.equal((dk >= 1e29)[clear], (dp >= 1e29)[clear])
+              and (rel.numel() == 0 or float(rel.max()) <= 1e-5)
+              and bool(((vk - vp).abs()
+                        <= 1e-5 * vp.abs().clamp(min=1e-30)).all()),
+              f"K1 at search_niters {niters} differs from its plain version "
+              f"at level {s}")
+        i1, i2 = a1.round(), a2.round()
+        fik, dik, vik = FL.flow_match(i1, i2, pred, g)
+        fip, dip, vip = FL.flow_match_plain(i1, i2, pred, g)
+        check(torch.equal(vik, vip) and torch.equal(fik, fip)
+              and torch.equal(dik, dip), f"K1 match at search_niters "
+              f"{niters} not bit-equal on integer buffers at level {s}")
+        for _ in range(props):
+            fip, dip = FL.flow_propagate_plain(fip, dip, pred, vip, g.R)
+        fik, dik = FL.flow_level(i1, i2, pred, g, props)
+        check(torch.equal(fik, fip) and torch.equal(dik, dip),
+              f"K1 level at search_niters {niters} not bit-equal on integer "
+              f"buffers at level {s}")
+        flow_k, _ = FL.flow_level(a1, a2, pred, g, props)
+        lv_ms[f"level{s}"] = device_ms(
+            torch, lambda a1=a1, a2=a2, pr=pred, g=g: FL.flow_level(
+                a1, a2, pr, g, props), calls=5, replays=5)[0]
+        b_, o_ = k1_level_work(g, a1, props)
+        nbytes += b_
+        nops += o_
+    b_ms, b_by = bound_ms(nbytes, nops)
+    kw = dict(winsize=cfg.winsize, nscales=cfg.nscales,
+              propagation=props, patchsize=cfg.patchsize,
+              search_niters=niters, pyr1=p1, pyr2=p2)
+
+    def call():
+        return FL.semi_dense_optical_flow(pos, valid, p1[0], p2[0], **kw)
+
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    call()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check(counts == {"flow_level": 2 * cfg.nscales},
+          f"semi_dense_optical_flow at search_niters {niters} launched "
+          f"{counts}")
+    out = dict(search_niters=niters, plans=plans, near_tie_cells=ties,
+               launches=counts, level_device_ms=lv_ms,
+               k1_device_ms=sum(lv_ms.values()),
+               call_device_ms=device_ms(torch, call, calls=5, replays=5)[0],
+               call_ms=cuda_ms(torch, call, 5), bound_ms=b_ms,
+               bound_by=b_by, bound_bytes=nbytes, bound_ops=nops, card=smi)
+    print(f"phase 15b: semi_dense_optical_flow {W}x{H} at search_niters "
+          f"{niters} ({smi}): plans " + "; ".join(
+              f"level {q['level']} R {q['R']} ({q['displacements']}): "
+              f"{q['a_route']} tile {q['a_tile']}x{q['a_threads']}, chunk "
+              f"{q['chunk']} batch {q['batch']} grid {q['a_grid']}, table "
+              f"{q['b_table']}" for q in plans)
+          + f"; every level held to the plain level ({ties} near-tie cells "
+          f"excluded), bit-equal on integer buffers; launches {counts}; K1 "
+          f"{out['k1_device_ms']:.4f} ms on the device by level "
+          + ", ".join(f"{k} {v:.4f}" for k, v in lv_ms.items())
+          + f", bound {b_ms:.5f} ({b_by}); the call "
+          f"{out['call_device_ms']:.4f} ms on the device, "
+          f"{out['call_ms']:.4f} as called")
+    return out
+
+
+FRONT_K1_GLOBAL = dict(ws=151, patch=40, R=5, border=75)   # phase 15b
+
+
+def front_k1_global(torch, dev, smi: str) -> dict:
+    """Phase 15b, K1's global route: one level of the bench pair at
+    640x480 with 151 px windows on 40 px cells (no tile shape's regions fit
+    227 KB), held to its plain level by phase 3's K1 rule (bit-equal on the
+    level rounded to integers); device and as-called ms and its bound by
+    phase 3's count."""
+    import importlib
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from vpp_tpu_torch.utils.clips import make_clip
+    FL = importlib.import_module("vpp_tpu_torch.algorithms.flow")
+    q = FRONT_K1_GLOBAL
+    clip = make_clip(W, H, 3, seed=0)
+    a1, a2 = (from_array(torch.from_numpy(clip[i]).to(dev), border=q["border"],
+                         border_mode="mirror").data for i in (0, 2))
+    g = FL.LevelGeometry(b=q["border"], h=H, w=W, ws=q["ws"],
+                         patch=q["patch"], gh=H // q["patch"],
+                         gw=W // q["patch"], R=q["R"], pred_bound=0)
+    pred = torch.zeros((g.gh, g.gw, 2), dtype=torch.int32, device=dev)
+    props = 2
+    plan = FL._k1_plan(g, props, FL._sm_count(dev))
+    check(plan.a_route == "global", f"K1 at ws {g.ws} took the {plan} plan")
+    fk, dk, vk = FL.flow_match(a1, a2, pred, g)
+    fp, dp, vp = FL.flow_match_plain(a1, a2, pred, g)
+    two = torch.topk(vp, 2, dim=0, largest=False).values
+    clear = (two[1] - two[0]) > 1e-5 * two[0].abs().clamp(min=1e-30)
+    check(bool(((fk == fp).all(-1) | ~clear).all())
+          and bool(((vk - vp).abs() <= 1e-5 * vp.abs().clamp(min=1e-30))
+                   .all()), "K1's global route differs from its plain "
+          "version on the float level")
+    i1, i2 = a1.round(), a2.round()
+    reset_launch_counts()
+    fik, dik = FL.flow_level(i1, i2, pred, g, props)
+    check(launch_counts()["flow_level"] == 2, "K1's global route launched "
+          f"{launch_counts()['flow_level']} times, not 2")
+    fip, dip, vip = FL.flow_match_plain(i1, i2, pred, g)
+    for _ in range(props):
+        fip, dip = FL.flow_propagate_plain(fip, dip, pred, vip, g.R)
+    _, _, vik = FL.flow_match(i1, i2, pred, g)
+    check(torch.equal(vik, vip) and torch.equal(fik, fip)
+          and torch.equal(dik, dip), "K1's global route not bit-equal on the "
+          "integer level")
+    nbytes, nops = k1_level_work(g, a1, props)
+    b_ms, b_by = bound_ms(nbytes, nops)
+
+    def call():
+        FL.flow_level(a1, a2, pred, g, props)
+
+    out = dict(ws=g.ws, patch=g.patch, R=g.R, grid=[g.gh, g.gw],
+               plan=dict(a_tile=plan.a_tile, a_route=plan.a_route,
+                         chunk=plan.chunk, a_grid=list(plan.a_grid),
+                         b_table=plan.b_table),
+               near_tie_cells=int((~clear).sum()), bound_ms=b_ms,
+               bound_by=b_by, ms=cuda_ms(torch, call, 3),
+               plain_ms=cuda_ms(torch, lambda: FL.flow_match_plain(
+                   a1, a2, pred, g), 1), card=smi)
+    out["device_ms"], out["device_ms_by"] = device_ms(torch, call, calls=3,
+                                                      replays=3)
+    print(f"phase 15b: K1's global route, one {W}x{H} level, ws {g.ws} on "
+          f"{g.patch} px cells ({g.gh}x{g.gw}), R {g.R} ({smi}): plan "
+          f"{out['plan']}; held to the plain level ({out['near_tie_cells']} "
+          f"near-tie cells excluded), bit-equal on the integer level; "
+          f"{out['device_ms']:.4f} ms on the device ({out['device_ms_by']}), "
+          f"{out['ms']:.4f} as called, bound {b_ms:.5f} ({b_by}), the plain "
+          f"match {out['plain_ms']:.2f} ms")
+    return out
+
+
+def front_ring20(torch, SP, KN, slam_cfg, dev, smi: str) -> dict:
+    """Phase 15c: ``slam_run_streams`` with ``ring = 20`` (one K9 launch a
+    stream a keyframe) at phase 9's configuration otherwise, on S = 4 clips
+    (seeds 1-4) of 40 frames; each stream held to ``slam_run(ring=20)`` on
+    its clip on the card by phase 9's gates; K9 launches and aggregate
+    frames/s at S = 1, 2 and 4."""
+    cfg = dataclasses.replace(slam_cfg, ring=RING)
+    clips, gts = zip(*(slam_clip(RING_FRAMES, seed)
+                       for seed in range(1, STREAMS + 1)))
+    gt = gts[0]
+    clips = torch.stack([torch.from_numpy(c) for c in clips]).to(dev)
+    boots = torch.from_numpy(gt[[0, cfg.keyframe_period]]).to(dev).expand(
+        STREAMS, 2, 4, 4).contiguous()
+    SP.slam_run_streams(clips[:, :8], cfg, boots, device=dev.type)
+    torch.cuda.synchronize()
+    KN.reset_launch_counts()
+    one0 = SP.slam_run(clips[0], cfg, bootstrap_poses=boots[0],
+                       device=dev.type)
+    torch.cuda.synchronize()
+    k9_1 = KN.launch_counts()["ba_generic"]
+    captured = []
+    solve = SP.ba_solve_tracks
+
+    def capture(prob, **kw):
+        captured.append((prob, kw))
+        return solve(prob, **kw)
+
+    KN.reset_launch_counts()
+    SP.ba_solve_tracks = capture          # the run keeps its BA problems
+    try:
+        st = SP.slam_run_streams(clips, cfg, boots, device=dev.type)
+    finally:
+        SP.ba_solve_tracks = solve
+    torch.cuda.synchronize()
+    counts = KN.launch_counts()
+    check(k9_1 > 0 and counts["ba_generic"] == STREAMS * k9_1
+          and counts["ba_tracks"] == 0,
+          f"ring {RING} on {STREAMS} streams launched K9 "
+          f"{counts['ba_generic']} times, K6 {counts['ba_tracks']}; one "
+          f"stream K9 {k9_1}")
+
+    def ate_of(hist, fids):
+        return float(SP.ate_rmse(hist.cpu(), torch.from_numpy(
+            gt[fids.cpu().numpy()])))
+
+    per = []
+    for i in range(STREAMS):
+        one = one0 if i == 0 else SP.slam_run(
+            clips[i], cfg, bootstrap_poses=boots[i], device=dev.type)
+        n = st.n_keyframes
+        ate = ate_of(st.hist_pose[i, :n], st.hist_frame[i, :n])
+        ate1 = ate_of(one.hist_pose[:n], one.hist_frame[:n])
+        same = (torch.equal(one.tracker.keypoints.alive,
+                            st.tracker.keypoints.alive[i])
+                and torch.equal(one.tracker.keypoints.position,
+                                st.tracker.keypoints.position[i]))
+        pose_err = float((one.hist_pose[:n] - st.hist_pose[i, :n]).abs()
+                         .max())
+        per.append(dict(seed=i + 1, keyframes=n, ate=ate, slam_run_ate=ate1,
+                        tracker_bit_equal=same,
+                        hist_pose_err_vs_slam_run=pose_err,
+                        landmarks=int(st.lm_valid[i].sum())))
+        check(same, f"ring {RING}, stream {i}: the tracker differs from "
+              "slam_run")
+        check(pose_err <= 0.05, f"ring {RING}, stream {i}: hist_pose "
+              f"differs from slam_run by {pose_err}")
+        check(abs(ate - ate1) <= 0.02, f"ring {RING}, stream {i}: ATE "
+              f"{ate} against slam_run's {ate1}")
+    # K9 on the last keyframe's ring-20 window of the first S streams: one
+    # launch a stream, in stream order
+    prob, kw = captured[-1]
+    k9 = {}
+    for n in (1, 2, STREAMS):
+        sub = type(prob)(*(t if i == 5 else t[:n]
+                           for i, t in enumerate(prob)))
+        KN.reset_launch_counts()
+        solve(sub, **kw)
+        torch.cuda.synchronize()
+        got = KN.launch_counts()["ba_generic"]
+        check(got == n, f"the ring-{RING} window of {n} streams made {got} "
+              "K9 launches")
+        dms, by = device_ms(torch, lambda sub=sub: solve(sub, **kw),
+                            calls=5, replays=5)
+        k9[str(n)] = dict(launches=got, device_ms=dms, device_ms_by=by,
+                          ms=cuda_ms(torch, lambda sub=sub: solve(sub, **kw),
+                                     5))
+    walls = {n: [] for n in (1, 2, STREAMS)}
+    for n in walls:
+        SP.slam_run_streams(clips[:n, :8], cfg, boots[:n], device=dev.type)
+    for _ in range(3):
+        for n in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            SP.slam_run_streams(clips[:n], cfg, boots[:n], device=dev.type)
+            torch.cuda.synchronize()
+            walls[n].append(time.perf_counter() - t0)
+    fps = {n: n * RING_FRAMES / sorted(w)[1] for n, w in walls.items()}
+    out = dict(ring=RING, frames=RING_FRAMES, keyframes=st.n_keyframes,
+               k9_launches_one_stream=k9_1,
+               k9_launches_streams=counts["ba_generic"],
+               k9_launches_per_keyframe=counts["ba_generic"] / max(k9_1, 1),
+               streams=per, window_k9=k9,
+               aggregate_fps={str(n): v for n, v in fps.items()}, card=smi)
+    print(f"phase 15c: slam_run_streams ring {RING}, {STREAMS} x "
+          f"{RING_FRAMES} frames {W}x{H} ({smi}): {st.n_keyframes} "
+          f"keyframes, K9 {counts['ba_generic']} launches ({k9_1} for one "
+          f"stream: {out['k9_launches_per_keyframe']:.0f} a keyframe), K6 "
+          f"{counts['ba_tracks']}; per stream against slam_run(ring={RING}) "
+          "on its clip: " + "; ".join(
+              f"seed {q['seed']} tracker bit-equal {q['tracker_bit_equal']}, "
+              f"hist_pose within {q['hist_pose_err_vs_slam_run']:.3g}, ATE "
+              f"{q['ate']:.4f} (slam_run {q['slam_run_ate']:.4f})"
+              for q in per)
+          + f"; K9 on the last keyframe's window ({prob.poses.shape[-3]} "
+          f"poses, {prob.landmarks.shape[-2]} landmarks a stream) by S: "
+          + ", ".join(f"S = {n} {q['launches']} launches, "
+                      f"{q['device_ms']:.4f} ms on the device, {q['ms']:.4f} "
+                      "as called" for n, q in k9.items())
+          + "; aggregate frames/s, median of 3: " + ", ".join(
+              f"S = {n} {v:.2f}" for n, v in fps.items()))
+    return out
+
+
+def phase_front_end(torch, np, dev, slam_cfg, results, smi):
+    """Phase 15: the front-end configurations past the kernels' old limits
+    and ``slam_run_streams`` past ring 16, on the card. Returns the numbers
+    it prints."""
+    import importlib
+    from vpp_tpu_torch.algorithms.pyramid import pyramid
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.utils.clips import make_clip
+    SP = importlib.import_module("vpp_tpu_torch.slam.pipeline")
+    KN = importlib.import_module("vpp_tpu_torch.kernels")
+    out = {}
+    # -- 15a. lucas_kanade at phase 12a's workload, winsize 21 and 31; 121
+    #    on a 1080p pair; 18 scales ------------------------------------------
+    vga = [from_array(torch.from_numpy(f).to(dev), border=9,
+                      border_mode="mirror") for f in make_clip(W, H, 2,
+                                                               seed=0)]
+    rng = np.random.RandomState(0)
+    kp = torch.from_numpy((rng.rand(SLICE_C_KP, 2) * [H - 20, W - 20]
+                           + 10).astype(np.float32)).to(dev)
+    bw, bh = FRONT_BIG
+    big = [from_array(torch.from_numpy(f).to(dev), border=9,
+                      border_mode="mirror") for f in make_clip(bw, bh, 2,
+                                                               seed=0)]
+    kp_big = torch.from_numpy((rng.rand(SLICE_C_KP, 2) * [bh - 20, bw - 20]
+                               + 10).astype(np.float32)).to(dev)
+    lk = {}
+    for name, frames, pts, ws, nsc, cpu_n in (
+            ("winsize 21", vga, kp, 21, 3, SLICE_C_KP),
+            ("winsize 31", vga, kp, 31, 3, SLICE_C_KP),
+            ("winsize 121 1080p", big, kp_big, 121, 3, FRONT_CPU_KP),
+            (f"{FRONT_DEEP} scales", vga, kp, 11, FRONT_DEEP, SLICE_C_KP)):
+        lk[name] = front_lk(torch, frames, pts, ws, nsc, cpu_n, smi)
+    w11 = results["lk_level"]
+    for name in ("winsize 21", "winsize 31"):
+        lk[name]["bound_ops_vs_winsize11"] = (lk[name]["bound_ops"]
+                                              / w11["bound_ops"])
+    print(f"phase 15a: K10's bound operations against phase 12a's winsize "
+          f"11 ({w11['bound_ops']}): winsize 21 "
+          f"{lk['winsize 21']['bound_ops_vs_winsize11']:.2f}x, winsize 31 "
+          f"{lk['winsize 31']['bound_ops_vs_winsize11']:.2f}x")
+    out["lucas_kanade"] = lk
+    # -- 15b. semi_dense_optical_flow at search_niters 16 and 24 -------------
+    cfg = bench_tracker_config()
+    clip = make_clip(W, H, 3, seed=0)
+    b = max(3, cfg.winsize)
+    p1, p2 = (pyramid(from_array(torch.from_numpy(clip[i]).to(dev), border=b,
+                                 border_mode="mirror"), cfg.nscales,
+                      border=b) for i in (0, 2))
+    pos = torch.from_numpy((rng.rand(SLICE_C_KP, 2) * [H - 1, W - 1]).astype(
+        np.float32)).to(dev)
+    valid = torch.ones(SLICE_C_KP, dtype=torch.bool, device=dev)
+    out["semi_dense"] = {str(n): front_flow(torch, p1, p2, cfg, n, pos,
+                                            valid, smi)
+                         for n in (5,) + FRONT_NITERS}
+    out["k1_global"] = front_k1_global(torch, dev, smi)
+    # -- 15c. slam_run_streams past ring 16 -----------------------------------
+    out["ring20_streams"] = front_ring20(torch, SP, KN, slam_cfg, dev, smi)
+    # the kernels line's rows
+    results["lk_level"]["device_ms_by_route"] = {
+        k: v["k10_device_ms"] for k, v in lk.items()}
+    results["lk_level"]["bound_ms_by_route"] = {
+        k: v["bound_ms"] for k, v in lk.items()}
+    results["flow_level"]["device_ms_by_search_niters"] = {
+        k: v["k1_device_ms"] for k, v in out["semi_dense"].items()}
+    results["flow_level"]["device_ms_global_route"] = \
+        out["k1_global"]["device_ms"]
+    results["ba_generic"]["launches_ring20_streams4"] = \
+        out["ring20_streams"]["k9_launches_streams"]
+    results["ba_generic"]["device_ms_ring20_window_by_streams"] = {
+        n: q["device_ms"] for n, q in out["ring20_streams"]["window_k9"]
+        .items()}
+    return out
+
+
 def sfm_scene(np, m: int = 8, seed: int = 0):
     """tests/test_sfm.py:39's 3-D segments in front of the camera."""
     rng = np.random.RandomState(seed)
@@ -5373,7 +5926,12 @@ def main() -> int:
                             ga, g_ate, results, smi)
     print(f"phase 14: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 15. results ----------------------------------------------------------
+    # -- 15. the front end past the kernels' old limits, ring 20 streams -----
+    t0 = time.perf_counter()
+    front = phase_front_end(torch, np, dev, slam_cfg, results, smi)
+    print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. results ----------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -5412,7 +5970,7 @@ def main() -> int:
                       "streams": streams, "ba_generic": gen,
                       "hough_lines": hough_lines, "slice_c": slice_c,
                       "slice_d": slice_d, "sharded": sharded,
-                      "card": smi}))
+                      "front_end": front, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -45,6 +45,14 @@ MAIN_LEVELS = [
 ]
 
 
+# The top level's dense search at search_niters 16 and 32 (1089 and 4225
+# displacements), on the tracker's coarsest level shape
+WIDE_R = [
+    (138, 178, 9, 9, 5, 16, 0, 2, 1),
+    (138, 178, 9, 9, 5, 32, 0, 2, 1),
+]
+
+
 def _level_inputs(case, integer, seed):
     hb, wb, b, ws, patch, R, pb, props, extra = case
     rng = np.random.RandomState(seed)
@@ -139,7 +147,7 @@ def _assert_plan_covers(g, plan):
 
 
 @pytest.mark.parametrize("shape", tfl._VOLUME_SHAPES)
-@pytest.mark.parametrize("case", MAIN_LEVELS + LEVELS)
+@pytest.mark.parametrize("case", MAIN_LEVELS + LEVELS + WIDE_R)
 def test_k1_plan_covers_each_cell_once(case, shape):
     """K1's tile plan at each of launch A's tile shapes, and the plan it
     chooses: every cell and displacement covered once, shared memory within
@@ -172,17 +180,20 @@ LARGE_WINDOWS = [(31, 16, 5), (31, 16, 10), (41, 24, 5)]
 @pytest.mark.parametrize("ws,patch,R", LARGE_WINDOWS)
 def test_k1_plan_fits_large_windows(ws, patch, R):
     """Large windows split launch A's chunk into more batches until the
-    block's shared memory fits; a tile shape that does not fit at a batch of one is
-    passed over, and the plan raises only where no shape fits."""
+    block's shared memory fits; a tile shape that does not fit at a batch
+    of one is passed over, and where no shape fits launch A takes its
+    global route (no shared memory), which covers each cell once."""
     g = tfl.LevelGeometry(b=ws, h=240, w=320, ws=ws, patch=patch,
                           gh=240 // patch, gw=320 // patch, R=R,
                           pred_bound=8)
     for tile, threads in tfl._VOLUME_SHAPES:
-        try:
-            plan = tfl._k1_plan(g, 2, 132, ((tile, threads),))
-        except ValueError:
+        plan = tfl._k1_plan(g, 2, 132, ((tile, threads),))
+        if plan.a_route == "global":
             assert tfl._volume_smem(g, tile, threads, 1, 1) > tfl._SMEM_MAX
+            assert plan.a_smem == 0 and plan.batch == 1
+            _assert_plan_covers(g, plan)
             continue
+        assert (plan.a_tile, plan.a_threads) == (tile, threads)
         _assert_plan_covers(g, plan)
         nbatch = -(-plan.chunk // plan.batch)
         if nbatch > -(-plan.chunk // 8):     # fewer batches do not fit
@@ -191,8 +202,11 @@ def test_k1_plan_fits_large_windows(ws, patch, R):
                 tfl._SMEM_MAX
     _assert_plan_covers(g, tfl._k1_plan(g, 2, 132))
     huge = dataclasses.replace(g, ws=151, patch=40, gh=6, gw=8)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfl._k1_plan(huge, 2, 132)
+    plan = tfl._k1_plan(huge, 2, 132)
+    assert plan.a_route == "global" and plan.a_smem == 0
+    assert all(tfl._volume_smem(huge, t, n, 1, 1) > tfl._SMEM_MAX
+               for t, n in tfl._VOLUME_SHAPES)
+    _assert_plan_covers(huge, plan)
 
 
 def test_flow_match_then_propagate_is_the_level():
@@ -228,10 +242,12 @@ def _images(seed, t2=2, shape=(96, 128)):
              for i in (0, t2)])
 
 
-@pytest.mark.parametrize("min_scale", [0])
-def test_semi_dense_flow_matches(min_scale):
+@pytest.mark.parametrize("min_scale,search_niters", [
+    (0, 5), (0, 16), (0, 20)], ids=["0", "0-niters16", "0-niters20"])
+def test_semi_dense_flow_matches(min_scale, search_niters):
     """Keypoint readout over the whole pyramid. At most 1% of the valid
-    slots may differ, through SAD near-ties."""
+    slots may differ, through SAD near-ties. ``search_niters`` 16 and 20
+    search 1089 and 1681 displacements at the top level."""
     (j1, j2), (t1, t2) = _images(seed=min_scale)
     rng = np.random.RandomState(11)
     k = 200
@@ -239,7 +255,7 @@ def test_semi_dense_flow_matches(min_scale):
         np.float32)
     valid = rng.rand(k) > 0.2
     kw = dict(winsize=9, nscales=3, propagation=2, patchsize=5,
-              min_scale=min_scale)
+              min_scale=min_scale, search_niters=search_niters)
     jm, jd, jok = jax.jit(lambda p, v, a, b: jfl.semi_dense_optical_flow(
         p, v, a, b, **kw))(jnp.asarray(pos), jnp.asarray(valid), j1, j2)
     tm, td, tok = tfl.semi_dense_optical_flow(torch.from_numpy(pos),

@@ -179,13 +179,18 @@ def test_k2_and_k5_calls_run_one_kernel(cuda):
 
 # (hb, wb, border, R, pred_bound, extra cells): the tracker's three levels
 # of a 640x480 frame (grids (25, 33), (49, 65), (96, 128)), then a grid that
-# is not a multiple of K1's tiles and a grid that outgrows the image
+# is not a multiple of K1's tiles and a grid that outgrows the image, then
+# the coarsest level searched at R 16 and 32
 K1_CASES = [
     (138, 178, 9, 5, 0, 1),
     (258, 338, 9, 1, 10, 1),
     (498, 658, 9, 1, 22, 0),
     (71, 93, 9, 1, 10, 0),
     (71, 93, 9, 3, 6, 1),
+    # the top level's search at search_niters 16 and 32 (1089 and 4225
+    # displacements, past the 1024 K1 once took)
+    (138, 178, 9, 16, 0, 1),
+    (138, 178, 9, 32, 0, 1),
 ]
 
 
@@ -607,6 +612,22 @@ def test_pyramid_kernel_whole_pyramid(cuda, shape, nlevels):
                     kind, lvl)
 
 
+def test_pyramid_kernel_past_32_levels(cuda):
+    """36 levels of a 61x77 frame (2x2 from level 6 on): two chained K4
+    launches (32 levels, then the rest from the 32nd level's interior),
+    every level within 1e-6 relative of the plain chain."""
+    pyr = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    a = torch.from_numpy(np.random.RandomState(36).rand(61, 77).astype(
+        np.float32) * 255 + 1).to(cuda)
+    shapes = pyr.level_shapes((61, 77), 36)
+    reset_launch_counts()
+    got = pyr.pyramid(pyr.Image2d(data=a, border=0), 36, border=5)
+    assert launch_counts()["pyramid_decim"] == 2
+    assert got[35].shape == (2, 2)
+    for g, wl in zip(got.levels, pyr.pyramid_plain(a, shapes, 5)):
+        assert _level_close(g.data, wl.data, False)
+
+
 @pytest.mark.parametrize("shape", [(480, 640), (61, 77), (37, 53)])
 @pytest.mark.parametrize("nlevels", [3, 4])
 def test_pyramid_kernel_barrier_design_same_bits(cuda, shape, nlevels):
@@ -627,8 +648,10 @@ def test_pyramid_kernel_barrier_design_same_bits(cuda, shape, nlevels):
 
 def test_pyramid_kernel_other_routes(cuda):
     """A float64 frame pads level 0 and launches K4 once a level; a uint8
-    frame takes the integer chain (no K4); a level that cannot be
-    decimated raises; nlevels 1 is the pad alone."""
+    frame takes the integer chain (no K4); a 2-row frame decimates to 2
+    rows (the last tap wraps, as in ``_decim_matrix``) within K4's rule; a
+    1-row level, which K4 cannot decimate, raises; nlevels 1 is the pad
+    alone."""
     pyr = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
     a = np.random.RandomState(1).randint(0, 256, (61, 77))
     shapes = pyr.level_shapes((61, 77), 3)
@@ -645,9 +668,14 @@ def test_pyramid_kernel_other_routes(cuda):
     for g, c in zip(got.levels, pyr.pyramid(pyr.Image2d(data=u8, border=0),
                                             3, border=9).levels):
         assert torch.equal(g.data.cpu(), c.data)
-    thin = torch.ones((2, 40), dtype=torch.float32, device=cuda)
+    thin = torch.from_numpy(a[:2, :40].astype(np.float32)).to(cuda)
+    got = pyr.pyramid(pyr.Image2d(data=thin, border=0), 2, border=3)
+    want = pyr.pyramid_plain(thin, pyr.level_shapes((2, 40), 2), 3)
+    assert got[1].shape == (2, 21)
+    for g, wl in zip(got.levels, want):
+        assert torch.equal(g.data, wl.data)
     with pytest.raises(ValueError):
-        pyr.pyramid(pyr.Image2d(data=thin, border=0), 2, border=3)
+        pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 2, border=3)
     one = pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 1, border=3)
     assert torch.equal(one[0].data, from_array(thin[:1], border=3,
                                                border_mode="mirror").data)
@@ -1167,7 +1195,8 @@ def test_ring_of_twenty_runs_k9(cuda, linalg):
     generic route's on the same problem, within the plain ring loop's
     tolerances on the card (costs 1e-4 relative to the largest, poses 1e-4
     where the plain loop lands within 1e-5 of itself on the CPU). With a
-    stream dimension it raises ``ValueError`` before any launch."""
+    stream dimension of 2 it is two K9 launches, one a stream, each
+    stream's result the single problem's bits."""
     from vpp_tpu_torch.slam import ba
     p = _ring_problem(cuda, 600, 20, 20)
     reset_launch_counts()
@@ -1187,9 +1216,13 @@ def test_ring_of_twenty_runs_k9(cuda, linalg):
     streams = ba.BATracks(*(t if i == 5 else t[None].expand(
         (2,) + t.shape).contiguous() for i, t in enumerate(p)))
     reset_launch_counts()
-    with pytest.raises(ValueError):
-        ba.ba_solve_tracks(streams, iters=1, ring_layout=True)
-    assert sum(launch_counts().values()) == 0
+    ss, cs = ba.ba_solve_tracks(streams, iters=3, lam0=1e-4,
+                                ring_layout=True, linalg=linalg)
+    assert launch_counts()["ba_generic"] == 2
+    assert launch_counts()["ba_tracks"] == 0
+    for i in range(2):
+        assert _same_bits(ss.poses[i], sr.poses) and _same_bits(cs[i], cr)
+        assert _same_bits(ss.landmarks[i], sr.landmarks)
 
 
 @pytest.mark.parametrize("linalg", ["chol", "lu"])
@@ -2058,3 +2091,244 @@ def test_sharded_update_one_rank_nccl(cuda, nccl_one_rank):
         assert torch.equal(ref.traj_len, sh.traj_len)
         ref, sh = kill_margin(ref), kill_margin(sh)
     assert int(sh.keypoints.alive.sum()) > 50
+
+
+# -- past the kernels' old limits: K10 at any winsize and depth, K1 at any
+#    displacement count and window, K9 on a ring of streams -----------------
+
+def _lk_setup(cuda, h, w, n, ws, nscales, frame_border=9):
+    lk = importlib.import_module("vpp_tpu_torch.algorithms.lk")
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    i1, i2 = _lk_frames(cuda, h, w, border=frame_border)
+    border = max(3, ws // 2)
+    pp, pn = PY.pyramid(i1, nscales, border=border), PY.pyramid(
+        i2, nscales, border=border)
+    pg = lk.gradient_pyramid(pp)
+    scales = list(range(nscales - 1, -1, -1))
+    levels = [(pp[s], pn[s], pg[s]) for s in scales]
+    rng = np.random.RandomState(n + ws)
+    kp = torch.from_numpy((rng.rand(n, 2) * [h - 1, w - 1]).astype(
+        np.float32)).to(cuda)
+    return lk, PY, (i1, i2), (pp, pn, pg), scales, levels, kp
+
+
+# (h, w, keypoints, winsize): the staged route at OpenCV's 21 and 31, the
+# global one at 121 (one warp's patches no longer fit 227 KB)
+LK_WIDE = [(128, 160, 40, 21), (128, 160, 33, 31), (320, 400, 24, 121)]
+
+
+@pytest.mark.parametrize("h,w,n,ws", LK_WIDE)
+def test_lk_kernel_wide_windows(cuda, h, w, n, ws):
+    """K10 past winsize 15: ``lk_levels`` over 3 levels one launch on the
+    route ``_k10_plan`` names, every level's flow, err, windows and Newton
+    steps bit-equal to ``lk_levels_plain`` on the same pyramids, with
+    either adopt rule; ``lucas_kanade`` one K10 and two K4 launches, equal
+    to that launch."""
+    lk, _, (i1, i2), _, scales, levels, kp = _lk_setup(cuda, h, w, n, ws, 3)
+    pad = max(lk._search_pad(B, ws) for _, B, _ in levels)
+    assert lk._k10_plan(ws, pad)[0] == ("global" if ws > 112 else "staged")
+    kw = dict(winsize=ws, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1, factor=2.0, max_err=2.0)
+    tr0 = torch.zeros_like(kp)
+    for adopt in ("always", "below"):
+        reset_launch_counts()
+        got = lk.lk_levels(levels, scales, kp, tr0, adopt=adopt,
+                           windows=True, **kw)
+        assert launch_counts()["lk_level"] == 1
+        want = lk.lk_levels_plain(levels, scales, kp, tr0, adopt=adopt,
+                                  windows=True, **kw)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), adopt
+        if adopt == "always":
+            always = got
+    reset_launch_counts()
+    flow, dist = lk.lucas_kanade(i1, i2, kp, winsize=ws, nscales=3)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"lk_level": 1, "pyramid_decim": 2}
+    assert torch.equal(flow, always[0]) and torch.equal(dist, always[1])
+
+
+def test_lk_kernel_eighteen_levels(cuda):
+    """``lucas_kanade`` at 18 scales on 96x128: K4 builds the 18 levels in
+    one launch (they stop shrinking at 2x2; within 1e-6 relative of the
+    plain chain), K10 runs two chained launches (the 2 coarsest levels,
+    then 16, on the staged route: the 2x2 levels are smaller than their
+    patches), every level bit-equal to the plain level loop, and the call
+    equal to the chain."""
+    lk, PY, (i1, i2), (pp, pn, pg), scales, levels, kp = _lk_setup(
+        cuda, 96, 128, 37, 11, 18)
+    assert pp[17].shape == (2, 2)
+    for g, wl in zip(pp.levels, PY.pyramid_plain(
+            i1.interior, PY.level_shapes((96, 128), 18), pp[0].border)):
+        assert _level_close(g.data, wl.data, False)
+    pads = [lk._search_pad(B, 11) for _, B, _ in levels]
+    assert lk._k10_plan(11, max(pads), False)[0] == "staged"
+    kw = dict(winsize=11, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1, adopt="always", factor=2.0)
+    tr0 = torch.zeros_like(kp)
+    reset_launch_counts()
+    got = lk.lk_levels(levels, scales, kp, tr0, windows=True, **kw)
+    assert launch_counts()["lk_level"] == 2
+    want = lk.lk_levels_plain(levels, scales, kp, tr0, windows=True, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    reset_launch_counts()
+    flow, dist = lk.lucas_kanade(i1, i2, kp, nscales=18)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"lk_level": 2, "pyramid_decim": 2}
+    assert torch.equal(flow, got[0]) and torch.equal(dist, got[1])
+
+
+def _guarded(cuda, held, guard=1 << 16, pattern=-0x5A5A5A5B):
+    """A factory of buffers that lie between two guard zones of ``guard``
+    int32 holding ``pattern``; ``held`` collects the backing buffers."""
+    def make(n, dtype=torch.float32):
+        buf = torch.full((2 * guard + n,), pattern, dtype=torch.int32,
+                         device=cuda)
+        held.append(buf)
+        return buf[guard:guard + n].view(dtype)
+
+    def hold():
+        torch.cuda.synchronize()
+        return all(bool((b[:guard] == pattern).all())
+                   and bool((b[-guard:] == pattern).all()) for b in held)
+    return make, hold
+
+
+@pytest.mark.parametrize("ws,nscales,route", [(31, 3, "staged"),
+                                              (121, 3, "global"),
+                                              (11, 18, "staged"),
+                                              (11, 18, "global")])
+def test_lk_kernel_stays_in_its_buffers(cuda, ws, nscales, route):
+    """K10's staged and global routes read and write only inside their
+    buffers: every level buffer, p, tr0 and each output between guard
+    zones; after each launch the card reports no fault, every guard holds,
+    and the outputs equal the plain level loop's (at 18 levels, the 2x2
+    levels' patches reach past their buffers, which reads 0 there)."""
+    lk, _, _, _, scales, levels, kp = _lk_setup(
+        cuda, 96 if ws < 100 else 320, 128 if ws < 100 else 400, 21, ws,
+        nscales)
+    held = []
+    make, hold = _guarded(cuda, held)
+
+    def copy(t):
+        g = make(t.numel()).view(t.shape)
+        g.copy_(t)
+        return g
+
+    glevels = [tuple(Image2d(data=copy(img.data.contiguous()),
+                             border=img.border) for img in lvl)
+               for lvl in levels]
+    p = copy(kp)
+    tr0 = copy(torch.zeros_like(kp))
+    n, nw = kp.shape[0], ws * ws
+    kw = dict(winsize=ws, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1, adopt="below", factor=2.0, max_err=2.0)
+    want = lk.lk_levels_plain(levels, scales, kp, torch.zeros_like(kp),
+                              windows=True, **kw)
+    lo, hi = (0, len(levels)) if len(levels) <= 16 else (2, len(levels))
+    rows, pads = [], []
+    for (A, B, G), s in zip(glevels[lo:hi], scales[lo:hi]):
+        _, row, pad, _ = lk._level_row(A, B, G, s, ws)
+        rows += row
+        pads.append(pad)
+    if lo:                        # the chain's second launch
+        tr0.copy_(lk.lk_levels_plain(levels[:lo], scales[:lo], kp,
+                                     torch.zeros_like(kp), **kw)[0])
+    nl = hi - lo
+    tr, dist = make(2 * n).view(n, 2), make(n)
+    per = (make(nl * n * 2).view(nl, n, 2), make(nl * n).view(nl, n),
+           make(nl * n * 4 * nw).view(nl, n, 4, nw),
+           make(nl * n, torch.int32).view(nl, n))
+    plan = lk._k10_plan(ws, max(pads), False)
+    if route == "global":
+        plan = ("global", 4, 0)
+    assert plan[0] == route
+    lk._launch_k10(rows, nl, p, tr0, n, ws, 1e-4, 21, 0.1, "below", 2.0,
+                   2.0, plan, tr, dist, per)
+    assert hold()
+    assert torch.equal(tr, want[0]) and torch.equal(dist, want[1])
+    for g, x in zip(per, want[2:]):
+        assert torch.equal(g, x[lo:hi])
+
+
+def test_flow_level_kernel_global_route(cuda):
+    """K1 at ws 151 on 40 px cells (no tile shape's regions fit 227 KB):
+    launch A's global route, every buffer between guard zones; the volume,
+    flow and dist bit-equal to the plain level on integer-valued buffers,
+    and no guard touched."""
+    hb, wb, b, ws, patch, R = 390, 470, 75, 151, 40, 5
+    rng = np.random.RandomState(151)
+    a1 = rng.randint(0, 256, (hb, wb)).astype(np.float32)
+    a2 = (np.roll(a1, (2, -1), (0, 1))
+          + rng.randint(0, 3, (hb, wb))).astype(np.float32)
+    h, w = hb - 2 * b, wb - 2 * b
+    g = flow.LevelGeometry(b=b, h=h, w=w, ws=ws, patch=patch, gh=h // patch,
+                           gw=w // patch, R=R, pred_bound=8)
+    pred = (rng.randint(-5, 6, (g.gh, g.gw, 2)) * 2).astype(np.int32)
+    t1, t2, tp = (torch.from_numpy(x).to(cuda) for x in (a1, a2, pred))
+    plan = flow._k1_plan(g, 2, flow._sm_count(cuda))
+    assert plan.a_route == "global" and plan.a_smem == 0
+    fp, dp, vp = _level_by_plain(t1, t2, tp, g, 2)
+    held = []
+    make, hold = _guarded(cuda, held)
+    ga1, ga2 = make(hb * wb).view(hb, wb), make(hb * wb).view(hb, wb)
+    ga1.copy_(t1)
+    ga2.copy_(t2)
+    gp = make(tp.numel(), torch.int32).view(tp.shape)
+    gp.copy_(tp)
+    reset_launch_counts()
+    fk, dk = flow.flow_level(ga1, ga2, gp, g, 2)
+    assert launch_counts()["flow_level"] == 2
+    assert hold()
+    assert torch.equal(fk, fp) and torch.equal(dk, dp)
+    _, _, vk = flow.flow_match(ga1, ga2, gp, g)
+    assert torch.equal(vk, vp)
+
+
+def test_flow_propagate_table_in_device_memory(cuda):
+    """Launch B with 38 passes at R 21: its tile and halo leave no room for
+    the 1849-entry flat_to_k table, which it then reads in device memory;
+    bit-equal to 38 plain passes."""
+    R, iters, gh, gw = 21, 38, 20, 24
+    assert flow._select_plan(flow._SELECT_TILE, iters, R)[1] == "global"
+    rng = np.random.RandomState(38)
+    d2 = (2 * R + 1) ** 2
+    vol = torch.from_numpy(rng.randint(0, 1000, (d2, gh, gw)).astype(
+        np.float32)).to(cuda)
+    pred = torch.from_numpy((rng.randint(-3, 4, (gh, gw, 2)) * 2).astype(
+        np.int32)).to(cuda)
+    f0 = pred + torch.from_numpy(rng.randint(-R, R + 1, (gh, gw, 2)).astype(
+        np.int32)).to(cuda)
+    d0 = torch.from_numpy(rng.rand(gh, gw).astype(np.float32) * 2000).to(cuda)
+    reset_launch_counts()
+    fk, dk = flow.flow_propagate(f0, d0, pred, vol, R, iters=iters)
+    assert launch_counts()["flow_level"] == 1
+    fp, dp = f0, d0
+    for _ in range(iters):
+        fp, dp = flow.flow_propagate_plain(fp, dp, pred, vol, R)
+    assert torch.equal(fk, fp) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ring_of_twenty_streams_one_k9_launch_a_stream(cuda, linalg):
+    """``ba_solve_tracks(ring_layout=True)`` on S = 3 rings of M = 20 poses
+    (more than K6 holds): three K9 launches, one a stream in stream order,
+    and no K6 launch; each stream's poses, landmarks and costs bit-equal to
+    a single-problem call on that stream."""
+    from vpp_tpu_torch.slam import ba
+    probs = [_ring_problem(cuda, 400, 20, seed) for seed in (1, 2, 3)]
+    batched = ba.BATracks(*(probs[0][i] if i == 5 else torch.stack(
+        [p[i] for p in probs]) for i in range(7)))
+    reset_launch_counts()
+    got, costs = ba.ba_solve_tracks(batched, iters=3, lam0=1e-4,
+                                    ring_layout=True, linalg=linalg)
+    assert launch_counts()["ba_generic"] == 3
+    assert launch_counts()["ba_tracks"] == 0
+    assert costs.shape == (3, 3)
+    for i, p in enumerate(probs):
+        one, c1 = ba.ba_solve_tracks(p, iters=3, lam0=1e-4,
+                                     ring_layout=True, linalg=linalg)
+        assert _same_bits(got.poses[i], one.poses), i
+        assert _same_bits(got.landmarks[i], one.landmarks), i
+        assert _same_bits(costs[i], c1), i

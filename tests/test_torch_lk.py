@@ -114,13 +114,17 @@ def _hold(jf, je, tf, te, max_err=MAX_ERR, held=None):
     return int(kept.sum())
 
 
-def _conditioned(jax_flow, p, delta=1e-4):
+def _conditioned(jax_flow, p, delta=1e-4, deltas=None):
     """Keypoints whose JAX flow moves by at most 1e-3 px when the keypoints
-    move by ``delta`` px (``jax_flow(p) -> (N, 2)``): where the reference
-    itself amplifies a change of its input by no more than 10."""
+    move by ``delta`` px (``jax_flow(p) -> (N, 2)``), or by each of
+    ``deltas``: where the reference itself amplifies a change of its input
+    by no more than 10."""
     f0 = np.asarray(jax_flow(p))
-    f1 = np.asarray(jax_flow((p + delta).astype(np.float32)))
-    return np.abs(f1 - f0).max(1) <= 1e-3
+    ok = np.ones(len(p), bool)
+    for d in (delta,) if deltas is None else deltas:
+        f1 = np.asarray(jax_flow((p + d).astype(np.float32)))
+        ok &= np.abs(f1 - f0).max(1) * (1e-4 / abs(d)) <= 1e-3
+    return ok
 
 
 @pytest.mark.parametrize("pp,ws", [(37, 11), (13, 11), (9, 7), (11, 11)])
@@ -224,6 +228,97 @@ def test_lucas_kanade(nscales, pred):
                                atol=0.1)
 
 
+# JAX's flow moved by the keypoints moving each of these (px): the wide
+# windows' sums of 441 and 961 terms leave some keypoints near a Newton
+# step's convergence decision, which one perturbation does not find
+WIDE_DELTAS = (1e-4, -1e-4, 2e-4)
+
+
+@pytest.mark.parametrize("winsize", [21, 31])
+def test_lucas_kanade_wide_windows(winsize):
+    """OpenCV's habitual winsizes, past the 15 of K10's registers route:
+    held to the JAX package by ``test_lucas_kanade``'s rule, with the
+    conditioning tested both ways (``WIDE_DELTAS``). At winsize 31 a 31 px
+    window on this 128x160 texture keeps about half of the keypoints, in
+    both packages."""
+    (j1, t1), (j2, t2) = _texture(3)
+    p = (_keypoints(40, 88, 120, 6) + np.float32(20)).astype(np.float32)
+
+    def jax_call(q):
+        return jlk.lucas_kanade(j1, j2, jnp.asarray(q), winsize=winsize)
+
+    jf, je = jax_call(p)
+    tf, te = tlk.lucas_kanade(t1, t2, torch.from_numpy(p), winsize=winsize)
+    held = _conditioned(lambda q: jax_call(q)[0], p, deltas=WIDE_DELTAS)
+    assert _hold(jf, je, tf, te, held=held) >= 15
+    good = te.numpy() < MAX_ERR
+    assert good.mean() > (0.7 if winsize < 31 else 0.5)
+    np.testing.assert_allclose(np.median(tf.numpy()[good], 0), [-3, -3],
+                               atol=0.1)
+
+
+def _small_frames(shift=1, h=48, w=64):
+    """Two 48x64 frames of the smooth texture, ``shift`` px apart."""
+    tex = _smooth(h + 8, w + 8, 5)
+    return [(j_from_array(jnp.asarray(a), border=9, border_mode="mirror"),
+             t_from_array(torch.from_numpy(a), border=9,
+                          border_mode="mirror"))
+            for a in (tex[:h, :w], tex[shift:shift + h, shift:shift + w])]
+
+
+def test_lucas_kanade_eighteen_levels():
+    """18 scales on a 48x64 frame: the levels stop shrinking at 2x2 (the
+    JAX ``level_shapes``), where the 13x13 template and the search patch are
+    larger than their buffers and read 0 outside them, as the JAX
+    package's one-hot extraction does. Each level from one prediction is
+    held to JAX (the gradient levels bit-equal): the same kill decision
+    where the JAX err is far from ``max_err``, and the flow of every
+    keypoint, kept or killed, within 1e-3 px where JAX's level flow is
+    conditioned (``WIDE_DELTAS``; on the 13x17 and 7x9 levels the
+    iteration wanders for some keypoints). The whole call doubles each
+    tiny level's flow 17 times, to ~1e4 px in both packages (every
+    keypoint then leaves the image and is killed): the kill decisions
+    equal, the flow within 1e-3 relative."""
+    (j1, t1), (j2, t2) = _small_frames()
+    p = _keypoints(24, 48, 64, 9) * np.float32(0.5) + np.float32(6)
+    jpp, jpn = j_pyramid(j1, 18, border=5), j_pyramid(j2, 18, border=5)
+    tpp, tpn = t_pyramid(t1, 18, border=5), t_pyramid(t2, 18, border=5)
+    assert [lvl.shape for lvl in tpp.levels[6:]] == [(2, 2)] * 12
+    jpg, tpg = jlk.gradient_pyramid(jpp), tlk.gradient_pyramid(tpp)
+    kw = dict(winsize=11, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1)
+    held = 0
+    for s in range(18):
+        assert tpp[s].data.shape[0] < 13 or s < 6
+        np.testing.assert_array_equal(np.asarray(jpg[s].data),
+                                      tpg[s].data.numpy())
+        q = p / np.float32(2 ** s)
+
+        def jax_level(x, s=s):
+            return jlk.lk_match_batch(jpp[s], jpn[s], jpg[s], jnp.asarray(x),
+                                      jnp.zeros((24, 2)), **kw)
+
+        jf, je = jax_level(q)
+        tf, te = tlk.lk_match_batch(tpp[s], tpn[s], tpg[s],
+                                    torch.from_numpy(q),
+                                    torch.zeros((24, 2)), **kw)
+        far = np.abs(np.asarray(je) - MAX_ERR) > 1e-3 * MAX_ERR
+        np.testing.assert_array_equal(te.numpy()[far] <= MAX_ERR,
+                                      np.asarray(je)[far] <= MAX_ERR)
+        cond = _conditioned(lambda x: jax_level(x)[0], q, deltas=WIDE_DELTAS)
+        np.testing.assert_allclose(tf.numpy()[cond], np.asarray(jf)[cond],
+                                   atol=1e-3, rtol=0)
+        if s >= 6:                  # the 2x2 levels
+            held += int(cond.sum())
+    assert held >= 24 * 6
+    jf, je = jlk.lucas_kanade(j1, j2, jnp.asarray(p), nscales=18)
+    tf, te = tlk.lucas_kanade(t1, t2, torch.from_numpy(p), nscales=18)
+    np.testing.assert_array_equal(te.numpy() <= MAX_ERR,
+                                  np.asarray(je) <= MAX_ERR)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-3,
+                               atol=1e-3)
+
+
 def test_lucas_kanade_square():
     """tests/test_lk.py:23."""
     j1, t1 = _square(0, 0)
@@ -258,6 +353,31 @@ def test_pyrlk_match(case):
                                atol=1e-3, rtol=0)
     if case == "square":
         assert bool(to.alive[0]) and not bool(to.alive[1])
+
+
+def test_pyrlk_match_wide_window():
+    """``pyrlk_match`` at winsize 21 on the texture, against JAX with
+    ``test_pyrlk_match``'s tolerances, on two scales: a third (33x41)
+    would hold the 21 px window's 23x23 template nearly whole, and there
+    the Newton iteration wanders apart between the packages, as the module
+    docstring says of winsize 11 at 33x41."""
+    (j1, t1), (j2, t2) = _texture(2)
+    p = _keypoints(48, 128, 160, 7)
+    alive = np.random.RandomState(8).rand(48) > 0.2
+    jpp, jpn = j_pyramid(j1, 2, border=10), j_pyramid(j2, 2, border=10)
+    tpp, tpn = t_pyramid(t1, 2, border=10), t_pyramid(t2, 2, border=10)
+    jo = jlk.pyrlk_match(jpp, jlk.gradient_pyramid(jpp), jpn,
+                         j_kps(jnp.asarray(p), jnp.asarray(alive)),
+                         winsize=21)
+    to = tlk.pyrlk_match(tpp, tlk.gradient_pyramid(tpp), tpn,
+                         t_kps(torch.from_numpy(p), torch.from_numpy(alive)),
+                         winsize=21)
+    np.testing.assert_array_equal(np.asarray(jo.age), to.age.numpy())
+    assert int(to.alive.sum()) >= 20
+    np.testing.assert_allclose(to.position.numpy(), np.asarray(jo.position),
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(to.velocity.numpy(), np.asarray(jo.velocity),
+                               atol=1e-3, rtol=0)
 
 
 def test_pyrlk_level_kill_semantics(monkeypatch):
@@ -324,23 +444,54 @@ def test_oriented_lk(dirs):
 
 
 def test_lk_level_refuses_cpu_tensors():
-    """K10's wrapper takes CUDA tensors only; ``lk_match_batch`` routes a
+    """K10's wrapper takes CUDA tensors only, at any winsize (winsize 17
+    takes the staged route, and is refused here for the same reason as
+    winsize 11: the tensors lie on the CPU); ``lk_match_batch`` routes a
     CPU image to the plain version."""
     _, t1 = _square(0, 0)
     tg = tlk.gradient_pyramid(t_pyramid(t1, 1))[0]
-    with pytest.raises(ValueError, match="lk_level"):
-        tlk.lk_level(t1, t1, tg, torch.zeros((2, 2)), torch.zeros((2, 2)),
-                     winsize=11, min_ev=1e-4, niterations=3,
-                     convergence_delta=0.1)
+    for ws in (11, 17):
+        with pytest.raises(ValueError, match="lk_level: operand 0 on cpu"):
+            tlk.lk_level(t1, t1, tg, torch.zeros((2, 2)),
+                         torch.zeros((2, 2)), winsize=ws, min_ev=1e-4,
+                         niterations=3, convergence_delta=0.1)
     with pytest.raises(ValueError, match="winsize"):
         tlk.lk_level(t1, t1, tg, torch.zeros((2, 2)), torch.zeros((2, 2)),
-                     winsize=17, min_ev=1e-4, niterations=3,
+                     winsize=0, min_ev=1e-4, niterations=3,
                      convergence_delta=0.1)
+
+
+@pytest.mark.parametrize("ws,pad,want", [
+    (11, 12, ("registers", 4, 0)),
+    (31, 12, ("staged", 4, 4 * 4 * 6516)),
+    (111, 12, ("staged", 1, 4 * 57076)),
+    (121, 12, ("global", 4, 0)),
+    (11, 1, ("registers", 4, 0)),
+    (15, 12, ("registers", 4, 0)),
+    (16, 12, ("staged", 4, 4 * 4 * (3 * 18 * 18 + 42 * 42))),
+])
+def test_k10_launch_plan(ws, pad, want):
+    """K10's route is a function of the winsize and the largest search pad
+    of a launch's levels: registers up to winsize 15; the patches in
+    3 pt² + pb² floats a warp of shared memory, as many warps a CTA as
+    227 KB holds, up to 4; past one warp's patches (winsize 113 at pad
+    12), the level buffers themselves."""
+    assert tlk._k10_plan(ws, pad) == want
+    route, warps, smem = want
+    assert smem <= tlk._SMEM_MAX and 1 <= warps <= 4
+    if route == "registers":
+        # a level whose patches leave its buffer takes the staged route
+        assert tlk._k10_plan(ws, pad, fits=False)[0] == "staged"
+    if route == "global":
+        assert 4 * (3 * (ws + 2) ** 2 + (ws + 2 * pad + 2) ** 2) > \
+            tlk._SMEM_MAX
+    assert tlk._k10_plan(112, 12)[0] == "staged"
+    assert tlk._k10_plan(113, 12)[0] == "global"
 
 
 # -- K10's plain pieces: the lane order and the level glue ----------------------
 
-@pytest.mark.parametrize("m", [1, 31, 32, 33, 121, 225, 256])
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 121, 225, 256, 441, 961])
 def test_lane_sum_order(m):
     """``_lane_sum`` is K10's order: lane l (of 32) adds terms l, l + 32,
     ... to 0 in turn, then an xor butterfly over the lanes at strides 16,
@@ -450,6 +601,38 @@ def test_level_glue_matches_level_loop(nscales, pred):
                                 adopt="below", factor=2.0,
                                 max_err=float("inf"))
     assert float(always[0][0, 0]) == 1.0 and float(below[0][0, 0]) == 0.0
+
+
+def test_lk_levels_chain_of_launches():
+    """The chain ``lk_levels`` makes past 16 levels, on the plain level
+    loop: 18 levels split 2 + 16, the second part starting from the first
+    part's ``tr``, bit-equal to one 18-level pass (``dist`` and every
+    level's flow, err, windows and steps), with either adopt rule."""
+    (_, t1), (_, t2) = _small_frames()
+    pp, pn = t_pyramid(t1, 18, border=5), t_pyramid(t2, 18, border=5)
+    pg = tlk.gradient_pyramid(pp)
+    scales = list(range(17, -1, -1))
+    levels = [(pp[s], pn[s], pg[s]) for s in scales]
+    p = torch.from_numpy(_keypoints(16, 48, 64, 2) * np.float32(0.5)
+                         + np.float32(6))
+    tr0 = torch.from_numpy(np.random.RandomState(4).randn(16, 2).astype(
+        np.float32))
+    kw = dict(winsize=11, min_ev=1e-4, niterations=21,
+              convergence_delta=0.1, factor=2.0, max_err=2.0, windows=True)
+    for adopt in ("always", "below"):
+        whole = tlk.lk_levels_plain(levels, scales, p, tr0, adopt=adopt,
+                                    **kw)
+        head = tlk.lk_levels_plain(levels[:2], scales[:2], p, tr0,
+                                   adopt=adopt, **kw)
+        tail = tlk.lk_levels_plain(levels[2:], scales[2:], p, head[0],
+                                   adopt=adopt, **kw)
+        assert _bits(tail[0], whole[0]) and _bits(tail[1], whole[1])
+        for i in range(2, 6):
+            both = torch.cat([head[i], tail[i]])
+            assert torch.equal(both.view(torch.int32) if both.is_floating_point()
+                               else both,
+                               whole[i].view(torch.int32)
+                               if whole[i].is_floating_point() else whole[i])
 
 
 def test_level_glue_err_at_max_err():

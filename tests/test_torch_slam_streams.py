@@ -133,6 +133,34 @@ def test_streams_match_slam_run_per_stream(clips, runs):
         assert torch.equal(one.hist_frame, ts.hist_frame[s])
 
 
+def test_streams_ring_of_twenty_match_jax(clips):
+    """``ring = 20`` (a BA window of more poses than K6 holds; on the card
+    one K9 launch a stream) at S = 2 on this file's clips, against the JAX
+    ``slam_run_streams`` with ``test_streams_match_jax``'s bounds."""
+    frames, boot, gts = clips
+    jcfg, tcfg = (dataclasses.replace(c, ring=20) for c in _cfgs())
+    js = jax.jit(lambda f, b: jp.slam_run_streams(f, jcfg, b))(
+        jnp.asarray(frames), jnp.asarray(boot))
+    ts = tp.slam_run_streams(frames, tcfg, boot, device="cpu")
+    assert tuple(ts.kf_pose.shape[:2]) == (2, 20)
+    for s in range(2):
+        np.testing.assert_array_equal(
+            ts.tracker.keypoints.alive[s].numpy(),
+            np.asarray(js.tracker.keypoints.alive[s]))
+        np.testing.assert_array_equal(
+            ts.tracker.keypoints.position[s].numpy(),
+            np.asarray(js.tracker.keypoints.position[s]))
+        n = int(js.n_keyframes[s])
+        assert n == ts.n_keyframes == T // 4
+        np.testing.assert_array_equal(ts.hist_frame[s, :n].numpy(),
+                                      np.asarray(js.hist_frame[s, :n]))
+        np.testing.assert_allclose(ts.hist_pose[s, :n].numpy(),
+                                   np.asarray(js.hist_pose[s, :n]),
+                                   atol=0.05)
+        gt = gts[s][ts.hist_frame[s, :n].numpy()]
+        assert _ate(ts.hist_pose[s, :n].numpy(), gt) < 0.08
+
+
 def test_streams_guards():
     jcfg, tcfg = _cfgs()
     f = np.zeros((1, 8, H, W), np.float32)
@@ -264,6 +292,40 @@ def test_plain_k6_ba_streams(linalg):
         assert torch.equal(got.poses[i], one.poses), i
         assert torch.equal(got.landmarks[i], one.landmarks), i
         assert torch.equal(costs[i], c1), i
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ring_of_twenty_one_k9_call_a_stream(monkeypatch, linalg):
+    """The card's route for a ring of S = 3 streams of M = 20 poses (more
+    than K6 holds), held on the CPU: ``_lm_tracks(kernel=True)`` calls
+    K9's ``lm_generic`` once a stream, in stream order, on the stream's
+    own problem with ``obs_pose = arange(M)``, and stacks the results.
+    With ``lm_generic`` standing in as the plain LM loop on one problem,
+    the result is bit-equal to the plain S = 3 streams path."""
+    from vpp_tpu_torch.slam import ba_generic_cuda
+    batched, probs = _ba_problems(m=20)
+    calls = []
+
+    def plain_one(prob, iters, huber, lam0, linalg):
+        calls.append(prob)
+        out, costs = ba._lm_plain(prob, iters, huber, lam0, True, linalg)
+        return out.poses, out.landmarks, costs, None
+
+    monkeypatch.setattr(ba_generic_cuda, "lm_generic", plain_one)
+    got, costs = ba._lm_tracks(batched, 3, 4.0, 1e-4, True, linalg,
+                               kernel=True)
+    want, wcosts = ba._lm_tracks(batched, 3, 4.0, 1e-4, True, linalg,
+                                 kernel=False)
+    assert len(calls) == S3
+    ar = torch.arange(20, dtype=torch.int32).expand(150, 20)
+    for i, (call, prob) in enumerate(zip(calls, probs)):
+        assert torch.equal(call.landmarks, prob.landmarks), i
+        assert torch.equal(call.obs_uv, prob.obs_uv), i
+        assert torch.equal(call.obs_pose, ar), i
+    assert costs.shape == (S3, 3)
+    assert torch.equal(got.poses, want.poses)
+    assert torch.equal(got.landmarks, want.landmarks)
+    assert torch.equal(costs, wcosts)
 
 
 # -- convert: a JAX streams state across, and back -------------------------

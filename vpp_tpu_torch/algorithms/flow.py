@@ -292,11 +292,11 @@ def flow_propagate_plain(flow: torch.Tensor, dist: torch.Tensor,
 
 _SMEM_MAX = 232448    # shared memory one block may use on Hopper (227 KB)
 # (tile, threads) of launch A's instantiations in flow_level.cu, largest
-# tile first
-_VOLUME_SHAPES = ((8, 256), (4, 128))
+# tile first; the last only where no larger one fits
+_VOLUME_SHAPES = ((8, 256), (4, 128), (2, 64))
+_GLOBAL_SHAPE = (4, 256)   # launch A's global route: flow_volume_global_kernel
 _SELECT_TILE = 8      # cells per tile side of launch B
 _BATCH = 8            # flow_level.cu: kBatch, displacements per batch of A
-_MAX_D2 = 1024        # flow_level.cu: kMaxD2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,9 +305,13 @@ class K1Plan:
     (cost volume and each chunk's first minimum): ``a_tile`` x ``a_tile``
     cells, ``a_threads`` threads and ``chunk`` displacements per block,
     ``batch`` of them in shared memory at once, on an (x tiles, y tiles,
-    chunks) grid. Launch B (argmin over the chunks, rejection, ``iters``
+    chunks) grid; ``a_route`` "shared" stages the block's regions in
+    shared memory, "global" reads them in device memory (no shared memory,
+    ``batch`` 1). Launch B (argmin over the chunks, rejection, ``iters``
     passes): ``b_tile`` x ``b_tile`` cells per block with an ``iters``-cell
-    halo. ``*_smem`` are dynamic shared-memory bytes."""
+    halo, the flat_to_k table in shared memory (``b_table`` "shared") or
+    in device memory ("global"). ``*_smem`` are dynamic shared-memory
+    bytes."""
     a_tile: int
     a_threads: int
     chunk: int
@@ -318,6 +322,8 @@ class K1Plan:
     b_tile: int
     b_grid: Tuple[int, int]
     b_smem: int
+    a_route: str = "shared"
+    b_table: str = "shared"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -335,10 +341,26 @@ def _volume_smem(g: LevelGeometry, tile: int, threads: int, chunk: int,
                  + chunk + 2 * threads) + 2 * batch * span * span)
 
 
-def _select_smem(tile: int, iters: int, R: int) -> int:
+def _select_smem(tile: int, iters: int, R: int, table: bool = True) -> int:
     """Launch B's shared memory: flow and dist twice, the prediction, on
-    the tile and its halo; the (2R+1)² flat_to_k table."""
-    return (tile + 2 * iters) ** 2 * 32 + (2 * R + 1) ** 2 * 4
+    the tile and its halo; with ``table``, the (2R+1)² flat_to_k table."""
+    return (tile + 2 * iters) ** 2 * 32 + (table * (2 * R + 1) ** 2 * 4)
+
+
+def _select_plan(tile: int, iters: int, R: int) -> Tuple[int, str]:
+    """Launch B's (shared-memory bytes, table route): the flat_to_k table
+    in shared memory where it fits beside the tile, else in device
+    memory."""
+    smem = _select_smem(tile, iters, R)
+    if smem <= _SMEM_MAX:
+        return smem, "shared"
+    return _select_smem(tile, iters, R, table=False), "global"
+
+
+def _chunk(d2: int, tiles: int, sms: int, streams: int) -> int:
+    """Displacements a block: the table split into enough chunks that the
+    blocks of ``streams`` levels' ``tiles`` tiles fill ``sms`` SMs."""
+    return _cdiv(d2, min(d2, _cdiv(sms, max(1, streams * tiles))))
 
 
 def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
@@ -349,8 +371,8 @@ def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
     the tiles that fill it are counted over all of them."""
     d2 = (2 * g.R + 1) ** 2
     tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
-    chunk = _cdiv(d2, min(d2, _cdiv(sms, max(1, streams * tiles[0]
-                                              * tiles[1]))))
+    chunk = _chunk(d2, tiles[0] * tiles[1], sms, streams)
+    b_smem, b_table = _select_plan(_SELECT_TILE, prop_iters, g.R)
     for nbatch in range(_cdiv(chunk, _BATCH), chunk + 1):
         batch = _cdiv(chunk, nbatch)
         a_smem = _volume_smem(g, tile, threads, chunk, batch)
@@ -361,8 +383,25 @@ def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
                           b_tile=_SELECT_TILE,
                           b_grid=(_cdiv(g.gw, _SELECT_TILE),
                                   _cdiv(g.gh, _SELECT_TILE)),
-                          b_smem=_select_smem(_SELECT_TILE, prop_iters, g.R))
+                          b_smem=b_smem, b_table=b_table)
     return None
+
+
+def _global_volume(g: LevelGeometry, prop_iters: int, sms: int,
+                   streams: int = 1) -> K1Plan:
+    """Launch A's global route: ``_GLOBAL_SHAPE``'s tiles, the chunk as
+    ``_fit_volume`` cuts it, no shared memory."""
+    tile, threads = _GLOBAL_SHAPE
+    d2 = (2 * g.R + 1) ** 2
+    tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
+    chunk = _chunk(d2, tiles[0] * tiles[1], sms, streams)
+    b_smem, b_table = _select_plan(_SELECT_TILE, prop_iters, g.R)
+    return K1Plan(a_tile=tile, a_threads=threads, chunk=chunk, batch=1,
+                  a_grid=(*tiles, _cdiv(d2, chunk)), a_smem=0,
+                  iters=prop_iters, b_tile=_SELECT_TILE,
+                  b_grid=(_cdiv(g.gw, _SELECT_TILE),
+                          _cdiv(g.gh, _SELECT_TILE)),
+                  b_smem=b_smem, a_route="global", b_table=b_table)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,29 +413,36 @@ def _k1_plan(g: LevelGeometry, prop_iters: int, sms: int,
     (largest tile first) whose tiles alone, over every stream, fill the
     SMs, else the last that fits: where tiles are too few, smaller ones
     split the displacement table into fewer chunks, and every chunk loads
-    its tile again (``k1_tiles.py`` times the shapes). No plan changes a
-    bit: every window sums in one order, and the argmin combines the
-    chunks' minima as (cost, k). Raises if no shape fits in shared memory
-    at a batch of one displacement."""
+    its tile again (``k1_tiles.py`` times the shapes). The smallest of
+    ``_VOLUME_SHAPES`` is taken only where no larger shape fits, so the
+    plans of the levels that the two larger shapes take do not change.
+    Where no shape fits at a batch of one displacement, launch A takes its
+    global route (``_global_volume``), and where launch B's flat_to_k
+    table does not fit beside its tile, the table stays in device memory.
+    No plan changes a bit: every window sums in one order, and the argmin
+    combines the chunks' minima as (cost, k). Raises only where launch B's
+    tile and halo alone (``prop_iters`` passes) exceed a block's shared
+    memory."""
     plan = None
     for tile, threads in shapes:
+        if plan is not None and (tile, threads) == _VOLUME_SHAPES[-1]:
+            break
         fit = _fit_volume(g, prop_iters, sms, tile, threads, streams)
         if fit is not None:
             plan = fit
             if streams * fit.a_grid[0] * fit.a_grid[1] >= sms:
                 break
     if plan is None:
-        raise ValueError(f"flow_level: {g.ws} px windows on {g.patch} px "
-                         f"cells with R = {g.R} need more than the "
-                         f"{_SMEM_MAX} bytes of shared memory a block may "
-                         "use")
+        plan = _global_volume(g, prop_iters, sms, streams)
+    _check_plan("flow_level", plan.a_smem, plan.b_smem)
     return plan
 
 
-def _check_plan(name: str, d2: int, *smem: int) -> None:
-    if d2 > _MAX_D2:
-        raise ValueError(f"{name}: {d2} displacements exceed the kernel's "
-                         f"{_MAX_D2}")
+def _check_plan(name: str, *smem: int) -> None:
+    """Raise where a launch would need more shared memory than a block may
+    use. Launch A's plans fit by construction (the global route uses none);
+    launch B's tile and halo of ``iters`` cells can exceed it past ~40
+    passes. No displacement count is refused."""
     if max(smem) > _SMEM_MAX:
         raise ValueError(f"{name}: {max(smem)} bytes of shared memory exceed "
                          f"the {_SMEM_MAX} a block may use")
@@ -446,12 +492,16 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
     ``flow_in``/``dist_in``, or from the argmin over launch A's chunk
     minima ``part`` and the rejection against ``domain`` = (h, w, patch)
     or (h, w, patch, col0, w_total) (``LevelGeometry.domain``; a 3-tuple
-    is the unsliced level, col0 0 and w_total w)."""
+    is the unsliced level, col0 0 and w_total w). The flat_to_k table is
+    staged in shared memory where it fits beside the tile
+    (``_select_plan``), else read in device memory."""
     from ..kernels import _build
     h, _, patch, col0, w_total = (*domain, 0, domain[1])[:5]
     lib = _build.load()
     dev = vol.device
     lead, (d2, gh, gw) = vol.shape[:-3], vol.shape[-3:]
+    smem, table = _select_plan(tile, iters, R)
+    _check_plan("flow_level, select launch", smem)
     flow = torch.empty(lead + (gh, gw, 2), dtype=torch.int32, device=dev)
     dist = torch.empty(lead + (gh, gw), dtype=torch.float32, device=dev)
     code = lib.vpp_flow_select(
@@ -462,7 +512,7 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
         _table(R, "flat_to_k", dev).data_ptr(),
         None if flow_in is None else flow_in.data_ptr(),
         None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
-        h, patch, col0, w_total, tile, iters, _select_smem(tile, iters, R),
+        h, patch, col0, w_total, tile, iters, int(table == "shared"), smem,
         lead.numel(),
         flow.data_ptr(), dist.data_ptr(), stream_handle(vol))
     LAUNCHES["flow_level"] += 1
@@ -487,7 +537,6 @@ def _level_operands(a1: torch.Tensor, a2: torch.Tensor, pred: torch.Tensor,
         raise ValueError("flow_level: prop_iters must be >= 0")
     plan = _k1_plan(g, prop_iters, _sm_count(a1.device), _VOLUME_SHAPES,
                     a1.shape[:-2].numel())
-    _check_plan("flow_level", (2 * g.R + 1) ** 2, plan.a_smem, plan.b_smem)
     return a1, a2, pred, plan
 
 
@@ -528,7 +577,6 @@ def flow_propagate(flow: torch.Tensor, dist: torch.Tensor,
         raise ValueError("flow_propagate: inconsistent shapes")
     if iters < 0:
         raise ValueError("flow_propagate: iters must be >= 0")
-    _check_plan("flow_propagate", d2, _select_smem(_SELECT_TILE, iters, R))
     return _launch_select(vol, pred, R, iters, _SELECT_TILE, flow_in=flow,
                           dist_in=dist)
 

@@ -20,8 +20,12 @@
 
 On CUDA images the whole coarse-to-fine pass of ``pyrlk_match`` and
 ``lucas_kanade`` is one K10 launch (``lk_levels``: every level, the level
-glue in the kernel); its plain version is ``lk_levels_plain``, the level
-loop with its adopt rule (``_coarse_to_fine``) over ``lk_match_batch_plain``.
+glue in the kernel; more than 16 levels are chained launches of at most 16);
+its plain version is ``lk_levels_plain``, the level loop with its adopt
+rule (``_coarse_to_fine``) over ``lk_match_batch_plain``. K10 takes any
+winsize and any number of levels: ``_k10_plan`` picks its route (samples
+in registers up to winsize 15, the patches staged in shared memory sized
+at launch, or read in the level buffers past what a block holds).
 
 The windows are sampled inside integer patches as the JAX package's
 ``_sample_windows_local`` samples them: the integer shift clipped to
@@ -30,9 +34,11 @@ search patch reads the patch's edge. The plain version takes the two
 nonzero taps of the JAX select-over-shifts sum, ``0 + (1 - f) p0 + f p1``
 (rows, then columns), each product and sum rounded on its own: the JAX
 package's sample bits outside a compiled loop (its CPU compile of the
-Newton loop contracts them into FMAs). The residual divides by winsize²
-where the reference divides by 2·winsize², so thresholds are 2x the
-reference's, as in the JAX package.
+Newton loop contracts them into FMAs). A patch larger than its level
+buffer (a deep pyramid's levels stop shrinking at 2 px) reads 0 above and
+left of the buffer, as the JAX package's one-hot extraction does. The
+residual divides by winsize² where the reference divides by 2·winsize², so
+thresholds are 2x the reference's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,8 +59,10 @@ from .scharr import scharr
 
 # np.float32(3.4e38) as a Python float (exact in float32)
 _BIG = float(np.float32(3.4e38))
-_MAX_WINSIZE = 15         # K10 keeps ws² <= 8 samples a lane
-_MAX_LEVELS = 16          # lk_level.cu's kMaxLevels
+_LAUNCH_LEVELS = 16       # lk_level.cu's kMaxLevels: the levels of a launch
+_REGISTERS_WS = 15        # lk_level.cu's kMaxWs: the registers route
+_WARPS = 4                # lk_level.cu's kWarps: warps a CTA at most
+_SMEM_MAX = 232448        # shared memory one block may use on Hopper
 
 
 def _window_offsets(winsize: int, device=None) -> torch.Tensor:
@@ -69,12 +77,20 @@ def _extract_patches_tl(data: torch.Tensor, centers_f: torch.Tensor,
                         size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, size, size) integer-aligned patches around float ``centers_f``
     (buffer coords; rounded half to even, as ``jnp.round``) and the
-    top-left used, clamped into the buffer (K5 on a CUDA tensor)."""
+    top-left used, clipped to at least 0, then to at most ``h - size``
+    (K5 on a CUDA tensor). Where the patch is larger than the buffer that
+    top-left is negative, and the rows and columns above and left of the
+    buffer read 0, as the JAX package's one-hot extraction gives them."""
     h, w = data.shape
     half = size // 2
     tl = torch.round(centers_f).to(torch.int32) - half
     tl = torch.stack([tl[:, 0].clamp(0, h - size),
                       tl[:, 1].clamp(0, w - size)], dim=-1)
+    dr, dc = max(0, size - h), max(0, size - w)
+    if dr or dc:
+        data = torch.nn.functional.pad(data, (dc, 0, dr, 0))
+        return extract_patches_at_tl(data, tl + tl.new_tensor([dr, dc]),
+                                     size), tl
     return extract_patches_at_tl(data, tl, size), tl
 
 
@@ -268,22 +284,65 @@ def _sqrt_at_least(delta: float) -> float:
 
 
 def _level_row(A: Image2d, B: Image2d, Ag: Image2d, s: int, winsize: int):
-    """A level's operands and its row of the C entry's level table: a, ha,
-    wa, ba, b, hb, wb, bb, g, hg, wg, bg, h, w, pad, s."""
+    """A level's operands, its row of the C entry's level table (a, ha, wa,
+    ba, b, hb, wb, bb, g, hg, wg, bg, h, w, pad, s), its search pad, and
+    whether its template, gradient and search patches lie inside their
+    buffers."""
     a = _level_operand(A, "A", 1)
     b = _level_operand(B, "B", 1)
     g = _level_operand(Ag, "Ag", 2)
     pad = _search_pad(B, winsize)
     pt, pb = winsize + 2, winsize + 2 * pad + 2
-    if (pt > min(a.shape[0], a.shape[1], g.shape[0], g.shape[1])
-            or pb > min(b.shape[0], b.shape[1])):
-        raise ValueError(f"lk_level: the {pt}x{pt} template or {pb}x{pb} "
-                         "search patch does not fit its level buffer")
+    fits = (pt <= min(a.shape[0], a.shape[1], g.shape[0], g.shape[1])
+            and pb <= min(b.shape[0], b.shape[1]))
     h, w = A.shape
     row = [a.data_ptr(), a.shape[0], a.shape[1], A.border,
            b.data_ptr(), b.shape[0], b.shape[1], B.border,
            g.data_ptr(), g.shape[0], g.shape[1], Ag.border, h, w, pad, s]
-    return (a, b, g), row
+    return (a, b, g), row, pad, fits
+
+
+_ROUTES = {"registers": 0, "staged": 1, "global": 2}
+
+
+def _k10_plan(winsize: int, pad: int, fits: bool = True):
+    """K10's launch plan for one launch: (route, warps a CTA, dynamic
+    shared-memory bytes), from the winsize, the largest search pad of the
+    launch's levels and whether every level's patches lie inside their
+    buffers. "registers" (winsize <= 15, every patch inside its buffer):
+    a lane's samples in registers, the patches in a static shared array.
+    "staged": the patches in 3 pt² + pb² floats a warp (pt = ws + 2,
+    pb = ws + 2 pad + 2), as many warps a CTA as the 227 KB a block may use
+    holds, up to 4. "global": not even one warp's patches fit, and the
+    kernel reads them in the level buffers."""
+    if winsize <= _REGISTERS_WS and fits:
+        return "registers", _WARPS, 0
+    pt, pb = winsize + 2, winsize + 2 * pad + 2
+    per_warp = 4 * (3 * pt * pt + pb * pb)
+    warps = min(_WARPS, _SMEM_MAX // per_warp)
+    if warps == 0:
+        return "global", _WARPS, 0
+    return "staged", warps, warps * per_warp
+
+
+def _launch_k10(rows, nl: int, p, tr0, n: int, winsize: int, min_ev: float,
+                niterations: int, convergence_delta: float, adopt: str,
+                max_err: float, factor: float, plan, tr, dist, per):
+    """One K10 launch over ``nl`` levels (their level-table ``rows``, one
+    flat list) on the route ``plan`` (``_k10_plan``) names, writing ``tr``,
+    ``dist`` and, where ``per`` is given, each level's outputs."""
+    from ..kernels import _build
+    route, warps, _ = plan
+    code = _build.load().vpp_lk(
+        (ctypes.c_longlong * len(rows))(*rows), nl, p.data_ptr(),
+        tr0.data_ptr(), n, winsize, float(min_ev), int(niterations),
+        _sqrt_at_least(convergence_delta), int(adopt == "below"),
+        float(max_err), float(factor), _ROUTES[route], warps, tr.data_ptr(),
+        dist.data_ptr(),
+        *((None,) * 4 if per is None else (t.data_ptr() for t in per)),
+        stream_handle(p))
+    LAUNCHES["lk_level"] += 1
+    _build.check(code, "lk_level")
 
 
 def lk_levels(levels, scales, p: torch.Tensor, tr0: torch.Tensor, *,
@@ -291,51 +350,60 @@ def lk_levels(levels, scales, p: torch.Tensor, tr0: torch.Tensor, *,
               convergence_delta: float, adopt: str, factor: float,
               max_err: float = 0.0, windows: bool = False):
     """K10 on CUDA images: LK over ``levels`` ((A, B, Ag) a level, coarsest
-    first; the level's keypoints are ``p / 2**scales[i]``) in one launch,
-    for the N keypoints ``p`` (finest-level positions) from the prediction
-    ``tr0``. At each level the prediction is multiplied by ``factor``, then
-    the level's flow replaces it always (``adopt="always"``) or where its
+    first; the level's keypoints are ``p / 2**scales[i]``) for the N
+    keypoints ``p`` (finest-level positions) from the prediction ``tr0``.
+    At each level the prediction is multiplied by ``factor``, then the
+    level's flow replaces it always (``adopt="always"``) or where its
     residual is below ``max_err`` (``adopt="below"``); ``dist`` is the
     level's residual. Returns (tr (N, 2), dist (N,)); with ``windows``
     also each level's flow (L, N, 2), err (L, N), windows (L, N, 4, ws²)
     and Newton steps (L, N) int32, as ``lk_match_batch_plain`` returns
-    them."""
-    if winsize < 1 or winsize > _MAX_WINSIZE:
-        raise ValueError(f"lk_level: winsize {winsize} outside 1..15")
+    them.
+
+    Up to 16 levels are one launch. More are a chain of launches, coarsest
+    first: the first takes the ``L % 16`` coarsest levels (16 where L is a
+    multiple of 16), each later one 16, and each starts from the last
+    one's ``tr``, which is all the level loop carries from a level to the
+    next, so the chain gives one launch's bits. Each launch takes the route
+    ``_k10_plan`` gives its levels; any winsize >= 1 runs."""
+    if winsize < 1:
+        raise ValueError(f"lk_level: winsize {winsize} must be at least 1")
     if adopt not in ("always", "below"):
         raise ValueError(f"lk_level: adopt {adopt!r}")
-    if not 1 <= len(levels) <= _MAX_LEVELS:
-        raise ValueError(f"lk_level: {len(levels)} levels, 1..16 taken")
-    ops, rows = [], []
+    if not levels:
+        raise ValueError("lk_level: no level")
+    ops, rows, pads, fits = [], [], [], []
     for (A, B, Ag), s in zip(levels, scales):
-        o, row = _level_row(A, B, Ag, int(s), winsize)
+        o, row, pad, fit = _level_row(A, B, Ag, int(s), winsize)
         ops += o
-        rows += row
+        rows.append(row)
+        pads.append(pad)
+        fits.append(fit)
     p = p.to(torch.float32).contiguous()
     tr0 = tr0.to(torch.float32).contiguous()
     require_cuda("lk_level", *ops, p, tr0,
                  dtypes=(torch.float32,) * (len(ops) + 2))
     n, nl, nw = p.shape[0], len(levels), winsize * winsize
     dev = p.device
-    buf = torch.empty((3 * n,), dtype=torch.float32, device=dev)
-    tr, dist = buf[:2 * n].view(n, 2), buf[2 * n:]
     per = None
     if windows:
         per = (torch.empty((nl, n, 2), dtype=torch.float32, device=dev),
                torch.empty((nl, n), dtype=torch.float32, device=dev),
                torch.empty((nl, n, 4, nw), dtype=torch.float32, device=dev),
                torch.empty((nl, n), dtype=torch.int32, device=dev))
-    if n:
-        from ..kernels import _build
-        code = _build.load().vpp_lk(
-            (ctypes.c_longlong * len(rows))(*rows), nl, p.data_ptr(),
-            tr0.data_ptr(), n, winsize, float(min_ev), int(niterations),
-            _sqrt_at_least(convergence_delta), int(adopt == "below"),
-            float(max_err), float(factor), tr.data_ptr(), dist.data_ptr(),
-            *((None,) * 4 if per is None else (t.data_ptr() for t in per)),
-            stream_handle(p))
-        LAUNCHES["lk_level"] += 1
-        _build.check(code, "lk_level")
+    cuts = [0] + list(range(nl % _LAUNCH_LEVELS or _LAUNCH_LEVELS, nl + 1,
+                            _LAUNCH_LEVELS))
+    tr, dist = tr0, None
+    for lo, hi in zip(cuts, cuts[1:]):
+        buf = torch.empty((3 * n,), dtype=torch.float32, device=dev)
+        tr_in, tr, dist = tr, buf[:2 * n].view(n, 2), buf[2 * n:]
+        if n:
+            plan = _k10_plan(winsize, max(pads[lo:hi]), all(fits[lo:hi]))
+            _launch_k10(
+                [x for row in rows[lo:hi] for x in row], hi - lo, p, tr_in,
+                n, winsize, min_ev, niterations, convergence_delta, adopt,
+                max_err, factor, plan, tr, dist,
+                None if per is None else tuple(t[lo:hi] for t in per))
     return (tr, dist) + per if windows else (tr, dist)
 
 
@@ -508,7 +576,8 @@ def pyrlk_match(pyr_prev: Pyramid, pyr_grad: Pyramid, pyr_next: Pyramid,
     others move by the estimated flow. A level's flow is adopted only
     where its residual is below ``max_err``; ``dist`` is overwritten every
     level, so the kill tests the finest processed level's residual. On
-    CUDA pyramids the whole pass is one K10 launch."""
+    CUDA pyramids the whole pass is one K10 launch (past 16 levels, a
+    chain of launches of at most 16 levels: ``lk_levels``)."""
     scales = list(range(len(pyr_prev) - 1, min_scale - 1, -1))
     dev = kps.position.device
     tr, dist = _pyramid_lk(
@@ -532,7 +601,8 @@ def lucas_kanade(i1: Image2d, i2: Image2d, keypoints: torch.Tensor, *,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Named-option LK: builds the three pyramids and returns (flow (N, 2),
     dist (N,)) for (N, 2) float keypoint positions. On the card: one K4
-    launch a frame's pyramid and one K10 launch for every level."""
+    launch a frame's pyramid and one K10 launch for the whole pass (up to
+    16 scales; past them a chain of launches of at most 16 levels)."""
     border = max(3, winsize // 2)
     p_prev = pyramid(i1, nscales, border=border)
     p_next = pyramid(i2, nscales, border=border)

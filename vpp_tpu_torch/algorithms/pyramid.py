@@ -12,7 +12,11 @@ where the reference chain mirrors the filtered values between passes), and
 each level's symmetric border. On the card that is kernel K4
 (``kernels/csrc/pyramid_decim.cu``): one launch builds the whole float32
 pyramid from the frame's interior (a raw frame, or a bordered image's
-strided interior), level 0's bordered copy included, into one buffer.
+strided interior), level 0's bordered copy included, into one buffer
+(levels past 32 in a chain of launches, each from the last one's final
+level). A deep pyramid's levels stop shrinking at 2 px; a 2-px level
+decimated to 2 px reads its last tap at index -1, which ``_decim_matrix``'s
+numpy index wraps to the level's last pixel, and K4 does the same.
 Its plain version (``pyramid_plain``) is the JAX formulation, a pad and,
 per level, two banded float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``)
 and a pad, in full float32: TF32 is off in this package.
@@ -210,6 +214,16 @@ def pyramid_plain(interior: torch.Tensor,
                  for lvl in _plain_levels(interior, shapes, border))
 
 
+_K4_LEVELS = 32       # pyramid_decim.cu's kMaxLevels: the levels of a launch
+
+
+def _decimates(n: int, n_out: int) -> bool:
+    """Whether K4 decimates ``n`` sources to ``n_out`` outputs: the last
+    output's taps reach 2 n_out <= 2 n - 1, or a 2-px level kept at 2 px
+    (its last tap wraps, as in ``_decim_matrix``)."""
+    return 2 * n_out <= 2 * n - 1 or (n == 2 and n_out == 2)
+
+
 # (shapes, border, first) -> (ctypes rows of (h, w, offset), [(offset,
 # size)] of the written levels, buffer length): made once a geometry, since
 # the host's time a call is what the per-frame path pays
@@ -238,14 +252,23 @@ def _k4_streams(interior: torch.Tensor,
     pyramid, level l as an (S, h_l + 2b, w_l + 2b) view of one buffer.
     ``first`` 1 leaves level 0 unwritten. ``fuse`` False computes level 2
     after a grid barrier instead of from the frame (the same bits;
-    ``call_times.py`` times the two)."""
+    ``call_times.py`` times the two). More than 32 levels are a chain of
+    launches, each from the interior of the last one's final level (levels
+    past 2 read the level before from the buffer in one launch as well, so
+    the chain gives the same bits)."""
     for (h, w), (oh, ow) in zip(shapes, shapes[1:]):
         if min(h, w) < 2 or min(oh, ow) < 1:
             raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
                              f"2x2, got ({h}, {w})")
-        if 2 * oh > 2 * h - 1 or 2 * ow > 2 * w - 1:   # taps reach 2i + 2
+        if not (_decimates(h, oh) and _decimates(w, ow)):
             raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
                              f"decimation of ({h}, {w})")
+    if len(shapes) > _K4_LEVELS:
+        head = _k4_streams(interior, shapes[:_K4_LEVELS], border, first, fuse)
+        last = head[-1][:, border:head[-1].shape[1] - border,
+                        border:head[-1].shape[2] - border]
+        return head + _k4_streams(last, shapes[_K4_LEVELS - 1:], border, 1,
+                                  fuse)
     if (interior.dim() != 3 or interior.dtype != torch.float32
             or interior.device.type != "cuda"):
         raise ValueError(f"pyramid_decim: needs float32 CUDA frames (S, H, "

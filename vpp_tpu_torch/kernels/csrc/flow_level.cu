@@ -21,8 +21,8 @@
 //
 // Launch A, flow_volume_kernel — replaces _warp_by_cell_flow and
 // _cost_volume. A block takes a tile of Tile x Tile cells (8 x 8 with 256
-// threads, or 4 x 4 with 128: flow.py:_k1_plan chooses) and a chunk of the
-// displacement table. It loads the tile's window region of a1, and the
+// threads, 4 x 4 with 128, or 2 x 2 with 64 where neither larger tile fits:
+// flow.py:_k1_plan chooses) and a chunk of the displacement table. It loads the tile's window region of a1, and the
 // same region of a2 with an R-pixel halo, into shared memory once, rounded
 // to bf16; each a2 pixel is warped once on the way in. Per displacement it
 // forms every region pixel's |diff| once (kept as bf16, which is exact),
@@ -60,6 +60,21 @@
 // Shared memory: flow.py:_k1_plan sizes each launch's dynamic shared
 // memory for the layout that the kernel's head carves; a block that is
 // given less stops the launch with a trap rather than overrun it.
+//
+// Routes by size (flow.py:_k1_plan; no displacement count is refused, the
+// table is cut into chunks whatever its length):
+//   - launch A stages its regions in shared memory at the first tile shape
+//     that fits at a batch of one displacement (8, then 4, then 2 cells a
+//     side). Where even the 2-cell tile's a1 region and warped a2 region
+//     with its R halo do not fit (wide windows, large R: ws 151 on 40 px
+//     cells), flow_volume_global_kernel reads a1 and a2 in device memory,
+//     with the warp applied at each read (the column roll, then the row
+//     roll): a warp a (cell, displacement), each lane a window column summed
+//     over the rows, the columns then summed in order through shuffles. The
+//     same values in the same order, so the same bits.
+//   - launch B keeps the (2R+1)^2 flat_to_k table in shared memory beside
+//     the tile's flow and dist where it fits, and reads it in device memory
+//     where it does not (R above ~118 at 2 passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,8 +82,9 @@
 namespace {
 
 constexpr float kInf = 1e30f;
-constexpr int kMaxD2 = 1024;
 constexpr int kSelectThreads = 256;        // launch B
+constexpr int kGlobalThreads = 256;        // launch A on its global route
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBatch = 8;                  // most displacements per batch
 constexpr int kLoads = 16;                 // global loads in flight a thread
 constexpr int kSmemDefault = 48 * 1024;    // above this, opt in per kernel
@@ -307,9 +323,87 @@ flow_volume_kernel(const float* __restrict__ a1, const float* __restrict__ a2,
   }
 }
 
+// Launch A on its global route: no shared memory. A block takes a tile of
+// `tile` x `tile` cells and a chunk of kc displacements; a warp takes one
+// (cell, displacement) at a time, its lanes a window column each (32 at a
+// time), summing the column's ws bf16 |diffs| in row order from a1 and the
+// warped a2 in device memory, as launch A's staged regions hold them; lane
+// t's column sum then joins the window's sum in column order through
+// shuffles, so every lane holds the same bits as flow_volume_kernel's sum.
+// After a barrier each cell's first minimum over the chunk, in ascending k,
+// goes to part_cost/part_k.
+__global__ void __launch_bounds__(kGlobalThreads)
+flow_volume_global_kernel(const float* __restrict__ a1,
+                          const float* __restrict__ a2,
+                          const int* __restrict__ pred,
+                          const int* __restrict__ disp, int d2, LevelGeom g,
+                          int ws, int r0, int tile, int kc, int nchunk,
+                          float* __restrict__ vol, float* __restrict__ part_cost,
+                          int* __restrict__ part_k) {
+  const int stream = blockIdx.z / nchunk, chunk = blockIdx.z % nchunk;
+  const size_t ncell_s = (size_t)g.gh * g.gw;
+  a1 += (size_t)stream * g.hb * g.wb;
+  a2 += (size_t)stream * g.hb * g.wb;
+  pred += (size_t)stream * 2 * ncell_s;
+  vol += (size_t)stream * d2 * ncell_s;
+  part_cost += (size_t)stream * nchunk * ncell_s;
+  part_k += (size_t)stream * nchunk * ncell_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kWarpsA = kGlobalThreads / 32;
+  const int gy0 = blockIdx.y * tile, gx0 = blockIdx.x * tile;
+  const int k_begin = chunk * kc, k_end = min(d2, k_begin + kc);
+  const int cells = tile * tile, npairs = (k_end - k_begin) * cells;
+  const size_t ncell = ncell_s;
+  for (int pair = warp; pair < npairs; pair += kWarpsA) {
+    const int kq = pair / cells, c = pair - kq * cells;
+    const int gy = gy0 + c / tile, gx = gx0 + c % tile;
+    if (gy >= g.gh || gx >= g.gw) continue;    // the same for every lane
+    const int k = k_begin + kq;
+    const int dr = disp[2 * k], dc = disp[2 * k + 1];
+    const int y0 = r0 + gy * g.patch, x0 = r0 + gx * g.patch;
+    float s = 0.0f;
+    for (int j0 = 0; j0 < ws; j0 += 32) {
+      const int x = x0 + j0 + lane;
+      float col = 0.0f;
+      if (j0 + lane < ws) {
+        const int xa = clampi(x, 0, g.wb - 1);
+        const int xb = clampi(x + dc, 0, g.wb - 1);
+        for (int r = 0; r < ws; ++r) {
+          const int y = y0 + r;
+          const float va = bf16_round(a1[(size_t)clampi(y, 0, g.hb - 1) * g.wb +
+                                         xa]);
+          const float vb = bf16_round(
+              a2[warped_at(pred, g, clampi(y + dr, 0, g.hb - 1), xb)]);
+          col += __bfloat162float(__float2bfloat16_rn(fabsf(va - vb)));
+        }
+      }
+      const int m = min(32, ws - j0);
+      for (int t = 0; t < m; ++t) s += __shfl_sync(kFull, col, t);
+    }
+    if (lane == 0) vol[(size_t)k * ncell + gy * g.gw + gx] = s;
+  }
+  __syncthreads();     // the block's volume entries, before the minima
+  for (int c = threadIdx.x; c < cells; c += kGlobalThreads) {
+    const int gy = gy0 + c / tile, gx = gx0 + c % tile;
+    if (gy >= g.gh || gx >= g.gw) continue;
+    float best = __int_as_float(0x7f800000);
+    int best_k = d2;
+    for (int k = k_begin; k < k_end; ++k) {
+      const float v = vol[(size_t)k * ncell + gy * g.gw + gx];
+      if (v < best) {
+        best = v;
+        best_k = k;
+      }
+    }
+    part_cost[(size_t)chunk * ncell + gy * g.gw + gx] = best;
+    part_k[(size_t)chunk * ncell + gy * g.gw + gx] = best_k;
+  }
+}
+
 // Launch B. Shared memory: flow (2 x nr int2) and dist (2 x nr float),
-// double-buffered over the passes, the prediction (nr int2) and flat_to_k
-// ((2R+1)^2 int); nr = (tile + 2 iters)^2 cells.
+// double-buffered over the passes, the prediction (nr int2) and, with
+// ftk_shared, flat_to_k ((2R+1)^2 int; else it is read in device memory);
+// nr = (tile + 2 iters)^2 cells.
 // flow_in == nullptr: start from the argmin over launch A's nchunk partial
 // minima and the rejection; otherwise from flow_in/dist_in.
 __global__ void __launch_bounds__(kSelectThreads)
@@ -321,7 +415,7 @@ flow_select_kernel(const float* __restrict__ vol,
                    const int* __restrict__ flow_in,
                    const float* __restrict__ dist_in, int R, int gh, int gw,
                    int h, int patch, int col0, int w_total, int tile,
-                   int iters, int* __restrict__ flow_out,
+                   int iters, int ftk_shared, int* __restrict__ flow_out,
                    float* __restrict__ dist_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   {  // stream blockIdx.z: its volume, minima, prediction, flows and dists
@@ -341,15 +435,18 @@ flow_select_kernel(const float* __restrict__ vol,
   int2* s_flow = reinterpret_cast<int2*>(smem);
   int2* s_pred = s_flow + 2 * nr;
   float* s_dist = reinterpret_cast<float*>(s_pred + nr);
-  int* s_ftk = reinterpret_cast<int*>(s_dist + 2 * nr);
-  if ((unsigned)(reinterpret_cast<unsigned char*>(s_ftk + dd * dd) - smem) >
-      dynamic_smem_bytes())
+  int* s_tab = reinterpret_cast<int*>(s_dist + 2 * nr);
+  if ((unsigned)(reinterpret_cast<unsigned char*>(
+                     s_tab + (ftk_shared ? dd * dd : 0)) -
+                 smem) > dynamic_smem_bytes())
     __trap();
+  const int* s_ftk = ftk_shared ? s_tab : flat_to_k;
   const int tid = threadIdx.x;
   const int gy0 = blockIdx.y * tile - iters, gx0 = blockIdx.x * tile - iters;
   const int ncell = gh * gw;
 
-  for (int i = tid; i < dd * dd; i += kSelectThreads) s_ftk[i] = flat_to_k[i];
+  if (ftk_shared)
+    for (int i = tid; i < dd * dd; i += kSelectThreads) s_tab[i] = flat_to_k[i];
   for (int r = tid; r < nr; r += kSelectThreads) {
     const int gy = gy0 + r / side, gx = gx0 + r % side;
     if (gy < 0 || gy >= gh || gx < 0 || gx >= gw) continue;
@@ -488,9 +585,11 @@ cudaError_t launch_volume(const float* a1, const float* a2, const int* pred,
 // pred: gh x gw x 2 int32; disp: d2 x 2 int32 displacement table; vol:
 // d2 x gh x gw float32; part_cost, part_k: nchunk x gh x gw float32 /
 // int32, nchunk = ceil(d2 / kc). Tiles of `tile` cells a side
-// with `threads` threads a block (8 and 256, or 4 and 128), kc
+// with `threads` threads a block (8 and 256, 4 and 128, or 2 and 64), kc
 // displacements per block, kb per shared-memory batch, smem_bytes of
-// dynamic shared memory (flow.py:_k1_plan).
+// dynamic shared memory (flow.py:_k1_plan). The global route: threads 256
+// and smem_bytes 0, `tile` any size (flow_volume_global_kernel; kb
+// unused).
 extern "C" int vpp_flow_volume(const float* a1, const float* a2,
                                const int* pred, const int* disp, int d2,
                                int hb, int wb, int b, int h, int w, int ws,
@@ -500,11 +599,12 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
                                float* vol, float* part_cost, int* part_k,
                                void* stream) {
   if (gh <= 0 || gw <= 0) return 0;
-  if (d2 != (2 * R + 1) * (2 * R + 1) || d2 > kMaxD2 || kc <= 0 || kb <= 0 ||
-      kb > kc || kb > kBatch || patch <= 0 || ws <= 0 || h >= (1 << 16) ||
-      w >= (1 << 16) || (long long)hb * wb >= (1LL << 31) || smem_bytes <= 0 ||
-      smem_bytes > kSmemMax || n_streams < 1 ||
-      (long long)n_streams * ((d2 + kc - 1) / kc) > 65535)
+  const bool global = threads == kGlobalThreads && smem_bytes == 0;
+  if (R < 0 || R > 16383 || d2 != (2 * R + 1) * (2 * R + 1) || kc <= 0 ||
+      kb <= 0 || kb > kc || kb > kBatch || patch <= 0 || ws <= 0 ||
+      h >= (1 << 16) || w >= (1 << 16) || (long long)hb * wb >= (1LL << 31) ||
+      (!global && smem_bytes <= 0) || smem_bytes > kSmemMax ||
+      n_streams < 1 || (long long)n_streams * ((d2 + kc - 1) / kc) > 65535)
     return (int)cudaErrorInvalidValue;
   LevelGeom g;
   g.hb = hb;
@@ -521,6 +621,16 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
   g.inv_patch = 1.0f / (float)patch;
   const int r0 = b - (ws / 2 - patch / 2);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (global) {
+    if (tile <= 0) return (int)cudaErrorInvalidValue;
+    const int nchunk = (d2 + kc - 1) / kc;
+    dim3 grid((gw + tile - 1) / tile, (gh + tile - 1) / tile,
+              nchunk * n_streams);
+    flow_volume_global_kernel<<<grid, kGlobalThreads, 0, st>>>(
+        a1, a2, pred, disp, d2, g, ws, r0, tile, kc, nchunk, vol, part_cost,
+        part_k);
+    return (int)cudaGetLastError();
+  }
   if (tile == 8 && threads == 256)
     return (int)launch_volume<8, 256>(a1, a2, pred, disp, d2, g, ws, r0, R,
                                       kc, kb, smem_bytes, n_streams, vol,
@@ -529,6 +639,10 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
     return (int)launch_volume<4, 128>(a1, a2, pred, disp, d2, g, ws, r0, R,
                                       kc, kb, smem_bytes, n_streams, vol,
                                       part_cost, part_k, st);
+  if (tile == 2 && threads == 64)
+    return (int)launch_volume<2, 64>(a1, a2, pred, disp, d2, g, ws, r0, R,
+                                     kc, kb, smem_bytes, n_streams, vol,
+                                     part_cost, part_k, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -543,18 +657,20 @@ extern "C" int vpp_flow_volume(const float* a1, const float* a2,
 // w, or a column slice's origin and the wide level's width); otherwise
 // from the given flow, and part_* are not read. Tiles of
 // `tile` cells a side, iters passes, smem_bytes of dynamic shared memory
-// (flow.py:_k1_plan).
+// (flow.py:_k1_plan); ftk_shared 0 reads flat_to_k in device memory
+// instead of staging it.
 extern "C" int vpp_flow_select(const float* vol, const float* part_cost,
                                const int* part_k, int nchunk, const int* pred,
                                const int* disp, const int* flat_to_k,
                                const int* flow_in, const float* dist_in,
                                int d2, int R, int gh, int gw, int h,
                                int patch, int col0, int w_total, int tile,
-                               int iters, int smem_bytes, int n_streams,
-                               int* flow_out, float* dist_out, void* stream) {
+                               int iters, int ftk_shared, int smem_bytes,
+                               int n_streams, int* flow_out, float* dist_out,
+                               void* stream) {
   if (gh <= 0 || gw <= 0) return 0;
   const bool given = flow_in != nullptr;
-  if (d2 != (2 * R + 1) * (2 * R + 1) || d2 > kMaxD2 || tile <= 0 ||
+  if (R < 0 || R > 16383 || d2 != (2 * R + 1) * (2 * R + 1) || tile <= 0 ||
       iters < 0 || given != (dist_in != nullptr) ||
       (!given && (part_cost == nullptr || part_k == nullptr || nchunk < 1)) ||
       smem_bytes <= 0 || smem_bytes > kSmemMax || n_streams < 1 ||
@@ -566,6 +682,7 @@ extern "C" int vpp_flow_select(const float* vol, const float* part_cost,
   flow_select_kernel<<<grid, kSelectThreads, smem_bytes,
                        (cudaStream_t)stream>>>(
       vol, part_cost, part_k, nchunk, pred, disp, flat_to_k, flow_in, dist_in,
-      R, gh, gw, h, patch, col0, w_total, tile, iters, flow_out, dist_out);
+      R, gh, gw, h, patch, col0, w_total, tile, iters, ftk_shared, flow_out,
+      dist_out);
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,35 @@
 // plain version's operations in its order, correctly rounded. The plain
 // version sums the ws^2 terms in this kernel's lane order (lk.py:_lane_sum),
 // so the two are bit-equal on the same inputs.
+//
+// Routes (lk.py:_k10_plan picks one a launch, from the winsize, the largest
+// search pad of the launch's levels and whether every level's patches lie
+// inside its buffers):
+//   registers: winsize <= 15 with every patch inside its buffer. The kernel
+//     above: kPer <= 8 samples a lane in registers, 4 warps a CTA, the
+//     patches in a static shared array sized for winsize 15 and pad 12.
+//   staged: any other winsize, or a level whose patch is larger than its
+//     buffer (the coarse levels of a deep pyramid stop shrinking at 2 px),
+//     where one warp's patches fit the 227 KB a block may opt in to. A lane
+//     walks its samples l, l + 32, ... in that order (the lane order above,
+//     so the bits are the plain version's), and recomputes the template
+//     and gradient samples from the staged patches where a step needs them
+//     instead of holding them. Dynamic shared memory of 3 pt^2 + pb^2
+//     floats a warp (pt = ws + 2, pb = ws + 2 pad + 2 at the launch's
+//     largest pad), as many warps a CTA as fit, up to the 4 of the
+//     registers route (winsize 31: 6516 floats, 26 KB, a warp).
+//   global: past that (one warp's patches stop fitting near winsize 113),
+//     the staged route's arithmetic on the level buffers themselves: a
+//     sample reads the template, gradient and search levels in device
+//     memory at the patch's offsets. The patches are copies of those
+//     buffers, so the values, and the bits, are the same.
+// A patch that reaches above or left of its buffer (its top-left clipped to
+// h - size < 0, as jnp.clip clips it) reads 0 there, as the JAX package's
+// one-hot extraction gives 0 outside the buffer; the staged route stages
+// those zeros. More than kMaxLevels levels are chained launches of at most
+// kMaxLevels each, coarsest first, each starting from the last one's tr
+// (lk.py:lk_levels): the level loop carries nothing else from a level to
+// the next, so the chain gives one launch's bits.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -88,10 +117,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // top-left of a size x size patch around float centre c (buffer coords):
-// round half to even, minus size / 2, clamped to [0, lim]
+// round half to even, minus size / 2, clipped to at least 0, then to at most
+// lim (jnp.clip's order: where the patch is larger than the buffer, lim < 0
+// wins)
 __device__ __forceinline__ int patch_tl(float c, int size, int lim) {
   int t = (int)rintf(c) - size / 2;
-  return t < 0 ? 0 : (t > lim ? lim : t);
+  t = t < 0 ? 0 : t;
+  return t > lim ? lim : t;
 }
 
 // the sampler's integer shift (clipped to [0, k - 2]) and fraction
@@ -361,6 +393,271 @@ cudaError_t launch(const Levels& LV, const float* p, const float* tr0, int n,
   return cudaGetLastError();
 }
 
+// -- the staged and global routes: any winsize ----------------------------
+
+constexpr int kSmemDefault = 48 * 1024;    // above this, opt in per kernel
+constexpr int kSmemMax = 232448;           // 227 KB: one block on Hopper
+constexpr int kMaxDevices = 64;
+
+// A patch read at (row, col) of its own: base is the buffer it lives in (the
+// level buffer, or the warp's staged copy with tr = tc = 0), ld its row
+// stride and step its column stride in floats, (tr, tc) its top-left in
+// that buffer; rows above and columns left of the buffer read 0.
+struct Patch {
+  const float* base;
+  int ld, step, tr, tc;
+  __device__ __forceinline__ float at(int r, int c) const {
+    const int rr = tr + r, cc = tc + c;
+    return rr < 0 || cc < 0 ? 0.f : base[(size_t)rr * ld + (size_t)cc * step];
+  }
+};
+
+// one window sample at window row i, column j from a patch: the taps at
+// (ar.i + i, ac.i + j) and the next row and column, as sample() takes them
+__device__ __forceinline__ float sample_at(const Patch& P, int i, int j,
+                                           Axis ar, Axis ac) {
+  const int r = ar.i + i, c = ac.i + j;
+  const float r0 = fadd(fadd(0.f, fmul(P.at(r, c), ar.f0)),
+                        fmul(P.at(r + 1, c), ar.f1));
+  const float r1 = fadd(fadd(0.f, fmul(P.at(r, c + 1), ar.f0)),
+                        fmul(P.at(r + 1, c + 1), ar.f1));
+  return fadd(fadd(0.f, fmul(r0, ac.f0)), fmul(r1, ac.f1));
+}
+
+// stage a rows x cols block of floats whose top-left is (tr, tc) in a buffer
+// of row stride ld into dst, packed, with cp.async; elements above or left
+// of the buffer are written 0
+__device__ __forceinline__ void stage_any(float* dst, const float* src, int tr,
+                                          int tc, int rows, int cols, int ld,
+                                          int lane) {
+  int r = 0, c = lane;
+  while (c >= cols && r < rows) {
+    c -= cols;
+    ++r;
+  }
+  for (int i = lane; i < rows * cols; i += 32) {
+    const int rr = tr + r, cc = tc + c;
+    if (rr < 0 || cc < 0)
+      dst[i] = 0.f;
+    else
+      __pipeline_memcpy_async(dst + i, src + (size_t)rr * ld + cc, 4);
+    c += 32;
+    while (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+}
+
+// calls f(e, i, j) for this lane's window samples e = lane, lane + 32, ...
+// in that order, (i, j) the sample's window row and column
+template <typename F>
+__device__ __forceinline__ void lane_samples(int lane, int ws, F f) {
+  const int nw = ws * ws;
+  int i = 0, j = lane;
+  while (j >= ws && i < ws) {
+    j -= ws;
+    ++i;
+  }
+  for (int e = lane; e < nw; e += 32) {
+    f(e, i, j);
+    j += 32;
+    while (j >= ws) {
+      j -= ws;
+      ++i;
+    }
+  }
+}
+
+// The registers route's level loop for any winsize: lane l's samples
+// l, l + 32, ... in turn, each template and gradient sample recomputed from
+// its patch where a step needs it. kGlobal: the patches are read in the
+// level buffers; else each warp stages them in its 3 pt^2 + pb_max^2
+// floats of dynamic shared memory.
+template <bool kGlobal>
+__global__ void __launch_bounds__(kWarps * 32)
+lk_any_kernel(Levels LV, const float* __restrict__ p,
+              const float* __restrict__ tr0, int n, int ws, int pb_max,
+              float min_ev, int niter, float conv_sq, int adopt_below,
+              float max_err, float factor, Out out) {
+  extern __shared__ float dsm[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * warps + warp;
+  if (q >= n) return;
+  const int lane = threadIdx.x & 31;
+  const int nw = ws * ws, hws = ws / 2, pt = ws + 2;
+  const float cnt = (float)nw;
+  // the warp's staged patches (the staged route only)
+  const size_t ppt = (size_t)pt * pt;
+  float* As = dsm + (size_t)warp * (3 * ppt + (size_t)pb_max * pb_max);
+  float* Gs = As + ppt;
+  float* Bs = Gs + 2 * ppt;
+
+  const float p0 = p[2 * q], p1 = p[2 * q + 1];
+  float trr = tr0[2 * q], trc = tr0[2 * q + 1];
+  float dist = 0.f;
+  for (int lv = 0; lv < LV.n; ++lv) {
+    const Level& L = LV.l[lv];
+    const float scale = ldexpf(1.f, -L.s);
+    const float pr = fmul(p0, scale), pc = fmul(p1, scale);
+    trr = fmul(trr, factor);
+    trc = fmul(trc, factor);
+    const float v0r = fadd(pr, trr), v0c = fadd(pc, trc);
+    const int pb = ws + 2 * L.pad + 2, kb = pb - ws + 1;
+
+    const float ar_c = fadd(pr, (float)L.ba), ac_c = fadd(pc, (float)L.ba);
+    const int atr = patch_tl(ar_c, pt, L.ha - pt);
+    const int atc = patch_tl(ac_c, pt, L.wa - pt);
+    const float gr_c = fadd(pr, (float)L.bg), gc_c = fadd(pc, (float)L.bg);
+    const int gtr = patch_tl(gr_c, pt, L.hg - pt);
+    const int gtc = patch_tl(gc_c, pt, L.wg - pt);
+    const float br_c = fadd(v0r, (float)L.bb), bc_c = fadd(v0c, (float)L.bb);
+    const int btr = patch_tl(br_c, pb, L.hb - pb);
+    const int btc = patch_tl(bc_c, pb, L.wb - pb);
+    Patch PA, PG0, PG1, PB;
+    if (kGlobal) {
+      PA = Patch{L.a, L.wa, 1, atr, atc};
+      PG0 = Patch{L.g, 2 * L.wg, 2, gtr, gtc};
+      PG1 = Patch{L.g + 1, 2 * L.wg, 2, gtr, gtc};
+      PB = Patch{L.b, L.wb, 1, btr, btc};
+    } else {
+      __syncwarp();                 // the last level's reads of the patches
+      stage_any(As, L.a, atr, atc, pt, pt, L.wa, lane);
+      stage_any(Gs, L.g, gtr, 2 * gtc, pt, 2 * pt, 2 * L.wg, lane);
+      stage_any(Bs, L.b, btr, btc, pb, pb, L.wb, lane);
+      __pipeline_commit();
+      PA = Patch{As, pt, 1, 0, 0};
+      PG0 = Patch{Gs, 2 * pt, 2, 0, 0};
+      PG1 = Patch{Gs + 1, 2 * pt, 2, 0, 0};
+      PB = Patch{Bs, pb, 1, 0, 0};
+    }
+    const Axis ta_r = axis_of(fsub(fsub(ar_c, (float)atr), (float)hws), 3);
+    const Axis ta_c = axis_of(fsub(fsub(ac_c, (float)atc), (float)hws), 3);
+    const Axis tg_r = axis_of(fsub(fsub(gr_c, (float)gtr), (float)hws), 3);
+    const Axis tg_c = axis_of(fsub(fsub(gc_c, (float)gtc), (float)hws), 3);
+    if (!kGlobal) {
+      __pipeline_wait_prior(0);
+      __syncwarp();
+    }
+
+    // template and gradient windows: the 2x2 system and the template's
+    // mean, then its mean absolute deviation
+    float s11 = 0.f, s12 = 0.f, s22 = 0.f, sa = 0.f;
+    lane_samples(lane, ws, [&](int, int i, int j) {
+      const float ta = sample_at(PA, i, j, ta_r, ta_c);
+      const float tgr = sample_at(PG0, i, j, tg_r, tg_c);
+      const float tgc = sample_at(PG1, i, j, tg_r, tg_c);
+      s11 = fadd(s11, fmul(tgr, tgr));
+      s12 = fadd(s12, fmul(tgr, tgc));
+      s22 = fadd(s22, fmul(tgc, tgc));
+      sa = fadd(sa, ta);
+    });
+    const float a11 = warp_sum(s11), a12 = warp_sum(s12), a22 = warp_sum(s22);
+    const float avg = __fdiv_rn(warp_sum(sa), cnt);
+    float dev = 0.f;
+    lane_samples(lane, ws, [&](int, int i, int j) {
+      dev = fadd(dev, fabsf(fsub(sample_at(PA, i, j, ta_r, ta_c), avg)));
+    });
+    const float stddev = __fdiv_rn(warp_sum(dev), cnt);
+
+    const float tr_g = __fdiv_rn(fadd(a11, a22), cnt);
+    const float x = __fdiv_rn(fsub(a11, a22), cnt), y = __fdiv_rn(a12, cnt);
+    const float det_part =
+        __fsqrt_rn(fmaxf(fadd(fmul(x, x), fmul(4.f, fmul(y, y))), 0.f));
+    const bool ok = fmul(0.5f, fsub(tr_g, det_part)) >= min_ev;
+    const float det = fsub(fmul(a11, a22), fmul(a12, a12));
+    const float inv_det = fabsf(det) > 1e-12f ? __fdiv_rn(1.f, det) : 0.f;
+    const float i11 = fmul(a22, inv_det), i12 = fmul(-a12, inv_det);
+    const float i22 = fmul(a11, inv_det);
+
+    const float bb_f = (float)L.bb, btr_f = (float)btr, btc_f = (float)btc;
+    float vr = v0r, vc = v0c;
+    bool active = ok;
+    int it = 0;
+    for (; it < niter && active; ++it) {
+      const Axis sr = axis_of(fsub(fsub(fadd(vr, bb_f), btr_f), (float)hws),
+                              kb);
+      const Axis sc = axis_of(fsub(fsub(fadd(vc, bb_f), btc_f), (float)hws),
+                              kb);
+      float b1 = 0.f, b2 = 0.f;
+      lane_samples(lane, ws, [&](int, int i, int j) {
+        const float dt = fsub(sample_at(PA, i, j, ta_r, ta_c),
+                              sample_at(PB, i, j, sr, sc));
+        b1 = fadd(b1, fmul(sample_at(PG0, i, j, tg_r, tg_c), dt));
+        b2 = fadd(b2, fmul(sample_at(PG1, i, j, tg_r, tg_c), dt));
+      });
+      const float bk1 = warp_sum(b1), bk2 = warp_sum(b2);
+      const float nk1 = fadd(fmul(i11, bk1), fmul(i12, bk2));
+      const float nk2 = fadd(fmul(i12, bk1), fmul(i22, bk2));
+      vr = fadd(vr, nk1);
+      vc = fadd(vc, nk2);
+      active = fadd(fmul(nk1, nk1), fmul(nk2, nk2)) >= conv_sq;
+    }
+
+    const bool in_domain = vr >= 0.f && vr <= (float)(L.h - 1) && vc >= 0.f &&
+                           vc <= (float)(L.w - 1);
+    const bool in_patch = fabsf(fsub(vr, v0r)) <= (float)L.pad &&
+                          fabsf(fsub(vc, v0c)) <= (float)L.pad;
+    const Axis sr = axis_of(fsub(fsub(fadd(vr, bb_f), btr_f), (float)hws), kb);
+    const Axis sc = axis_of(fsub(fsub(fadd(vc, bb_f), btc_f), (float)hws), kb);
+    float sad = 0.f;
+    float* win = out.windows
+                     ? out.windows + ((size_t)lv * n + q) * 4 * nw
+                     : nullptr;
+    lane_samples(lane, ws, [&](int e, int i, int j) {
+      const float ta = sample_at(PA, i, j, ta_r, ta_c);
+      const float bs = sample_at(PB, i, j, sr, sc);
+      sad = fadd(sad, fabsf(fsub(ta, bs)));
+      if (win) {
+        win[e] = ta;
+        win[nw + e] = sample_at(PG0, i, j, tg_r, tg_c);
+        win[2 * nw + e] = sample_at(PG1, i, j, tg_r, tg_c);
+        win[3 * nw + e] = bs;
+      }
+    });
+    const float e_val = __fdiv_rn(warp_sum(sad),
+                                  fmul(cnt, fmaxf(stddev, 1e-6f)));
+    const float err = (ok && in_domain && in_patch) ? e_val : kBig;
+    const float fr = fsub(vr, pr), fc = fsub(vc, pc);
+
+    if (!adopt_below || err < max_err) {
+      trr = fr;
+      trc = fc;
+    }
+    dist = err;
+    if (lane == 0 && out.flow) {
+      const size_t k = (size_t)lv * n + q;
+      out.flow[2 * k] = fr;
+      out.flow[2 * k + 1] = fc;
+      out.err[k] = err;
+      out.iters[k] = it;
+    }
+  }
+  if (lane == 0) {
+    out.tr[2 * q] = trr;
+    out.tr[2 * q + 1] = trc;
+    out.dist[q] = dist;
+  }
+}
+
+// Opts a kernel into more than 48 KB of dynamic shared memory, once per
+// device and size (so a launch under graph capture sets nothing).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int* granted) {
+  if (bytes <= kSmemDefault) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (granted[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) granted[dev] = bytes;
+  return e;
+}
+
+int g_staged_smem[kMaxDevices];
+
 }  // namespace
 
 // LK for n keypoints over nlev pyramid levels, coarsest first, in one
@@ -374,22 +671,29 @@ cudaError_t launch(const Levels& LV, const float* p, const float* tr0, int n,
 // float32 whose correctly rounded square root reaches the convergence
 // delta (a step's squared norm at or above it continues the loop). At each level tr =
 // tr * factor, then the level's flow replaces tr always (adopt_below 0) or
-// where its err < max_err (1); dist is the level's err. Outputs: tr (n, 2)
-// and dist (n,); flow (L, n, 2), err (L, n), windows (L, n, 4, ws^2) and
-// iters (L, n) int32, each level's flow, residual, template, row- and
-// column-gradient and final search windows and Newton steps, or all null.
+// where its err < max_err (1); dist is the level's err. route: 0 registers
+// (ws <= 15, every patch inside its buffer, 4 warps a CTA), 1 staged
+// (`warps` warps a CTA, each with 3 pt^2 + pb^2 floats of shared memory at
+// the levels' largest pad), 2 global (`warps` warps a CTA); lk.py:_k10_plan.
+// Outputs: tr (n, 2) and dist (n,); flow (L, n, 2), err (L, n), windows (L,
+// n, 4, ws^2) and iters (L, n) int32, each level's flow, residual,
+// template, row- and column-gradient and final search windows and Newton
+// steps, or all null.
 extern "C" int vpp_lk(const long long* levels, int nlev, const void* p,
                       const void* tr0, int n, int ws, float min_ev, int niter,
                       float conv_sq, int adopt_below, float max_err,
-                      float factor, void* tr, void* dist, void* flow,
-                      void* err, void* windows, void* iters, void* stream) {
+                      float factor, int route, int warps, void* tr, void* dist,
+                      void* flow, void* err, void* windows, void* iters,
+                      void* stream) {
   if (n <= 0 || nlev <= 0) return 0;
-  if (nlev > kMaxLevels || ws < 1 || ws > kMaxWs || !tr || !dist ||
-      (flow && (!err || !windows || !iters)))
+  if (nlev > kMaxLevels || ws < 1 || ws > 46339 || route < 0 || route > 2 ||
+      (route == 0 && (ws > kMaxWs || warps != kWarps)) || warps < 1 ||
+      warps > kWarps || !tr || !dist || (flow && (!err || !windows || !iters)))
     return (int)cudaErrorInvalidValue;
   Levels LV{};
   LV.n = nlev;
   const int pt = ws + 2;
+  int pad_max = 1;
   for (int i = 0; i < nlev; ++i) {
     const long long* r = levels + (size_t)i * kLevelInts;
     Level& L = LV.l[i];
@@ -398,15 +702,40 @@ extern "C" int vpp_lk(const long long* levels, int nlev, const void* p,
               (int)r[7], (int)r[9], (int)r[10], (int)r[11], (int)r[12],
               (int)r[13], (int)r[14], (int)r[15]};
     const int pb = ws + 2 * L.pad + 2;
-    if (L.pad < 1 || L.pad > kMaxPad || L.s < 0 || L.s > 100 || pt > L.ha ||
-        pt > L.wa || pt > L.hg || pt > L.wg || pb > L.hb || pb > L.wb)
+    if (L.pad < 1 || L.pad > kMaxPad || L.s < 0 || L.s > 100 || L.ha < 1 ||
+        L.wa < 1 || L.hg < 1 || L.wg < 1 || L.hb < 1 || L.wb < 1)
       return (int)cudaErrorInvalidValue;
+    // the registers route stages whole patches: each inside its buffer
+    if (route == 0 && (pt > L.ha || pt > L.wa || pt > L.hg || pt > L.wg ||
+                       pb > L.hb || pb > L.wb))
+      return (int)cudaErrorInvalidValue;
+    pad_max = L.pad > pad_max ? L.pad : pad_max;
   }
   const Out out{(float*)tr, (float*)dist, (float*)flow, (float*)err,
                 (float*)windows, (int*)iters};
   const float* pp = (const float*)p;
   const float* tt = (const float*)tr0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (route > 0) {
+    const int pb_max = ws + 2 * pad_max + 2;
+    const long long floats = 3LL * pt * pt + (long long)pb_max * pb_max;
+    const long long bytes = route == 1 ? 4 * floats * warps : 0;
+    if (bytes > kSmemMax) return (int)cudaErrorInvalidValue;
+    const int blocks = (n + warps - 1) / warps;
+    if (route == 1) {
+      cudaError_t e =
+          allow_smem(lk_any_kernel<false>, (int)bytes, g_staged_smem);
+      if (e != cudaSuccess) return (int)e;
+      lk_any_kernel<false><<<blocks, warps * 32, bytes, st>>>(
+          LV, pp, tt, n, ws, pb_max, min_ev, niter, conv_sq, adopt_below,
+          max_err, factor, out);
+    } else {
+      lk_any_kernel<true><<<blocks, warps * 32, 0, st>>>(
+          LV, pp, tt, n, ws, pb_max, min_ev, niter, conv_sq, adopt_below,
+          max_err, factor, out);
+    }
+    return (int)cudaGetLastError();
+  }
   cudaError_t e;
   switch ((ws * ws + 31) / 32) {
     case 1: e = launch<1>(LV, pp, tt, n, ws, min_ev, niter, conv_sq, adopt_below, max_err, factor, out, st); break;

@@ -12,7 +12,10 @@
 // What it computes, exactly as the matrices do:
 //   - output row i reads source rows 2i-2 .. 2i+2 with weights 1,4,6,4,1 /16;
 //     a source index below 0 mirrors to -src-1, one at or past n to
-//     2n-src-1 (the input is mirrored, not the filtered values);
+//     2n-src-1 (the input is mirrored, not the filtered values), and one
+//     that is still below 0 (the last tap of a 2-pixel level, 2n - 4 - 1 =
+//     -1) wraps to n - 1, as numpy's index -1 does in _decim_matrix: the
+//     levels of a deep pyramid stop shrinking at 2 pixels (2 -> 2);
 //   - where two taps land on one source pixel their weights are added first,
 //     as _decim_matrix accumulates them into one matrix entry;
 //   - the vertical pass is rounded to float32 per intermediate column, then
@@ -59,7 +62,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxLevels = 32;   // a level of 2 cannot be decimated: ints end
+constexpr int kMaxLevels = 32;   // a launch's levels (pyramid.py chains more)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTH = 16, kTW = 32;    // a level tile's outputs
@@ -91,6 +94,7 @@ struct Levels {
 __device__ __forceinline__ int mirror_src(int s, int n) {
   if (s < 0) s = -s - 1;
   if (s >= n) s = 2 * n - s - 1;
+  if (s < 0) s += n;   // numpy's negative index: a 2-pixel level's last tap
   return s;
 }
 
@@ -150,10 +154,16 @@ __device__ __forceinline__ void store_images(float* dst, int stride, int ob,
   }
 }
 
-// The interval of mirror_src(p, n) over p in [a, b] (-n <= a <= b < 2n,
-// a < n, b >= 0): contiguous, and no longer than b - a + 1.
+// The interval of mirror_src(p, n) over p in [a, b] (-n <= a <= b <= 2n,
+// a < n, b >= 0): contiguous, and no longer than b - a + 1. b = 2n (a
+// 2-pixel level's last tap wraps) covers the whole source.
 __device__ __forceinline__ void mirrored_range(int a, int b, int n, int* lo,
                                                int* hi) {
+  if (b >= 2 * n) {
+    *lo = 0;
+    *hi = n - 1;
+    return;
+  }
   int l = max(a, 0), u = min(b, n - 1);
   if (a < 0) {
     l = min(l, -min(b, -1) - 1);
@@ -258,6 +268,12 @@ __device__ __forceinline__ void horizontal(const float* mid, int nr, int nc,
       emit(ry, cx, acc);
     }
   }
+}
+
+// whether n_out outputs are a decimation of n sources that mirror_src
+// indexes: 2 n_out <= 2 n - 1, or a 2-pixel level kept at 2
+inline bool decimates(int n, int n_out) {
+  return 2 * n_out <= 2 * n - 1 || (n == 2 && n_out == 2);
 }
 
 __host__ __device__ __forceinline__ int tiles_of(int oh, int ow, int th,
@@ -398,8 +414,9 @@ pyramid_kernel(const float* __restrict__ src, int sstride,
 // where level l's (h + 2 border) x (w + 2 border) buffer starts in `out`
 // (floats; levels >= first). Writes levels first .. n-1; first is 0 or 1.
 // Every level l >= 1 must be a decimation of level l - 1 (2 h_l <= 2 h_{l-1}
-// - 1), and with `fuse` 1 level 2 must halve level 1 (2 h_2 <= h_1 + 2), as
-// pyramid()'s levels do; `fuse` 0 computes level 2 after a grid barrier.
+// - 1, or h_l = h_{l-1} = 2: a 2-pixel level's last tap wraps), and with
+// `fuse` 1 level 2 must halve level 1 (2 h_2 <= h_1 + 2), as pyramid()'s
+// levels do; `fuse` 0 computes level 2 after a grid barrier.
 extern "C" int vpp_pyramid(const float* src, int sstride,
                            long long src_streams, const long long* levels,
                            int n, int first, int border, int fuse,
@@ -419,10 +436,11 @@ extern "C" int vpp_pyramid(const float* src, int sstride,
     lv.w[l] = (int)levels[3 * l + 1];
     lv.off[l] = levels[3 * l + 2];
     if (lv.h[l] < 1 || lv.w[l] < 1) return (int)cudaErrorInvalidValue;
-    // the taps of the last output reach 2 (oh - 1) + 2 <= 2 h - 1
+    // the taps of the last output reach 2 (oh - 1) + 2 <= 2 h - 1, or 2 h
+    // on a 2-pixel level kept at 2 (that tap wraps to the level's last pixel)
     if (l > 0 && (lv.h[l - 1] < 2 || lv.w[l - 1] < 2 ||
-                  2 * lv.h[l] > 2 * lv.h[l - 1] - 1 ||
-                  2 * lv.w[l] > 2 * lv.w[l - 1] - 1))
+                  !decimates(lv.h[l - 1], lv.h[l]) ||
+                  !decimates(lv.w[l - 1], lv.w[l])))
       return (int)cudaErrorInvalidValue;
   }
   // a fused tile's level-1 region fits its shared memory where level 2

@@ -689,9 +689,11 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
 
     ``ring_layout=True`` promises ``obs_pose[n, j] == j`` (K == M). On CUDA
     tensors it runs kernel K6: every iteration of every problem in one
-    launch, M at most ``ba_cuda.MAX_POSES``; one ring problem of more
-    poses runs kernel K9 with ``obs_pose = arange(M)`` (``ValueError``
-    with a stream dimension). The generic layout takes one problem; on
+    launch, M at most ``ba_cuda.MAX_POSES``; a ring of more poses runs
+    kernel K9 with ``obs_pose = arange(M)``, one launch a problem (S
+    launches for S streams, in stream order on the caller's CUDA stream,
+    each stream with its own damping and decisions). The generic layout
+    takes one problem; on
     CUDA tensors it runs kernel K9 within its limits (``ba_generic_cuda``:
     M up to 512, K up to 32, at most 2^22 slots; ``ValueError`` beyond
     them). ``linalg`` is "lu" (pivoted landmark
@@ -754,10 +756,11 @@ def _lm_tracks_sharded(p: BATracks, iters: int, huber: float, lam0: float,
 def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
                ring_layout: bool, linalg: str, kernel: bool):
     """The LM loop of ``ba_solve_tracks``: with ``kernel`` (CUDA tensors)
-    K6's one launch on the ring layout (K9's for one ring problem of more
-    poses than K6 takes) or K9's one launch on the generic one, else the
-    plain version below (on any device), every stream's decisions and
-    damping its own.
+    K6's one launch on the ring layout, or K9's one launch on the generic
+    one; a ring of more poses than K6 takes runs K9 with ``obs_pose =
+    arange(M)``, one launch a stream, in stream order (K9 takes one
+    problem), the results stacked. Else the plain version below (on any
+    device). Every stream's decisions and damping are its own.
     No iteration returns ``p`` itself and empty costs, as the JAX
     package's ``lax.scan(length=0)`` does, and launches nothing."""
     lead = p.landmarks.shape[:-2]
@@ -770,23 +773,22 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
         fused = ba_cuda.lm_tracks if ring_layout else lm_generic
         m = p.poses.shape[-3]
         if ring_layout and m > ba_cuda.MAX_POSES:
-            # K6 holds at most MAX_POSES poses; K9 takes one ring problem
-            # (a stream dimension of 1 too, as slam_run makes it) up to its
-            # slot limit, as the generic layout with obs_pose[n, j] = j
-            if p.landmarks.dim() != 2 and lead != (1,):
-                raise ValueError(
-                    f"ba_solve_tracks: a ring of {m} poses on {lead[0]} "
-                    f"streams; K6 takes at most {ba_cuda.MAX_POSES} poses "
-                    "and K9 one problem")
-            one = p if p.landmarks.dim() == 2 else BATracks(
-                *(t if i == 5 else t[0] for i, t in enumerate(p)))
-            poses, lms, costs, _ = lm_generic(one._replace(
-                obs_pose=torch.arange(
-                    m, dtype=torch.int32, device=p.landmarks.device).expand(
-                        one.obs_valid.shape).contiguous()),
-                iters, huber, lam0, linalg)
-            if p.landmarks.dim() != 2:
-                poses, lms, costs = poses[None], lms[None], costs[None]
+            # K6 holds at most MAX_POSES poses; K9 takes one ring problem up
+            # to its slot limit, as the generic layout with obs_pose[n, j] =
+            # j: one launch a stream, each on the stream's own problem
+            flat = BATracks(*(t if i == 5 else t.reshape(
+                (-1,) + t.shape[len(lead):]) for i, t in enumerate(p)))
+            arange = torch.arange(m, dtype=torch.int32,
+                                  device=p.landmarks.device)
+            outs = []
+            for s in range(lead.numel()):
+                one = BATracks(*(t if i == 5 else t[s]
+                                 for i, t in enumerate(flat)))
+                outs.append(lm_generic(one._replace(obs_pose=arange.expand(
+                    one.obs_valid.shape).contiguous()), iters, huber, lam0,
+                    linalg)[:3])
+            poses, lms, costs = (torch.stack(t).reshape(lead + t[0].shape)
+                                 for t in zip(*outs))
         else:
             poses, lms, costs, _ = fused(p, iters, huber, lam0, linalg)
         return p._replace(poses=poses, landmarks=lms), costs

@@ -20,7 +20,10 @@ float64, as in the plain version (see ``slam/ba.py`` on precision).
 
 Limits, checked here (``ValueError`` beyond them): one problem (no stream
 dimension), 1 to ``MAX_POSES`` poses, 1 to ``MAX_SLOTS`` slots a landmark,
-at least one landmark and at most ``MAX_OBSERVATIONS`` slots in all.
+at least one landmark and at most ``MAX_OBSERVATIONS`` slots in all. A ring
+of S streams with more poses than K6 takes (``slam_run_streams`` with
+``ring > 16``) is S calls, one launch a stream in stream order
+(``ba._lm_tracks``).
 """
 
 from __future__ import annotations

@@ -722,7 +722,9 @@ def slam_run_streams(frames, cfg: SlamConfig, bootstrap_poses,
     ``SlamState`` with a leading S on every tensor (``n_keyframes`` and the
     tracker's ``frame_id`` are host ints, the same for every stream). The
     serving configuration: each kernel launches once a step for all S
-    streams, so the launches a frame do not grow with S.
+    streams, so the launches a frame do not grow with S, except the window
+    BA past ``ring`` 16 poses (more than K6 holds): there a keyframe makes
+    S K9 launches, one a stream in stream order.
 
     As in the JAX package, requires T % keyframe_period == 0 and
     ``enable_recovery=False`` (``ValueError`` otherwise); the keyframe
