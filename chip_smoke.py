@@ -315,13 +315,34 @@ Phases, in order; any failure exits nonzero and prints no result:
    0.05, ATE within 0.02), K9 on the last keyframe's window of the first
    S = 1, 2 and 4 streams (S launches, device and as-called ms), aggregate
    frames/s at S = 1, 2 and 4 (median of 3);
-16. one ``{"kernels": [...]}`` line (each batched kernel with its
+16. the back end past the kernels' old limits, on the card (every line
+   beside the card's name and power limit): (a) K9 (``ba_solve_tracks``
+   on the generic layout) at M 1024 x K 48 x N 4096, a closure over 2048
+   poses (a full band, its panel in device memory; lam0 1), M 3072 x N
+   20000 (the step in device memory) and N 600,000 x K 8 (4.8 M slots,
+   past 2^22), LU and Cholesky, each by ``k9_check`` with the plain
+   loop's spread from its float64-solve twin on the card, the routes
+   ``k9_routes`` names, device ms beside the plain loop's and the bound;
+   every route forced to device memory by a small budget at M 128 and a
+   512-pose closure, bit-equal to the card's routes; ``slam_run`` with
+   ``ring = 48`` on 40 frames against the CPU, its last window by
+   ``k9_check``; (b) K8 at Q 20736 (``slam_run`` at 1920x1080 with
+   capacity and ``detect_k`` 20736 and recovery on, 12 frames: its last
+   archive PnP and a ``relocalize``) and at Q 65536 synthetic detections
+   (the device route), each by ``k8_check``, timed beside the plain
+   version and the bound; (c) ``semi_dense_optical_flow`` at 48
+   propagation passes (launch B a chain of two launches) by phase 15b's
+   rule, bit-equal on the integer levels; (d) K4 on 1x640 and 480x1
+   frames, bit-equal to the plain chain on integer-valued frames, within
+   1e-6 on float ones;
+17. one ``{"kernels": [...]}`` line (each batched kernel with its
    ``launches_streams`` and ``device_ms_streams4``; K9's ``launches`` a
    ``ba_solve_tracks`` call of phase 10; K7's ``device_ms_1080p`` and
    ``bound_ms_1080p`` from phase 11; K10's and K11's rows from phase 12,
    one launch a lucas_kanade call and one a Euclidean transform; K10's
    device ms and bound by phase 15a's route, K1's device ms by phase 15b's
-   ``search_niters``, K9's launches on phase 15c's ring-20 streams), then
+   ``search_niters``, K9's launches on phase 15c's ring-20 streams, and
+   phase 16's device, plain and bound ms past the old limits), then
    ``{"ok": true,
    "device": ...}``.
 
@@ -1263,10 +1284,16 @@ GEN_INTR = (300.0, 300.0, 160.0, 120.0)
 
 
 def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
-                    noise=0.0):
+                    noise=0.0, rot=0.01, centre=False):
     """tests/test_slam_scale.py:13-40's recipe, made on the card from a
     numpy seed through the port's ``se3_exp`` and ``project``: m poses
-    stepping 0.1 in x, each landmark seen by k consecutive poses,
+    stepping 0.1 in x with ``rot`` radians of random rotation a step (the
+    recipe's 0.01; a chain of thousands of poses takes less, or its
+    heading wanders off the landmarks the recipe lays along x: the path's
+    drift across them grows as M^1.5 times the rotation a step; with
+    ``centre`` the world origin moved to the middle pose's camera centre,
+    which halves the float32 coordinates of a chain hundreds of units
+    long), each landmark seen by k consecutive poses,
     ``noise`` px of noise, the landmarks perturbed by 0.03 (the scale
     test's noisy start), poses 0 and 1 fixed. Cases: ``masked`` (slot 1
     of every row thrown 500 px and masked, test_slam_scale.py:122),
@@ -1282,7 +1309,7 @@ def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
     rng = np.random.RandomState(seed)
     xi = np.zeros((m, 6), np.float32)
     xi[1:, 3] = -0.1
-    xi[1:, :3] = rng.randn(m - 1, 3) * 0.01
+    xi[1:, :3] = rng.randn(m - 1, 3) * rot
     steps = se3_exp(torch.from_numpy(xi).to(dev))
     poses = [torch.eye(4, device=dev)]
     for i in range(1, m):
@@ -1299,6 +1326,11 @@ def generic_problem(torch, np, BA, dev, n, m, k, seed, case="plain",
         op[7, 0], op[7, k - 1] = 0, m - 1
         X[7] = torch.tensor([0.05 * (m - 1), 0.0, 3.0 + 0.12 * (m - 1)],
                             device=dev)
+    if centre:
+        mid = poses[m // 2]
+        c = -mid[:3, :3].T @ mid[:3, 3]
+        poses[:, :3, 3] += poses[:, :3, :3] @ c
+        X = X - c
     intr = torch.tensor(GEN_INTR, device=dev)
     uv = BA.project(poses[op.long()], X[:, None], intr) + torch.from_numpy(
         (rng.randn(n, k, 2) * noise).astype(np.float32)).to(dev)
@@ -1475,7 +1507,7 @@ def k9_hold_record(torch, BG, p, iters, lam0, linalg, draws=8):
     return rows, (k9, lib)
 
 
-def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
+def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what, cpu=True):
     """K9 on ``p`` against its plain version on the card, stage by stage on
     the same inputs, then over the whole LM loop:
     - one launch a call, the same bits twice;
@@ -1509,6 +1541,10 @@ def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
       long chain, landmarks seen once) leaves the poses undetermined at
       that level: the distance is reported beside the plain loop's own,
       and beside the plain loop's with its pose solves in float64.
+    With ``cpu`` False (problems whose plain loop takes minutes on the
+    host) the plain loop's distance from itself is its distance from the
+    same loop with float64 pose solves on the card, the rounding of the
+    solve alone.
     Returns (numbers, (poses, landmarks, costs, trace))."""
     KN.reset_launch_counts()
     out = BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg, trace=True)
@@ -1593,22 +1629,29 @@ def k9_check(torch, BA, BG, KN, p, iters, lam0, linalg, what):
           and step_pose <= step_tol and step_pred <= pred_tol,
           f"K9 ({what}) first candidate off the plain step from its dp: "
           f"cost {step_cost}, accepted {acc_k} (plain {bool(new_p < cp)}), "
-          f"poses {step_pose}, predicted measurements {step_pred} px")
+          f"poses {step_pose}, predicted measurements {step_pred} px (the "
+          f"iterate's cost {float(cp)}, the candidate's "
+          f"{float(one[3].cost_after[0])} / plain {float(new_p)}, |dp| "
+          f"{float(torch.nan_to_num(dp0).abs().max())})")
     # the whole loop (where the iterate's cost is NaN, every cost is NaN
     # in both and nothing moves)
     sp, cpl = BA._lm_tracks(p, iters, GEN_HUBER, lam0, False, linalg,
                             kernel=False)
-    sc, ccpu = BA._lm_tracks(BA.BATracks(*(t.cpu() for t in p)), iters,
-                             GEN_HUBER, lam0, False, linalg, kernel=False)
+    if cpu:
+        sc, ccpu = BA._lm_tracks(BA.BATracks(*(t.cpu() for t in p)), iters,
+                                 GEN_HUBER, lam0, False, linalg,
+                                 kernel=False)
     spread = f64_dist = cost_spread = pose_err = pred_err = last = float(
         "nan")
     if finite:
         check(torch.equal(costs, torch.where(tr.accept != 0, tr.cost_after,
                                              tr.cost_before)),
               f"K9 ({what}): costs are not the accepted ones")
-        s64, _ = plain_loop_f64_solve(torch, BA, p, iters, lam0, linalg)
-        spread = float((sp.poses.cpu() - sc.poses).abs().max())
+        s64, c64 = plain_loop_f64_solve(torch, BA, p, iters, lam0, linalg)
         f64_dist = float((sp.poses - s64.poses).abs().max())
+        if not cpu:
+            sc, ccpu = s64, c64
+        spread = float((sp.poses.cpu() - sc.poses.cpu()).abs().max())
         cost_spread = abs(float(ccpu[-1]) - float(cpl[-1])) / float(
             cpl.abs().max())
         pose_err = float((poses - sp.poses).abs().max())
@@ -1706,15 +1749,15 @@ def k9_stages(torch, BG, p, iters, lam0, linalg, calls=5):
                      "solve_trailing", "solve_backsub"), med))
 
 
-def phase_ring20(torch, np, BA, KN, dev):
-    """``SlamConfig(ring=20)`` (more poses than K6 takes) through
+def phase_ring20(torch, np, BA, KN, dev, ring=20, phase="10"):
+    """``SlamConfig(ring=ring)`` (more poses than K6 takes) through
     ``slam_run`` on the first 40 frames of phase 6's clip on the card,
     against the plain CPU path at phase 6's gates (the same keyframes,
     landmark counts within 5%, ATE within 0.02): every window BA one K9
     launch and no K6 launch; K9's device ms on the run's last window.
-    Returns its numbers."""
+    Returns its numbers and that window (problem, keyword arguments)."""
     from vpp_tpu_torch.slam import pipeline as SP
-    cfg = dataclasses.replace(slam_config(), ring=20)
+    cfg = dataclasses.replace(slam_config(), ring=ring)
     frames, gt = slam_clip(SLAM_CPU_FRAMES)
     boot = gt[[0, cfg.keyframe_period]]
     problems = []
@@ -1744,12 +1787,12 @@ def phase_ring20(torch, np, BA, KN, dev):
     g_ate, c_ate = ate_of(g), ate_of(c)
     check(len(problems) > 0 and counts["ba_generic"] == len(problems)
           and counts["ba_tracks"] == 0,
-          f"slam_run with ring 20 made {len(problems)} window BAs and "
+          f"slam_run with ring {ring} made {len(problems)} window BAs and "
           f"launched {counts}")
     check(g.n_keyframes == c.n_keyframes
           and abs(g_lm - c_lm) <= 0.05 * max(c_lm, 1)
           and abs(g_ate - c_ate) <= 0.02,
-          f"slam_run with ring 20 on the card is off the CPU's: keyframes "
+          f"slam_run with ring {ring} on the card is off the CPU's: keyframes "
           f"{g.n_keyframes}/{c.n_keyframes}, landmarks {g_lm}/{c_lm}, ATE "
           f"{g_ate}/{c_ate}")
     last, kw = problems[-1]
@@ -1757,7 +1800,8 @@ def phase_ring20(torch, np, BA, KN, dev):
                       calls=5, replays=5)
     ms = cuda_ms(torch, lambda: BA.ba_solve_tracks(last, **kw), 10)
     n, k = last.obs_valid.shape[-2:]
-    print(f"phase 10: slam_run with ring 20 on {SLAM_CPU_FRAMES} frames: "
+    print(f"phase {phase}: slam_run with ring {ring} on {SLAM_CPU_FRAMES} "
+          f"frames: "
           f"card {g.n_keyframes} keyframes, {g_lm} landmarks, ATE "
           f"{g_ate:.4f}; plain CPU {c.n_keyframes}, {c_lm}, {c_ate:.4f}; "
           f"{len(problems)} window BAs, each one K9 launch ({counts}); K9 "
@@ -1766,7 +1810,7 @@ def phase_ring20(torch, np, BA, KN, dev):
           f"called")
     return dict(keyframes=g.n_keyframes, landmarks=g_lm, ate=g_ate,
                 cpu_landmarks=c_lm, cpu_ate=c_ate, window_bas=len(problems),
-                launches=counts, window_device_ms=t, window_ms=ms)
+                launches=counts, window_device_ms=t, window_ms=ms), last, kw
 
 
 def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
@@ -1961,7 +2005,7 @@ def phase_ba_generic(torch, np, BA, BG, KN, dev, results, smi):
           + "; over 8 copies with the landmarks moved one ulp at random, "
           f"K9's first factorisation held {draws[0]} times, the library's "
           f"of the same systems {draws[1]}")
-    ring20 = phase_ring20(torch, np, BA, KN, dev)
+    ring20 = phase_ring20(torch, np, BA, KN, dev)[0]
 
     # times, both linalg; the main path's linalg ("lu") in the kernels line:
     # the call (CUDA-graph replays), its stages (K9's own clock), the
@@ -4321,13 +4365,15 @@ def k1_level_work(g, a1, props: int):
 
 
 def front_flow(torch, p1, p2, cfg, niters: int, pos, valid,
-               smi: str) -> dict:
+               smi: str, phase: str = "15b") -> dict:
     """Phase 15b at one ``search_niters``: ``semi_dense_optical_flow`` on
     the tracker's pyramids; every level of its coarse-to-fine loop held to
     the plain level by phase 3's K1 rule (on the float levels flow equal
     off near-ties, dist and volume within rtol 1e-5; on the levels rounded
     to integers volume, flow and dist bit-equal), the plan each level
-    takes, times and K1's bound by phase 3's count."""
+    takes, times and K1's bound by phase 3's count. Each level is launch
+    A and launch B's chain (``flow._select_links``: one launch up to 38
+    passes)."""
     import importlib
     from vpp_tpu_torch.algorithms.pyramid import level_shapes
     from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -4409,17 +4455,19 @@ def front_flow(torch, p1, p2, cfg, niters: int, pos, valid,
     call()
     torch.cuda.synchronize()
     counts = {k: v for k, v in launch_counts().items() if v}
-    check(counts == {"flow_level": 2 * cfg.nscales},
-          f"semi_dense_optical_flow at search_niters {niters} launched "
-          f"{counts}")
+    per_level = 1 + len(FL._select_links(FL._SELECT_TILE, props))
+    check(counts == {"flow_level": per_level * cfg.nscales},
+          f"semi_dense_optical_flow at search_niters {niters}, propagation "
+          f"{props} launched {counts}")
     out = dict(search_niters=niters, plans=plans, near_tie_cells=ties,
                launches=counts, level_device_ms=lv_ms,
                k1_device_ms=sum(lv_ms.values()),
                call_device_ms=device_ms(torch, call, calls=5, replays=5)[0],
                call_ms=cuda_ms(torch, call, 5), bound_ms=b_ms,
                bound_by=b_by, bound_bytes=nbytes, bound_ops=nops, card=smi)
-    print(f"phase 15b: semi_dense_optical_flow {W}x{H} at search_niters "
-          f"{niters} ({smi}): plans " + "; ".join(
+    print(f"phase {phase}: semi_dense_optical_flow {W}x{H} at "
+          f"search_niters {niters}, propagation {props} ({smi}): plans "
+          + "; ".join(
               f"level {q['level']} R {q['R']} ({q['displacements']}): "
               f"{q['a_route']} tile {q['a_tile']}x{q['a_threads']}, chunk "
               f"{q['chunk']} batch {q['batch']} grid {q['a_grid']}, table "
@@ -4699,6 +4747,313 @@ def phase_front_end(torch, np, dev, slam_cfg, results, smi):
     results["ba_generic"]["device_ms_ring20_window_by_streams"] = {
         n: q["device_ms"] for n, q in out["ring20_streams"]["window_k9"]
         .items()}
+    return out
+
+
+# phase 16: the back-end configurations past the kernels' old limits
+# name: (N, M, K, case, lam0, iterations). The closure over 2048 poses
+# starts at lam0 1: at the recipe's 1e-4 its first Gauss-Newton step
+# moves a pose by 10 (radians and units) along the chain's weak scale
+# modes, a candidate both solves reject, whose cost two float32 solves put
+# 4e-3 apart (PERF.md §6)
+BACK_K9 = {
+    "m1024_k48": (4096, 1024, 48, "plain", 1e-4, 3),
+    "closure_m2048": (10240, 2048, 4, "closure", 1.0, 2),
+    "m3072": (20000, 3072, 4, "plain", 1e-4, 3),
+    "slots_4.8M": (600000, 128, 8, "plain", 1e-4, 3),
+}
+BACK_RING = 48               # phase 16a's slam_run window
+BACK_BIG = (1920, 1080)      # phase 16b's frames (W, H)
+BACK_INTR = (1920.0, 1920.0, 960.0, 540.0)   # phase 6's field of view
+BACK_Q = 20736               # 192 x 108 cells of 10 px: capacity, detect_k
+BACK_FRAMES = 12             # phase 16b's SLAM frames
+BACK_Q_SYNTH = 65536         # phase 16b's synthetic detections
+BACK_PROP = 48               # phase 16c's propagation passes
+
+
+def back_k9(torch, np, BA, BG, KN, dev, smi: str) -> dict:
+    """Phase 16a: K9 at the sizes past its old limits (``BACK_K9``), LU
+    and Cholesky, each held to its plain version by ``k9_check`` at phase
+    10's tolerances (the plain loop's own spread from its float64-solve
+    twin on the card: these plain loops take minutes on the host), its
+    routes those ``k9_routes`` names for the card's shared memory, timed
+    on the device beside the plain loop and K9's bound. The chains turn by
+    0.01 (128 / M)^1.5 radians a step and are laid out about their middle
+    pose (``generic_problem``)."""
+    smem = BG.smem_bytes()
+    out = {}
+    for name, (n, m, k, case, lam0, iters) in BACK_K9.items():
+        p, _ = generic_problem(torch, np, BA, dev, n, m, k, 5, case,
+                               noise=0.3, rot=0.01 * min(
+                                   1.0, (GEN_M / m) ** 1.5), centre=True)
+        rows = {}
+        for linalg in ("lu", "chol"):
+            nums, (_, _, costs, tr) = k9_check(
+                torch, BA, BG, KN, p, iters, lam0, linalg,
+                f"{name}, {linalg}", cpu=False)
+            routes = BG.routes_of_trace(tr)
+            want = BG.k9_routes(m, nums["band"], linalg, smem)
+            check(routes == want, f"K9 ({name}, {linalg}) took the routes "
+                  f"{routes}, k9_routes names {want}")
+            big = m >= 2048 or n * k > 1 << 22
+
+            def call(linalg=linalg):
+                return BA.ba_solve_tracks(p, iters=iters, lam0=lam0,
+                                          linalg=linalg)
+            dms, by = device_ms(torch, call, calls=1,
+                                replays=1 if big else 3)
+            plain = cuda_ms(torch, lambda linalg=linalg: BA._lm_tracks(
+                p, iters, GEN_HUBER, lam0, False, linalg, kernel=False), 1,
+                warmup=1)
+            (b_ms, b_by), nbytes, ops, _, _ = k9_bound(
+                torch, p, iters, nums["band"], linalg)
+            rows[linalg] = dict(
+                routes=routes, band=nums["band"], device_ms=dms,
+                device_ms_by=by, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, costs=costs.tolist(),
+                lm_last_cost_above=nums["lm_last_cost_above"],
+                lm_pose_err=nums["lm_pose_err"],
+                plain_f64_pose_dist=nums["plain_f64_pose_dist"],
+                solve_backward_err=nums["solve_backward_err"],
+                S_rel_err=nums["S_rel_err"])
+            torch.cuda.empty_cache()
+        out[name] = dict(n=n, m=m, k=k, case=case, slots=n * k, lam0=lam0,
+                         iters=iters, **rows)
+        print(f"phase 16a: K9 {name} (N {n}, M {m}, K {k}, {n * k} slots, "
+              f"{case}, {iters} iterations, lam0 {lam0}; {smi}): "
+              + "; ".join(
+                  f"{la}: routes {r['routes']}, band {r['band']}, "
+                  f"{r['device_ms']:.3f} ms on the device "
+                  f"({r['device_ms_by']}), plain loop {r['plain_ms']:.3f} "
+                  f"ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), last "
+                  f"cost {r['lm_last_cost_above']:.3g} of the first above "
+                  f"the plain loop's, poses {r['lm_pose_err']:.3g} (the "
+                  f"plain loop's float64-solve twin "
+                  f"{r['plain_f64_pose_dist']:.3g})"
+                  for la, r in rows.items()), flush=True)
+    # every stage's device-memory route, chosen for a small budget at phase
+    # 10's M 128 and at a closure over 512 poses: the card's routes' bits
+    for m, case in ((GEN_M, "plain"), (512, "closure")):
+        p, _ = generic_problem(torch, np, BA, dev, 4096, m, 4, 3, case,
+                               noise=0.3)
+        for linalg in ("lu", "chol"):
+            ref = BG.lm_generic(p, 3, GEN_HUBER, 1e-3, linalg, trace=True)
+            for budget in (128 + 256, 128 + 4096):
+                got = BG.lm_generic(p, 3, GEN_HUBER, 1e-3, linalg,
+                                    trace=True, smem=budget)
+                check(all(same_bits(torch, a, b) for a, b in zip(
+                    got[:3] + tuple(got[3])[:-1],
+                    ref[:3] + tuple(ref[3])[:-1]))
+                      and BG.routes_of_trace(got[3]) == BG.k9_routes(
+                          m, int(got[3].band), linalg, budget),
+                      f"K9 (M {m} {case}, {linalg}) with its routes chosen "
+                      f"for {budget} bytes is not the bits of the card's "
+                      "routes")
+    print("phase 16a: K9 with every stage's route chosen for 256 and 4096 "
+          "bytes of shared memory, at M 128 and a closure over 512 poses, "
+          "LU and Cholesky: the bits of the card's routes", flush=True)
+    # slam_run with a ring of 48 keyframes, its last window held by k9_check
+    ring, last, kw = phase_ring20(torch, np, BA, KN, dev, ring=BACK_RING,
+                                  phase="16a")
+    m = last.poses.shape[-3]
+    if last.landmarks.dim() == 3:          # the run's one stream
+        last = BA.BATracks(*(t if i == 5 else t[0]
+                             for i, t in enumerate(last)))
+    gp = last._replace(obs_pose=torch.arange(
+        m, dtype=torch.int32, device=dev).expand(last.obs_valid.shape)
+        .contiguous())
+    check(kw.get("huber", GEN_HUBER) == GEN_HUBER and kw["ring_layout"],
+          f"the ring-{BACK_RING} window's arguments {kw}")
+    nums, _ = k9_check(torch, BA, BG, KN, gp, kw["iters"],
+                       kw.get("lam0", 1e-3), kw["linalg"],
+                       f"the ring-{BACK_RING} window")
+    ring["window_check"] = {k_: v for k_, v in nums.items()
+                            if k_ != "accept"}
+    print(f"phase 16a: K9 on the last ring-{BACK_RING} window (N "
+          f"{gp.landmarks.shape[0]}, M {m}) held to its plain version: "
+          f"S {nums['S_rel_err']:.3g}, cost {nums['cost_rel_err']:.3g}, "
+          f"last cost {nums['lm_last_cost_above']:.3g} of the first above "
+          f"the plain loop's, poses {nums['lm_pose_err']:.3g}", flush=True)
+    out["ring48"] = ring
+    return out
+
+
+def back_k8(torch, np, dev, smi: str) -> dict:
+    """Phase 16b: K8 past its old 16384 detections. ``slam_run`` at
+    1920x1080 with ``capacity`` and ``detect_k`` 20736 (a 10 px cell a
+    detection) and recovery on, for ``BACK_FRAMES`` frames of phase 6's
+    scene recipe, then ``relocalize`` on its last frame: every K8 call at
+    Q 20736 (the staged route fits it on the H100), the last archive PnP
+    and the relocalization held to ``_map_vote_pnp_plain`` by ``k8_check``
+    (shifts, j1, uv1, inl bit-equal, T and err within 1e-4, n equal); then
+    Q 65536 synthetic detections (the device route) the same way. Device
+    ms, the plain version's ms and K8's bound for each."""
+    import importlib
+    from vpp_tpu_torch.algorithms.video_extruder import VideoExtruderConfig
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.utils.synth import (camera_path, make_cloud,
+                                           render_frames)
+    MV = importlib.import_module("vpp_tpu_torch.slam.map_vote")
+    SP = importlib.import_module("vpp_tpu_torch.slam.pipeline")
+    KN = importlib.import_module("vpp_tpu_torch.kernels")
+    bw, bh = BACK_BIG
+    cfg = dataclasses.replace(
+        slam_config(), intrinsics=BACK_INTR, enable_recovery=True,
+        tracker=VideoExtruderConfig(capacity=BACK_Q, detect_k=BACK_Q,
+                                    nscales=3, winsize=9,
+                                    keypoint_spacing=10, detector_period=1,
+                                    detector_th=10))
+    cloud = make_cloud(6000, seed=1, extent=(16.0, 5.0, 3.5),
+                       center=(3.2, 0.0, 5.0))
+    gt = camera_path(BACK_FRAMES, step=(0.02, 0.0, 0.0))
+    frames = render_frames(cloud, gt, BACK_INTR, (bh, bw), seed=1,
+                           sigma=(1.2, 2.2))
+    calls = []
+    vote = SP.map_vote_pnp
+
+    def capture(*a, **kw):
+        calls.append((a, kw))
+        return vote(*a, **kw)
+
+    SP.map_vote_pnp = capture
+    try:
+        KN.reset_launch_counts()
+        st = SP.slam_run(torch.from_numpy(frames).to(dev), cfg,
+                         bootstrap_poses=gt[[0, cfg.keyframe_period]],
+                         device="cuda")
+        frame = from_array(torch.from_numpy(frames[-1]).to(dev), border=9,
+                           border_mode="mirror")
+        SP.relocalize(st, frame, cfg)
+        torch.cuda.synchronize()
+        counts = KN.launch_counts()
+    finally:
+        SP.map_vote_pnp = vote
+    qs = sorted({a[3].shape[0] for a, _ in calls})
+    check(len(calls) >= 2 and qs == [BACK_Q]
+          and counts["map_vote"] == len(calls),
+          f"the 1080p run made {len(calls)} map-vote calls at Q {qs}, "
+          f"{counts['map_vote']} K8 launches")
+    out = {}
+    synth = pnp_inputs(torch, np, dev, 1024, BACK_Q_SYNTH, 2, "random", 16)
+    for name, (ops, kw) in (("archive_q20736", calls[-2]),
+                            ("relocalize_q20736", calls[-1]),
+                            ("synthetic_q65536", (synth, K8_KW))):
+        q = ops[3].shape[0]
+        route = MV.k8_route(q, MV.smem_bytes(dev))
+        diff, want = k8_check(torch, MV, ops, kw, name)
+        dms, by = device_ms(torch, lambda: MV.map_vote_pnp(*ops, **kw),
+                            calls=3, replays=3)
+        plain = cuda_ms(torch, lambda: MV._map_vote_pnp_plain(*ops, **kw), 1,
+                        warmup=1)
+        (b_ms, b_by), _, _ = k8_bound(torch, MV, ops, want, kw)
+        out[name] = dict(q=q, a=ops[0].shape[0], b=ops[2].shape[0],
+                         route=route, max_abs_err=diff, device_ms=dms,
+                         device_ms_by=by, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by, n=want.n.tolist())
+        print(f"phase 16b: K8 {name} (A {ops[0].shape[0]}, Q {q}, B "
+              f"{ops[2].shape[0]}; {smi}): route {route}, shifts, j1, uv1, "
+              f"inl bit-equal to the plain version, T and err within "
+              f"{diff:.3g}, n {want.n.tolist()}; {dms:.4f} ms on the device "
+              f"({by}), plain {plain:.2f} ms, bound {b_ms:.5f} ({b_by})",
+              flush=True)
+    check(out["synthetic_q65536"]["route"] == "device",
+          "K8 at Q 65536 did not take its device route")
+    out["slam_1080p"] = dict(frames=BACK_FRAMES,
+                             keyframes=st.n_keyframes,
+                             map_vote_calls=len(calls), launches={
+                                 k: v for k, v in counts.items() if v})
+    return out
+
+
+def back_k4(torch, np, dev, smi: str) -> dict:
+    """Phase 16d: K4 on a 1x640 and a 480x1 frame (1-pixel levels, every
+    tap folded onto the one pixel): one launch a pyramid, bit-equal to
+    ``pyramid_plain`` on integer-valued frames and within 1e-6 relative on
+    float ones (phase 3's K4 rule), timed on the device."""
+    import importlib
+    from vpp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    PY = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
+    rng = np.random.RandomState(16)
+    out = {}
+    for shape in ((1, 640), (480, 1)):
+        shapes = PY.level_shapes(shape, 3)
+        for kind in ("integer", "float"):
+            a = rng.randint(0, 256, shape) if kind == "integer" else (
+                rng.rand(*shape) * 255)
+            a = torch.from_numpy(a.astype(np.float32)).to(dev)
+            reset_launch_counts()
+            got = PY.pyramid(PY.Image2d(data=a, border=0), 3, border=3)
+            check(launch_counts()["pyramid_decim"] == 1,
+                  f"K4 on a {shape} frame is not one launch")
+            want = PY.pyramid_plain(a, shapes, 3)
+            if kind == "integer":
+                ok = all(same_bits(torch, g.data, w.data)
+                         for g, w in zip(got.levels, want))
+            else:
+                ok = all(rel_err(g.data, w.data) <= 1e-6
+                         for g, w in zip(got.levels, want))
+            check(ok, f"K4 on a {kind} {shape} frame differs from its "
+                  "plain version")
+        dms, by = device_ms(torch, lambda a=a: PY._k4(a, shapes, 3, 0))
+        out[f"{shape[0]}x{shape[1]}"] = dict(levels=[list(s) for s in shapes],
+                                              device_ms=dms, device_ms_by=by)
+    print(f"phase 16d: K4 on 1x640 and 480x1 frames ({smi}): levels "
+          + "; ".join(f"{k} {v['levels']} {v['device_ms']:.4f} ms on the "
+                      f"device" for k, v in out.items())
+          + ", bit-equal to the plain chain on integer-valued frames, "
+          "within 1e-6 relative on float ones", flush=True)
+    return out
+
+
+def phase_back_end(torch, np, dev, results, smi):
+    """Phase 16: the back-end configurations past the kernels' old limits
+    on the card: K9 (16a), K8 (16b), K1's chained select launch (16c) and
+    K4's 1-pixel levels (16d). Returns the numbers it prints."""
+    import importlib
+    from vpp_tpu_torch.algorithms.pyramid import pyramid
+    from vpp_tpu_torch.core.image import from_array
+    from vpp_tpu_torch.utils.clips import make_clip
+    BA = importlib.import_module("vpp_tpu_torch.slam.ba")
+    BG = importlib.import_module("vpp_tpu_torch.slam.ba_generic_cuda")
+    KN = importlib.import_module("vpp_tpu_torch.kernels")
+    out = {"k9": back_k9(torch, np, BA, BG, KN, dev, smi)}
+    out["k8"] = back_k8(torch, np, dev, smi)
+    # -- 16c. semi_dense_optical_flow at 48 propagation passes --------------
+    cfg = dataclasses.replace(bench_tracker_config(), propagation=BACK_PROP)
+    clip = make_clip(W, H, 3, seed=0)
+    b = max(3, cfg.winsize)
+    p1, p2 = (pyramid(from_array(torch.from_numpy(clip[i]).to(dev), border=b,
+                                 border_mode="mirror"), cfg.nscales,
+                      border=b) for i in (0, 2))
+    rng = np.random.RandomState(16)
+    pos = torch.from_numpy((rng.rand(SLICE_C_KP, 2) * [H - 1, W - 1]).astype(
+        np.float32)).to(dev)
+    valid = torch.ones(SLICE_C_KP, dtype=torch.bool, device=dev)
+    out["k1"] = front_flow(torch, p1, p2, cfg, 5, pos, valid, smi,
+                           phase="16c")
+    out["k4"] = back_k4(torch, np, dev, smi)
+    # the kernels line's rows
+    k9 = {f"{name}_{la}": out["k9"][name][la] for name in BACK_K9
+          for la in ("lu", "chol")}
+    results["ba_generic"]["device_ms_past_old_limits"] = {
+        k: v["device_ms"] for k, v in k9.items()}
+    results["ba_generic"]["plain_ms_past_old_limits"] = {
+        k: v["plain_ms"] for k, v in k9.items()}
+    results["ba_generic"]["bound_ms_past_old_limits"] = {
+        k: v["bound_ms"] for k, v in k9.items()}
+    results["ba_generic"]["routes_past_old_limits"] = {
+        k: v["routes"] for k, v in k9.items()}
+    results["ba_generic"]["ring48_window_device_ms"] = \
+        out["k9"]["ring48"]["window_device_ms"]
+    results["map_vote"]["past_old_limit"] = {
+        k: {q: v[q] for q in ("q", "route", "device_ms", "plain_ms",
+                              "bound_ms", "bound_by", "max_abs_err")}
+        for k, v in out["k8"].items() if k != "slam_1080p"}
+    results["flow_level"]["device_ms_propagation48"] = \
+        out["k1"]["k1_device_ms"]
+    results["flow_level"]["launches_propagation48"] = out["k1"]["launches"]
+    results["pyramid_decim"]["device_ms_one_pixel_levels"] = {
+        k: v["device_ms"] for k, v in out["k4"].items()}
     return out
 
 
@@ -5931,7 +6286,12 @@ def main() -> int:
     front = phase_front_end(torch, np, dev, slam_cfg, results, smi)
     print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s")
 
-    # -- 16. results ----------------------------------------------------------
+    # -- 16. the back end past the kernels' old limits ------------------------
+    t0 = time.perf_counter()
+    back = phase_back_end(torch, np, dev, results, smi)
+    print(f"phase 16: passed in {time.perf_counter() - t0:.1f} s")
+
+    # -- results --------------------------------------------------------------
     launches = {"fast9": track_counts["fast9"],
                 "flow_level": track_counts["flow_level"],
                 "hough_acc": hough_counts["hough_acc"]}
@@ -5970,7 +6330,8 @@ def main() -> int:
                       "streams": streams, "ba_generic": gen,
                       "hough_lines": hough_lines, "slice_c": slice_c,
                       "slice_d": slice_d, "sharded": sharded,
-                      "front_end": front, "card": smi}))
+                      "front_end": front, "back_end": back,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

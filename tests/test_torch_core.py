@@ -178,6 +178,32 @@ def test_pyramid_float_within_1e5(shape):
                                        rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(1, 640), (480, 1)])
+def test_pyramid_one_pixel_wide_frames(shape):
+    """A 1-row or 1-column frame (K4's plain version, which the card holds
+    K4 to): every level keeps that row or column, each output's five taps
+    folded onto its one source pixel as ``_decim_matrix`` folds them, and
+    the other axis decimated as usual. Integer-valued pixels give the JAX
+    package's bits (every partial sum exact); float pixels agree within
+    float32 rounding of the five-tap sums, which the two frameworks'
+    matrix products add in their own orders (1e-6 relative)."""
+    rng = np.random.RandomState(shape[1])
+    ints = rng.randint(0, 256, shape).astype(np.float32)
+    for a, rtol in ((ints, 0.0), ((rng.rand(*shape) * 255).astype(
+            np.float32), 1e-6)):
+        jp = j_pyr.pyramid(j_image.Image2d(data=jnp.asarray(a), border=0), 3,
+                           border=3)
+        tp = t_pyr.pyramid(t_image.Image2d(data=torch.from_numpy(a),
+                                           border=0), 3, border=3)
+        want_shapes = t_pyr.level_shapes(shape, 3)
+        assert [lt.shape for lt in tp.levels] == list(want_shapes)
+        assert min(want_shapes[-1]) == 1
+        for lj, lt in zip(jp.levels, tp.levels):
+            assert lt.border == lj.border == 3
+            np.testing.assert_allclose(lt.data.numpy(), np.asarray(lj.data),
+                                       rtol=rtol, atol=0)
+
+
 @pytest.mark.parametrize("factor", [2.0, 1.5])
 def test_pyramid_integer_chain_bit_equal(factor):
     """The reference filter/subsample chain of integer pixel types."""

@@ -209,6 +209,43 @@ def test_k1_plan_fits_large_windows(ws, patch, R):
     _assert_plan_covers(huge, plan)
 
 
+@pytest.mark.parametrize("props,links", [
+    (0, (0,)), (2, (2,)), (38, (38,)), (39, (38, 1)), (48, (38, 10)),
+    (80, (38, 38, 4))])
+def test_select_links_chain_past_the_halo(props, links):
+    """Launch B's passes a launch, where a pass count past what its halo
+    fits raised before: one launch while the tile and a halo of its passes
+    fit a block's shared memory (38 passes at the 8-cell tile), then a
+    chain; every link and the plan fit, the plan's launch B is the first
+    link's, and the plans of today's pass counts do not change."""
+    links_got = tfl._select_links(tfl._SELECT_TILE, props)
+    assert links_got == links and sum(links_got) == props
+    for n in links_got:
+        assert tfl._select_smem(tfl._SELECT_TILE, n, 0,
+                                table=False) <= tfl._SMEM_MAX
+    g = tfl.LevelGeometry(b=9, h=120, w=160, ws=9, patch=5, gh=24, gw=32,
+                          R=5, pred_bound=0)
+    plan = tfl._k1_plan(g, props, 132)
+    assert (plan.b_smem, plan.b_table) == tfl._select_plan(
+        tfl._SELECT_TILE, links[0], g.R)
+    assert plan.b_smem <= tfl._SMEM_MAX
+
+
+def test_flow_level_48_passes_matches_xla():
+    """``prop_iters`` 48 (a chain of two select launches on the card) on
+    an integer-valued level, against the JAX package's level: the same
+    flow and dist bits."""
+    a1, a2, pred, g, _ = _level_inputs(LEVELS[0], True, seed=48)
+    disp, offsets = jfl._displacement_table(g.R)
+    jf, jd = jfl._flow_level_xla(
+        jnp.asarray(a1), jnp.asarray(a2), jnp.asarray(pred), g.b, g.h, g.w,
+        g.ws, g.patch, g.gh, g.gw, g.R, offsets, disp, g.pred_bound, 48)
+    tf, td = tfl.flow_level(torch.from_numpy(a1), torch.from_numpy(a2),
+                            torch.from_numpy(pred), g, 48)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
 def test_flow_match_then_propagate_is_the_level():
     a1, a2, pred, g, props = _level_inputs(LEVELS[0], False, seed=7)
     t1, t2, tp = (torch.from_numpy(x) for x in (a1, a2, pred))

@@ -650,7 +650,8 @@ def test_pyramid_kernel_other_routes(cuda):
     """A float64 frame pads level 0 and launches K4 once a level; a uint8
     frame takes the integer chain (no K4); a 2-row frame decimates to 2
     rows (the last tap wraps, as in ``_decim_matrix``) within K4's rule; a
-    1-row level, which K4 cannot decimate, raises; nlevels 1 is the pad
+    1-row level keeps its one row (every tap on it, as ``_decim_matrix``
+    folds them), bit-equal to the plain chain; nlevels 1 is the pad
     alone."""
     pyr = importlib.import_module("vpp_tpu_torch.algorithms.pyramid")
     a = np.random.RandomState(1).randint(0, 256, (61, 77))
@@ -674,8 +675,13 @@ def test_pyramid_kernel_other_routes(cuda):
     assert got[1].shape == (2, 21)
     for g, wl in zip(got.levels, want):
         assert torch.equal(g.data, wl.data)
-    with pytest.raises(ValueError):
-        pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 2, border=3)
+    reset_launch_counts()
+    got = pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 2, border=3)
+    assert launch_counts()["pyramid_decim"] == 1
+    assert got[1].shape == (1, 21)
+    for g, wl in zip(got.levels, pyr.pyramid_plain(
+            thin[:1], pyr.level_shapes((1, 40), 2), 3)):
+        assert _same_bits(g.data, wl.data)
     one = pyr.pyramid(pyr.Image2d(data=thin[:1], border=0), 1, border=3)
     assert torch.equal(one[0].data, from_array(thin[:1], border=3,
                                                border_mode="mirror").data)
@@ -875,7 +881,8 @@ def test_ba_tracks_kernel_rejects_large_windows(cuda):
         ba_cuda.lm_tracks(p, 1, 4.0, 1e-3, "chol")
 
 
-def _generic_problem(device, n, m, k, seed, case="plain", noise=0.3):
+def _generic_problem(device, n, m, k, seed, case="plain", noise=0.3,
+                     rot=0.01, centre=False):
     """tests/test_slam_scale.py:13-40's recipe on the port's own maps: m
     poses stepping 0.1 in x, each landmark seen by k consecutive poses
     (``case="shuffled"``: k random distinct poses in random order),
@@ -889,13 +896,16 @@ def _generic_problem(device, n, m, k, seed, case="plain", noise=0.3):
     every 5th row masked and naming pose m - 1: the band stays the
     chain's), ``nonfinite`` (pose m - 1 NaN and named by masked slots only,
     the last slot of every 7th row from pose 8 on, pose 0 free: S's blocks
-    between pose 0 and those rows' poses, outside the band, are NaN)."""
+    between pose 0 and those rows' poses, outside the band, are NaN).
+    ``rot``: radians of random rotation a step (a long chain takes less,
+    or its heading wanders off the landmarks laid along x); ``centre``:
+    the world origin at the middle pose's camera centre."""
     from vpp_tpu_torch.slam.ba import BATracks, project
     from vpp_tpu_torch.slam.se3 import se3_exp
     rng = np.random.RandomState(seed)
     xi = np.zeros((m, 6), np.float32)
     xi[1:, 3] = -0.1
-    xi[1:, :3] = rng.randn(m - 1, 3) * 0.01
+    xi[1:, :3] = rng.randn(m - 1, 3) * rot
     steps = se3_exp(torch.from_numpy(xi))
     poses = [torch.eye(4)]
     for i in range(1, m):
@@ -915,6 +925,11 @@ def _generic_problem(device, n, m, k, seed, case="plain", noise=0.3):
         # in front of both ends of the chain, ~23 degrees off their axes
         op[7, 0], op[7, k - 1] = 0, m - 1
         X[7] = torch.tensor([0.05 * (m - 1), 0.0, 3.0 + 0.12 * (m - 1)])
+    if centre:
+        mid = poses[m // 2]
+        c = -mid[:3, :3].T @ mid[:3, 3]
+        poses[:, :3, 3] += poses[:, :3, :3] @ c
+        X = X - c
     intr = torch.tensor([300.0, 300.0, 160.0, 120.0])
     uv = project(poses[op.long()], X[:, None], intr) + torch.from_numpy(
         (rng.randn(n, k, 2) * noise).astype(np.float32))
@@ -1008,7 +1023,26 @@ def _solve_backward_errors(tr, p, lam0, linalg):
     return _backward_error(Sp, tr.x, bs), _backward_error(Sp, xl, bs)
 
 
-def _check_generic(p, iters, lam0, linalg, huber=4.0):
+def _plain_f64_solves(p, iters, lam0, linalg, huber=4.0):
+    """The plain LM loop with its pose solves in float64 (dp rounded to
+    float32): how far the loop moves when only the solve's rounding
+    does."""
+    from vpp_tpu_torch.slam import ba
+    solve = ba._tracks_solve_poses
+
+    def f64(S, rhs, fixed, lam, linalg="lu"):
+        lam = lam.double() if torch.is_tensor(lam) else lam
+        return solve(S.double(), rhs.double(), fixed, lam, linalg).float()
+
+    ba._tracks_solve_poses = f64
+    try:
+        return ba._lm_tracks(p, iters, huber, lam0, False, linalg,
+                             kernel=False)
+    finally:
+        ba._tracks_solve_poses = solve
+
+
+def _check_generic(p, iters, lam0, linalg, huber=4.0, twin="cpu"):
     """K9 against its plain version on ``p``, on the card, stage by stage
     on the same inputs (chip_smoke.py's ``k9_check``): one launch a call,
     the same bits twice; S's block half-bandwidth the widest span of a
@@ -1026,7 +1060,8 @@ def _check_generic(p, iters, lam0, linalg, huber=4.0):
     the loop the last cost at most 1e-4 of the first (or 3x the
     plain loop's own CPU-to-card distance) above the plain loop's, and
     poses within 1e-4 of it where the plain loop lands within 1e-5 of
-    itself on the CPU. Returns the kernel's result and trace."""
+    itself on the CPU (``twin="f64"``: of itself with float64 pose
+    solves on the card). Returns the kernel's result and trace."""
     from vpp_tpu_torch.slam import ba, ba_generic_cuda
     reset_launch_counts()
     out = ba_generic_cuda.lm_generic(p, iters, huber, lam0, linalg,
@@ -1084,8 +1119,11 @@ def _check_generic(p, iters, lam0, linalg, huber=4.0):
             <= 1e-3 * max(1.0, float(p.poses[:, :3, 3].abs().max()) / 10)
     sp, cp = ba._lm_tracks(p, iters, huber, lam0, False, linalg,
                            kernel=False)
-    sc, cc = ba._lm_tracks(ba.BATracks(*(t.cpu() for t in p)), iters,
-                           huber, lam0, False, linalg, kernel=False)
+    if twin == "cpu":
+        sc, cc = ba._lm_tracks(ba.BATracks(*(t.cpu() for t in p)), iters,
+                               huber, lam0, False, linalg, kernel=False)
+    else:
+        sc, cc = _plain_f64_solves(p, iters, lam0, linalg, huber)
     if finite:
         assert torch.equal(costs, torch.where(
             tr.accept != 0, tr.cost_after, tr.cost_before))
@@ -1094,7 +1132,7 @@ def _check_generic(p, iters, lam0, linalg, huber=4.0):
             3 * abs(float(cc[-1]) - float(cp[-1])))
     else:
         assert torch.equal(torch.isnan(costs), torch.isnan(cp))
-    if _dist(sp.poses.cpu(), sc.poses) <= 1e-5:
+    if _dist(sp.poses.cpu(), sc.poses.cpu()) <= 1e-5:
         assert _dist(poses, sp.poses) <= 1e-4
     return out
 
@@ -1248,21 +1286,34 @@ def test_ba_generic_kernel_branches(cuda, case, linalg):
 
 
 def test_ba_generic_limits_and_zero_iterations(cuda):
-    """K9 refuses what it does not take (``ValueError``: M 513, K 33, no
-    landmark, streams); ``ba_solve_tracks(iters=0)`` launches nothing, and
-    the generic layout with a stream dimension raises
-    ``NotImplementedError`` before any launch."""
+    """K9 takes M 513 and K 33 (past its old limits of 512 poses and 32
+    slots a landmark): one launch each, on the routes ``k9_routes`` names,
+    with a finite, falling cost. It refuses only what it does not take
+    (``ValueError``: no landmark, streams); ``ba_solve_tracks(iters=0)``
+    launches nothing, and the generic layout with a stream dimension
+    raises ``NotImplementedError`` before any launch."""
     from vpp_tpu_torch.slam import ba, ba_generic_cuda
     p, _ = _generic_problem(cuda, 64, 8, 3, 1)
     reset_launch_counts()
     sk, ck = ba.ba_solve_tracks(p, iters=0)
     assert launch_counts()["ba_generic"] == 0 and tuple(ck.shape) == (0,)
     assert _same_bits(sk.poses, p.poses)
-    for bad in (_generic_problem(cuda, 16, 513, 3, 2)[0],
-                _generic_problem(cuda, 64, 40, 33, 3)[0],
-                p._replace(landmarks=p.landmarks[:0],
+    smem = ba_generic_cuda.smem_bytes()
+    for big in (_generic_problem(cuda, 1024, 513, 3, 2)[0],
+                _generic_problem(cuda, 256, 40, 33, 3)[0]):
+        reset_launch_counts()
+        _, _, costs, tr = ba_generic_cuda.lm_generic(big, 3, 4.0, 1e-3,
+                                                     "lu")
+        assert launch_counts()["ba_generic"] == 1
+        m = big.poses.shape[0]
+        assert ba_generic_cuda.routes_of_trace(tr) == \
+            ba_generic_cuda.k9_routes(m, _band(big), "lu", smem)
+        assert bool(torch.isfinite(costs).all())
+        assert float(costs[-1]) < float(tr.cost)
+    reset_launch_counts()
+    for bad in (p._replace(landmarks=p.landmarks[:0],
                            obs_pose=p.obs_pose[:0], obs_uv=p.obs_uv[:0],
-                           obs_valid=p.obs_valid[:0])):
+                           obs_valid=p.obs_valid[:0]),):
         with pytest.raises(ValueError):
             ba_generic_cuda.lm_generic(bad, 1, 4.0, 1e-3, "lu")
     streams = ba.BATracks(*(t if i == 5 else t[None].expand(
@@ -1330,6 +1381,105 @@ def test_slam_on_card_matches_cpu(cuda):
         poses[fk.cpu().numpy()])))
     ate_c = float(sp.ate_rmse(ec, torch.from_numpy(poses[fc.numpy()])))
     assert ate_k < 0.065 and abs(ate_k - ate_c) < 0.01
+
+
+@pytest.mark.parametrize("n,m,k,case", [
+    (2048, 600, 4, "plain"), (400, 64, 40, "plain"), (1500, 300, 4,
+                                                        "closure")])
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ba_generic_kernel_past_old_limits(cuda, n, m, k, case, linalg):
+    """K9 past its old limits (512 poses, 32 slots a landmark), at sizes
+    below chip_smoke.py's phase 16: 600 poses on a chain, 40 slots a
+    landmark, and a closure over 300 poses (the band the whole matrix,
+    its panel past 64 rows), held to its plain version as
+    ``_check_generic`` holds it, the plain loop's spread taken from its
+    float64-solve twin (chip_smoke.py phase 16's rule: a host twin that
+    factorises alike agrees to 1e-5 where 40 slots a landmark leave the
+    poses undetermined to ~1e-3). The chains turn by 0.01 (128 / M)^1.5
+    radians a step (a path's drift across the landmarks grows as M^1.5)
+    and are laid out about their middle pose."""
+    p, _ = _generic_problem(cuda, n, m, k, n + m + k, case,
+                            rot=0.01 * min(1.0, (128 / m) ** 1.5),
+                            centre=True)
+    _check_generic(p, 3, 1e-4, linalg, twin="f64")
+
+
+def _k9_guarded(p, iters, lam0, linalg, smem, make):
+    """``lm_generic``'s launch with every buffer, the workspace included,
+    from ``make`` (between guard zones), routes chosen for ``smem``
+    bytes. Returns (poses, landmarks, costs, per, S, extra)."""
+    import ctypes
+    from vpp_tpu_torch.kernels import _build, stream_handle
+    lib = _build.load()
+    n, k = p.obs_valid.shape
+    m = p.poses.shape[0]
+    D = 6 * m
+
+    def copy(t, dtype=None):
+        t = t.contiguous()
+        if t.dtype == torch.bool:
+            g = make((t.numel() + 3) // 4, torch.int32).view(torch.uint8)[
+                :t.numel()].view(torch.bool).view(t.shape)
+        else:
+            g = make(t.numel(), t.dtype).view(t.shape)
+        g.copy_(t)
+        return g
+    ins = [copy(t) for t in (p.poses, p.landmarks, p.obs_pose, p.obs_uv,
+                             p.obs_valid, p.intrinsics, p.fixed_poses)]
+    nbytes = ctypes.c_longlong(0)
+    _build.check(lib.vpp_ba_generic_workspace(n, k, m, iters, smem,
+                                              ctypes.byref(nbytes)), "ws")
+    ws = make((nbytes.value + 3) // 4, torch.int32)
+    outs = (make(16 * m), make(3 * n), make(iters), make(iters * (D + 4)),
+            make(D * D), make(3 * D + 2), make(4))
+    outs[4].zero_()
+    code = lib.vpp_ba_generic_lm(
+        *(t.data_ptr() for t in ins), n, k, m, iters, int(linalg == "lu"),
+        smem, 4.0, float(lam0), *(t.data_ptr() for t in outs[:4]),
+        outs[4].data_ptr(), outs[5].data_ptr(), outs[6].data_ptr(), None,
+        ws.data_ptr(), stream_handle(ins[0]))
+    _build.check(code, "ba_generic")
+    return outs
+
+
+@pytest.mark.parametrize("n,m,k,case", [
+    (96, 24, 4, "plain"), (64, 12, 3, "closure"), (40, 36, 34, "plain")])
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ba_generic_device_routes_same_bits(cuda, n, m, k, case, linalg):
+    """K9 with its routes chosen for 2 KB and for 256 bytes of shared
+    memory a CTA (``lm_generic(smem=)``), where the index, the landmark
+    stage, the step and the pose solve's panel read and write the
+    workspace at these sizes: the routes ``k9_routes`` names, and every
+    output the bits of the H100's routes. The device-memory run is
+    repeated with every buffer, the workspace included, between guard
+    zones: the card reports no fault, every guard holds, and the bits are
+    the same."""
+    from vpp_tpu_torch.slam import ba_generic_cuda as bg
+    p, _ = _generic_problem(cuda, n, m, k, n + m, case)
+    ref = bg.lm_generic(p, 3, 4.0, 1e-3, linalg, trace=True)
+    seen = set()
+    for smem in (128 + 2048, 128 + 256):
+        reset_launch_counts()
+        got = bg.lm_generic(p, 3, 4.0, 1e-3, linalg, trace=True, smem=smem)
+        assert launch_counts()["ba_generic"] == 1
+        routes = bg.routes_of_trace(got[3])
+        assert routes == bg.k9_routes(m, _band(p), linalg, smem)
+        seen |= set(routes.values())
+        for a, b in zip(got[:3] + tuple(got[3])[:-1],
+                        ref[:3] + tuple(ref[3])[:-1]):
+            assert _same_bits(a, b)
+    assert {"device", "grid_device"} <= seen
+    held = []
+    make, hold = _guarded(cuda, held)
+    outs = _k9_guarded(p, 3, 1e-3, linalg, 128 + 256, make)
+    assert hold()
+    D = 6 * m
+    assert _same_bits(outs[0].view(m, 4, 4), ref[0])
+    assert _same_bits(outs[1].view(n, 3), ref[1])
+    assert _same_bits(outs[2], ref[2])
+    assert _same_bits(outs[4].view(m, 6, m, 6), ref[3].S)
+    assert _same_bits(outs[5][:D].view(m, 6), ref[3].rhs)
+    assert [int(v) for v in outs[6].tolist()] == [0, 0, 0, 0]
 
 
 def _pnp_case(device, a_n, q_n, b_n, kind, seed, p=7):
@@ -1432,6 +1582,68 @@ def test_map_vote_kernel_bit_equal(cuda, a_n, q_n, b_n, kind):
         assert int(runs[0].n.min()) > 50
     elif kind == "nan_row":
         assert bool(torch.isnan(runs[0].T).all())
+
+
+@pytest.mark.parametrize("a_n,q_n,b_n,smem", [
+    (1024, 4096, 2, 1024), (300, 40, 2, 64), (1024, 24000, 2, None)])
+def test_map_vote_device_route(cuda, a_n, q_n, b_n, smem):
+    """K8 on its device route (the detections and the inlier bit sets in
+    device memory): where ``smem`` leaves the detections no room, and at
+    Q 24000, past what a CTA's shared memory stages on the H100. Against
+    ``_map_vote_pnp_plain`` as ``test_map_vote_kernel_bit_equal`` holds
+    it; where the staged route also runs, the two routes' outputs are the
+    same bits. Then the launch with every buffer, the bit sets included,
+    between guard zones: no fault, every guard holds, the same bits."""
+    import ctypes
+    from vpp_tpu_torch.kernels import _build, stream_handle
+    from vpp_tpu_torch.slam import map_vote as mv
+    ops, kw = _pnp_case(cuda, a_n, q_n, b_n, "random", q_n)
+    card = mv.smem_bytes(cuda)
+    assert mv.k8_route(q_n, card if smem is None else smem) == "device"
+    want = mv._map_vote_pnp_plain(*ops, **kw)
+    reset_launch_counts()
+    got = mv.map_vote_pnp(*ops, **kw, smem=smem)
+    assert launch_counts()["map_vote"] == 1
+    _same_pnp_outputs(got, want)
+    if mv.k8_route(q_n, card) == "shared":
+        staged = mv.map_vote_pnp(*ops, **kw)
+        assert all(_same_bits(a, b) if a.dtype == torch.float32
+                   else torch.equal(a, b) for a, b in zip(got, staged))
+    held = []
+    make, hold = _guarded(cuda, held)
+
+    def copy(t):
+        t = t.contiguous()
+        if t.dtype == torch.bool:
+            g = make((t.numel() + 3) // 4, torch.int32).view(torch.uint8)[
+                :t.numel()].view(torch.bool).view(t.shape)
+        else:
+            g = make(t.numel(), t.dtype).view(t.shape)
+        g.copy_(t)
+        return g
+    gops = [copy(t) for t in ops]
+    rounds = kw["rounds"]
+    outs = (make(16 * b_n), make(b_n), make(b_n, torch.int32),
+            make(2 * b_n * rounds), make(b_n * a_n, torch.int32),
+            make(2 * b_n * a_n), make((b_n * a_n + 3) // 4, torch.int32))
+    code_buf = make(4 * b_n * a_n, torch.int32)
+    pair_t = make(8 * b_n * a_n)
+    bits = make(b_n * mv.CLUSTER * ((q_n + 31) // 32), torch.int32)
+    bmax_f, step_f = mv._vote_steps(kw["bmax"])
+    rc = _build.load().vpp_map_vote_pnp(
+        *(t.data_ptr() for t in gops), a_n, q_n, b_n, ops[1].shape[1],
+        rounds, kw["pnp_iters"], float(kw["r_wide"]) ** 2, bmax_f, step_f,
+        (2.0 * mv.vote_step(kw["bmax"])) ** 2, 2.0 * kw["gate"],
+        kw["huber"], kw["huber"] / 2, *(t.data_ptr() for t in outs),
+        code_buf.data_ptr(), pair_t.data_ptr(), bits.data_ptr(), 0,
+        stream_handle(gops[0]))
+    _build.check(rc, "map_vote_pnp")
+    assert hold()
+    assert _same_bits(outs[0].view(b_n, 4, 4), got.T)
+    assert _same_bits(outs[1], got.err) and torch.equal(outs[2], got.n)
+    assert torch.equal(outs[4].view(b_n, a_n), got.j1)
+    assert torch.equal(outs[6].view(torch.uint8)[:b_n * a_n].view(
+        torch.bool).view(b_n, a_n), got.inl)
 
 
 def test_full_slam_engine_on_card_matches_cpu(cuda):
@@ -2308,6 +2520,65 @@ def test_flow_propagate_table_in_device_memory(cuda):
     for _ in range(iters):
         fp, dp = flow.flow_propagate_plain(fp, dp, pred, vol, R)
     assert torch.equal(fk, fp) and torch.equal(dk, dp)
+
+
+def test_flow_select_chain_past_its_halo(cuda):
+    """Launch B past the passes whose halo fits a block (38 at the 8-cell
+    tile): 48 passes are a chain of two launches (38, then 10 from the
+    first one's flow and dist), bit-equal to 48 plain passes; a level at
+    ``prop_iters`` 48 is launch A and that chain, bit-equal to the plain
+    level."""
+    R, iters, gh, gw = 5, 48, 20, 24
+    assert flow._select_links(flow._SELECT_TILE, iters) == (38, 10)
+    rng = np.random.RandomState(48)
+    d2 = (2 * R + 1) ** 2
+    vol = torch.from_numpy(rng.randint(0, 1000, (d2, gh, gw)).astype(
+        np.float32)).to(cuda)
+    pred = torch.from_numpy((rng.randint(-2, 3, (gh, gw, 2)) * 2).astype(
+        np.int32)).to(cuda)
+    f0 = pred + torch.from_numpy(rng.randint(-R, R + 1, (gh, gw, 2)).astype(
+        np.int32)).to(cuda)
+    d0 = torch.from_numpy(rng.rand(gh, gw).astype(np.float32) * 2000).to(cuda)
+    reset_launch_counts()
+    fk, dk = flow.flow_propagate(f0, d0, pred, vol, R, iters=iters)
+    assert launch_counts()["flow_level"] == 2
+    fp, dp = f0, d0
+    for _ in range(iters):
+        fp, dp = flow.flow_propagate_plain(fp, dp, pred, vol, R)
+    assert torch.equal(fk, fp) and torch.equal(dk, dp)
+    hb, wb, b = 96, 128, 9
+    g = flow.LevelGeometry(b=b, h=hb - 2 * b, w=wb - 2 * b, ws=9, patch=6,
+                           gh=(hb - 2 * b) // 6, gw=(wb - 2 * b) // 6, R=3,
+                           pred_bound=0)
+    a1 = torch.from_numpy(rng.randint(0, 256, (hb, wb)).astype(
+        np.float32)).to(cuda)
+    a2 = torch.roll(a1, (1, -2), (0, 1)).contiguous()
+    pz = torch.zeros((g.gh, g.gw, 2), dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    fk, dk = flow.flow_level(a1, a2, pz, g, iters)
+    assert launch_counts()["flow_level"] == 3
+    fp, dp, _ = _level_by_plain(a1, a2, pz, g, iters)
+    assert torch.equal(fk, fp) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("linalg", ["chol", "lu"])
+def test_ring_of_48_runs_k9(cuda, linalg):
+    """A ring problem of 48 poses (``SlamConfig(ring=48)``'s window, past
+    K9's old 32 slots a landmark): one K9 launch with ``obs_pose =
+    arange(M)`` and no K6 launch, the generic route's bits, held to its
+    plain version as ``_check_generic`` holds K9 (the ring's obs_pose is
+    that arange already)."""
+    from vpp_tpu_torch.slam import ba
+    p = _ring_problem(cuda, 600, 48, 48)
+    reset_launch_counts()
+    sr, cr = ba.ba_solve_tracks(p, iters=3, lam0=1e-4, ring_layout=True,
+                                linalg=linalg)
+    assert launch_counts()["ba_generic"] == 1
+    assert launch_counts()["ba_tracks"] == 0
+    sg, cg = ba.ba_solve_tracks(p, iters=3, lam0=1e-4, linalg=linalg)
+    assert _same_bits(sr.poses, sg.poses) and _same_bits(cr, cg)
+    _, _, costs, _ = _check_generic(p, 3, 1e-4, linalg)
+    assert _same_bits(costs, cr)
 
 
 @pytest.mark.parametrize("linalg", ["chol", "lu"])

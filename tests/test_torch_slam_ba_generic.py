@@ -24,6 +24,7 @@ import torch
 jse3 = importlib.import_module("vpp_tpu.slam.se3")
 jba = importlib.import_module("vpp_tpu.slam.ba")
 tba = importlib.import_module("vpp_tpu_torch.slam.ba")
+tbg = importlib.import_module("vpp_tpu_torch.slam.ba_generic_cuda")
 convert = importlib.import_module("vpp_tpu_torch.convert")
 
 torch.set_num_threads(1)
@@ -460,6 +461,83 @@ def test_slam_run_ring_of_twenty_matches_jax():
     te, tf = tpl.keyframe_trajectory(ts)
     assert ts.n_keyframes == int(js.n_keyframes) == 7
     assert tuple(ts.kf_pose.shape) == (20, 4, 4)
+    np.testing.assert_array_equal(np.asarray(jf), tf.numpy())
+    ate_j = float(jp.ate_rmse(je, jnp.asarray(poses[np.asarray(jf)])))
+    ate_t = float(tpl.ate_rmse(te, torch.from_numpy(poses[tf.numpy()])))
+    assert abs(ate_j - ate_t) < 0.01, (ate_j, ate_t)
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=1e-3)
+    lj, lt = int(np.asarray(js.lm_valid).sum()), int(ts.lm_valid.sum())
+    assert abs(lj - lt) <= 0.05 * lj, (lj, lt)
+
+
+# (m, beta, linalg, smem, routes): today's sizes on the H100 keep their
+# routes; past 512 poses and at a full band the stages leave shared memory
+# one by one; a budget of 256 bytes sends every stage to the workspace
+K9_ROUTES = [
+    (128, 3, "lu", None, ("shared", "shared", "shared", "cta")),
+    (128, 3, "chol", None, ("shared", "shared", "shared", "cta")),
+    (512, 3, "lu", None, ("shared", "shared", "shared", "grid")),
+    (512, 511, "chol", None, ("shared", "shared", "shared", "grid")),
+    (40, 32, "lu", None, ("shared", "shared", "shared", "grid")),
+    (1024, 47, "lu", None, ("shared", "shared", "shared", "grid")),
+    (1612, 1611, "lu", None, ("shared", "shared", "shared", "grid")),
+    (2048, 2047, "chol", None, ("shared", "shared", "shared",
+                                "grid_device")),
+    (3072, 3, "lu", None, ("shared", "shared", "device", "grid")),
+    (4000, 3, "chol", None, ("shared", "device", "device", "grid")),
+    (7000, 3, "lu", None, ("device", "device", "device", "grid")),
+    (24, 3, "lu", 128 + 256, ("device", "device", "device", "grid_device")),
+    (24, 3, "lu", 128 + 2048, ("shared", "shared", "device", "grid")),
+]
+
+
+@pytest.mark.parametrize("m,beta,linalg,smem,want", K9_ROUTES)
+def test_k9_routes_by_size(m, beta, linalg, smem, want):
+    """The route of each K9 stage at a pose count, where the card's
+    512-pose cap raised before (``ba_generic_cuda.k9_routes``, the
+    kernel's ``routes_of``): the index's counts, the landmark stage's
+    poses and the step's dp and candidates in shared memory while they fit
+    a CTA's budget, the pose solve by CTA 0 while the band fits, else by
+    the grid with its panel in shared memory, else in the workspace."""
+    kw = {} if smem is None else {"smem": smem}
+    got = tbg.k9_routes(m, beta, linalg, **kw)
+    assert tuple(got[s] for s in ("index", "landmarks", "step",
+                                  "solve")) == want
+
+
+def test_slam_run_ring_of_48_matches_jax():
+    """``SlamConfig(ring=48)`` (a BA window past K9's old 32 slots a
+    landmark, which the card now runs on K9) on the 120x160 scene of
+    ``test_slam_run_ring_of_twenty_matches_jax``, 25 frames, the port on the
+    CPU against the JAX package at that test's tolerances: the same
+    keyframes, ATE within 0.01 of each other, the keyframe poses within
+    1e-3 and live landmark counts within 5%."""
+    from vpp_tpu.algorithms.video_extruder import VideoExtruderConfig as JV
+    from vpp_tpu_torch.algorithms.video_extruder import (
+        VideoExtruderConfig as TV)
+    from vpp_tpu_torch.utils import synth as tsynth
+    jp = importlib.import_module("vpp_tpu.slam.pipeline")
+    tpl = importlib.import_module("vpp_tpu_torch.slam.pipeline")
+    intr = (160.0, 160.0, 80.0, 60.0)
+    tracker = dict(capacity=256, detect_k=128, nscales=3, winsize=9,
+                   keypoint_spacing=8, detector_period=1, detector_th=8)
+    back = dict(intrinsics=intr, keyframe_period=4, ring=48, ba_iters=3,
+                min_parallax=2.0, max_reproj=2.0, history=16,
+                enable_recovery=False)
+    pts = tsynth.make_cloud(220, seed=0, extent=(6.0, 4.0, 3.0),
+                            center=(0.8, 0.0, 5.0))
+    poses = tsynth.camera_path(25, step=(0.06, 0.0, 0.0))
+    frames = tsynth.render_frames(pts, poses, intr, (120, 160), seed=0)
+    boot = poses[[0, 4]]
+    jcfg = jp.SlamConfig(tracker=JV(**tracker), **back)
+    tcfg = tpl.SlamConfig(tracker=TV(**tracker), **back)
+    js = jax.jit(lambda f, b: jp.slam_run(f, jcfg, bootstrap_poses=b))(
+        jnp.asarray(frames), jnp.asarray(boot))
+    ts = tpl.slam_run(frames, tcfg, bootstrap_poses=boot, device="cpu")
+    je, jf = jp.keyframe_trajectory(js)
+    te, tf = tpl.keyframe_trajectory(ts)
+    assert ts.n_keyframes == int(js.n_keyframes) == 7
+    assert tuple(ts.kf_pose.shape) == (48, 4, 4)
     np.testing.assert_array_equal(np.asarray(jf), tf.numpy())
     ate_j = float(jp.ate_rmse(je, jnp.asarray(poses[np.asarray(jf)])))
     ate_t = float(tpl.ate_rmse(te, torch.from_numpy(poses[tf.numpy()])))

@@ -308,10 +308,11 @@ class K1Plan:
     chunks) grid; ``a_route`` "shared" stages the block's regions in
     shared memory, "global" reads them in device memory (no shared memory,
     ``batch`` 1). Launch B (argmin over the chunks, rejection, ``iters``
-    passes): ``b_tile`` x ``b_tile`` cells per block with an ``iters``-cell
-    halo, the flat_to_k table in shared memory (``b_table`` "shared") or
-    in device memory ("global"). ``*_smem`` are dynamic shared-memory
-    bytes."""
+    passes): ``b_tile`` x ``b_tile`` cells per block with a halo of its
+    passes, the flat_to_k table in shared memory (``b_table`` "shared") or
+    in device memory ("global"); past the passes whose halo fits a block, a
+    chain of launches (``_select_links``), ``b_smem`` and ``b_table`` the
+    first one's. ``*_smem`` are dynamic shared-memory bytes."""
     a_tile: int
     a_threads: int
     chunk: int
@@ -348,13 +349,32 @@ def _select_smem(tile: int, iters: int, R: int, table: bool = True) -> int:
 
 
 def _select_plan(tile: int, iters: int, R: int) -> Tuple[int, str]:
-    """Launch B's (shared-memory bytes, table route): the flat_to_k table
-    in shared memory where it fits beside the tile, else in device
-    memory."""
+    """One launch B's (shared-memory bytes, table route) at ``iters``
+    passes: the flat_to_k table in shared memory where it fits beside the
+    tile, else in device memory."""
     smem = _select_smem(tile, iters, R)
     if smem <= _SMEM_MAX:
         return smem, "shared"
     return _select_smem(tile, iters, R, table=False), "global"
+
+
+@functools.lru_cache(maxsize=None)
+def _select_links(tile: int, iters: int) -> Tuple[int, ...]:
+    """Launch B's passes a launch: ``iters`` in one launch where the tile
+    and its halo of ``iters`` cells fit a block's shared memory (at the
+    8-cell tile up to 38 passes), else a chain of launches of as many
+    passes as fit, the last of what is left. The first launch takes the
+    argmin and the rejection, each later one reads the last one's flow and
+    dist in device memory. The passes are Jacobi passes over the whole
+    level and each launch's are exact on its tiles, so the chain gives one
+    launch's bits."""
+    most = 0
+    while _select_smem(tile, most + 1, 0, table=False) <= _SMEM_MAX:
+        most += 1
+    if iters <= most:
+        return (iters,)
+    return (most,) * (iters // most) + ((iters % most,) if iters % most
+                                        else ())
 
 
 def _chunk(d2: int, tiles: int, sms: int, streams: int) -> int:
@@ -372,7 +392,8 @@ def _fit_volume(g: LevelGeometry, prop_iters: int, sms: int, tile: int,
     d2 = (2 * g.R + 1) ** 2
     tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
     chunk = _chunk(d2, tiles[0] * tiles[1], sms, streams)
-    b_smem, b_table = _select_plan(_SELECT_TILE, prop_iters, g.R)
+    b_smem, b_table = _select_plan(
+        _SELECT_TILE, _select_links(_SELECT_TILE, prop_iters)[0], g.R)
     for nbatch in range(_cdiv(chunk, _BATCH), chunk + 1):
         batch = _cdiv(chunk, nbatch)
         a_smem = _volume_smem(g, tile, threads, chunk, batch)
@@ -395,7 +416,8 @@ def _global_volume(g: LevelGeometry, prop_iters: int, sms: int,
     d2 = (2 * g.R + 1) ** 2
     tiles = _cdiv(g.gw, tile), _cdiv(g.gh, tile)
     chunk = _chunk(d2, tiles[0] * tiles[1], sms, streams)
-    b_smem, b_table = _select_plan(_SELECT_TILE, prop_iters, g.R)
+    b_smem, b_table = _select_plan(
+        _SELECT_TILE, _select_links(_SELECT_TILE, prop_iters)[0], g.R)
     return K1Plan(a_tile=tile, a_threads=threads, chunk=chunk, batch=1,
                   a_grid=(*tiles, _cdiv(d2, chunk)), a_smem=0,
                   iters=prop_iters, b_tile=_SELECT_TILE,
@@ -418,11 +440,10 @@ def _k1_plan(g: LevelGeometry, prop_iters: int, sms: int,
     plans of the levels that the two larger shapes take do not change.
     Where no shape fits at a batch of one displacement, launch A takes its
     global route (``_global_volume``), and where launch B's flat_to_k
-    table does not fit beside its tile, the table stays in device memory.
-    No plan changes a bit: every window sums in one order, and the argmin
-    combines the chunks' minima as (cost, k). Raises only where launch B's
-    tile and halo alone (``prop_iters`` passes) exceed a block's shared
-    memory."""
+    table does not fit beside its tile, the table stays in device memory;
+    past the passes whose halo fits, launch B is a chain
+    (``_select_links``). No plan changes a bit: every window sums in one
+    order, and the argmin combines the chunks' minima as (cost, k)."""
     plan = None
     for tile, threads in shapes:
         if plan is not None and (tile, threads) == _VOLUME_SHAPES[-1]:
@@ -440,9 +461,9 @@ def _k1_plan(g: LevelGeometry, prop_iters: int, sms: int,
 
 def _check_plan(name: str, *smem: int) -> None:
     """Raise where a launch would need more shared memory than a block may
-    use. Launch A's plans fit by construction (the global route uses none);
-    launch B's tile and halo of ``iters`` cells can exceed it past ~40
-    passes. No displacement count is refused."""
+    use. Every plan fits by construction (launch A's global route uses
+    none, launch B chains its passes), so no displacement or pass count is
+    refused: this guards the planner."""
     if max(smem) > _SMEM_MAX:
         raise ValueError(f"{name}: {max(smem)} bytes of shared memory exceed "
                          f"the {_SMEM_MAX} a block may use")
@@ -494,29 +515,33 @@ def _launch_select(vol: torch.Tensor, pred: torch.Tensor, R: int,
     or (h, w, patch, col0, w_total) (``LevelGeometry.domain``; a 3-tuple
     is the unsliced level, col0 0 and w_total w). The flat_to_k table is
     staged in shared memory where it fits beside the tile
-    (``_select_plan``), else read in device memory."""
+    (``_select_plan``), else read in device memory. Past the passes whose
+    halo fits a block, a chain of launches (``_select_links``), each from
+    the last one's flow and dist."""
     from ..kernels import _build
     h, _, patch, col0, w_total = (*domain, 0, domain[1])[:5]
     lib = _build.load()
     dev = vol.device
     lead, (d2, gh, gw) = vol.shape[:-3], vol.shape[-3:]
-    smem, table = _select_plan(tile, iters, R)
-    _check_plan("flow_level, select launch", smem)
-    flow = torch.empty(lead + (gh, gw, 2), dtype=torch.int32, device=dev)
-    dist = torch.empty(lead + (gh, gw), dtype=torch.float32, device=dev)
-    code = lib.vpp_flow_select(
-        vol.data_ptr(), None if part is None else part[0].data_ptr(),
-        None if part is None else part[1].data_ptr(),
-        0 if part is None else part[0].shape[-3], pred.data_ptr(),
-        _table(R, "disp", dev).data_ptr(),
-        _table(R, "flat_to_k", dev).data_ptr(),
-        None if flow_in is None else flow_in.data_ptr(),
-        None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
-        h, patch, col0, w_total, tile, iters, int(table == "shared"), smem,
-        lead.numel(),
-        flow.data_ptr(), dist.data_ptr(), stream_handle(vol))
-    LAUNCHES["flow_level"] += 1
-    _build.check(code, "flow level, select launch")
+    for passes in _select_links(tile, iters):
+        smem, table = _select_plan(tile, passes, R)
+        _check_plan("flow_level, select launch", smem)
+        flow = torch.empty(lead + (gh, gw, 2), dtype=torch.int32, device=dev)
+        dist = torch.empty(lead + (gh, gw), dtype=torch.float32, device=dev)
+        code = lib.vpp_flow_select(
+            vol.data_ptr(), None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(),
+            0 if part is None else part[0].shape[-3], pred.data_ptr(),
+            _table(R, "disp", dev).data_ptr(),
+            _table(R, "flat_to_k", dev).data_ptr(),
+            None if flow_in is None else flow_in.data_ptr(),
+            None if dist_in is None else dist_in.data_ptr(), d2, R, gh, gw,
+            h, patch, col0, w_total, tile, passes, int(table == "shared"),
+            smem, lead.numel(), flow.data_ptr(), dist.data_ptr(),
+            stream_handle(vol))
+        LAUNCHES["flow_level"] += 1
+        _build.check(code, "flow level, select launch")
+        part, flow_in, dist_in = None, flow, dist
     return flow, dist
 
 

@@ -16,7 +16,9 @@ strided interior), level 0's bordered copy included, into one buffer
 (levels past 32 in a chain of launches, each from the last one's final
 level). A deep pyramid's levels stop shrinking at 2 px; a 2-px level
 decimated to 2 px reads its last tap at index -1, which ``_decim_matrix``'s
-numpy index wraps to the level's last pixel, and K4 does the same.
+numpy index wraps to the level's last pixel, and K4 does the same. A 1-row
+or 1-column frame's levels keep that one row or column, every tap folded
+onto it as ``_decim_matrix`` folds them.
 Its plain version (``pyramid_plain``) is the JAX formulation, a pad and,
 per level, two banded float32 products ``A @ x @ Bᵀ`` (``_decim_matrix``)
 and a pad, in full float32: TF32 is off in this package.
@@ -220,8 +222,9 @@ _K4_LEVELS = 32       # pyramid_decim.cu's kMaxLevels: the levels of a launch
 def _decimates(n: int, n_out: int) -> bool:
     """Whether K4 decimates ``n`` sources to ``n_out`` outputs: the last
     output's taps reach 2 n_out <= 2 n - 1, or a 2-px level kept at 2 px
-    (its last tap wraps, as in ``_decim_matrix``)."""
-    return 2 * n_out <= 2 * n - 1 or (n == 2 and n_out == 2)
+    (its last tap wraps, as in ``_decim_matrix``), or a 1-px level kept at
+    1 px (every tap on its one pixel)."""
+    return 2 * n_out <= 2 * n - 1 or (n <= 2 and n_out == n)
 
 
 # (shapes, border, first) -> (ctypes rows of (h, w, offset), [(offset,
@@ -257,9 +260,9 @@ def _k4_streams(interior: torch.Tensor,
     past 2 read the level before from the buffer in one launch as well, so
     the chain gives the same bits)."""
     for (h, w), (oh, ow) in zip(shapes, shapes[1:]):
-        if min(h, w) < 2 or min(oh, ow) < 1:
-            raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
-                             f"2x2, got ({h}, {w})")
+        if min(h, w, oh, ow) < 1:
+            raise ValueError(f"pyramid_decim: needs non-empty levels, got "
+                             f"({h}, {w}) to ({oh}, {ow})")
         if not (_decimates(h, oh) and _decimates(w, ow)):
             raise ValueError(f"pyramid_decim: ({oh}, {ow}) is not a "
                              f"decimation of ({h}, {w})")
@@ -299,8 +302,8 @@ def _k4(interior: torch.Tensor, shapes: Tuple[Tuple[int, int], ...],
     """``_k4_streams`` on one float32 CUDA interior (any row stride), each
     level a bordered image."""
     if interior.dim() != 2:
-        raise ValueError(f"pyramid_decim: needs a 2-D level of at least "
-                         f"2x2, got {tuple(interior.shape)}")
+        raise ValueError(f"pyramid_decim: needs a 2-D level, got "
+                         f"{tuple(interior.shape)}")
     return tuple(Image2d(data=lvl[0], border=border)
                  for lvl in _k4_streams(interior[None], shapes, border, first,
                                         fuse))

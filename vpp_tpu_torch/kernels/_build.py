@@ -54,9 +54,12 @@ _SIGNATURES = {
     "vpp_patches": [_P] + [_I] * 4 + [_P] + [_I] * 5 + [_P, _P],
     "vpp_ba_lm": [_P] * 6 + [_F] * 2 + [_I] * 5 + [_P] * 10,
     "vpp_ba_max_active_clusters": [_I, _P],
-    "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10,
-    "vpp_ba_generic_workspace": [_I, _I, _I, _I, _P],
-    "vpp_ba_generic_lm": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P] * 9,
+    "vpp_map_vote_pnp": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P] * 10
+    + [_I, _P],
+    "vpp_map_vote_smem": [_P],
+    "vpp_ba_generic_workspace": [_I] * 5 + [_P],
+    "vpp_ba_generic_lm": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 10,
+    "vpp_ba_generic_smem": [_P],
     "vpp_lk": [ctypes.POINTER(_L), _I, _P, _P, _I, _I, _F, _I, _F, _I, _F,
                _F, _I, _I] + [_P] * 7,
     "vpp_jfa": [_P, _P, _P, _I, _I, ctypes.POINTER(_I), _I] + [_P] * 7,

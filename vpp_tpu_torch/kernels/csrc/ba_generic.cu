@@ -98,6 +98,30 @@
 // and the grid, so two calls give the same bits. No host read inside the
 // call.
 //
+// Sizes and routes. Any pose count M, slot count K and landmark count N:
+// K bounds loops only, and every offset that grows with M or with N K is
+// 64-bit (a slot's own index is 32-bit: N K <= INT_MAX, past any card's
+// memory at ~380 workspace bytes a slot). What grows with M is staged in a
+// CTA's shared memory where it fits the CTA's budget (the dynamic shared
+// memory less kHead) and read in the workspace in device memory where it
+// does not (routes_of; the launch reports the routes it took): the index's
+// per-warp counts and scan (36 M bytes; else each CTA's part of the
+// workspace), the landmark stage's poses (64 M; else read where they lie),
+// the step's dp and candidate poses (88 M; else dp read in the workspace
+// and each CTA's candidates in its part of it), and the pose solve (CTA 0
+// with the band in shared memory; else the grid with the band in the
+// workspace and each panel, 24 (6 + kl) bytes, in each CTA's shared memory;
+// else that panel, factored and read, in the workspace). Each route reads
+// the same values and sums them in the same order, so the bits do not
+// depend on the route. On the H100 (232,448 bytes a CTA) the index leaves
+// shared memory past M 6453, the landmark stage past M 3630, the step past
+// M 2640; the pose solve leaves CTA 0 past M 131 (lu) or 356 (chol) at a
+// chain band (beta 3) and past M 38 (lu) or 39 (chol) at a full band, and
+// its panel leaves shared memory past M 1612 at a full band (never at a
+// chain band). S's blocks and the band are (6M)^2 float32 each in the
+// workspace: past ~M 16000 on an 80 GB card the workspace's allocation is
+// what fails.
+//
 // Precision, as in the plain version (slam/ba.py): residuals and Jacobians
 // in float32; the landmark blocks (Hll, its inverse, U, W, bl, dl) and the
 // sums of S, rhs and the costs in float64, rounded to float32; the pose
@@ -130,13 +154,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxPoses = 512;
-constexpr int kMaxSlots = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
 constexpr int kHead = 128;          // bytes of reduction slots in shared memory
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ int wrap_index(int p, int m) {
   return p < 0 ? p + m : p;
@@ -257,7 +281,8 @@ struct Work {
   int* mpart;      // (G) per-CTA: a masked slot
   int* plist;      // (N K) slots sorted by scatter pose
   unsigned char* flags;  // (M, M) non-empty blocks
-  int* blist;      // (M M) their list, row-major
+  int* blist;      // (M M) their list, row-major: a M + b, below 2^31
+                   // while rb's 144 M^2 bytes fit any card
   int* nonfin;     // (iters) a non-finite block outside the band
   float* jp;       // (N K, 2, 6) float32
   float* jl;       // (N K, 2, 3)
@@ -282,7 +307,56 @@ struct Work {
   float* grinv;    // (6M) there: 1 / the diagonal
   float* gpn;      // (6M, 6) there: the factored panel
   int* gint;       // (64) there: the pivot flag, the swaps' rows
+  int* icnt;       // (G, (kWarps + 1) M + 1) the index's per-warp counts and
+                   // scan, where they do not fit shared memory
+  float* gcand;    // (G, M, 4, 4) each CTA's candidate poses, where the
+                   // step's do not fit shared memory
 };
+
+// Where each stage keeps what it stages by M (Routes below): shared memory,
+// or device memory where it does not fit the CTA's budget of smem bytes.
+// The bytes a stage stages: the index's per-warp counts and scan, the
+// landmark stage's poses, the step's dp and candidate poses.
+__host__ __device__ inline size_t index_bytes(int m) {
+  return (size_t)4 * ((size_t)(kWarps + 1) * m + 1);
+}
+__host__ __device__ inline size_t lms_bytes(int m) { return (size_t)64 * m; }
+__host__ __device__ inline size_t step_bytes(int m) { return (size_t)88 * m; }
+// the pose solve by CTA 0 alone, the band in its shared memory: the
+// scratch (rhs, scales, indices, panel, U rows, reciprocals) and the band
+__host__ __device__ inline size_t solve_cta_bytes(int m, int beta, bool lu) {
+  const int n = 6 * m;
+  const int kl = imin(6 * beta + 5, n - 1);
+  const int up = lu ? imin(2 * kl, n - 1) : 0;
+  const int ld = up + kl + 1 >= n ? n : up + kl + 1;
+  const size_t head = ((size_t)4 * (2 * n + 120 + 6 * imin(n, 6 + kl)
+                                    + 6 * (up + 1) + n) + 15) / 16 * 16;
+  return head + (size_t)n * ld * sizeof(float);
+}
+// the grid's pose solve: the pivots and reductions, then the factored
+// panel (rows of 6) where it is staged
+__host__ __device__ inline size_t solve_panel_bytes(int m, int beta) {
+  const int n = 6 * m;
+  return 128 + (size_t)24 * imin(n, 6 + imin(6 * beta + 5, n - 1));
+}
+
+// A call's routes: 1 where a stage stages in shared memory, 0 where it
+// reads and writes device memory; the solve 2 (CTA 0, the band in shared
+// memory), 1 (the grid, the panel in shared memory) or 0 (the grid, the
+// panel in device memory).
+struct Routes {
+  int index, lms, step, solve;
+};
+__host__ __device__ inline Routes routes_of(int m, int beta, bool lu,
+                                            size_t smem) {
+  Routes r;
+  r.index = index_bytes(m) <= smem;
+  r.lms = lms_bytes(m) <= smem;
+  r.step = step_bytes(m) <= smem;
+  r.solve = solve_cta_bytes(m, beta, lu) <= smem ? 2
+            : solve_panel_bytes(m, beta) <= smem ? 1 : 0;
+  return r;
+}
 
 struct Args {
   const float* poses_in;
@@ -293,6 +367,8 @@ struct Args {
   const float* intr;
   const unsigned char* fixed;
   int n, kk, m, iters, use_lu, smem_bytes;
+  float* routes;   // (4) out: the index's, landmarks', step's and solve's
+                   // routes (Routes)
   float huber, lam0;
   float* poses;    // (M, 4, 4) out
   float* lms;      // (N, 3) out
@@ -757,10 +833,10 @@ __device__ void solve_poses_in(const Args& A, const Work& w, float lam,
   }
   __syncthreads();
   const int span = 2 * beta + 1;
-  for (int bi = tid; bi < m * span; bi += kThreads) {
-    const int a = bi / span, b = a - beta + (bi - (bi / span) * span);
+  for (long long bi = tid; bi < (long long)m * span; bi += kThreads) {
+    const int a = (int)(bi / span), b = a - beta + (int)(bi % span);
     if (b < 0 || b >= m) continue;
-    const bool listed = w.flags[a * m + b] != 0;
+    const bool listed = w.flags[(size_t)a * m + b] != 0;
     const bool fx = fixed[a] || fixed[b];
     const float* rbk = w.rb + ((size_t)a * m + b) * 36;
     for (int i = 0; i < 6; ++i) {
@@ -950,7 +1026,8 @@ __device__ void solve_poses_in(const Args& A, const Work& w, float lam,
 // in their order, so the bits are the same.
 __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
                                  int beta, int it, unsigned char* smem,
-                                 long long* cyc, cg::grid_group& grid) {
+                                 bool panel_shared, long long* cyc,
+                                 cg::grid_group& grid) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int g = blockIdx.x;
   const int gt = g * kThreads + tid, GT = gridDim.x * kThreads;
@@ -971,11 +1048,14 @@ __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
   float* pn = w.gpn;       // (rows, 6) the factored panel, published
   int* gi = w.gint;        // [0] a zero or non-positive pivot; [8, 33)
                            // the rows the swaps move (factor_panel)
-  // CTA 0's shared memory: the panel while it is factored, its pivots
-  float* pns = reinterpret_cast<float*>(smem);
-  int* piv = reinterpret_cast<int*>(pns + 6 * min(n, 6 + kl));
+  // shared memory: the pivots, the back-substitution's six x, the pivot
+  // search's reductions, then each CTA's copy of the panel (CTA 0: while
+  // it is factored) where it fits (panel_shared); else every CTA reads
+  // the published panel, and CTA 0 factors it, in device memory
+  int* piv = reinterpret_cast<int*>(smem);
   float* xbs = reinterpret_cast<float*>(piv + 8);
   int* red = reinterpret_cast<int*>(xbs + 8);   // (2 kWarps)
+  float* pns = panel_shared ? reinterpret_cast<float*>(smem + 128) : pn;
   const unsigned char* fixed = A.fixed;
   long long t0 = 0, t_sys = 0, t_fac = 0, t_trail = 0, t_back = 0;
   const bool timed = cyc != nullptr && g == 0 && tid == 0;
@@ -995,10 +1075,10 @@ __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
   if (gt == 0) gi[0] = 0;
   grid.sync();
   const int span = 2 * beta + 1;
-  for (int bi = gt; bi < m * span; bi += GT) {
-    const int a = bi / span, b = a - beta + (bi - (bi / span) * span);
+  for (long long bi = gt; bi < (long long)m * span; bi += GT) {
+    const int a = (int)(bi / span), b = a - beta + (int)(bi % span);
     if (b < 0 || b >= m) continue;
-    const bool listed = w.flags[a * m + b] != 0;
+    const bool listed = w.flags[(size_t)a * m + b] != 0;
     const bool fx = fixed[a] || fixed[b];
     const float* rbk = w.rb + ((size_t)a * m + b) * 36;
     for (int i = 0; i < 6; ++i) {
@@ -1030,7 +1110,7 @@ __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
       // 1 / the diagonal into rinv
       for (int e = tid; e < 6 * R; e += kThreads) {
         const int rr = e / 6, c = e - 6 * rr;
-        pn[e] = pns[e];
+        if (panel_shared) pn[e] = pns[e];
         if (lu ? rr <= c : rr >= c && B.in(j0 + rr, j0 + c))
           B.at(j0 + rr, j0 + c) = pns[e];
         if (rr == c) rinv[j0 + rr] = 1.0f / pns[e];
@@ -1046,7 +1126,7 @@ __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
     // work (CTA 0 holds it), which reads it for every row of every column
     float* pl = pns;
     const int cols = lu ? T + 1 : rend - j0 - 6;
-    if (g != 0 && g * kWarps < cols) {
+    if (panel_shared && g != 0 && g * kWarps < cols) {
       for (int e0 = tid; e0 < 6 * R; e0 += 4 * kThreads) {
         float v[4];
 #pragma unroll
@@ -1200,20 +1280,15 @@ __device__ void solve_poses_grid(const Args& A, const Work& w, float lam,
 
 // _tracks_solve_poses on the band, called by every CTA: by CTA 0 alone
 // with the band in its shared memory where it fits after the solve's other
-// buffers (smem_bytes), else by the grid with the band in the workspace.
+// buffers (route 2), else by the grid with the band in the workspace, the
+// panel in each CTA's shared memory (1) or in the workspace (0).
 __device__ void solve_poses(const Args& A, const Work& w, float lam, int beta,
-                            int it, unsigned char* smem, int smem_bytes,
+                            int it, unsigned char* smem, int route,
                             long long* cyc, cg::grid_group& grid) {
-  const int n = 6 * A.m;
-  const int kl = min(6 * beta + 5, n - 1);
-  const int up = A.use_lu ? min(2 * kl, n - 1) : 0;
-  const int ld = up + kl + 1 >= n ? n : up + kl + 1;
-  const size_t head = ((size_t)4 * (2 * n + 120 + 6 * min(n, 6 + kl)
-                                    + 6 * (up + 1) + n) + 15) / 16 * 16;
-  if (head + (size_t)n * ld * sizeof(float) <= (size_t)smem_bytes) {
+  if (route == 2) {
     if (blockIdx.x == 0) solve_poses_in(A, w, lam, beta, it, smem, cyc);
   } else {
-    solve_poses_grid(A, w, lam, beta, it, smem, cyc, grid);
+    solve_poses_grid(A, w, lam, beta, it, smem, route == 1, cyc, grid);
   }
 }
 
@@ -1227,6 +1302,7 @@ k9_lm(Args A, Work w) {
   int* warp_int = reinterpret_cast<int*>(warp_part + kWarps);  // (kWarps)
   float* sh_cost = reinterpret_cast<float*>(warp_int + kWarps);  // (2)
   unsigned char* smem = shared_all + kHead;
+  const size_t budget = (size_t)(A.smem_bytes - kHead);
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int g = blockIdx.x, G = gridDim.x;
   const int n = A.n, kk = A.kk, m = A.m, D = 6 * m, nk = n * kk;
@@ -1249,9 +1325,13 @@ k9_lm(Args A, Work w) {
   if (stamp) A.stamps[ns++] = now_ns();
 
   // -- index 1: zero the flags, count the slots by pose, the band's width
-  int* wcnt = reinterpret_cast<int*>(smem);     // (kWarps, M)
+  // (the per-warp counts and their scan in shared memory where they fit,
+  // else in this CTA's part of the workspace)
+  int* wcnt = index_bytes(m) <= budget
+                  ? reinterpret_cast<int*>(smem)
+                  : w.icnt + (size_t)g * ((kWarps + 1) * (size_t)m + 1);
   int* sscan = wcnt + kWarps * m;               // (M + 1)
-  for (int i = gt; i < m * m; i += GT) w.flags[i] = 0;
+  for (size_t i = gt; i < (size_t)m * m; i += GT) w.flags[i] = 0;
   for (int i = gt; i < A.iters; i += GT) w.nonfin[i] = 0;
   if (g == 0)
     for (int i = tid; i < 16 * m; i += kThreads) A.poses[i] = A.poses_in[i];
@@ -1294,14 +1374,14 @@ k9_lm(Args A, Work w) {
   grid.sync();
 
   // -- index 2: the flags; per pose the CTAs' counts to offsets
-  for (int a = gt; a < m; a += GT) w.flags[a * m + a] = 1;
+  for (int a = gt; a < m; a += GT) w.flags[(size_t)a * m + a] = 1;
   for (int o = gt; o < nk; o += GT) {
     const int a = scatter_pose(A.obs_pose[o], A.obs_valid[o], m);
     if (a < 0) continue;
     const int row = o - o % kk;
     for (int l = 0; l < kk; ++l) {
       const int b = scatter_pose(A.obs_pose[row + l], A.obs_valid[row + l], m);
-      if (b >= 0) w.flags[a * m + b] = 1;
+      if (b >= 0) w.flags[(size_t)a * m + b] = 1;
     }
   }
   for (int a = gw; a < m; a += GW) {
@@ -1347,7 +1427,7 @@ k9_lm(Args A, Work w) {
   }
   for (int a = gw; a < m; a += GW) {
     int c = 0;
-    for (int b = lane; b < m; b += 32) c += w.flags[a * m + b];
+    for (int b = lane; b < m; b += 32) c += w.flags[(size_t)a * m + b];
     c = __reduce_add_sync(kFull, c);
     if (lane == 0) w.rcnt[a] = c;
   }
@@ -1360,7 +1440,7 @@ k9_lm(Args A, Work w) {
     int at = sscan[a];
     for (int b0 = 0; b0 < m; b0 += 32) {
       const int b = b0 + lane;
-      const bool f = b < m && w.flags[a * m + b] != 0;
+      const bool f = b < m && w.flags[(size_t)a * m + b] != 0;
       const unsigned bal = __ballot_sync(kFull, f);
       if (f) w.blist[at + __popc(bal & ((1u << lane) - 1u))] = a * m + b;
       at += __popc(bal);
@@ -1374,7 +1454,14 @@ k9_lm(Args A, Work w) {
   beta = __reduce_max_sync(kFull, beta);
   // (where no slot is masked, no slot is flagged below: skip the flags)
   any_masked = __reduce_max_sync(kFull, any_masked);
-  if (g == 0 && tid == 0) A.extra[3 * D + 1] = (float)beta;
+  const Routes rt = routes_of(m, beta, A.use_lu != 0, budget);
+  if (g == 0 && tid == 0) {
+    A.extra[3 * D + 1] = (float)beta;
+    A.routes[0] = (float)rt.index;
+    A.routes[1] = (float)rt.lms;
+    A.routes[2] = (float)rt.step;
+    A.routes[3] = (float)rt.solve;
+  }
   grid.sync();
   if (stamp) A.stamps[ns++] = now_ns();
 
@@ -1421,11 +1508,15 @@ k9_lm(Args A, Work w) {
       break;
     }
 
-    // -- landmarks
+    // -- landmarks (the poses staged in shared memory where they fit)
     {
-      float* sposes = reinterpret_cast<float*>(smem);   // (M, 4, 4)
       const float* src = it == 0 ? A.poses_in : (acc ? w.cand_poses : A.poses);
-      for (int i = tid; i < 16 * m; i += kThreads) sposes[i] = src[i];
+      const float* sposes = src;                         // (M, 4, 4)
+      if (rt.lms) {
+        float* st = reinterpret_cast<float*>(smem);
+        for (int i = tid; i < 16 * m; i += kThreads) st[i] = src[i];
+        sposes = st;
+      }
       __syncthreads();
       double cost = 0.0;
       for (int gn = l0 + tid; gn < l1; gn += kThreads) {
@@ -1589,7 +1680,8 @@ k9_lm(Args A, Work w) {
           if (diag) {
             const double wd = w.wt[o];
             const float* jp = w.jp + 12 * (size_t)o;
-            const double r0 = w.res[2 * o], r1 = w.res[2 * o + 1];
+            const double r0 = w.res[2 * (size_t)o];
+            const double r1 = w.res[2 * (size_t)o + 1];
             const double* bn = w.bl + 3 * (size_t)(o / kk);
 #pragma unroll
             for (int i = 0; i < 6; ++i) {
@@ -1636,19 +1728,26 @@ k9_lm(Args A, Work w) {
     grid.sync();
     if (stamp) A.stamps[ns++] = now_ns();
 
-    // -- the pose solve, CTA 0
-    solve_poses(A, w, lam, beta, it, smem, A.smem_bytes - kHead,
+    // -- the pose solve
+    solve_poses(A, w, lam, beta, it, smem, rt.solve,
                 A.stamps && g == 0 ? A.stamps + 4 * A.iters + 3 + 4 * it
                                    : nullptr, grid);
     grid.sync();
     if (stamp) A.stamps[ns++] = now_ns();
 
-    // -- the step: candidate poses and landmarks, the candidate's cost
+    // -- the step: candidate poses and landmarks, the candidate's cost (dp
+    // and the CTA's candidate poses in shared memory where they fit, else
+    // dp read in the workspace and the candidates in the CTA's part of it)
     {
-      float* sdp = reinterpret_cast<float*>(smem);   // (M, 6)
-      float* scand = sdp + D;                        // (M, 4, 4)
+      const float* sdp = w.dp;                       // (M, 6)
+      float* scand = w.gcand + (size_t)g * 16 * m;   // (M, 4, 4)
+      if (rt.step) {
+        float* st = reinterpret_cast<float*>(smem);
+        for (int i = tid; i < D; i += kThreads) st[i] = w.dp[i];
+        sdp = st;
+        scand = st + D;
+      }
       const float* cur = it == 0 ? A.poses_in : A.poses;
-      for (int i = tid; i < D; i += kThreads) sdp[i] = w.dp[i];
       __syncthreads();
       for (int k = tid; k < m; k += kThreads) {
         if (A.fixed[k]) {
@@ -1719,12 +1818,13 @@ size_t carve(size_t* at, size_t bytes) {
 }
 
 // The workspace's offsets at n landmarks, kk slots, m poses, iters
-// iterations and G CTAs; with ws, the pointers.
-size_t layout(int n, int kk, int m, int iters, int G, unsigned char* ws,
-              Work* w) {
+// iterations, G CTAs and a CTA's budget of smem bytes (the routes that
+// stage in device memory take their buffers here); with ws, the pointers.
+size_t layout(int n, int kk, int m, int iters, int G, size_t smem,
+              unsigned char* ws, Work* w) {
   const size_t nk = (size_t)n * kk, D = 6 * (size_t)m;
   size_t at = 0;
-  size_t o[33];
+  size_t o[35];
   o[0] = carve(&at, (size_t)G * m * 4);
   o[1] = carve(&at, (size_t)m * 4);
   o[2] = carve(&at, (size_t)(m + 1) * 4);
@@ -1758,6 +1858,9 @@ size_t layout(int n, int kk, int m, int iters, int G, unsigned char* ws,
   o[30] = carve(&at, D * 6 * 4);
   o[31] = carve(&at, 64 * 4);
   o[32] = carve(&at, (size_t)G * 4);
+  o[33] = carve(&at, index_bytes(m) <= smem
+                         ? 0 : (size_t)G * index_bytes(m));
+  o[34] = carve(&at, step_bytes(m) <= smem ? 0 : (size_t)G * m * 16 * 4);
   if (w) {
     w->cnt = (int*)(ws + o[0]);
     w->ptot = (int*)(ws + o[1]);
@@ -1792,13 +1895,18 @@ size_t layout(int n, int kk, int m, int iters, int G, unsigned char* ws,
     w->gpn = (float*)(ws + o[30]);
     w->gint = (int*)(ws + o[31]);
     w->mpart = (int*)(ws + o[32]);
+    w->icnt = (int*)(ws + o[33]);
+    w->gcand = (float*)(ws + o[34]);
   }
   return at;
 }
 
+// One problem's sizes: any pose, slot and landmark count. The slots'
+// indices are 32-bit: N K <= INT_MAX, which no card's memory reaches first
+// (the workspace holds ~380 bytes a slot, ~800 GB at 2^31 slots).
 bool sizes_ok(int n, int kk, int m, int iters) {
-  return n >= 1 && kk >= 1 && kk <= kMaxSlots && m >= 1 && m <= kMaxPoses &&
-         iters >= 1 && (long long)n * kk <= (1LL << 22);
+  return n >= 1 && kk >= 1 && m >= 1 && iters >= 1 &&
+         (long long)n * kk <= INT_MAX;
 }
 
 // The dynamic shared memory of a CTA (all a block may take, less the
@@ -1847,27 +1955,45 @@ int grid_of(int n, int kk, int m, int resident) {
 
 }  // namespace
 
+// The shared memory the stages' routes are chosen for: the device's, or
+// smem_limit where that is smaller and positive (a test's way to the
+// device-memory routes at small sizes; the launch still gets the device's).
+int route_smem(int smem, int smem_limit) {
+  return smem_limit > kHead && smem_limit < smem ? smem_limit : smem;
+}
+
 // The workspace bytes of one call at n landmarks, kk slots, m poses and
-// iters iterations.
+// iters iterations, routes chosen for smem_limit as route_smem says (any
+// sizes: where they exceed the card, the allocation of these bytes is
+// what fails).
 extern "C" int vpp_ba_generic_workspace(int n, int kk, int m, int iters,
-                                        long long* bytes) {
-  if (!sizes_ok(n, kk, m, iters)) return (int)cudaErrorInvalidValue;
+                                        int smem_limit, long long* bytes) {
+  if (n < 1 || kk < 1 || m < 1 || iters < 1)
+    return (int)cudaErrorInvalidValue;
   int smem = 0, resident = 0;
   const cudaError_t e = device_limits(&smem, &resident);
   if (e != cudaSuccess) return (int)e;
+  const int rs = route_smem(smem, smem_limit);
   *bytes = (long long)layout(n, kk, m, iters, grid_of(n, kk, m, resident),
-                             nullptr, nullptr);
+                             (size_t)(rs - kHead), nullptr, nullptr);
   return 0;
+}
+
+// The dynamic shared memory a CTA of K9 takes on this device, its stages'
+// budget being that less kHead (routes_of).
+extern "C" int vpp_ba_generic_smem(int* bytes) {
+  int resident = 0;
+  return (int)device_limits(bytes, &resident);
 }
 
 // One ba_solve_tracks call on the generic layout: poses_in (m, 4, 4),
 // lms_in (n, 3), obs_pose (n, kk) int32, obs_uv (n, kk, 2), obs_valid (n, kk)
-// bytes, intr (4), fixed (m) bytes; out poses (m, 4, 4), lms (n, 3), costs
+// bytes, intr (4), fixed (m) bytes; smem_limit: route_smem; out poses (m, 4, 4), lms (n, 3), costs
 // (iters), per (iters, 6m + 4) (dp, lam, cost, the candidate's cost, accept),
 // s0 (6m, 6m) the first iteration's S where not null (its entries outside
 // the non-empty blocks are left as they are: zero them), extra (18m + 2):
 // the first iteration's rhs, x, d and cost, then S's block half-bandwidth;
-// stamps (8 iters + 3) int64 where not null: the device clock (ns) at the
+// routes (4): the stages' routes (Routes); stamps (8 iters + 3) int64 where not null: the device clock (ns) at the
 // start, after the index, after each iteration's four stages and at the
 // end, then per iteration the SM cycles of the pose solve's system,
 // panels, trailing updates and back-substitution. ws: the workspace's
@@ -1876,8 +2002,9 @@ extern "C" int vpp_ba_generic_lm(
     const float* poses_in, const float* lms_in, const int* obs_pose,
     const float* obs_uv, const unsigned char* obs_valid, const float* intr,
     const unsigned char* fixed, int n, int kk, int m, int iters, int use_lu,
-    float huber, float lam0, float* poses, float* lms, float* costs,
-    float* per, float* s0, float* extra, long long* stamps,
+    int smem_limit, float huber, float lam0, float* poses, float* lms,
+    float* costs,
+    float* per, float* s0, float* extra, float* routes, long long* stamps,
     unsigned char* ws, void* stream) {
   if (!sizes_ok(n, kk, m, iters)) return (int)cudaErrorInvalidValue;
   int smem = 0, resident = 0;
@@ -1897,7 +2024,7 @@ extern "C" int vpp_ba_generic_lm(
   a.m = m;
   a.iters = iters;
   a.use_lu = use_lu;
-  a.smem_bytes = smem;
+  a.smem_bytes = route_smem(smem, smem_limit);
   a.huber = huber;
   a.lam0 = lam0;
   a.poses = poses;
@@ -1906,9 +2033,10 @@ extern "C" int vpp_ba_generic_lm(
   a.per = per;
   a.s0 = s0;
   a.extra = extra;
+  a.routes = routes;
   a.stamps = stamps;
   Work w;
-  layout(n, kk, m, iters, G, ws, &w);
+  layout(n, kk, m, iters, G, (size_t)(a.smem_bytes - kHead), ws, &w);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)G, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);

@@ -26,9 +26,21 @@
 //
 // Design. One cluster of kCluster CTAs of 512 threads per match set
 // (blockIdx.y), the entries split into contiguous ranges across its CTAs.
-// Each CTA stages the detections (float positions, valid bytes) in shared
-// memory once and keeps its own copy of the pose, to which every CTA
-// applies the same updates, so the copies stay bit-identical.
+// Each CTA keeps its own copy of the pose, to which every CTA applies the
+// same updates, so the copies stay bit-identical. Detections, two routes
+// (map_vote.py:k8_route picks one from Q and the card's shared memory):
+//   staged (kStaged) — each CTA stages the detections (float positions,
+//     valid bytes) and its Q-bit set of inlier detections in dynamic shared
+//     memory once, dyn_bytes(Q) ~9.1 bytes a detection: up to Q ~22,800 on
+//     the H100 (232,448 bytes a CTA less the ~23 KB of Shared);
+//   device — past that, every read of a detection's position or valid byte
+//     goes to the caller's buffers in device memory (pos as int32, turned
+//     into the same floats; ~9 bytes a detection, which L2 holds at the
+//     sizes a tracker makes), and each CTA's bit set is its row of a
+//     scratch buffer (B, kCluster, Q / 32) in device memory, which rank 0
+//     reads after the last cluster barrier. No shared memory grows with Q.
+//   The two routes read the same values in the same order, so their bits
+//   are the same.
 //   vote round — 8 lanes an entry (4 entries a warp): the entry projects
 //     under the pose (elementwise, in the plain version's order); each
 //     lane keeps the 4 first of its strided share of the Q distances (each
@@ -98,7 +110,6 @@ constexpr int kNbin = kNb * kNb;
 constexpr int kShifts = 9;    // the gate's +-1 px shifted patches
 constexpr int kGateRows = kThreads / kShifts;
 constexpr int kTerms = 27;    // 21 of H's upper triangle, then 6 of b
-constexpr int kMaxQ = 16384;  // slam/map_vote.py MAX_DETECTIONS
 constexpr int kCluster = 16;  // CTAs a match set: a non-portable size
 constexpr unsigned kVotes = 0x40000000u;  // a pair's code: it votes
 constexpr float kHuge = 1e30f;
@@ -195,6 +206,8 @@ struct Args {
   unsigned char* inl;          // (B, A)
   unsigned* pair_code;         // scratch (B, A, 4): j | kVotes
   float* pair_t;               // scratch (B, A, 4, 2): (tx, ty)
+  unsigned* bits;              // scratch (B, kCluster, Q / 32) on the device
+                               // route: each CTA's inlier detections
 };
 
 struct Shared {
@@ -215,8 +228,8 @@ struct Shared {
   int n_gate;
 };
 
-// Dynamic shared memory: the detections as float (row, col), their bit
-// set, their valid bytes.
+// Dynamic shared memory of the staged route: the detections as float (row,
+// col), their bit set, their valid bytes.
 __host__ __device__ inline size_t dyn_bytes(int q) {
   return (size_t)q * 8 + (size_t)((q + 31) / 32) * 4 + (size_t)q;
 }
@@ -288,6 +301,7 @@ __device__ __forceinline__ void normal_terms(const float* T, const float* in,
   }
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -297,9 +311,20 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
   const int A = p.A, Q = p.Q, nwords = (Q + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   float2* sdet = (float2*)smem;                       // (Q,) (row, col)
-  unsigned* sbits = (unsigned*)(sdet + Q);            // Q bits
-  unsigned char* svalid = (unsigned char*)(sbits + nwords);
+  // the CTA's bit set, and where rank 0 finds rank q's
+  unsigned* sbits = kStaged ? (unsigned*)(sdet + Q)
+                            : p.bits + ((size_t)b * kCluster + rank) * nwords;
+  unsigned char* svalid = (unsigned char*)(sdet + Q) + 4 * (size_t)nwords;
   __shared__ Shared sh;
+  // detection j's (row, col) as floats and its valid flag, staged or read
+  // in device memory: the same values
+  auto det = [&](int j) {
+    return kStaged ? sdet[j]
+                   : make_float2((float)p.pos[2 * j], (float)p.pos[2 * j + 1]);
+  };
+  auto det_valid = [&](int j) -> bool {
+    return kStaged ? svalid[j] != 0 : p.valid[j] != 0;
+  };
 
   const int per = (A + csize - 1) / csize;
   const int lo = min(A, rank * per), hi = min(A, lo + per);
@@ -310,10 +335,11 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) in[i] = p.intr[i];
 
-  for (int j = tid; j < Q; j += kThreads) {
-    sdet[j] = make_float2((float)p.pos[2 * j], (float)p.pos[2 * j + 1]);
-    svalid[j] = p.valid[j];
-  }
+  if (kStaged)
+    for (int j = tid; j < Q; j += kThreads) {
+      sdet[j] = make_float2((float)p.pos[2 * j], (float)p.pos[2 * j + 1]);
+      svalid[j] = p.valid[j];
+    }
   for (int w = tid; w < nwords; w += kThreads) sbits[w] = 0u;
   if (tid < 16) sh.T[tid] = p.T_prior[tid];
 
@@ -346,8 +372,8 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
 #pragma unroll 4
       for (int j = gl; live && j < Q; j += kGroup) {
         float d = kHuge;
-        if (svalid[j]) {
-          const float2 q = sdet[j];
+        if (det_valid(j)) {
+          const float2 q = det(j);
           const float dr = __fsub_rn(pr, q.x), dc = __fsub_rn(pc, q.y);
           d = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc));
         }
@@ -391,7 +417,7 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
           d = dc;
         }
       }
-      const float2 q = sdet[j];
+      const float2 q = det(j);
       const float tx = __fdiv_rn(__fmul_rn(__fsub_rn(q.y, pc), z), in[0]);
       const float ty = __fdiv_rn(__fmul_rn(__fsub_rn(q.x, pr), z), in[1]);
       const bool m = base[a] && d <= p.r2 && z > 0.1f;
@@ -509,7 +535,7 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
         }
       }
       const int j = (int)(bcode & ~kVotes);
-      const float2 q = sdet[j];
+      const float2 q = det(j);
       const bool in0 = base[a] && bd <= p.inl_r2;
       p.j1[ab + a] = j;
       p.uv1[2 * (ab + a)] = q.x;
@@ -677,13 +703,15 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
       sh.cnt_part = c;
     }
   }
+  if (!kStaged) __threadfence();   // the bits in device memory, for rank 0
   cluster.sync();                         // every CTA's sums and bits are in
   if (rank == 0) {
     int pop = 0;
     for (int w = tid; w < nwords; w += kThreads) {
       unsigned bits = 0u;
       for (int q = 0; q < csize; ++q)
-        bits |= cluster.map_shared_rank(sbits, q)[w];
+        bits |= kStaged ? cluster.map_shared_rank(sbits, q)[w]
+                        : p.bits[((size_t)b * kCluster + q) * nwords + w];
       pop += __popc(bits);
     }
 #pragma unroll
@@ -708,14 +736,60 @@ __global__ void __launch_bounds__(kThreads) map_vote_pnp_kernel(Args p) {
   cluster.sync();   // no CTA leaves while rank 0 may still read its memory
 }
 
+// -- host ---------------------------------------------------------------------
+
+// The kernel's static shared memory and the dynamic shared memory a CTA
+// may add (the card's opt-in limit less the static), asked once per device
+// (0: not yet asked); both instances opted into the largest and into the
+// non-portable cluster size, so that no later call (one inside a CUDA graph
+// capture among them) sets an attribute.
+constexpr int kMaxDevices = 64;
+
+cudaError_t dyn_limit(int* bytes) {
+  static int dyn_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (dyn_of[dev] == 0) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, map_vote_pnp_kernel<true>);
+    if (e != cudaSuccess) return e;
+    const int dyn = (optin - (int)fa.sharedSizeBytes) / 16 * 16;
+    void (*const kernels[2])(Args) = {map_vote_pnp_kernel<true>,
+                                      map_vote_pnp_kernel<false>};
+    for (auto k : kernels) {
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dyn);
+      if (e != cudaSuccess) return e;
+      e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
+    dyn_of[dev] = dyn;
+  }
+  *bytes = dyn_of[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// The dynamic shared memory a CTA of K8 may take on this device: the staged
+// route's dyn_bytes(Q) must fit it (map_vote.py:k8_route).
+extern "C" int vpp_map_vote_smem(int* bytes) { return (int)dyn_limit(bytes); }
 
 // One cluster launch of kCluster CTAs per match set. X (A, 3),
 // desc (A, P2), det (9, Q, P2), T_prior (4, 4), intr (4) float32; base
 // (B, A), valid (Q) bytes; pos (Q, 2) int32. Out: T (B, 4, 4), err (B),
 // txy (B, rounds, 2), uv1 (B, A, 2) float32; n (B), j1 (B, A) int32; inl
 // (B, A) bytes. Scratch: pair_code (B, A, 4) uint32, pair_t (B, A, 4, 2)
-// float32.
+// float32; bits (B, kCluster, (Q + 31) / 32) uint32 on the device route.
+// staged 1: the staged route (dyn_bytes(Q) must fit vpp_map_vote_smem's),
+// 0: the device route.
 extern "C" int vpp_map_vote_pnp(
     const float* X, const float* desc, const unsigned char* base,
     const int* pos, const unsigned char* valid, const float* det,
@@ -723,30 +797,22 @@ extern "C" int vpp_map_vote_pnp(
     int rounds, int iters, float r2, float bmax, float step, float inl_r2,
     float gate2, float huber1, float huber2, float* T_out, float* err, int* n,
     float* txy, int* j1, float* uv1, unsigned char* inl, unsigned* pair_code,
-    float* pair_t, void* stream) {
-  if (A < 1 || Q < 1 || Q > kMaxQ || B < 1 || B > 65535 || P2 < 1
-      || rounds < 1 || iters < 0)
+    float* pair_t, unsigned* bits, int staged, void* stream) {
+  if (A < 1 || Q < 1 || B < 1 || B > 65535 || P2 < 1 || rounds < 1 ||
+      iters < 0 || (!staged && bits == nullptr))
     return (int)cudaErrorInvalidValue;
-  // once, for the largest Q, so that no later call (one inside a CUDA
-  // graph capture among them) sets an attribute
-  static cudaError_t attr_err = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        map_vote_pnp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn_bytes(kMaxQ));
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        map_vote_pnp_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
-  }();
-  if (attr_err != cudaSuccess) return (int)attr_err;
+  int dyn = 0;
+  cudaError_t e = dyn_limit(&dyn);
+  if (e != cudaSuccess) return (int)e;
+  if (staged && dyn_bytes(Q) > (size_t)dyn) return (int)cudaErrorInvalidValue;
   Args p{X,      desc,  base,   pos,    valid, det,    T_prior, intr,
          A,      Q,     P2,     rounds, iters, r2,     bmax,    step,
          inl_r2, gate2, huber1, huber2, T_out, err,    n,       txy,
-         j1,     uv1,   inl,    pair_code, pair_t};
+         j1,     uv1,   inl,    pair_code, pair_t, bits};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dyn_bytes(Q);
+  cfg.dynamicSmemBytes = staged ? dyn_bytes(Q) : 0;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -755,7 +821,8 @@ extern "C" int vpp_map_vote_pnp(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, map_vote_pnp_kernel, p);
+  e = staged ? cudaLaunchKernelEx(&cfg, map_vote_pnp_kernel<true>, p)
+             : cudaLaunchKernelEx(&cfg, map_vote_pnp_kernel<false>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,9 @@
 //     2n-src-1 (the input is mirrored, not the filtered values), and one
 //     that is still below 0 (the last tap of a 2-pixel level, 2n - 4 - 1 =
 //     -1) wraps to n - 1, as numpy's index -1 does in _decim_matrix: the
-//     levels of a deep pyramid stop shrinking at 2 pixels (2 -> 2);
+//     levels of a deep pyramid stop shrinking at 2 pixels (2 -> 2); on a
+//     1-pixel level (a 1-row or 1-column frame's levels, 1 -> 1) every tap
+//     lands on the one source pixel, its weights summed to 1;
 //   - where two taps land on one source pixel their weights are added first,
 //     as _decim_matrix accumulates them into one matrix entry;
 //   - the vertical pass is rounded to float32 per intermediate column, then
@@ -271,9 +273,9 @@ __device__ __forceinline__ void horizontal(const float* mid, int nr, int nc,
 }
 
 // whether n_out outputs are a decimation of n sources that mirror_src
-// indexes: 2 n_out <= 2 n - 1, or a 2-pixel level kept at 2
+// indexes: 2 n_out <= 2 n - 1, or a 2- or 1-pixel level kept as it is
 inline bool decimates(int n, int n_out) {
-  return 2 * n_out <= 2 * n - 1 || (n == 2 && n_out == 2);
+  return 2 * n_out <= 2 * n - 1 || (n <= 2 && n_out == n);
 }
 
 __host__ __device__ __forceinline__ int tiles_of(int oh, int ow, int th,
@@ -414,7 +416,8 @@ pyramid_kernel(const float* __restrict__ src, int sstride,
 // where level l's (h + 2 border) x (w + 2 border) buffer starts in `out`
 // (floats; levels >= first). Writes levels first .. n-1; first is 0 or 1.
 // Every level l >= 1 must be a decimation of level l - 1 (2 h_l <= 2 h_{l-1}
-// - 1, or h_l = h_{l-1} = 2: a 2-pixel level's last tap wraps), and with
+// - 1, or h_l = h_{l-1} = 2: a 2-pixel level's last tap wraps, or h_l =
+// h_{l-1} = 1), and with
 // `fuse` 1 level 2 must halve level 1 (2 h_2 <= h_1 + 2), as pyramid()'s
 // levels do; `fuse` 0 computes level 2 after a grid barrier.
 extern "C" int vpp_pyramid(const float* src, int sstride,
@@ -437,9 +440,9 @@ extern "C" int vpp_pyramid(const float* src, int sstride,
     lv.off[l] = levels[3 * l + 2];
     if (lv.h[l] < 1 || lv.w[l] < 1) return (int)cudaErrorInvalidValue;
     // the taps of the last output reach 2 (oh - 1) + 2 <= 2 h - 1, or 2 h
-    // on a 2-pixel level kept at 2 (that tap wraps to the level's last pixel)
-    if (l > 0 && (lv.h[l - 1] < 2 || lv.w[l - 1] < 2 ||
-                  !decimates(lv.h[l - 1], lv.h[l]) ||
+    // on a 2-pixel level kept at 2 (that tap wraps to the level's last
+    // pixel), or every tap the one pixel of a 1-pixel level
+    if (l > 0 && (!decimates(lv.h[l - 1], lv.h[l]) ||
                   !decimates(lv.w[l - 1], lv.w[l])))
       return (int)cudaErrorInvalidValue;
   }

@@ -694,9 +694,12 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
     launches for S streams, in stream order on the caller's CUDA stream,
     each stream with its own damping and decisions). The generic layout
     takes one problem; on
-    CUDA tensors it runs kernel K9 within its limits (``ba_generic_cuda``:
-    M up to 512, K up to 32, at most 2^22 slots; ``ValueError`` beyond
-    them). ``linalg`` is "lu" (pivoted landmark
+    CUDA tensors it runs kernel K9 at any M, K and N: what grows with M
+    sits in shared memory where it fits and in device memory where it does
+    not, with the same bits (``ba_generic_cuda.k9_routes``; on the H100
+    the step leaves shared memory past M 2640, the landmark stage past
+    3630, the index past 6453, and the pose solve's panel past M 1612 at a
+    full band). ``linalg`` is "lu" (pivoted landmark
     inverses and pose solve) or "chol" (closed-form scaled Cholesky
     inverses and a Cholesky pose solve). Raises ``NotImplementedError``
     for the generic layout with a stream dimension.
@@ -773,9 +776,9 @@ def _lm_tracks(p: BATracks, iters: int, huber: float, lam0: float,
         fused = ba_cuda.lm_tracks if ring_layout else lm_generic
         m = p.poses.shape[-3]
         if ring_layout and m > ba_cuda.MAX_POSES:
-            # K6 holds at most MAX_POSES poses; K9 takes one ring problem up
-            # to its slot limit, as the generic layout with obs_pose[n, j] =
-            # j: one launch a stream, each on the stream's own problem
+            # K6 holds at most MAX_POSES poses; K9 takes one ring problem of
+            # any size as the generic layout with obs_pose[n, j] = j: one
+            # launch a stream, each on the stream's own problem
             flat = BATracks(*(t if i == 5 else t.reshape(
                 (-1,) + t.shape[len(lead):]) for i, t in enumerate(p)))
             arange = torch.arange(m, dtype=torch.int32,

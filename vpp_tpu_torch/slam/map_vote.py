@@ -27,15 +27,18 @@ Per match set (``base`` (B, A), a usable-entry mask over the map ``X``
 ``map_vote_pnp`` on CUDA tensors is K8 (``kernels/csrc/map_vote.cu``): one
 thread-block-cluster launch for every match set, bit-equal to
 ``_map_vote_pnp_plain`` up to the PnP (the shifts, ``j1``, ``uv1`` and
-``inl``) and within rounding of it after. A CPU tensor takes the plain
-version. The plain version projects elementwise in one fixed order and
-sums the gate's columns in index order, so that the card can repeat its
-bits.
+``inl``) and within rounding of it after, at any Q: the detections are
+staged in each CTA's shared memory where they fit and read in device
+memory where they do not (``k8_route``), with the same bits. A CPU tensor
+takes the plain version. The plain version projects elementwise in one
+fixed order and sums the gate's columns in index order, so that the card
+can repeat its bits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,7 +51,36 @@ _HUGE = 1e30
 C = 4                 # candidates per map entry
 NB = 33               # histogram bins a side (the kernel's kNb)
 SHIFTS = 9            # the gate's ±1-px shifted detection patches
-MAX_DETECTIONS = 16384  # Q the kernel stages in shared memory (kMaxQ)
+CLUSTER = 16          # CTAs a match set (the kernel's kCluster)
+
+
+def staged_bytes(q: int) -> int:
+    """The staged route's dynamic shared memory at ``q`` detections
+    (map_vote.cu:dyn_bytes): float (row, col), the inlier bit set, the
+    valid bytes."""
+    return q * 8 + (q + 31) // 32 * 4 + q
+
+
+def k8_route(q: int, smem: int) -> str:
+    """K8's route at ``q`` detections with ``smem`` bytes of dynamic shared
+    memory a CTA (``smem_bytes``; on the H100 ~208 KB, so Q up to ~22,800
+    stages): "shared" where the detections fit, else "device"."""
+    return "shared" if staged_bytes(q) <= smem else "device"
+
+
+_SMEM = {}
+
+
+def smem_bytes(device: torch.device) -> int:
+    """The dynamic shared memory a CTA of K8 may take on ``device``."""
+    if device not in _SMEM:
+        from ..kernels import _build
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(_build.load().vpp_map_vote_smem(ctypes.byref(out)),
+                         "map_vote shared memory")
+        _SMEM[device] = out.value
+    return _SMEM[device]
 
 
 class MapVotePnp(NamedTuple):
@@ -233,13 +265,16 @@ def map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
                  det_patches: torch.Tensor, T_prior: torch.Tensor,
                  intr: torch.Tensor, *, r_wide: float, bmax: float,
                  gate: float, rounds: int = 2, pnp_iters: int = 6,
-                 huber: float = 4.0) -> MapVotePnp:
+                 huber: float = 4.0, smem: Optional[int] = None
+                 ) -> MapVotePnp:
     """K8: the map-vote PnP of B match sets, one launch on CUDA tensors;
     the plain version on CPU tensors. ``X`` (A, 3), ``desc`` (A, P²),
     ``base`` (B, A) bool, ``pos`` (Q, 2) int32 detections (row, col),
     ``valid`` (Q,) bool, ``det_patches`` (9, Q, P²) (``_det_shift_patches``),
-    ``T_prior`` (4, 4), ``intr`` (4,). Needs A, Q, B >= 1, rounds >= 1 and
-    Q <= ``MAX_DETECTIONS`` on the card."""
+    ``T_prior`` (4, 4), ``intr`` (4,). Needs A, Q, B >= 1 and rounds >= 1.
+    ``smem`` below the card's (``smem_bytes``) picks the route
+    (``k8_route``) for that many bytes instead: the same bits on the device
+    route at small Q."""
     a_n, q_n = X.shape[0], pos.shape[0]
     b_n, p2 = base.shape[0], desc.shape[-1]
     if (X.shape != (a_n, 3) or desc.shape != (a_n, p2)
@@ -259,9 +294,6 @@ def map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
     if X.device.type == "cpu":
         return _map_vote_pnp_plain(X, desc, base, pos, valid, det_patches,
                                    T_prior, intr, **kw)
-    if q_n > MAX_DETECTIONS:
-        raise ValueError(f"map_vote_pnp: the kernel takes at most "
-                         f"{MAX_DETECTIONS} detections, got {q_n}")
     f32 = torch.float32
     ops = (X.contiguous(), desc.contiguous(), base.contiguous(),
            pos.contiguous(), valid.contiguous(), det_patches.contiguous(),
@@ -271,11 +303,18 @@ def map_vote_pnp(X: torch.Tensor, desc: torch.Tensor, base: torch.Tensor,
     from ..kernels import _build
     bmax_f, step_f = _vote_steps(bmax)
     res, (code, pair_t) = _outputs(b_n, a_n, rounds, X.device)
+    card = smem_bytes(X.device)
+    staged = k8_route(q_n, card if smem is None else min(smem, card)) \
+        == "shared"
+    bits = None if staged else torch.empty(
+        (b_n, CLUSTER, (q_n + 31) // 32), dtype=torch.int32, device=X.device)
     rc = _build.load().vpp_map_vote_pnp(
         *(t.data_ptr() for t in ops), a_n, q_n, b_n, p2, rounds, pnp_iters,
         float(r_wide) ** 2, bmax_f, step_f, (2.0 * vote_step(bmax)) ** 2,
         2.0 * gate, huber, huber / 2, *(t.data_ptr() for t in res),
-        code.data_ptr(), pair_t.data_ptr(), stream_handle(X))
+        code.data_ptr(), pair_t.data_ptr(),
+        None if bits is None else bits.data_ptr(), int(staged),
+        stream_handle(X))
     LAUNCHES["map_vote"] += 1
     _build.check(rc, "map_vote_pnp")
     return res
