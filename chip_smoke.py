@@ -1725,28 +1725,25 @@ def k9_bound(torch, p, iters, beta, linalg):
 
 
 def k9_stages(torch, BG, p, iters, lam0, linalg, calls=5):
-    """K9's device time by stage from its own clock (its stamps),
-    the median over ``calls`` calls: the index, and per iteration the
-    landmark, block, pose-solve and step stages (ms), the stamps' whole
-    span, and the pose solve split into its system, panels, trailing
-    updates and back-substitution by the shares of CTA 0's SM cycles."""
+    """K9's device time by stage from its own clock (its stamps, decoded
+    by ``BG.k9_stage_ms``), the median over ``calls`` calls: the index,
+    the landmark, block, pose-solve and step stages a mean iteration
+    (ms; the step with its share of the last decision), the stamps' whole
+    span, and the pose solve a mean iteration split into its system,
+    panels, trailing updates and back-substitution by the shares of CTA
+    0's SM cycles."""
     rows = []
     stamps = torch.empty(8 * iters + 3, dtype=torch.int64,
                          device=p.poses.device)
+    once = ("index", "span")
     for _ in range(calls):
         BG.lm_generic(p, iters, GEN_HUBER, lam0, linalg, stamps=stamps)
-        st = stamps.cpu().double()
-        ns, cyc = st[:4 * iters + 3], st[4 * iters + 3:].view(iters, 4)
-        d = (ns[1:] - ns[:-1]) / 1e6
-        per = d[1:1 + 4 * iters].view(iters, 4)
-        split = per[:, 2:3] * cyc / cyc.sum(1, keepdim=True).clamp(min=1)
-        rows.append([float(d[0]), *per.median(0).values.tolist(),
-                     float(ns[-1] - ns[0]) / 1e6,
-                     *split.median(0).values.tolist()])
-    med = torch.tensor(rows).median(0).values.tolist()
-    return dict(zip(("index", "landmarks", "blocks", "solve", "step",
-                     "span", "solve_system", "solve_panels",
-                     "solve_trailing", "solve_backsub"), med))
+        ms = BG.k9_stage_ms(stamps, iters)
+        rows.append({k: v if k in once else v / iters
+                     for k, v in ms.items()})
+    return {k: float(torch.tensor([r[k] for r in rows],
+                                  dtype=torch.float64).median())
+            for k in rows[0]}
 
 
 def phase_ring20(torch, np, BA, KN, dev, ring=20, phase="10"):

@@ -24,7 +24,10 @@ it (the assembly within 1e-4, the first pose step's backward error on the
 system it solved no more than 4x the library's solve of that system and
 below 1e-5, NaN where the plain solve has one, the first candidate within
 1e-4), the same bits twice, and a ring problem down K9 within 1e-5 of K6;
-a loop
+K9's stage records under a ``torch.profiler`` session (one a
+``ba_solve_tracks`` call, in launch order, each one's span within [0.95,
+1.005] of that launch's device time in the trace; none and the same bits
+without a session); a loop
 closure keyframe (the pose-graph smoother's full and refresh branches)
 within 1e-4 of the plain CPU path from one state; K10 (LK) asked for one
 level one launch, bit-equal to its plain version (flow, err, every window
@@ -1348,6 +1351,49 @@ def test_ba_generic_kernel_stamps(cuda):
         with pytest.raises(ValueError):
             ba_generic_cuda.lm_generic(p, 3, 4.0, 1e-4, "lu", stamps=bad)
     assert launch_counts()["ba_generic"] == 0
+
+
+def test_ba_solve_tracks_stage_records(cuda):
+    """Under a ``torch.profiler`` session ``ba_solve_tracks`` on the card
+    leaves one K9 stage record a call, in launch order, whose whole span is
+    within [0.95, 1.005] of that launch's K9 duration in the same trace, and
+    the span ``vpp.ba_solve_tracks`` once a call; with no session it leaves
+    none. Both give the bits of a call made before either."""
+    from vpp_tpu_torch.slam import ba_generic_cuda
+    from vpp_tpu_torch.slam.ba import ba_solve_tracks
+    p, _ = _generic_problem(cuda, 4096, 24, 4, 5)
+    kw = dict(iters=3, lam0=1e-4, linalg="chol")
+    ba_generic_cuda.reset_k9_stage_records()
+    ref = ba_solve_tracks(p, **kw)
+    torch.cuda.synchronize()
+    assert ba_generic_cuda.k9_stage_records() == []
+    calls = 4
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        outs = [ba_solve_tracks(p, **kw) for _ in range(calls)]
+        torch.cuda.synchronize()
+    outs.append(ba_solve_tracks(p, **kw))
+    recs = ba_generic_cuda.k9_stage_records()
+    ba_generic_cuda.reset_k9_stage_records()
+    assert len(recs) == calls and all(it == 3 for it, _ in recs)
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sum(e.name == "vpp.ba_solve_tracks" for e in host) == calls
+    k9 = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "k9_lm" in e.name
+                and not getattr(e, "is_user_annotation", False))
+    assert len(k9) == calls
+    starts = [int(st[0]) for _, st in recs]
+    assert starts == sorted(starts)
+    for (it, st), (t0, t1) in zip(recs, k9):
+        span = ba_generic_cuda.k9_stage_ms(st, it)["span"]
+        assert 0.95 <= span * 1e3 / (t1 - t0) <= 1.005, (span, t1 - t0)
+    for out, costs in outs:
+        for a, b in ((out.poses, ref[0].poses),
+                     (out.landmarks, ref[0].landmarks), (costs, ref[1])):
+            assert _same_bits(a, b)
 
 
 def test_slam_on_card_matches_cpu(cuda):

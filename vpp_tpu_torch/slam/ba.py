@@ -89,6 +89,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..parallel.mesh import all_gather_stack, all_reduce_sum
+from ..utils.profiler import span
 from .se3 import _hat, se3_apply, se3_exp
 
 
@@ -711,21 +712,25 @@ def ba_solve_tracks(p: BATracks, *, iters: int = 10, huber: float = 4.0,
     all-gathered at the end. This route runs the plain stages on every
     device, the card included: K6 and K9 hold the whole LM loop in one
     launch, where a reduction across ranks cannot sit (module
-    docstring)."""
-    if linalg not in ("lu", "chol"):
-        raise ValueError(f"ba_solve_tracks: unknown linalg {linalg!r}")
-    if ring_layout and p.obs_pose.shape[-1] != p.poses.shape[-3]:
-        raise ValueError("ring_layout requires K == M (obs column j "
-                         "observed by pose j)")
-    if not ring_layout and p.landmarks.dim() != 2:
-        raise NotImplementedError(
-            "ba_solve_tracks: the generic (non-ring) layout takes one "
-            "problem, not streams")
-    if mesh is not None:
-        return _lm_tracks_sharded(p, iters, huber, lam0, ring_layout, linalg,
-                                  mesh, axis)
-    return _lm_tracks(p, iters, huber, lam0, ring_layout, linalg,
-                      kernel=p.landmarks.device.type == "cuda")
+    docstring).
+
+    While a ``torch.profiler`` session records, the call's host path on
+    every route is the span ``vpp.ba_solve_tracks`` (``utils.profiler``)."""
+    with span("ba_solve_tracks"):
+        if linalg not in ("lu", "chol"):
+            raise ValueError(f"ba_solve_tracks: unknown linalg {linalg!r}")
+        if ring_layout and p.obs_pose.shape[-1] != p.poses.shape[-3]:
+            raise ValueError("ring_layout requires K == M (obs column j "
+                             "observed by pose j)")
+        if not ring_layout and p.landmarks.dim() != 2:
+            raise NotImplementedError(
+                "ba_solve_tracks: the generic (non-ring) layout takes one "
+                "problem, not streams")
+        if mesh is not None:
+            return _lm_tracks_sharded(p, iters, huber, lam0, ring_layout,
+                                      linalg, mesh, axis)
+        return _lm_tracks(p, iters, huber, lam0, ring_layout, linalg,
+                          kernel=p.landmarks.device.type == "cuda")
 
 
 def _lm_tracks_sharded(p: BATracks, iters: int, huber: float, lam0: float,

@@ -37,17 +37,24 @@ in stream order (``ba._lm_tracks``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..kernels import LAUNCHES, require_cuda, stream_handle
+from ..utils.profiler import profiling
 from .ba import BATracks
 
 _WARPS = 8          # ba_generic.cu kWarps
 _HEAD = 128         # ba_generic.cu kHead: the reduction slots before a stage's
 SMEM_H100 = 232448  # K9's dynamic shared memory a CTA on the H100
+STAGE_RECORDS = 4096  # the launches whose stage stamps are kept
+# (iters, stamps) of the latest launches made while a torch.profiler
+# session recorded (``k9_stage_records``)
+_STAGES: "collections.deque[Tuple[int, torch.Tensor]]" = collections.deque(
+    maxlen=STAGE_RECORDS)
 
 
 def k9_routes(m: int, beta: int, linalg: str, smem: int = SMEM_H100,
@@ -157,7 +164,12 @@ def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
     (4 iters). ``iters`` is at least 1: ``ba_solve_tracks(iters=0)``
     returns before it. ``smem`` below the card's (``smem_bytes``) chooses
     the stages' routes (``k9_routes``) for that many bytes instead: the
-    same bits on the device-memory routes at small sizes."""
+    same bits on the device-memory routes at small sizes.
+
+    While a ``torch.profiler`` session records and no ``stamps`` is
+    given, the launch writes its stamps into a tensor of its own, kept in
+    the stage records (``k9_stage_records``) with no read back and no
+    wait."""
     from ..kernels import _build
     if iters < 1:
         raise ValueError(f"K9: takes at least one iteration, got {iters}")
@@ -181,7 +193,10 @@ def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
     # rhs, x, d, cost, beta, the routes
     extra = torch.empty(3 * D + 6, dtype=f32, device=dev)
     S = torch.zeros((D, D), dtype=f32, device=dev) if trace else None
-    if stamps is not None and (
+    record = stamps is None and profiling()
+    if record:
+        stamps = torch.empty(8 * iters + 3, dtype=torch.int64, device=dev)
+    elif stamps is not None and (
             stamps.dtype != torch.int64 or stamps.numel() != 8 * iters + 3
             or stamps.device != dev or not stamps.is_contiguous()):
         raise ValueError(f"K9: stamps takes a contiguous int64 tensor of "
@@ -197,6 +212,8 @@ def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
         stream_handle(lms))
     LAUNCHES["ba_generic"] += 1
     _build.check(code, "ba_generic")
+    if record:
+        _STAGES.append((iters, stamps))
     tr = GenericTrace(S=S.view(m, 6, m, 6) if trace else None,
                       rhs=extra[:D].view(m, 6), cost=extra[3 * D],
                       dp=per[:, :D].view(iters, m, 6), lam=per[:, D],
@@ -205,3 +222,58 @@ def lm_generic(p: BATracks, iters: int, huber: float, lam0: float,
                       x=extra[D:2 * D], band=extra[3 * D + 1],
                       routes=extra[3 * D + 2:])
     return poses_out, lms_out, costs, tr
+
+
+SOLVE_PARTS = ("solve_system", "solve_panels", "solve_trailing",
+               "solve_backsub")
+
+
+def k9_stage_ms(stamps: torch.Tensor, iters: int) -> Dict[str, float]:
+    """K9's device ms by stage from one launch's ``stamps``
+    (``lm_generic``'s layout, ``iters`` iterations): ``index``; then
+    ``landmarks``, ``blocks``, ``solve`` and ``step``, each summed over the
+    iterations (``step`` with the last decision, which runs after the last
+    iteration's stamp); ``span``, the launch's first stamp to its last,
+    which those five add up to; and the solve split into its system,
+    panels, trailing updates and back-substitution (``SOLVE_PARTS``) by
+    the shares of CTA 0's SM cycles in each iteration."""
+    st = stamps.detach().cpu()
+    if st.dtype != torch.int64 or st.numel() != 8 * iters + 3:
+        raise ValueError(f"k9_stage_ms: takes {8 * iters + 3} int64 "
+                         f"stamps for {iters} iterations")
+    ns = st[:4 * iters + 3]
+    d = (ns[1:] - ns[:-1]).double() / 1e6
+    per = d[1:1 + 4 * iters].view(iters, 4)
+    cyc = st[4 * iters + 3:].double().view(iters, 4)
+    split = per[:, 2:3] * cyc / cyc.sum(1, keepdim=True).clamp(min=1)
+    land, blocks, solve, step = per.sum(0).tolist()
+    out = dict(index=float(d[0]), landmarks=land, blocks=blocks,
+               solve=solve, step=step + float(d[-1]),
+               span=float(ns[-1] - ns[0]) / 1e6)
+    out.update(zip(SOLVE_PARTS, split.sum(0).tolist()))
+    return out
+
+
+def k9_stage_records() -> List[Tuple[int, torch.Tensor]]:
+    """(iters, stamps) of each K9 launch that ``lm_generic`` made while a
+    ``torch.profiler`` session recorded, oldest first: the latest
+    ``STAGE_RECORDS``, the stamps on the host (``k9_stage_ms`` decodes
+    them). The records stay; a read waits for the card and copies the
+    stamps that are still on it to the host in one transfer, so a second
+    read copies nothing."""
+    pending: Dict[torch.device, List[int]] = {}
+    for i, (_, st) in enumerate(_STAGES):
+        if st.device.type == "cuda":
+            pending.setdefault(st.device, []).append(i)
+    for dev, idx in pending.items():
+        torch.cuda.synchronize(dev)
+        parts = [_STAGES[i][1] for i in idx]
+        host = torch.cat(parts).cpu().split([t.numel() for t in parts])
+        for i, t in zip(idx, host):
+            _STAGES[i] = (_STAGES[i][0], t)
+    return list(_STAGES)
+
+
+def reset_k9_stage_records() -> None:
+    """Forget every stage record."""
+    _STAGES.clear()

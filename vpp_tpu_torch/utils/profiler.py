@@ -14,17 +14,24 @@ one of them (``torch.cuda.synchronize``). Use as::
         with prof("pyramid", sync=...):
             pyr = pyramid(img, 3)
     print(prof.report())
+
+``span(name)`` marks a layer boundary of the port's own path for a
+``torch.profiler`` session: a ``record_function("vpp." + name)`` while a
+session records (a CPU user annotation on the clock of the trace's CUDA
+operations, nested in the span that encloses it on the thread), and one
+shared no-op context after a single flag read otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Set
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @dataclass
@@ -129,6 +136,23 @@ class Profiler:
         self.root = _Node("root")
         self._stack = [self.root]
         self._t0 = []
+
+
+_NO_SPAN = nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records (the flag its
+    ``__enter__`` sets and its ``__exit__`` clears)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """The span ``vpp.<name>`` while a ``torch.profiler`` session records,
+    else a shared no-op context. Use as ``with span("ba_solve_tracks"): ...``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function("vpp." + name)
 
 
 @contextmanager
